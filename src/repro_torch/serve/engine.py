@@ -1,0 +1,897 @@
+"""Paged-KV continuous-batching serve engine over a tiered KVStore (the
+single-device dense port of ``src/repro/serve/engine.py``).
+
+KV memory is owned by ``repro_torch.serve.kv_store``: refcounted block
+handles in named storage tiers — the device block pool
+(``repro_torch.serve.paged_cache``) and a pinned host swap tier.  Each
+request holds an ordered table of handles, blocks are allocated as its
+sequence grows and released the step it retires.  On top of the handles:
+
+  * **Prefix sharing (copy-on-write)** — completed prompts register their
+    blocks in the store's budgeted prefix registry; a later request whose
+    prompt shares a prefix ``fork()``s the same physical blocks instead of
+    re-prefilling them, and any write into a still-shared block is
+    privatized by a device-side copy first.
+  * **Preemption-by-swap** — optimistic admission's evictions park the
+    victim's KV on the host tier (``REPRO_KV_SWAP=1``, the default) and
+    restore it on re-admission, resuming mid-generation; with the knob off,
+    preemption falls back to drop-and-restart-from-prompt.
+
+Scheduling is continuous batching with **chunked prefill**: every engine step
+runs (a) at most one prompt chunk for one admitting request and (b) one
+batched decode step for every live request.  Admission is worst-case by
+default (``prompt + max_new - 1`` written KV positions, plus one spare block
+when the prefix registry may force a copy-on-write of the prompt's partial
+tail block); ``admission="optimistic"`` reserves only the prompt footprint
+and preempts the youngest request when the pool runs dry.
+
+Per-request sampling: greedy, temperature, top-k — Gumbel-max draws keyed on
+(request seed, token index), stateless and host-side.
+
+The model functions run eagerly and update the KV slab in place.  Paged
+attention launches the CUDA kernel for CUDA tensors and takes the gather
+path for CPU tensors (REPRO_PAGED_ATTN).  Not in this slice: multi-device
+pools and tensor parallelism (``mesh=``/``tp=``), multi-LoRA requests, the
+compile pipeline's kernel plan (``plan_kernels``), the SSM/hybrid state
+slab, and ``cancel`` with the gateway's shed accounting (the async engine and
+gateway slice) — see ROADMAP.md.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import sys
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import build_model
+from repro_torch.perf import perf
+from repro_torch.serve.faults import (FaultInjector, InjectedFault,
+                                      check_kv_invariants)
+from repro_torch.serve.kv_store import (DEVICE, HOST, Block, BlockTable,
+                                        DeviceTier, HostTier, KVStore)
+from repro_torch.serve.paged_cache import (BlockPool, PoolExhausted,
+                                           ServeMetrics, blocks_for_tokens,
+                                           dense_equiv_blocks,
+                                           worst_case_blocks)
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """Per-request decoding strategy.  temperature <= 0 means greedy;
+    top_k == 0 means the full vocabulary."""
+    temperature: float = 0.0
+    top_k: int = 0
+    seed: int = 0
+
+
+GREEDY = SamplingParams()
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new: int = 16
+    sampling: SamplingParams = GREEDY
+    # multi-LoRA tenant; not ported yet — a request that names an adapter
+    # is refused at submit
+    adapter_id: Optional[str] = None
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    rejected: bool = False
+    cancelled: bool = False
+    reject_reason: str = ""
+    # fault-tolerance terminal states
+    expired: bool = False       # deadline reaper killed it
+    shed: bool = False          # bounded queue refused it at submit
+    errored: bool = False       # quarantined by a step-loop crash
+    error: str = ""             # why (crash message)
+    # per-request deadline in ms from submit; None consults the
+    # REPRO_SERVE_DEADLINE_MS default, 0 disables
+    deadline_ms: Optional[float] = None
+    _deadline_at: float = 0.0
+    # timing (monotonic seconds; filled in by the engine)
+    t_submit: float = 0.0
+    t_first: float = 0.0
+    t_done: float = 0.0
+    # streaming hooks, run inside the step loop: on_token(token_id, index)
+    # the moment a token is sampled; on_finish(request) exactly once, after
+    # the terminal flag is set and the request's blocks are back in the pool
+    on_token: Optional[Callable[[int, int], None]] = None
+    on_finish: Optional[Callable[["Request"], None]] = None
+
+    @property
+    def finish_reason(self) -> str:
+        """OpenAI-style terminal state ("" while still running)."""
+        if self.cancelled:
+            return "cancelled"
+        if self.expired:
+            return "expired"
+        if self.shed:
+            return "shed"
+        if self.errored:
+            return "error"
+        if self.rejected:
+            return "rejected"
+        if self.done:
+            return "length"
+        return ""
+
+
+@dataclasses.dataclass
+class _Active:
+    """A request occupying a batch slot."""
+    req: Request
+    table: BlockTable
+    reserved_left: int          # blocks still earmarked in the pool for us
+    admit_seq: int              # admission order (preemption picks the max)
+    next_prefill: int = 0       # prompt tokens already prefilled
+    pos: int = 0                # KV entries written (valid only post-prefill)
+
+    @property
+    def prefill_done(self) -> bool:
+        return self.next_prefill >= len(self.req.prompt)
+
+
+@dataclasses.dataclass
+class _Parked:
+    """A preempted request's KV, waiting on the host tier for re-admission.
+    ``blocks`` mixes tiers: exclusive blocks were swapped to host; blocks
+    shared with the prefix registry stay device-resident."""
+    blocks: List[Block]
+    next_prefill: int
+    pos: int
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params, max_batch: int = 4,
+                 max_len: int = 256, block_size: int = 16,
+                 num_blocks: Optional[int] = None,
+                 prefill_chunk_tokens: Optional[int] = None,
+                 admission: str = "conservative",
+                 host_blocks: Optional[int] = None,
+                 prefix_cache_blocks: Optional[int] = None,
+                 plan_kernels: bool = False,
+                 max_queue: Optional[int] = None,
+                 fault_injector=None):
+        # max_queue: bound on the admission queue (None consults
+        # REPRO_SERVE_MAX_QUEUE, 0 = unbounded).  fault_injector: None
+        # consults REPRO_FAULT, False forces off.  The device is the one
+        # ``params`` live on.
+        if plan_kernels:
+            raise NotImplementedError(
+                "plan_kernels: the compile pipeline is not ported yet "
+                "(ROADMAP A5); the paged kernel runs one page per fetch")
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not served by repro_torch yet "
+                "(see ROADMAP.md)")
+        assert admission in ("conservative", "optimistic")
+        self.cfg = cfg
+        self.params = params
+        self.device = params["embed"]["embed"].device
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.block_size = block_size
+        self.max_blocks_per_seq = blocks_for_tokens(max_len, block_size)
+        if num_blocks is None:
+            num_blocks = max_batch * self.max_blocks_per_seq + 1
+        self.pool = BlockPool(num_blocks, block_size)
+        self.admission = admission
+        self.prefill_chunk_tokens = prefill_chunk_tokens or block_size
+        self.fns = build_model(cfg, self.device)
+
+        # tiered KV store: device slab + pinned host swap tier + prefix registry
+        self.swap_enabled = perf().kv_swap and (host_blocks is None
+                                                or host_blocks > 0)
+        n_host = (host_blocks if host_blocks is not None else num_blocks) \
+            if self.swap_enabled else 0
+        prefix_budget = prefix_cache_blocks if prefix_cache_blocks \
+            is not None else self.pool.usable_blocks // 4
+        self.param_bytes_replicated = self.param_bytes_per_device = sum(
+            t.numel() * t.element_size() for t in _leaves(params))
+        device = DeviceTier(self.fns.make_paged_cache(num_blocks, block_size),
+                            self.pool,
+                            copy_block=self.fns.paged_block_copy,
+                            read_block=self.fns.paged_block_read,
+                            write_block=self.fns.paged_block_write)
+        self.store = KVStore(device, HostTier(n_host),
+                             prefix_cache_blocks=prefix_budget)
+
+        if fault_injector is False:
+            self.faults = None
+        else:
+            self.faults = fault_injector if fault_injector is not None \
+                else FaultInjector.from_env()
+        self.pool.fault_injector = self.faults
+        self.store.fault_injector = self.faults
+        self.max_queue = perf().serve_max_queue if max_queue is None \
+            else max_queue
+        self.default_deadline_ms = perf().serve_deadline_ms
+        self.shed_pressure = perf().serve_shed_pressure
+        self.max_consecutive_crashes = max(perf().serve_max_crashes, 1)
+        self.degraded = False
+        self.invariant_violations: List[str] = []
+        self._blame_rid: Optional[int] = None    # request under the knife now
+        self._crash_rid: Optional[int] = None    # captured at raise time
+        self._consecutive_crashes = 0
+        self._step_crashes = 0
+        self._swap_failures = 0
+
+        self.slots: List[Optional[_Active]] = [None] * max_batch
+        self.queue: List[Request] = []
+        self.finished: List[Request] = []
+        self.rejected: List[Request] = []
+        self.expired: List[Request] = []
+        self.errored: List[Request] = []
+        self.shed: List[Request] = []
+        self._parked: Dict[int, _Parked] = {}
+        self.steps = 0
+        self._admit_seq = 0
+        self._t0: Optional[float] = None
+        self._t_last = 0.0
+        self._submitted = 0
+        self._prefill_tokens = 0
+        self._decode_tokens = 0
+        self._preemptions = 0
+        self._re_prefill_avoided = 0
+
+    @property
+    def cache(self):
+        return self.store.device.cache
+
+    @cache.setter
+    def cache(self, value):
+        self.store.device.cache = value
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    # -- request lifecycle -----------------------------------------------
+    def submit(self, req: Request) -> None:
+        """Enqueue ``req`` (FIFO); admission control runs inside ``step``.
+        A bounded queue sheds instead of enqueueing; the deadline cutoff is
+        stamped here and enforced by the step loop's reaper."""
+        req.t_submit = time.monotonic()
+        self._submitted += 1
+        if req.adapter_id is not None:
+            raise NotImplementedError(
+                "multi-LoRA requests are not served by repro_torch yet "
+                "(ROADMAP A7)")
+        if self.max_queue and len(self.queue) >= self.max_queue:
+            req.shed = True
+            req.done = True
+            req.t_done = req.t_submit
+            self.shed.append(req)
+            if req.on_finish is not None:
+                req.on_finish(req)
+            return
+        dl = req.deadline_ms if req.deadline_ms is not None \
+            else self.default_deadline_ms
+        if dl and dl > 0:
+            req._deadline_at = req.t_submit + dl / 1e3
+        self.queue.append(req)
+
+    def _reject(self, req: Request, reason: str) -> None:
+        req.rejected = True
+        req.done = True
+        req.reject_reason = reason
+        self.rejected.append(req)
+        if req.on_finish is not None:
+            req.on_finish(req)
+
+    def _admission_need(self, req: Request, parked: Optional[_Parked]) -> int:
+        """Blocks to reserve at admission: the exact lifetime bound plus a
+        copy-on-write spare (conservative), or just the prompt (optimistic).
+        A restored request reserves its remaining growth plus one slot per
+        host block to swap back in."""
+        plen, bs = len(req.prompt), self.block_size
+        worst = worst_case_blocks(plen, req.max_new, bs)
+        if parked is not None:
+            swap_ins = sum(1 for b in parked.blocks if b.tier == HOST)
+            if self.admission == "optimistic":
+                return swap_ins
+            cow_spare = 1 if (self.store.prefix_cache_blocks > 0 and plen % bs
+                              and req.max_new >= 2 and parked.pos == 0) else 0
+            return worst - len(parked.blocks) + swap_ins + cow_spare
+        if self.admission == "optimistic":
+            return blocks_for_tokens(plen, bs)
+        cow_spare = 1 if (self.store.prefix_cache_blocks > 0 and plen % bs
+                          and req.max_new >= 2) else 0
+        return min(worst + cow_spare, self.pool.usable_blocks)
+
+    def _admit(self) -> int:
+        """Move queued requests into free slots, FIFO, under admission
+        control; the head of the queue is never overtaken."""
+        admitted = 0
+        while self.queue:
+            req = self.queue[0]
+            worst = worst_case_blocks(len(req.prompt), req.max_new,
+                                      self.block_size)
+            if not req.prompt:
+                self.queue.pop(0)
+                self._reject(req, "empty prompt")
+                continue
+            if req.max_new < 1:
+                self.queue.pop(0)
+                self._reject(req, f"max_new must be >= 1, got {req.max_new}")
+                continue
+            if len(req.prompt) + req.max_new > self.max_len:
+                self.queue.pop(0)
+                self._reject(req, f"prompt+max_new {len(req.prompt) + req.max_new}"
+                                  f" exceeds max_len {self.max_len}")
+                continue
+            if worst > self.pool.usable_blocks:
+                self.queue.pop(0)
+                self._reject(req, f"worst-case footprint {worst} blocks exceeds "
+                                  f"pool capacity {self.pool.usable_blocks}")
+                continue
+            slot = next((i for i, s in enumerate(self.slots) if s is None), None)
+            if slot is None:
+                break
+            parked = self._parked.get(req.rid)
+            need = self._admission_need(req, parked)
+            if not self.pool.reserve(need):
+                # pressure-relief ladder: drop prefix cache, then move other
+                # parked requests' stranded device blocks to the host tier
+                self.store.evict_prefixes(need - self.pool.available())
+                if not self.pool.reserve(need):
+                    self._swap_parked_out(need - self.pool.available(),
+                                          exclude_rid=req.rid)
+                    if not self.pool.reserve(need):
+                        break
+            a = _Active(req=req, table=BlockTable(self.block_size),
+                        reserved_left=need, admit_seq=self._admit_seq)
+            if parked is not None:
+                try:
+                    with self._blame(req.rid):
+                        self._restore(a, parked)
+                except BaseException:
+                    # ``a`` was never slotted: release what it holds here
+                    a.table.release_to(self.store)
+                    self.pool.release(a.reserved_left)
+                    a.reserved_left = 0
+                    raise
+            self.slots[slot] = a
+            self._admit_seq += 1
+            self.queue.pop(0)
+            admitted += 1
+        return admitted
+
+    def _restore(self, a: _Active, parked: _Parked) -> None:
+        """Re-admission of a preempted request: swap its parked blocks back
+        onto the device and resume exactly where it stopped.  Blocks leave
+        ``parked.blocks`` only once restored, so a failure midway leaves
+        nothing double-owned."""
+        while parked.blocks:
+            b = parked.blocks[0]
+            if b.tier == DEVICE:
+                a.table.blocks.append(b)       # stayed resident (shared)
+            else:
+                dst = self.store.alloc(reserved=True)
+                a.reserved_left -= 1
+                try:
+                    restored = self.store.swap_in(b, dst)
+                except BaseException:
+                    self.store.decref(dst)     # undo: dst never held data
+                    self.pool.reserve(1)       # re-earmark the freed block
+                    a.reserved_left += 1
+                    raise
+                a.table.blocks.append(restored)
+            parked.blocks.pop(0)
+        a.next_prefill = parked.next_prefill
+        a.pos = parked.pos
+        self._re_prefill_avoided += parked.next_prefill
+        del self._parked[a.req.rid]
+
+    # -- block accounting --------------------------------------------------
+    def _alloc_device(self, a: _Active) -> Optional[Block]:
+        """One device block for ``a``: reservation first, then the open pool;
+        under pressure evict prefix-cache entries, swap parked stragglers
+        out, and finally preempt the youngest active request.  None means
+        ``a`` itself was the youngest and got preempted."""
+        while True:
+            if a.reserved_left > 0:
+                blk = self.store.alloc(reserved=True)
+                a.reserved_left -= 1
+                return blk
+            try:
+                return self.store.alloc()
+            except PoolExhausted:
+                if self.store.evict_prefixes(1) > 0:
+                    continue
+                if self._swap_parked_out(1) > 0:
+                    continue
+                victim = max((s for s in self.slots if s is not None),
+                             key=lambda s: s.admit_seq)
+                self._requeue(victim)
+                if victim is a:
+                    return None
+
+    def _swap_parked_out(self, min_blocks: int,
+                         exclude_rid: Optional[int] = None) -> int:
+        """Push parked requests' stranded device blocks (shared at
+        preemption, exclusive since) to the host tier."""
+        freed = 0
+        for rid, parked in self._parked.items():
+            if rid == exclude_rid:
+                continue
+            for j, b in enumerate(parked.blocks):
+                if (b.tier == DEVICE and not b.shared
+                        and self.store.host.num_free > 0):
+                    try:
+                        parked.blocks[j] = self.store.swap_out(b)
+                    except InjectedFault:
+                        self._swap_failures += 1
+                        continue
+                    freed += 1
+                    if freed >= min_blocks:
+                        return freed
+        return freed
+
+    def _grow(self, a: _Active, n_tokens: int) -> bool:
+        """Grow ``a``'s table to hold ``n_tokens`` positions; False if
+        preemption evicted ``a`` itself."""
+        while a.table.capacity < n_tokens:
+            blk = self._alloc_device(a)
+            if blk is None:
+                return False
+            a.table.blocks.append(blk)
+        return True
+
+    def _make_writable(self, a: _Active, start: int, end: int) -> bool:
+        """Copy-on-write every shared block overlapping write positions
+        [start, end).  False if allocating a copy preempted ``a`` itself."""
+        bs = self.block_size
+        for i in range(start // bs, min((end - 1) // bs + 1,
+                                        len(a.table.blocks))):
+            while a.table.blocks[i].shared:
+                dst = self._alloc_device(a)
+                if dst is None:
+                    return False
+                if not a.table.blocks[i].shared:
+                    self.store.decref(dst)
+                    break
+                a.table.blocks[i] = self.store.cow_into(a.table.blocks[i], dst)
+        return True
+
+    def _requeue(self, victim: _Active) -> None:
+        """Preempt ``victim`` back to the queue head, parking its KV on the
+        host tier when swap is enabled and the tier has room; otherwise drop
+        it and restart from the prompt."""
+        self.pool.release(victim.reserved_left)
+        victim.reserved_left = 0
+        req = victim.req
+        parked: Optional[List[Block]] = None
+        if self.swap_enabled and victim.table.blocks \
+                and self.store.can_swap_out(victim.table.blocks):
+            parked = []
+            try:
+                for b in victim.table.blocks:
+                    parked.append(self.store.swap_out(b))
+            except Exception as e:  # noqa: BLE001 — downgrade, don't crash
+                self._swap_failures += 1
+                print(f"serve-engine: swap_out failed parking request "
+                      f"{req.rid} ({type(e).__name__}: {e}); dropping its "
+                      "KV (restart from prompt)", file=sys.stderr)
+                for b in parked:
+                    self.store.decref(b)
+                for b in victim.table.blocks[len(parked):]:
+                    self.store.decref(b)
+                victim.table.blocks = []
+                parked = None
+        if parked is not None:
+            victim.table.blocks = []
+            self._parked[req.rid] = _Parked(
+                blocks=parked, next_prefill=victim.next_prefill,
+                pos=victim.pos)
+        else:
+            victim.table.release_to(self.store)
+            # counters report *delivered* work: back out discarded tokens
+            self._prefill_tokens -= victim.next_prefill
+            self._decode_tokens -= max(len(req.out) - 1, 0)
+            req.out.clear()
+        self.queue.insert(0, req)
+        self.slots[self.slots.index(victim)] = None
+        self._preemptions += 1
+
+    def _retire(self, a: _Active, now: Optional[float] = None) -> None:
+        a.req.done = True
+        a.req.t_done = time.monotonic() if now is None else now
+        a.table.release_to(self.store)
+        self.pool.release(a.reserved_left)
+        a.reserved_left = 0
+        self.finished.append(a.req)
+        self.slots[self.slots.index(a)] = None
+        if a.req.on_finish is not None:
+            a.req.on_finish(a.req)
+
+    # -- fault tolerance ---------------------------------------------------
+    @contextlib.contextmanager
+    def _blame(self, rid: int):
+        """Attribute any exception raised in the body to request ``rid``
+        (innermost attribution at raise time wins)."""
+        prev = self._blame_rid
+        self._blame_rid = rid
+        try:
+            yield
+        except BaseException:
+            if self._crash_rid is None:
+                self._crash_rid = rid
+            raise
+        finally:
+            self._blame_rid = prev
+
+    def _release_active(self, a: _Active) -> None:
+        a.table.release_to(self.store)
+        self.pool.release(a.reserved_left)
+        a.reserved_left = 0
+        self.slots[self.slots.index(a)] = None
+
+    def _finish_expired(self, req: Request) -> None:
+        req.expired = True
+        req.done = True
+        req.t_done = time.monotonic()
+        self.expired.append(req)
+        if req.on_finish is not None:
+            req.on_finish(req)
+
+    def _fail_request(self, req: Request, msg: str) -> None:
+        """Terminal error state (quarantine outcome); a raising on_finish
+        hook must not re-crash the recovery path."""
+        req.errored = True
+        req.error = msg
+        req.done = True
+        req.t_done = time.monotonic()
+        self.errored.append(req)
+        if req.on_finish is not None:
+            try:
+                req.on_finish(req)
+            except Exception as e:  # noqa: BLE001
+                print(f"serve-engine: on_finish hook raised for errored "
+                      f"request {req.rid}: {type(e).__name__}: {e}",
+                      file=sys.stderr)
+
+    def _reap_deadlines(self) -> int:
+        """Expire queued, parked and active requests past their deadline."""
+        now = time.monotonic()
+        n = 0
+        for req in [r for r in self.queue
+                    if r._deadline_at and now > r._deadline_at]:
+            self.queue.remove(req)
+            self._drop_parked(req.rid)
+            self._finish_expired(req)
+            n += 1
+        for a in [s for s in self.slots
+                  if s is not None and s.req._deadline_at
+                  and now > s.req._deadline_at]:
+            self._release_active(a)
+            self._finish_expired(a.req)
+            n += 1
+        return n
+
+    def _quarantine(self, rid: int, msg: str) -> bool:
+        for i, req in enumerate(self.queue):
+            if req.rid == rid:
+                self.queue.pop(i)
+                self._drop_parked(rid)
+                self._fail_request(req, msg)
+                return True
+        for a in self.slots:
+            if a is not None and a.req.rid == rid:
+                self._release_active(a)
+                self._fail_request(a.req, msg)
+                return True
+        parked = self._parked.pop(rid, None)
+        if parked is not None:
+            for b in parked.blocks:
+                self.store.decref(b)
+            return True
+        return False
+
+    def _on_step_crash(self, exc: BaseException) -> None:
+        """Quarantine the blamed request (or the youngest live one), count
+        consecutive crashes toward ``degraded``, check the KV invariants."""
+        self._step_crashes += 1
+        self._consecutive_crashes += 1
+        if self._consecutive_crashes >= self.max_consecutive_crashes:
+            self.degraded = True
+        rid = self._crash_rid
+        if rid is None:
+            live = [s for s in self.slots if s is not None]
+            if live:
+                rid = max(live, key=lambda s: s.admit_seq).req.rid
+        msg = f"engine step crashed: {type(exc).__name__}: {exc}"
+        print(f"serve-engine: {msg} (crash {self._step_crashes}, "
+              f"{self._consecutive_crashes} consecutive"
+              + (f"; quarantining request {rid}" if rid is not None else
+                 "; no request to blame")
+              + (", engine DEGRADED" if self.degraded else "") + ")",
+              file=sys.stderr)
+        if rid is not None:
+            self._quarantine(rid, msg)
+        violations = self.check_invariants()
+        if violations:
+            self.invariant_violations.extend(violations)
+            for v in violations:
+                print(f"serve-engine: KV-LEAK INVARIANT VIOLATED: {v}",
+                      file=sys.stderr)
+
+    def step_guarded(self) -> bool:
+        """``step()`` with crash isolation: an exception quarantines the
+        request that poisoned the batch and the loop keeps going."""
+        self._crash_rid = None
+        try:
+            worked = self.step()
+        except Exception as e:  # noqa: BLE001 — isolate, quarantine, go on
+            self._on_step_crash(e)
+            return True
+        if worked:
+            self._consecutive_crashes = 0
+            self.degraded = False
+        return worked
+
+    def overload_reason(self) -> str:
+        """Why a new submit should be shed right now ("" = accept)."""
+        if self.max_queue and len(self.queue) >= self.max_queue:
+            return (f"admission queue full "
+                    f"({len(self.queue)} >= {self.max_queue})")
+        if self.shed_pressure > 0 and self.queue:
+            frac = (self.pool.usable_blocks - self.pool.available()) \
+                / self.pool.usable_blocks
+            if frac >= self.shed_pressure:
+                return (f"block pool pressure {frac:.2f} >= "
+                        f"{self.shed_pressure:g} with "
+                        f"{len(self.queue)} queued")
+        return ""
+
+    def check_invariants(self) -> List[str]:
+        """KV-leak invariants (see ``repro_torch.serve.faults``); empty list
+        = healthy."""
+        return check_kv_invariants(self)
+
+    # -- sampling ----------------------------------------------------------
+    @staticmethod
+    def _sample(logits_row: np.ndarray, sp: SamplingParams, n_emitted: int) -> int:
+        """Gumbel-max sampling keyed on (seed, token index): stateless, so a
+        preempted request replays the same draws on restart, and host-side,
+        so the decode hot loop pays no per-token device dispatches."""
+        if sp.temperature <= 0.0:
+            return int(np.argmax(logits_row))
+        x = logits_row.astype(np.float64) / sp.temperature
+        if 0 < sp.top_k < x.size:
+            kth = np.partition(x, -sp.top_k)[-sp.top_k]
+            x = np.where(x < kth, -np.inf, x)
+        rng = np.random.default_rng(
+            np.random.SeedSequence([sp.seed & (2**63 - 1), n_emitted]))
+        return int(np.argmax(x + rng.gumbel(size=x.size)))
+
+    # -- prefill -----------------------------------------------------------
+    def _adopt_prefix(self, a: _Active) -> None:
+        """First chunk of a fresh request: fork the longest registered prompt
+        prefix instead of recomputing it (capped at ``plen - 1``: the last
+        prompt position must run to produce the first token's logits)."""
+        req = a.req
+        plen, bs = len(req.prompt), self.block_size
+        n, blocks = self.store.match_prefix(req.prompt)
+        n = min(n, plen - 1)
+        if n <= 0:
+            return
+        a.table.blocks = self.store.fork(blocks[:blocks_for_tokens(n, bs)])
+        release = min(n // bs, a.reserved_left)
+        if release:
+            self.pool.release(release)
+            a.reserved_left -= release
+        a.next_prefill = n
+        self._re_prefill_avoided += n
+
+    def _prefill_step(self) -> bool:
+        """Run ONE prompt chunk for the oldest admitting request."""
+        pending = [s for s in self.slots if s is not None and not s.prefill_done]
+        if not pending:
+            return False
+        a = min(pending, key=lambda s: s.admit_seq)
+        with self._blame(a.req.rid):
+            return self._prefill_chunk_for(a)
+
+    def _prefill_chunk_for(self, a: _Active) -> bool:
+        req, c = a.req, self.prefill_chunk_tokens
+        plen = len(req.prompt)
+        if a.next_prefill == 0 and not a.table.blocks:
+            self._adopt_prefix(a)
+        start = a.next_prefill
+        # realign to the canonical chunk grid after an adopted or restored
+        # prefix, so the attended span takes the same few values for every
+        # request
+        end = min(plen, start + c, (start // c + 1) * c)
+        if not self._grow(a, end):
+            return True  # preempted ourselves; the step still did work
+        if not self._make_writable(a, start, end):
+            return True
+        chunk = req.prompt[start:end] + [0] * (c - (end - start))
+        batch = {
+            "tokens": self._to_device(np.asarray([chunk], np.int32)),
+            "block_table": self._to_device(np.asarray(
+                [a.table.padded(self.max_blocks_per_seq)], np.int32)),
+            "start": start,
+            "prompt_len": end,
+        }
+        m_used = min(blocks_for_tokens(end, self.block_size),
+                     self.max_blocks_per_seq)
+        if self.faults is not None:
+            self.faults.check("step")
+        self.cache, logits = self.fns.prefill_chunk(self.params, self.cache,
+                                                    batch, m_used=m_used)
+        a.next_prefill = end
+        self._prefill_tokens += end - start
+        if a.prefill_done:
+            a.pos = plen
+            self.store.register_prefix(
+                req.prompt,
+                a.table.blocks[:blocks_for_tokens(plen, self.block_size)])
+            # one logit row to the host, not the whole (1, C, V) chunk
+            row = logits[0, plen - 1 - start].float().cpu().numpy()
+            first = self._sample(row, req.sampling, 0)
+            req.out.append(first)
+            req.t_first = time.monotonic()
+            if req.on_token is not None:
+                req.on_token(first, 0)
+            if req.max_new <= 1:
+                self._retire(a)
+        return True
+
+    # -- decode ------------------------------------------------------------
+    def _decode_step(self) -> bool:
+        """One batched decode step for every live (prefill-complete) slot."""
+        live = [s for s in self.slots if s is not None and s.prefill_done]
+        for a in live:
+            if a in self.slots:
+                with self._blame(a.req.rid):
+                    if self._grow(a, a.pos + 1):
+                        self._make_writable(a, a.pos, a.pos + 1)
+        live = [a for a in live if a in self.slots]
+        if not live:
+            return False
+
+        m = self.max_blocks_per_seq
+        tok = np.zeros((self.max_batch, 1), np.int32)
+        tables = np.zeros((self.max_batch, m), np.int32)
+        lens = np.zeros((self.max_batch,), np.int32)
+        rows = []
+        for a in live:
+            i = self.slots.index(a)
+            rows.append((i, a))
+            tok[i, 0] = a.req.out[-1]
+            tables[i] = a.table.padded(m)
+            lens[i] = a.pos
+        batch = {"token": self._to_device(tok),
+                 "block_tables": self._to_device(tables),
+                 "seq_lens": self._to_device(lens)}
+        if self.faults is not None:
+            self.faults.check("step")
+        self.cache, logits = self.fns.decode_paged(self.params, self.cache,
+                                                   batch)
+        idx = [i for i, _ in rows]
+        logits_np = logits[idx].float().cpu().numpy()
+        now = time.monotonic()
+        for j, (i, a) in enumerate(rows):
+            req = a.req
+            with self._blame(req.rid):
+                nxt = self._sample(logits_np[j], req.sampling, len(req.out))
+                req.out.append(nxt)
+                a.pos += 1
+                self._decode_tokens += 1
+                if req.on_token is not None:
+                    req.on_token(nxt, len(req.out) - 1)
+                if len(req.out) >= req.max_new or a.pos >= self.max_len:
+                    self._retire(a, now=now)
+        return True
+
+    # -- engine loop -------------------------------------------------------
+    def step(self) -> bool:
+        """One engine iteration: reap deadlines, admit, one prefill chunk,
+        one batched decode step.  False when there is nothing left to do."""
+        if self._t0 is None:
+            self._t0 = time.monotonic()
+        worked = self._reap_deadlines() > 0
+        worked = self._admit() > 0 or worked
+        worked = self._prefill_step() or worked
+        worked = self._decode_step() or worked
+        if worked:
+            self.steps += 1
+            self._t_last = time.monotonic()
+        return worked
+
+    def run_until_done(self, max_steps: int = 100_000) -> List[Request]:
+        """Drive ``step`` until queue and slots drain; returns the finished
+        requests in completion order."""
+        for _ in range(max_steps):
+            if not self.step():
+                break
+        return list(self.finished)
+
+    def release_prefix_cache(self) -> int:
+        return self.store.drop_prefixes()
+
+    def reset_metrics(self) -> None:
+        """Zero the run counters (a warm-up workload first, then a clean
+        measured window)."""
+        assert all(s is None for s in self.slots) and not self.queue, \
+            "reset_metrics with requests in flight"
+        self.steps = 0
+        self._t0 = None
+        self._t_last = 0.0
+        self._submitted = 0
+        self._prefill_tokens = 0
+        self._decode_tokens = 0
+        self._preemptions = 0
+        self._re_prefill_avoided = 0
+        self.store.reset_counters()
+        self.finished = []
+        self.rejected = []
+        self.expired = []
+        self.errored = []
+        self.shed = []
+        self._step_crashes = 0
+        self._consecutive_crashes = 0
+        self._swap_failures = 0
+        self.degraded = False
+        self.invariant_violations = []
+        self.pool.peak_used = self.pool.num_used
+
+    # -- metrics -----------------------------------------------------------
+    def metrics(self) -> ServeMetrics:
+        wall = max(self._t_last - self._t0, 1e-9) if self._t0 else 0.0
+        fin = self.finished
+        ttfts = [r.t_first - r.t_submit for r in fin if r.t_first > 0]
+        itl_num = sum(r.t_done - r.t_first for r in fin if len(r.out) > 1)
+        itl_den = sum(len(r.out) - 1 for r in fin if len(r.out) > 1)
+        return ServeMetrics(
+            wall_s=wall,
+            requests_submitted=self._submitted,
+            requests_finished=len(fin),
+            requests_rejected=len(self.rejected),
+            prefill_tokens=self._prefill_tokens,
+            decode_tokens=self._decode_tokens,
+            engine_steps=self.steps,
+            tokens_per_sec=self._decode_tokens / wall if wall else 0.0,
+            ttft_mean_s=float(np.mean(ttfts)) if ttfts else 0.0,
+            ttft_max_s=float(np.max(ttfts)) if ttfts else 0.0,
+            itl_mean_s=itl_num / itl_den if itl_den else 0.0,
+            peak_blocks_used=self.pool.peak_used,
+            pool_blocks=self.pool.usable_blocks,
+            block_size=self.block_size,
+            peak_pool_utilization=self.pool.peak_used / self.pool.usable_blocks,
+            dense_equiv_blocks=dense_equiv_blocks(self.max_batch, self.max_len,
+                                                  self.block_size),
+            preemptions=self._preemptions,
+            shared_blocks=self.store.shared_blocks,
+            cow_copies=self.store.cow_copies,
+            swap_out_blocks=self.store.swapped_out,
+            swap_in_blocks=self.store.swapped_in,
+            re_prefill_avoided=self._re_prefill_avoided,
+            requests_expired=len(self.expired),
+            requests_shed=len(self.shed),
+            requests_errored=len(self.errored),
+            step_crashes=self._step_crashes,
+            swap_failures=self._swap_failures,
+            degraded=self.degraded,
+            param_bytes_per_device=self.param_bytes_per_device,
+            param_bytes_replicated=self.param_bytes_replicated,
+        )
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
