@@ -6,10 +6,12 @@
 Phases, each printing JSON objects one per line:
 
 1. card     — nvidia-smi's name and power limit, torch and CUDA versions.
-2. build    — nvcc builds the CUDA paged-attention kernel from the repo's
-              sources for sm_90a; Triton compiles the rmsnorm kernel.
+2. build    — nvcc builds the CUDA kernels (paged attention, matmul) from
+              the repo's sources for sm_90a, one nvcc process per source, all
+              started together, and prints ptxas's register and spill lines;
+              Triton compiles the rmsnorm kernel.
 3. kernels  — each kernel against its plain PyTorch version on the card at
-              the serving shapes (f32 and bf16), row by row
+              the shapes its path gives it (f32 and bf16), row by row
               (``ref.row_rel_err``), and planted faults that the same gate
               must reject; device times (calls captured in a CUDA graph and
               replayed between CUDA events) of the kernel, the plain version
@@ -18,13 +20,23 @@ Phases, each printing JSON objects one per line:
               host-inclusive time, and the least time the card could take
               (bytes moved over 3.35 TB/s or operations over the type's peak
               rate).
-4. serve    — the port's ServeEngine serves 16 requests of full-width
-              qwen3-0.6b in bf16 (random weights from seed 0); every kernel's
-              launch count is zeroed just before and read just after.
+4. compile  — ``repro_torch.pipeline.compile()`` with the H100 record on the
+              serve engine's full-width decode attention term, a full-width
+              qwen3-0.6b SwiGLU MLP term (not vectorized, so its products stay
+              logical) and the prefill-chunk term (default options: the packed
+              path); bf16 inputs on the card, each compiled program against
+              the same term compiled with kernels off (or evaluated plainly),
+              with the matmul kernel's launches counted; each report's
+              summary, the H100 kernel plan and the engine's pages_per_fetch.
+5. serve    — the port's ServeEngine (kernel planning on, the default)
+              serves 16 requests of full-width qwen3-0.6b in bf16 (random
+              weights from seed 0); every kernel's launch count is zeroed
+              just before and read just after.  A short greedy run with
+              planning off must give the same tokens as one with it on.
    profile  — torch.profiler over 12 steps of a second engine: device busy
               time by kernel against the window's wall time, and each
               kernel's device time per launch on the main path.
-5. oracle   — teacher-forced logits of the paged path (kernels) against the
+6. oracle   — teacher-forced logits of the paged path (kernels) against the
               dense prefill + decode path (plain attention), f32 and bf16.
 
 Then a ``{"kernels": [...]}`` summary line, nvidia-smi's line, and, last,
@@ -114,10 +126,10 @@ def graph_ms(fn, reps: int = 20, samples: int = 21) -> float:
     return statistics.median(times)
 
 
-def gate(name, got, want, faults) -> dict:
+def gate(name, got, want, faults, margin=4.0) -> dict:
     """Hold a kernel's output to its plain version row by row, and check
     that each planted fault (a wrong output at the same shape) fails the
-    same gate by a margin."""
+    same gate by ``margin`` times its tolerance."""
     from repro_torch.kernels import ref
     import torch
     tol = ref.ROW_TOL[want.dtype]
@@ -126,7 +138,8 @@ def gate(name, got, want, faults) -> dict:
     assert rel <= tol, f"{name}: row rel err {rel} > {tol}"
     planted = {k: ref.row_rel_err(f, want)[1] for k, f in faults.items()}
     for k, r in planted.items():
-        assert r > 4 * tol, f"{name}: planted fault {k} passes the gate ({r})"
+        assert r > margin * tol, \
+            f"{name}: planted fault {k} passes the gate ({r})"
     return dict(max_abs_err=err, row_rel_err=rel, tol=tol,
                 planted_fault_row_rel_err=planted)
 
@@ -301,8 +314,145 @@ def check_rmsnorm(torch, results):
                 bound_ms=t_bound, bound_by=by))
 
 
+# the matmul kernel's shapes on the compile path: the decode term's two
+# products, the prefill chunk's first, the SwiGLU MLP's two
+MATMUL_SHAPES = ((1, 128, 2048), (1, 2048, 128), (256, 128, 2048),
+                 (256, 1024, 3072), (256, 3072, 1024))
+MATMUL_BK = 32      # csrc/matmul.cu's k step
+
+
+def check_matmul(torch, results):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.matmul import matmul_kernel
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        esize = torch.finfo(dtype).bits // 8
+        for m, k, n in MATMUL_SHAPES:
+            a = torch.randn((m, k), generator=gen, device=DEV).to(dtype)
+            b = torch.randn((k, n), generator=gen, device=DEV).to(dtype)
+            got = matmul_kernel(a, b)
+            want = ref.matmul_ref(a, b)
+            kk = (k - 1) // MATMUL_BK * MATMUL_BK
+            zeroed = got.clone()
+            zeroed[:, (n - 1) // 64 * 64:] = 0
+            # the k-skip fault moves a row by about sqrt(32 / K) of its
+            # largest value (0.10 at K = 3072): a margin of 2 keeps it clear
+            # of the bf16 tolerance at every shape here
+            checked = gate(f"matmul ({m},{k})@({k},{n}) {dname}", got, want, {
+                "skip_last_k_tile": matmul_kernel(a[:, :kk].contiguous(),
+                                                  b[:kk].contiguous()),
+                "zero_last_column_tile": zeroed}, margin=2.0)
+            t_bound, by = bound((m * k + k * n + m * n) * esize,
+                                2.0 * m * n * k, dname)
+            results.append(dict(
+                name="matmul", dtype=dname, shape=f"({m},{k})@({k},{n})",
+                **checked,
+                kernel_ms=graph_ms(lambda: matmul_kernel(a, b)),
+                host_ms=host_ms(lambda: matmul_kernel(a, b)),
+                plain_ms=graph_ms(lambda: ref.matmul_ref(a, b)),
+                library_ms=graph_ms(lambda: torch.matmul(a, b)),
+                bound_ms=t_bound, bound_by=by))
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: serve
+# Phase 4: compile
+# ---------------------------------------------------------------------------
+
+def _term_inputs(torch, term, gen, dtype, scale=0.1):
+    shapes = {}
+
+    def walk(t):
+        if t.op == "input":
+            shapes[t.attr("name")] = t.attr("shape")
+        for c in t.children:
+            walk(c)
+    walk(term)
+    return {n: (torch.randn(s, generator=gen, device=DEV) * scale).to(dtype)
+            for n, s in shapes.items()}
+
+
+def compile_phase(torch, cfg, counters, calls=4):
+    """The compile pipeline's entry point on the H100 record: the engine's
+    full-width decode attention term and a SwiGLU MLP term with kernels on
+    run the matmul kernel (two launches per call each); the prefill-chunk
+    term compiles to the packed path.  Every program is held to the same
+    term with kernels off, row by row in bf16."""
+    from repro_torch.core.codegen import compile_term, paged_pages_per_fetch
+    from repro_torch.core.tensor_ir import inp, matmul, unary
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import matmul as mm_mod
+    from repro_torch.pipeline import CompileOptions, CompileTarget, Compiler
+    from repro_torch.serve.engine import (chunked_prefill_attention_term,
+                                          paged_decode_attention_term)
+    hd, span, chunk = cfg.resolved_head_dim, 2048, 256
+    x = inp("x", (chunk, cfg.d_model))
+    mlp = matmul(unary(matmul(x, inp("w_up", (cfg.d_model, cfg.d_ff))),
+                       kind="silu"), inp("w_down", (cfg.d_ff, cfg.d_model)))
+    engine_opts = dict(extraction="greedy", schedule_iterations=10)
+    cases = (
+        ("decode", paged_decode_attention_term(span, hd),
+         CompileOptions(**engine_opts), 2),
+        ("mlp", mlp, CompileOptions(vectorize=False, **engine_opts), 2),
+        ("prefill", chunked_prefill_attention_term(chunk, span, hd),
+         CompileOptions(), 0),
+    )
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    compiler = Compiler(cache_dir=None)
+    dtype = torch.bfloat16
+    for c in counters:
+        c.launches = 0
+    compiled = []
+    out = {"phase": "compile", "hardware": CompileTarget().hardware.name,
+           "terms": {}}
+    for name, term, opts, per_call in cases:
+        on = compiler.compile(term, target=CompileTarget(use_kernels=True),
+                              options=opts)
+        off = compiler.compile(term, target=CompileTarget(), options=opts)
+        env = _term_inputs(torch, term, gen, dtype)
+        plain = compile_term(term)(**env)
+        n0 = mm_mod.launches
+        for _ in range(calls):
+            got = on(**env)
+        torch.cuda.synchronize()
+        launched = mm_mod.launches - n0
+        assert launched == per_call * calls, (name, launched)
+        want = off(**env)
+        assert got.shape == want.shape and torch.isfinite(got.float()).all()
+        err, rel = ref.row_rel_err(got, want)
+        tol = ref.ROW_TOL[dtype]
+        assert rel <= tol, f"compile {name}: row rel err {rel} > {tol}"
+        rel_plain = ref.row_rel_err(got, plain)[1]
+        assert rel_plain <= tol, f"compile {name}: vs plain {rel_plain}"
+        rep = on.report
+        out["terms"][name] = {
+            "options": repr(opts), "packed": on.term != on.logical_term,
+            "matmul_launches_per_call": launched / calls,
+            "row_rel_err_vs_kernels_off": rel,
+            "row_rel_err_vs_plain": rel_plain, "max_abs_err": err,
+            "compile_s": rep.total_seconds, "pass_s": rep.pass_times,
+            "modeled_speedup": rep.modeled_speedup,
+            "schedule": {k: v for k, v in (rep.schedule or {}).items()
+                         if k != "groups"},
+            "kernel_plan": repr(rep.kernel_plan),
+            "summary": rep.summary().splitlines()}
+        compiled.append((name, on, off, env))
+    launches = {c.__name__.rsplit(".", 1)[1]: c.launches for c in counters}
+    assert launches["matmul"] > 0, launches
+    plan = compiled[0][1].report.kernel_plan
+    out.update(launches=launches,
+               pages_per_fetch=paged_pages_per_fetch(plan, 16, span // 16))
+    # device time of each compiled program, kernels on and off (after the
+    # counts are read: timing launches do not count)
+    for name, on, off, env in compiled:
+        out["terms"][name]["kernels_on_ms"] = graph_ms(lambda: on(**env))
+        out["terms"][name]["kernels_off_ms"] = graph_ms(lambda: off(**env))
+    emit(out)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: serve
 # ---------------------------------------------------------------------------
 
 def workload(vocab, n=16, seed=0):
@@ -321,12 +471,13 @@ def workload(vocab, n=16, seed=0):
     return reqs
 
 
-def serve_phase(torch, cfg, counters):
+def serve_phase(torch, cfg, counters, path_counters):
     from repro_torch.models import build_model
     from repro_torch.serve.engine import Request, ServeEngine
     params = build_model(cfg, DEV).init(0)
     eng = ServeEngine(cfg, params, max_batch=8, max_len=2048, block_size=16,
                       prefill_chunk_tokens=256)
+    assert eng.kernel_plan is not None
     # warm-up: cuBLAS handles and Triton's shape specialisations
     for i in range(2):
         eng.submit(Request(rid=1000 + i, max_new=4,
@@ -355,7 +506,8 @@ def serve_phase(torch, cfg, counters):
     m = eng.metrics()
     assert all(r.done and not r.rejected and len(r.out) == r.max_new
                for r in reqs), [r.finish_reason for r in reqs]
-    assert all(v > 0 for v in launches.values()), launches
+    assert all(launches[c.__name__.rsplit(".", 1)[1]] > 0
+               for c in path_counters), launches
     assert m.requests_finished == len(reqs)
     emit({"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
           "requests": len(reqs), "engine_steps": eng.steps,
@@ -370,10 +522,42 @@ def serve_phase(torch, cfg, counters):
           "preemptions": m.preemptions,
           "peak_device_bytes": torch.cuda.max_memory_allocated(),
           "launches": launches,
-          "launches_per_step": {k: v / eng.steps for k, v in launches.items()}})
-    del eng, params
+          "launches_per_step": {k: v / eng.steps for k, v in launches.items()},
+          "pages_per_fetch": eng.pages_per_fetch,
+          "kernel_plan": repr(eng.kernel_plan),
+          "compile_report_decode": eng.compile_report.summary().splitlines()})
+    del eng
+    torch.cuda.empty_cache()
+    plan_identity(torch, cfg, params)
+    del params
     torch.cuda.empty_cache()
     return launches
+
+
+def plan_identity(torch, cfg, params):
+    """Greedy tokens with kernel planning on and off: the paged kernel takes
+    the plan's pages_per_fetch and does not use it, so they must be equal."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab, size=int(n)).tolist()
+               for n in (150, 300, 520, 700)]
+    outs, ppf = [], []
+    for plan in (True, False):
+        eng = ServeEngine(cfg, params, max_batch=4, max_len=1024,
+                          block_size=16, prefill_chunk_tokens=256,
+                          plan_kernels=plan)
+        reqs = [Request(rid=i, prompt=p, max_new=12)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        outs.append([r.out for r in reqs])
+        ppf.append(eng.pages_per_fetch)
+        del eng
+    emit({"phase": "plan_identity", "pages_per_fetch_on_off": ppf,
+          "requests": len(prompts), "tokens_each": 12,
+          "identical": outs[0] == outs[1]})
+    assert outs[0] == outs[1], "planning changed greedy tokens"
 
 
 def profile_phase(torch, cfg, steps=12):
@@ -439,7 +623,7 @@ def profile_phase(torch, cfg, steps=12):
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: oracle
+# Phase 6: oracle
 # ---------------------------------------------------------------------------
 
 def oracle_phase(torch, cfg):
@@ -508,6 +692,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels import matmul as mm_mod
     from repro_torch.kernels import paged_attention as pa_mod
     from repro_torch.kernels import rmsnorm as rn_mod
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -522,7 +707,9 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
+    build.build("paged_attention", "matmul")
     pa_mod.load_kernel()
+    mm_mod.load_kernel()
     nvcc_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     x = torch.ones((16, 1024), device=DEV)
@@ -538,14 +725,19 @@ def main() -> int:
     results = []
     check_paged_attention(torch, results)
     check_rmsnorm(torch, results)
+    check_matmul(torch, results)
     for r in results:
         emit({"phase": "kernel", **r})
 
-    # 4. serve, full width, bf16, and a profiled window of a second engine
+    counters = [pa_mod, rn_mod, mm_mod]
     cfg = get_config("qwen3-0.6b")
-    launches = serve_phase(torch, cfg, [pa_mod, rn_mod])
+    # 4. the compile pipeline at full width, kernels on the card
+    compile_launches = compile_phase(torch, cfg, counters)
+    # 5. serve, full width, bf16, and a profiled window of a second engine
+    launches = serve_phase(torch, cfg, counters, [pa_mod, rn_mod])
+    launches["matmul"] = compile_launches["matmul"]
     profile_phase(torch, cfg)
-    # 5. oracle in f32 and bf16
+    # 6. oracle in f32 and bf16
     oracle_phase(torch, dataclasses.replace(cfg, dtype="float32"))
     oracle_phase(torch, cfg)
 
@@ -553,7 +745,9 @@ def main() -> int:
         "cuda", "src/repro_torch/kernels/csrc/paged_attention.cu",
         "src/repro/kernels/paged_attention.py:113", "paged_attention"),
         "rmsnorm": ("triton", "src/repro_torch/kernels/_rmsnorm_triton.py",
-                    "src/repro/kernels/rmsnorm.py:19", "rmsnorm")}
+                    "src/repro/kernels/rmsnorm.py:19", "rmsnorm"),
+        "matmul": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu",
+                   "src/repro/kernels/matmul.py:33", "matmul")}
     summary = []
     for r in results:
         if r["dtype"] != "bfloat16":

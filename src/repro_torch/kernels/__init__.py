@@ -1,2 +1,2 @@
-"""The port's kernels: CUDA C++ paged attention and Triton rmsnorm, each
-beside its plain PyTorch version (``ref``)."""
+"""The port's kernels: CUDA C++ paged attention and matrix product, and
+Triton rmsnorm, each beside its plain PyTorch version (``ref``)."""

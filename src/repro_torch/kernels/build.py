@@ -5,7 +5,8 @@ for ``sm_90a`` into a shared library under ``build/repro_torch/`` at the
 repository root (listed in ``.gitignore``) and loaded with ``ctypes``.  The
 library's file name carries a hash of its source and flags, so an edited
 source is rebuilt and an unchanged one is reused.  Nothing is built at
-import time: the first launch builds what it needs.
+import time: the first launch builds what it needs, and ``build`` compiles
+several sources at once, one ``nvcc`` process each, all started together.
 
 A failed build or load raises; there is no fallback to a plain version.
 """
@@ -49,6 +50,39 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
+def build(*names: str) -> None:
+    """Compile the named ``csrc/<name>.cu`` sources that have no library
+    yet, one ``nvcc`` process each, all started together; raise if any
+    fails.  nvcc's output of each build lands in ``BUILD_LOG``."""
+    todo = [n for n in dict.fromkeys(names) if not library_path(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    try:
+        for n in todo:
+            tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
+            procs[n] = (tmp, subprocess.Popen(
+                [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for n, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed building {n} (exit "
+                              f"{proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, library_path(n))
+            BUILD_LOG[n] = log
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str, symbol: str, argtypes: list):
     """The C function ``symbol`` of ``csrc/<name>.cu``, built first if
     needed, returning ``int``.  Pass every pointer and the stream as
@@ -56,19 +90,8 @@ def load(name: str, symbol: str, argtypes: list):
     fn = _FNS.get(name)
     if fn is not None:
         return fn
-    out = library_path(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        res = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {name} (exit "
-                               f"{res.returncode}):\n{res.stdout}{res.stderr}")
-        os.replace(tmp, out)
-        BUILD_LOG[name] = res.stdout + res.stderr
-    fn = getattr(ctypes.CDLL(str(out)), symbol)
+    build(name)
+    fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     _FNS[name] = fn

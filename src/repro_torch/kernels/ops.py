@@ -1,12 +1,14 @@
 """Model-facing wrappers of the port's kernels (mirrors
 ``src/repro/kernels/ops.py``): the GQA grouping of the paged-attention
-callers and the row flattening of rmsnorm.  Each wrapper hands its tensors
+callers, the row flattening of rmsnorm and the matrix product that the
+compiler's codegen calls.  Each wrapper hands its tensors
 to a kernel wrapper, which launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.matmul import matmul_kernel
 from repro_torch.kernels.paged_attention import paged_attention_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm_kernel
 
@@ -55,3 +57,9 @@ def rmsnorm(x, w, eps: float = 1e-5):
     out = rmsnorm_kernel(x.reshape(-1, shape[-1]).contiguous(),
                          w.contiguous(), eps)
     return out.reshape(shape)
+
+
+def matmul(a, b):
+    """(M,K) @ (K,N) -> (M,N) in a's dtype with an f32 accumulator; any
+    shape (the TPU kernel's block sizes are not carried over)."""
+    return matmul_kernel(a.contiguous(), b.contiguous())

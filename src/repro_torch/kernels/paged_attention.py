@@ -69,8 +69,10 @@ def paged_attention_kernel(q: torch.Tensor, k_pages: torch.Tensor,
     (B,R) int32 per-row causal bound; kv_lens (B,) int32 >= 1
     -> (B,KV,R,hd) in q's dtype.
 
-    ``pages_per_fetch`` is the TPU kernel's DMA-grouping knob, kept for
-    signature parity; the CUDA kernel does not use it."""
+    ``pages_per_fetch`` is the TPU kernel's DMA-grouping knob; the serve
+    engine passes the value its compiler plan gives
+    (``codegen.paged_pages_per_fetch``).  The CUDA kernel does not use it:
+    its tile walk replaces per-fetch page grouping."""
     global launches
     _check(q, k_pages, v_pages, block_tables, q_pos, kv_lens)
     if q.device.type == "cpu":

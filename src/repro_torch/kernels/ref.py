@@ -66,6 +66,11 @@ def paged_attention_chunk_ref(q: torch.Tensor, k_pages: torch.Tensor,
         .reshape(b, c, h, hd).to(q.dtype)
 
 
+def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M,K) @ b (K,N) in f32, cast to a's dtype."""
+    return (a.float() @ b.float()).to(a.dtype)
+
+
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
                 ) -> torch.Tensor:
     xf = x.float()

@@ -134,11 +134,13 @@ def paged_scatter_token(pages: torch.Tensor, tables: torch.Tensor,
     return pages
 
 
-def _paged_decode_attend(q, k_pages, v_pages, block_tables, seq_lens):
+def _paged_decode_attend(q, k_pages, v_pages, block_tables, seq_lens,
+                         pages_per_fetch=1):
     if _paged_impl(q.device) == "kernel":
         from repro_torch.kernels import ops
         return ops.paged_attention(q, k_pages, v_pages, block_tables,
-                                   seq_lens + 1)
+                                   seq_lens + 1,
+                                   pages_per_fetch=pages_per_fetch)
     kg = paged_gather(k_pages, block_tables)
     vg = paged_gather(v_pages, block_tables)
     return decode_attention(q, kg, vg, seq_lens + 1)
@@ -147,16 +149,19 @@ def _paged_decode_attend(q, k_pages, v_pages, block_tables, seq_lens):
 def attention_decode_block_paged(cfg: ModelConfig, p, x: torch.Tensor,
                                  k_pages: torch.Tensor, v_pages: torch.Tensor,
                                  block_tables: torch.Tensor,
-                                 seq_lens: torch.Tensor):
+                                 seq_lens: torch.Tensor,
+                                 pages_per_fetch: int = 1):
     """One-token attention against a paged cache.  x (B,1,d); pages
     (N,bs,KV,hd) updated in place; block_tables (B,M); seq_lens (B,) KV
-    entries already written per row (the new token lands at seq_lens[b]).
+    entries already written per row (the new token lands at seq_lens[b]);
+    ``pages_per_fetch`` is the kernel plan's, handed to the kernel.
     Returns (out, k_pages, v_pages)."""
     seq_lens = seq_lens.to(torch.int32)
     q, k, v = qkv_project(cfg, p, x, seq_lens[:, None])
     paged_scatter_token(k_pages, block_tables, seq_lens, k[:, 0])
     paged_scatter_token(v_pages, block_tables, seq_lens, v[:, 0])
-    o = _paged_decode_attend(q, k_pages, v_pages, block_tables, seq_lens)
+    o = _paged_decode_attend(q, k_pages, v_pages, block_tables, seq_lens,
+                             pages_per_fetch)
     out = o.reshape(x.shape[0], 1, cfg.q_dim) @ p["wo"]
     return out, k_pages, v_pages
 
@@ -166,7 +171,8 @@ def attention_prefill_chunk_block(cfg: ModelConfig, p, x: torch.Tensor,
                                   block_table: torch.Tensor,
                                   chunk_pos: torch.Tensor,
                                   prompt_len: torch.Tensor,
-                                  m_used: Optional[int] = None):
+                                  m_used: Optional[int] = None,
+                                  pages_per_fetch: int = 1):
     """One prompt chunk's attention against the paged cache (batch of 1).
     x (1,C,d); block_table (1,M); chunk_pos (C,) absolute positions;
     positions >= prompt_len are padding whose KV goes to the null block.
@@ -185,18 +191,19 @@ def attention_prefill_chunk_block(cfg: ModelConfig, p, x: torch.Tensor,
     k_pages[blk, off] = k[0].to(k_pages.dtype)
     v_pages[blk, off] = v[0].to(v_pages.dtype)
     o = _paged_prefill_attend(cfg, q, k_pages, v_pages, block_table,
-                              chunk_pos)
+                              chunk_pos, pages_per_fetch)
     out = o.reshape(1, x.shape[1], cfg.q_dim) @ p["wo"]
     return out, k_pages, v_pages
 
 
 def _paged_prefill_attend(cfg: ModelConfig, q, k_pages, v_pages, block_table,
-                          chunk_pos):
+                          chunk_pos, pages_per_fetch=1):
     if _paged_impl(q.device) == "kernel":
         from repro_torch.kernels import ops
         kv_lens = (chunk_pos[-1:] + 1).to(torch.int32)    # span written so far
         return ops.paged_attention_chunk(q, k_pages, v_pages, block_table,
-                                         chunk_pos, kv_lens)
+                                         chunk_pos, kv_lens,
+                                         pages_per_fetch=pages_per_fetch)
     m, bs = block_table.shape[1], k_pages.shape[1]
     kg = paged_gather(k_pages, block_table)         # (1, m_used*bs, KV, hd)
     vg = paged_gather(v_pages, block_table)

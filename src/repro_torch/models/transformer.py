@@ -166,17 +166,19 @@ def paged_block_write(cache: Dict, idx, data: Dict) -> Dict:
 
 def lm_decode_step_paged(cfg: ModelConfig, params, cache: Dict, batch: Dict):
     """One decode step over a paged cache.  batch {"token" (B,1),
-    "block_tables" (B,M) int32, "seq_lens" (B,) int32}: every row sits at
-    its own position.  Returns (cache, logits (B,V)); the cache is updated
-    in place."""
+    "block_tables" (B,M) int32, "seq_lens" (B,) int32, optionally
+    "pages_per_fetch" (the kernel plan's, default 1)}: every row sits at its
+    own position.  Returns (cache, logits (B,V)); the cache is updated in
+    place."""
     seq_lens = batch["seq_lens"].to(torch.int32)
+    ppf = int(batch.get("pages_per_fetch", 1))
     tables = batch["block_tables"].to(torch.int32)
     x = embed_tokens(params["embed"], batch["token"])
     for i, lp in enumerate(params["layers"]):
         def attend(xn, lp=lp, i=i):
             o, _, _ = attn.attention_decode_block_paged(
                 cfg, lp["attn"], xn, cache["k"][i], cache["v"][i], tables,
-                seq_lens)
+                seq_lens, pages_per_fetch=ppf)
             return o
         x = _block(cfg, lp, x, attend)
     return cache, _head(cfg, params, x)[:, 0, :]
@@ -188,7 +190,8 @@ def lm_prefill_chunk(cfg: ModelConfig, params, cache: Dict, batch: Dict,
 
     batch {"tokens" (1,C) (null-padded past the prompt), "block_table"
     (1,M), "start" — absolute position of the chunk's first token,
-    "prompt_len" — the chunk's write limit}.  ``m_used`` restricts attention
+    "prompt_len" — the chunk's write limit, optionally "pages_per_fetch"}.
+    ``m_used`` restricts attention
     to the table's first blocks.  Returns (cache, logits (1,C,V)); the cache
     is updated in place."""
     start = int(batch["start"])
@@ -198,12 +201,13 @@ def lm_prefill_chunk(cfg: ModelConfig, params, cache: Dict, batch: Dict,
     chunk_pos = torch.arange(start, start + c, dtype=torch.int32,
                              device=tokens.device)
     prompt_len = int(batch["prompt_len"])
+    ppf = int(batch.get("pages_per_fetch", 1))
     x = embed_tokens(params["embed"], tokens)
     for i, lp in enumerate(params["layers"]):
         def attend(xn, lp=lp, i=i):
             o, _, _ = attn.attention_prefill_chunk_block(
                 cfg, lp["attn"], xn, cache["k"][i], cache["v"][i], table,
-                chunk_pos, prompt_len, m_used=m_used)
+                chunk_pos, prompt_len, m_used=m_used, pages_per_fetch=ppf)
             return o
         x = _block(cfg, lp, x, attend)
     return cache, _head(cfg, params, x)

@@ -28,13 +28,17 @@ and preempts the youngest request when the pool runs dry.
 Per-request sampling: greedy, temperature, top-k — Gumbel-max draws keyed on
 (request seed, token index), stateless and host-side.
 
+Kernel planning (``plan_kernels=True``, the default) compiles the paged
+decode and prefill-chunk attention terms through ``repro_torch.pipeline`` on
+the engine's hardware record, as the reference engine does; the plan's kv
+tile becomes the paged-attention kernel's ``pages_per_fetch``.
+
 The model functions run eagerly and update the KV slab in place.  Paged
 attention launches the CUDA kernel for CUDA tensors and takes the gather
 path for CPU tensors (REPRO_PAGED_ATTN).  Not in this slice: multi-device
 pools and tensor parallelism (``mesh=``/``tp=``), multi-LoRA requests, the
-compile pipeline's kernel plan (``plan_kernels``), the SSM/hybrid state
-slab, and ``cancel`` with the gateway's shed accounting (the async engine and
-gateway slice) — see ROADMAP.md.
+SSM/hybrid state slab, and ``cancel`` with the gateway's shed accounting
+(the async engine and gateway slice) — see ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -48,8 +52,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.codegen import paged_pages_per_fetch
+from repro_torch.core.hardware import H100, Hardware
+from repro_torch.core.tensor_ir import inp, matmul, unary
 from repro_torch.models import build_model
 from repro_torch.perf import perf
+from repro_torch.pipeline import (CompileOptions, CompileTarget, Compiler,
+                                  default_compiler)
 from repro_torch.serve.faults import (FaultInjector, InjectedFault,
                                       check_kv_invariants)
 from repro_torch.serve.kv_store import (DEVICE, HOST, Block, BlockTable,
@@ -148,6 +157,40 @@ class _Parked:
     pos: int
 
 
+# ---------------------------------------------------------------------------
+# Pipeline terms: the attention shapes serving actually executes
+# ---------------------------------------------------------------------------
+
+def _attn_term(q_rows: int, kv_span: int, head_dim: int):
+    """O = MatMul(Exp(MatMul(Q, K)), V) with ``q_rows`` queries against a
+    ``kv_span``-position KV — the one attention inner block every serving
+    shape instantiates."""
+    q = inp("Q", (q_rows, head_dim))
+    k = inp("K", (head_dim, kv_span))
+    v = inp("V", (kv_span, head_dim))
+    return matmul(unary(matmul(q, k), kind="exp"), v)
+
+
+def attention_block_term(seq_len: int, head_dim: int):
+    """Square attention inner block (kept for inspection tooling)."""
+    return _attn_term(seq_len, seq_len, head_dim)
+
+
+def paged_decode_attention_term(span: int, head_dim: int):
+    """One decode token's attention against a request's pooled KV span
+    (``span`` = max_blocks_per_seq * block_size gathered positions)."""
+    return _attn_term(1, span, head_dim)
+
+
+def chunked_prefill_attention_term(chunk: int, span: int, head_dim: int):
+    """A prefill chunk's attention: ``chunk`` queries against the span."""
+    return _attn_term(chunk, span, head_dim)
+
+
+# ---------------------------------------------------------------------------
+# Engine
+# ---------------------------------------------------------------------------
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, max_batch: int = 4,
                  max_len: int = 256, block_size: int = 16,
@@ -156,17 +199,17 @@ class ServeEngine:
                  admission: str = "conservative",
                  host_blocks: Optional[int] = None,
                  prefix_cache_blocks: Optional[int] = None,
-                 plan_kernels: bool = False,
+                 compiler: Optional[Compiler] = None,
+                 plan_kernels: bool = True,
+                 hardware: Hardware = H100,
                  max_queue: Optional[int] = None,
                  fault_injector=None):
-        # max_queue: bound on the admission queue (None consults
-        # REPRO_SERVE_MAX_QUEUE, 0 = unbounded).  fault_injector: None
-        # consults REPRO_FAULT, False forces off.  The device is the one
-        # ``params`` live on.
-        if plan_kernels:
-            raise NotImplementedError(
-                "plan_kernels: the compile pipeline is not ported yet "
-                "(ROADMAP A5); the paged kernel runs one page per fetch")
+        # compiler: the Compiler that plans the attention shapes (None = the
+        # process-wide default, whose cache a second engine hits).
+        # hardware: the record the plan is made for.  max_queue: bound on
+        # the admission queue (None consults REPRO_SERVE_MAX_QUEUE, 0 =
+        # unbounded).  fault_injector: None consults REPRO_FAULT, False
+        # forces off.  The device is the one ``params`` live on.
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not served by repro_torch yet "
@@ -185,6 +228,34 @@ class ServeEngine:
         self.admission = admission
         self.prefill_chunk_tokens = prefill_chunk_tokens or block_size
         self.fns = build_model(cfg, self.device)
+
+        # unified pipeline: compile the paged attention shapes once (cached,
+        # so a second engine on the same shapes skips the search passes)
+        self.compile_reports: Dict[str, object] = {}
+        self.compile_report = None
+        self.kernel_plan = None
+        if plan_kernels:
+            compiler = compiler or default_compiler()
+            hd = cfg.resolved_head_dim
+            span = self.max_blocks_per_seq * block_size
+            target = CompileTarget(hardware=hardware)
+            opts = CompileOptions(extraction="greedy", schedule_iterations=10)
+            dec = compiler.compile(paged_decode_attention_term(span, hd),
+                                   target=target, options=opts)
+            pre = compiler.compile(
+                chunked_prefill_attention_term(self.prefill_chunk_tokens,
+                                               span, hd),
+                target=target, options=opts)
+            self.compile_reports = {"decode": dec.report, "prefill": pre.report}
+            self.compile_report = dec.report
+            self.kernel_plan = dec.report.kernel_plan
+        # the compiler's kv tile for the *decode* shape sets how many pages
+        # the paged-attention kernel fetches at a time, on both the decode
+        # and the prefill-chunk path
+        self.pages_per_fetch = 1
+        if self.kernel_plan is not None:
+            self.pages_per_fetch = paged_pages_per_fetch(
+                self.kernel_plan, block_size, self.max_blocks_per_seq)
 
         # tiered KV store: device slab + pinned host swap tier + prefix registry
         self.swap_enabled = perf().kv_swap and (host_blocks is None
@@ -720,6 +791,7 @@ class ServeEngine:
                 [a.table.padded(self.max_blocks_per_seq)], np.int32)),
             "start": start,
             "prompt_len": end,
+            "pages_per_fetch": self.pages_per_fetch,
         }
         m_used = min(blocks_for_tokens(end, self.block_size),
                      self.max_blocks_per_seq)
@@ -771,7 +843,8 @@ class ServeEngine:
             lens[i] = a.pos
         batch = {"token": self._to_device(tok),
                  "block_tables": self._to_device(tables),
-                 "seq_lens": self._to_device(lens)}
+                 "seq_lens": self._to_device(lens),
+                 "pages_per_fetch": self.pages_per_fetch}
         if self.faults is not None:
             self.faults.check("step")
         self.cache, logits = self.fns.decode_paged(self.params, self.cache,

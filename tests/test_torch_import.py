@@ -3,7 +3,9 @@ leaves ``jax``, ``ml_dtypes``, ``triton`` and every ``repro.`` module out of
 ``sys.modules``, and no port source (nor ``chip_smoke.py``) names them in an
 import statement.  The one exception to the import walk is the Triton kernel
 body, which imports ``triton`` and is loaded only by its wrapper at the
-first launch on a card."""
+first launch on a card.  No port source states the reference's TPU
+constants or names: the port's device numbers live in
+``core/hardware.py`` and describe the H100."""
 import ast
 import os
 import pathlib
@@ -41,7 +43,7 @@ def test_importing_every_module_pulls_in_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 20
+    assert int(n) >= 54
     assert bad == "[]", f"forbidden modules imported: {bad}"
 
 
@@ -61,3 +63,16 @@ def test_no_port_source_imports_jax_or_the_reference():
         for name in _imports(f):
             top = name.split(".")[0]
             assert top not in FORBIDDEN, f"{f.relative_to(ROOT)} imports {name}"
+
+
+# the reference's TPU peak rates, on-chip capacity, chip and unit names
+TPU_TOKENS = ("197e12", "819e9", "16 * 2**20", "v5e", "VMEM", "MXU")
+
+
+def test_no_port_source_states_a_tpu_constant():
+    files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) \
+        + [ROOT / "chip_smoke.py"]
+    for f in files:
+        text = f.read_text()
+        for token in TPU_TOKENS:
+            assert token not in text, f"{f.relative_to(ROOT)} states {token!r}"

@@ -3,9 +3,10 @@
 On the CPU the wrappers run their plain versions (a CUDA tensor would
 launch the kernel); JAX runs its Pallas kernels in interpret mode
 (``repro.kernels.ops``) and its jnp oracles (``repro.kernels.ref``).  The
-paged-attention grid is the one of ``tests/test_paged_attention.py``.  Tests
-marked ``gpu`` hold the CUDA and Triton kernels against the plain versions
-on a card and skip without one.
+paged-attention grid is the one of ``tests/test_paged_attention.py``, the
+matmul sweep the one of ``tests/test_kernels.py``.  Tests marked ``gpu``
+hold the CUDA and Triton kernels against the plain versions on a card and
+skip without one.
 """
 import ast
 import pathlib
@@ -19,6 +20,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import layers as jlayers
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.matmul import matmul_kernel
 from repro_torch.kernels.paged_attention import paged_attention_kernel
 from repro_torch.models import layers as tlayers
 
@@ -142,6 +144,39 @@ def test_rmsnorm_matches_jax(d, bf16):
     _close(tlayers.rms_norm(tx, tw, 1e-6), jlayers.rms_norm(jx, jw, 1e-6), tol)
 
 
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 512, 128),
+                                   (384, 256, 512)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_matmul_matches_jax(m, k, n, bf16):
+    """K4's wrapper (its plain version on the CPU) against the Pallas
+    ``matmul_kernel`` in interpret mode and the jnp oracle."""
+    rng = np.random.default_rng(42)
+    (ja, ta), (jb, tb) = (_both((rng.normal(size=s) * 0.5)
+                                .astype(np.float32), bf16)
+                          for s in ((m, k), (k, n)))
+    got = ops.matmul(ta, tb)
+    assert got.dtype == ta.dtype and got.shape == (m, n)
+    want = jops.matmul(ja, jb, block_m=128, block_n=128, block_k=128)
+    tol = ref.ROW_TOL[torch.bfloat16 if bf16 else torch.float32]
+    want_t = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    assert ref.row_rel_err(got.float(), want_t)[1] <= tol
+    oracle = torch.from_numpy(np.array(jref.matmul_ref(ja, jb)
+                                       .astype(jnp.float32)))
+    assert ref.row_rel_err(ref.matmul_ref(ta, tb).float(), oracle)[1] <= tol
+
+
+def test_matmul_takes_shapes_the_tpu_kernel_asserts_on():
+    """The TPU kernel's block divisibility is not part of the function: K4
+    takes ragged shapes (M = 1, the decode term's) and any block-free call."""
+    g = torch.Generator().manual_seed(0)
+    for m, k, n in ((1, 128, 2048), (100, 128, 128), (37, 100, 77), (5, 0, 3)):
+        a, b = torch.randn((m, k), generator=g), torch.randn((k, n), generator=g)
+        got = ops.matmul(a, b.t().contiguous().t())
+        assert got.shape == (m, n)
+        torch.testing.assert_close(got, a.double().mm(b.double()).float(),
+                                   rtol=1e-5, atol=1e-5)
+
+
 def test_wrappers_raise_instead_of_falling_back():
     """A device the kernels do not serve is refused, not computed on the
     CPU; bad shapes and types are refused before any launch."""
@@ -165,21 +200,32 @@ def test_wrappers_raise_instead_of_falling_back():
     with pytest.raises(ValueError, match="unsupported device"):
         ops.rmsnorm(torch.empty(2, 8, device="meta"),
                     torch.empty(8, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        matmul_kernel(torch.empty(2, 8, device="meta"),
+                      torch.empty(8, 4, device="meta"))
+    with pytest.raises(TypeError):
+        matmul_kernel(torch.zeros(2, 8), torch.zeros(8, 4).bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul_kernel(torch.zeros(2, 8), torch.zeros(4, 8).t())
+    with pytest.raises(ValueError):
+        matmul_kernel(torch.zeros(2, 8), torch.zeros(7, 4))
 
 
 def test_launch_hygiene_in_the_sources():
     """The CUDA entry point returns the launch status, the wrapper raises
     on a non-zero one, and no ``except`` in the kernels package or in
     chip_smoke.py can fall back to a plain version."""
-    cu = (KERNELS / "csrc" / "paged_attention.cu").read_text()
-    assert "return cudaGetLastError();" in cu
     assert "sm_90a" in (KERNELS / "build.py").read_text()
-    wrapper = ast.parse((KERNELS / "paged_attention.py").read_text())
-    raises_on_status = [
-        n for n in ast.walk(wrapper) if isinstance(n, ast.If)
-        and "err != 0" in ast.unparse(n.test)
-        and any(isinstance(s, ast.Raise) for s in n.body)]
-    assert raises_on_status, "wrapper must raise on a non-zero launch status"
+    for name in ("paged_attention", "matmul"):
+        cu = (KERNELS / "csrc" / f"{name}.cu").read_text()
+        assert "return cudaGetLastError();" in cu
+        wrapper = ast.parse((KERNELS / f"{name}.py").read_text())
+        raises_on_status = [
+            n for n in ast.walk(wrapper) if isinstance(n, ast.If)
+            and "err != 0" in ast.unparse(n.test)
+            and any(isinstance(s, ast.Raise) for s in n.body)]
+        assert raises_on_status, f"{name}: wrapper must raise on a non-zero " \
+                                 "launch status"
     for f in sorted(KERNELS.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         tree = ast.parse(f.read_text())
         handlers = [n for n in ast.walk(tree)
@@ -288,3 +334,24 @@ def test_kernels_match_plain_versions_on_cuda(cuda, dtype):
     assert rn.launches == n0 + 1
     want = ref.rmsnorm_ref(x, w)
     assert ref.row_rel_err(got, want)[1] <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matmul_kernel_matches_plain_version_on_cuda(cuda, dtype):
+    from repro_torch.kernels import matmul as mm
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tol = ref.ROW_TOL[dtype]
+    for m, k, n in ((1, 128, 2048), (1, 2048, 128), (256, 128, 2048),
+                    (37, 100, 77), (65, 33, 129), (3, 0, 5)):
+        a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+        b = torch.randn((k, n), generator=gen, device=cuda).to(dtype)
+        n0 = mm.launches
+        got = ops.matmul(a, b)
+        torch.cuda.synchronize()
+        assert mm.launches == n0 + 1
+        want = ref.matmul_ref(a, b)
+        if k == 0:
+            assert torch.equal(got, want)
+        else:
+            assert ref.row_rel_err(got, want)[1] <= tol

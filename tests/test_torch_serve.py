@@ -112,6 +112,50 @@ def test_12_requests_match_jax_engine_and_fit_the_pool(setup):
     assert eng.metrics().prefill_tokens == jeng.metrics().prefill_tokens
 
 
+def test_kernel_planning_matches_jax_engine_and_keeps_tokens(setup):
+    """Planning is on by default: under the reference-constant record the
+    port's engine compiles the same terms into the same reports, plan and
+    ``pages_per_fetch`` as the JAX engine; a second engine hits the cache;
+    and the greedy tokens equal an engine's with planning off (the paged
+    kernel takes the plan's ``pages_per_fetch`` and does not use it)."""
+    import dataclasses
+    from _torch_parity import reference_hardware
+    from repro.serve.engine import ServeEngine as JServeEngine
+    from repro_torch.pipeline import Compiler
+    jcfg, cfg, jparams, params = setup
+    ref_hw = reference_hardware()
+    shape = dict(max_batch=4, max_len=64, block_size=8)
+    jeng = JServeEngine(jcfg, jparams, plan_kernels=True, mesh=False,
+                        fault_injector=False, **shape)
+    compiler = Compiler(cache_dir=None)
+    eng = _engine(cfg, params, compiler=compiler, hardware=ref_hw, **shape)
+    assert set(eng.compile_reports) == set(jeng.compile_reports)
+    for key, rep in jeng.compile_reports.items():
+        mine = eng.compile_reports[key]
+        assert (mine.baseline_cost, mine.optimized_cost, mine.buffer) == \
+            (rep.baseline_cost, rep.optimized_cost, rep.buffer)
+        assert not mine.cache_hit
+    assert dataclasses.asdict(eng.kernel_plan) == \
+        dataclasses.asdict(jeng.kernel_plan)
+    assert eng.pages_per_fetch == jeng.pages_per_fetch
+    again = _engine(cfg, params, compiler=compiler, hardware=ref_hw, **shape)
+    assert all(r.cache_hit for r in again.compile_reports.values())
+    assert compiler.stats == {"hits": 2, "misses": 2}
+
+    planned = _engine(cfg, params, **shape)          # the H100 record
+    assert planned.kernel_plan is not None and planned.pages_per_fetch >= 1
+    plain = _engine(cfg, params, plan_kernels=False, **shape)
+    assert plain.kernel_plan is None and plain.compile_reports == {}
+    outs = []
+    for e in (planned, plain):
+        reqs = _workload(cfg.vocab)[:6]
+        for r in reqs:
+            e.submit(r)
+        _run_checked(e)
+        outs.append([r.out for r in reqs])
+    assert outs[0] == outs[1]
+
+
 def test_admission_rejects_oversized(setup):
     _, cfg, _, params = setup
     eng = _engine(cfg, params, max_len=64, num_blocks=5)
@@ -208,7 +252,8 @@ def test_prefix_sharing_prefills_shared_prefix_once(setup):
 
 def test_step_guarded_quarantines_and_adapters_are_refused(setup):
     """An injected step fault fails one request and leaves the pool
-    consistent; LoRA requests and kernel planning are out of this slice."""
+    consistent; LoRA requests are out of this slice, and kernel planning is
+    on by default."""
     from repro_torch.serve.faults import FaultInjector
     _, cfg, _, params = setup
     eng = ServeEngine(cfg, params, max_batch=2, max_len=32, block_size=4,
@@ -222,8 +267,8 @@ def test_step_guarded_quarantines_and_adapters_are_refused(setup):
     assert eng.invariant_violations == []
     with pytest.raises(NotImplementedError):
         eng.submit(Request(rid=9, prompt=[1, 2], adapter_id="tenant-a"))
-    with pytest.raises(NotImplementedError):
-        ServeEngine(cfg, params, plan_kernels=True)
+    assert set(eng.compile_reports) == {"decode", "prefill"}
+    assert eng.kernel_plan is not None and eng.pages_per_fetch >= 1
 
 
 def test_serve_cli_on_cpu_and_refusals(monkeypatch, capsys):
