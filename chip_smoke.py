@@ -6,10 +6,10 @@
 Phases, each printing JSON objects one per line:
 
 1. card     — nvidia-smi's name and power limit, torch and CUDA versions.
-2. build    — nvcc builds the CUDA kernels (paged attention, matmul) from
-              the repo's sources for sm_90a, one nvcc process per source, all
-              started together, and prints ptxas's register and spill lines;
-              Triton compiles the rmsnorm kernel.
+2. build    — nvcc builds the CUDA kernels (paged attention, matmul, LoRA
+              shrink and expand) from the repo's sources for sm_90a, one nvcc
+              process per source, all started together, and prints ptxas's
+              register and spill lines; Triton compiles the rmsnorm kernel.
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the shapes its path gives it (f32 and bf16), row by row
               (``ref.row_rel_err``), and planted faults that the same gate
@@ -19,7 +19,12 @@ Phases, each printing JSON objects one per line:
               (a yardstick the port never calls), the kernel wrapper's
               host-inclusive time, and the least time the card could take
               (bytes moved over 3.35 TB/s or operations over the type's peak
-              rate).
+              rate).  The LoRA kernels run at the serve path's shapes (T = 8
+              decode rows and a 256-row prefill chunk, every projection's
+              widths, rank 16, 8 slots, block_out 128) under four slot mixes;
+              base rows must be exact zeros and the expand output bitwise the
+              same for block_out 33, 128 and 256; their yardstick is
+              ``torch.bmm`` over per-row factors gathered before the call.
 4. compile  — ``repro_torch.pipeline.compile()`` with the H100 record on the
               serve engine's full-width decode attention term, a full-width
               qwen3-0.6b SwiGLU MLP term (not vectorized, so its products stay
@@ -33,11 +38,27 @@ Phases, each printing JSON objects one per line:
               weights from seed 0); every kernel's launch count is zeroed
               just before and read just after.  A short greedy run with
               planning off must give the same tokens as one with it on.
+   lora     — the same engine with four synthesized tenants loaded serves the
+              same 16 requests, every fifth one base and the others spread
+              over the tenants: every request finishes, the invariants hold
+              after every step, the adapter slab is the size its shape gives,
+              and each LoRA kernel launches exactly once per adapted
+              projection and layer of every dispatch that holds an adapter
+              row.
+   lora_identity — greedy tokens: base requests on an engine with tenants
+              loaded and pinned equal an adapter-free engine's (with no LoRA
+              launch), a rank-0 tenant gives the base tokens, and one prompt
+              under two tenants gives two streams, neither adopting the
+              other's prefix.
    profile  — torch.profiler over 12 steps of a second engine: device busy
               time by kernel against the window's wall time, and each
               kernel's device time per launch on the main path.
 6. oracle   — teacher-forced logits of the paged path (kernels) against the
-              dense prefill + decode path (plain attention), f32 and bf16.
+              dense prefill + decode path (plain attention), f32 and bf16;
+              and one tenant's request (a 256-token prompt chunk and 8 decode
+              steps, full width, 2 layers, f32) through the paged path with
+              the kernels on the card against the same path with the plain
+              versions on the CPU.
 
 Then a ``{"kernels": [...]}`` summary line, nvidia-smi's line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
@@ -148,6 +169,25 @@ def bound(nbytes: float, ops: float, dtype: str) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def counters() -> dict:
+    """Each kernel's launch counter: name -> (wrapper module, attribute)."""
+    from repro_torch.kernels import lora, matmul, paged_attention, rmsnorm
+    return {"paged_attention": (paged_attention, "launches"),
+            "rmsnorm": (rmsnorm, "launches"),
+            "matmul": (matmul, "launches"),
+            "lora_shrink": (lora, "shrink_launches"),
+            "lora_expand": (lora, "expand_launches")}
+
+
+def zero_counts() -> None:
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
 
 
 def nvidia_smi() -> str:
@@ -355,6 +395,132 @@ def check_matmul(torch, results):
                 bound_ms=t_bound, bound_by=by))
 
 
+# the LoRA kernels' shapes on the serve path: rows of a decode step and of a
+# prefill chunk; the projections' input and output widths at qwen3-0.6b
+# (q, k/v, o, gate/up, down); the store's rank slot and slot count; the H100
+# plan's expand tile
+LORA_ROWS = (8, 256)
+LORA_D_IN = (1024, 2048, 3072)
+LORA_D_OUT = (1024, 2048, 3072)
+LORA_RANK, LORA_SLOTS, LORA_BLOCK_OUT = 16, 8, 128
+
+
+def lora_mixes(t):
+    """Slot mixes of ``t`` rows: repeats of three adapters, all base rows,
+    base and adapter rows interleaved, and one row alone."""
+    return {"repeats": [i % 3 for i in range(t)],
+            "all_base": [-1] * t,
+            "interleaved": [-1 if i % 2 else (i // 2) % LORA_SLOTS
+                            for i in range(t)],
+            "single_row": [1]}
+
+
+def check_lora(torch, results):
+    """K5 and K6 against their plain versions at the serve path's shapes:
+    every mix in f32 and bf16 through the row gate, exact zeros on base
+    rows, the expand output bitwise the same for three tiles, and two
+    planted faults per kernel (every row reads slot 0; the last rank block
+    or output tile left zero).  The "repeats" mix is timed."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lora import lora_expand_kernel, lora_shrink_kernel
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    r, s = LORA_RANK, LORA_SLOTS
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        esize = torch.finfo(dtype).bits // 8
+        for t in LORA_ROWS:
+            for mix, idx_list in lora_mixes(t).items():
+                idx = torch.tensor(idx_list, dtype=torch.int32, device=DEV)
+                rows = len(idx_list)
+                live = idx >= 0
+                slot0 = torch.where(live, 0, idx)
+                n_live = int(live.sum())
+                n_adapters = len({i for i in idx_list if i >= 0})
+                for d in LORA_D_IN:
+                    x = torch.randn((rows, d), generator=gen,
+                                    device=DEV).to(dtype)
+                    a = (torch.randn((s, d, r), generator=gen, device=DEV)
+                         * 0.1).to(dtype)
+                    got = lora_shrink_kernel(x, a, idx)
+                    want = ref.lora_shrink_ref(x, a, idx)
+                    assert torch.equal(got[~live], torch.zeros_like(
+                        got[~live])), "lora_shrink: base rows not zero"
+                    faults = {}
+                    if bool((idx > 0).any()):
+                        tail = got.clone()
+                        tail[:, -8:] = 0
+                        faults = {"every_row_reads_slot_0":
+                                  lora_shrink_kernel(x, a, slot0),
+                                  "last_rank_block_zero": tail}
+                    checked = gate(f"lora_shrink T={rows} d={d} {mix} "
+                                   f"{dname}", got, want, faults)
+                    if mix != "repeats":
+                        continue
+                    a_rows = a[idx.clamp_min(0).long()]
+                    t_bound, by = bound(
+                        (rows * d + n_adapters * d * r) * esize
+                        + rows * 4 + rows * r * 4,
+                        2.0 * n_live * d * r, dname)
+                    results.append(dict(
+                        name="lora_shrink", dtype=dname,
+                        shape=f"T={rows} d={d} R={r} S={s} {mix}", **checked,
+                        kernel_ms=graph_ms(lambda: lora_shrink_kernel(
+                            x, a, idx)),
+                        host_ms=host_ms(lambda: lora_shrink_kernel(
+                            x, a, idx)),
+                        plain_ms=graph_ms(lambda: ref.lora_shrink_ref(
+                            x, a, idx)),
+                        library_ms=graph_ms(lambda: torch.bmm(
+                            x[:, None, :], a_rows)),
+                        library="torch.bmm over per-row A gathered before "
+                                "the call (yardstick)",
+                        bound_ms=t_bound, bound_by=by))
+                for o in LORA_D_OUT:
+                    h = torch.randn((rows, r), generator=gen, device=DEV)
+                    b = (torch.randn((s, r, o), generator=gen, device=DEV)
+                         * 0.1).to(dtype)
+                    got = lora_expand_kernel(h, b, idx, LORA_BLOCK_OUT)
+                    want = ref.lora_expand_ref(h, b, idx, dtype)
+                    assert torch.equal(got[~live], torch.zeros_like(
+                        got[~live])), "lora_expand: base rows not zero"
+                    for bo in (33, 256):
+                        assert torch.equal(lora_expand_kernel(h, b, idx, bo),
+                                           got), \
+                            f"lora_expand: block_out {bo} changed the output"
+                    faults = {}
+                    if bool((idx > 0).any()):
+                        tail = got.clone()
+                        tail[:, (o - 1) // LORA_BLOCK_OUT
+                             * LORA_BLOCK_OUT:] = 0
+                        faults = {"every_row_reads_slot_0":
+                                  lora_expand_kernel(h, b, slot0,
+                                                     LORA_BLOCK_OUT),
+                                  "last_output_tile_unwritten": tail}
+                    checked = gate(f"lora_expand T={rows} O={o} {mix} "
+                                   f"{dname}", got, want, faults)
+                    if mix != "repeats":
+                        continue
+                    b_rows = b[idx.clamp_min(0).long()]
+                    hb = h.to(dtype)[:, None, :]
+                    t_bound, by = bound(
+                        rows * r * 4 + n_adapters * r * o * esize + rows * 4
+                        + rows * o * esize, 2.0 * n_live * r * o, dname)
+                    results.append(dict(
+                        name="lora_expand", dtype=dname,
+                        shape=f"T={rows} O={o} R={r} S={s} "
+                              f"block_out={LORA_BLOCK_OUT} {mix}", **checked,
+                        kernel_ms=graph_ms(lambda: lora_expand_kernel(
+                            h, b, idx, LORA_BLOCK_OUT)),
+                        host_ms=host_ms(lambda: lora_expand_kernel(
+                            h, b, idx, LORA_BLOCK_OUT)),
+                        plain_ms=graph_ms(lambda: ref.lora_expand_ref(
+                            h, b, idx, dtype)),
+                        library_ms=graph_ms(lambda: torch.bmm(hb, b_rows)),
+                        library="torch.bmm over per-row B gathered before "
+                                "the call (yardstick)",
+                        bound_ms=t_bound, bound_by=by))
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: compile
 # ---------------------------------------------------------------------------
@@ -372,7 +538,7 @@ def _term_inputs(torch, term, gen, dtype, scale=0.1):
             for n, s in shapes.items()}
 
 
-def compile_phase(torch, cfg, counters, calls=4):
+def compile_phase(torch, cfg, calls=4):
     """The compile pipeline's entry point on the H100 record: the engine's
     full-width decode attention term and a SwiGLU MLP term with kernels on
     run the matmul kernel (two launches per call each); the prefill-chunk
@@ -400,8 +566,7 @@ def compile_phase(torch, cfg, counters, calls=4):
     gen = torch.Generator(device=DEV).manual_seed(3)
     compiler = Compiler(cache_dir=None)
     dtype = torch.bfloat16
-    for c in counters:
-        c.launches = 0
+    zero_counts()
     compiled = []
     out = {"phase": "compile", "hardware": CompileTarget().hardware.name,
            "terms": {}}
@@ -437,7 +602,7 @@ def compile_phase(torch, cfg, counters, calls=4):
             "kernel_plan": repr(rep.kernel_plan),
             "summary": rep.summary().splitlines()}
         compiled.append((name, on, off, env))
-    launches = {c.__name__.rsplit(".", 1)[1]: c.launches for c in counters}
+    launches = read_counts()
     assert launches["matmul"] > 0, launches
     plan = compiled[0][1].report.kernel_plan
     out.update(launches=launches,
@@ -455,7 +620,10 @@ def compile_phase(torch, cfg, counters, calls=4):
 # Phase 5: serve
 # ---------------------------------------------------------------------------
 
-def workload(vocab, n=16, seed=0):
+def workload(vocab, n=16, seed=0, tenants=(None,)):
+    """``n`` requests, prompts of 128-1024 tokens, every third opening with
+    one shared 256-token prefix, every third sampled, 32 new tokens each;
+    request i is served by ``tenants[i % len(tenants)]``."""
     from repro_torch.serve.engine import Request, SamplingParams
     rng = np.random.default_rng(seed)
     shared = rng.integers(1, vocab, size=256).tolist()
@@ -467,30 +635,47 @@ def workload(vocab, n=16, seed=0):
             prompt = shared + prompt[256:] if plen > 256 else shared[:plen]
         sp = SamplingParams(temperature=0.8, top_k=40, seed=i) \
             if i % 3 == 1 else SamplingParams()
-        reqs.append(Request(rid=i, prompt=prompt, max_new=32, sampling=sp))
+        reqs.append(Request(rid=i, prompt=prompt, max_new=32, sampling=sp,
+                            adapter_id=tenants[i % len(tenants)]))
     return reqs
 
 
-def serve_phase(torch, cfg, counters, path_counters):
-    from repro_torch.models import build_model
-    from repro_torch.serve.engine import Request, ServeEngine
-    params = build_model(cfg, DEV).init(0)
-    eng = ServeEngine(cfg, params, max_batch=8, max_len=2048, block_size=16,
-                      prefill_chunk_tokens=256)
-    assert eng.kernel_plan is not None
-    # warm-up: cuBLAS handles and Triton's shape specialisations
-    for i in range(2):
-        eng.submit(Request(rid=1000 + i, max_new=4,
-                           prompt=[1 + t % (cfg.vocab - 1)
+def serve_engine(cfg, params, **kw):
+    from repro_torch.serve.engine import ServeEngine
+    return ServeEngine(cfg, params, max_batch=8, max_len=2048, block_size=16,
+                       prefill_chunk_tokens=256, **kw)
+
+
+def run_workload(torch, eng, reqs, counted=None):
+    """Warm the engine up on two short requests (cuBLAS handles, Triton's
+    specialisations, the LoRA kernels for a tenant's warm-up request), zero
+    every launch count, serve ``reqs`` checking the KV invariants after
+    every step, and read the counts.  ``counted`` is called with each
+    dispatch's batch."""
+    from repro_torch.serve.engine import Request
+    vocab = eng.cfg.vocab
+    for i, r in enumerate(reqs[:2]):
+        eng.submit(Request(rid=1000 + i, max_new=4, adapter_id=r.adapter_id,
+                           prompt=[1 + t % (vocab - 1)
                                    for t in range(300 + i)]))
     eng.run_until_done()
     eng.release_prefix_cache()
     eng.reset_metrics()
-    reqs = workload(cfg.vocab)
+    if counted is not None:
+        fns = eng.fns
+
+        def prefill(p, c, b, m_used=None):
+            counted(b)
+            return fns.prefill_chunk(p, c, b, m_used=m_used)
+
+        def decode(p, c, b):
+            counted(b)
+            return fns.decode_paged(p, c, b)
+        eng.fns = dataclasses.replace(fns, prefill_chunk=prefill,
+                                      decode_paged=decode)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
+    zero_counts()
     for r in reqs:
         eng.submit(r)
     t0 = time.perf_counter()
@@ -502,36 +687,149 @@ def serve_phase(torch, cfg, counters, path_counters):
         assert violations == [], violations
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {c.__name__.rsplit(".", 1)[1]: c.launches for c in counters}
+    launches = read_counts()
     m = eng.metrics()
     assert all(r.done and not r.rejected and len(r.out) == r.max_new
                for r in reqs), [r.finish_reason for r in reqs]
-    assert all(launches[c.__name__.rsplit(".", 1)[1]] > 0
-               for c in path_counters), launches
     assert m.requests_finished == len(reqs)
-    emit({"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
-          "requests": len(reqs), "engine_steps": eng.steps,
-          "wall_s": wall, "invariant_check_s": check_s,
-          "tokens_per_sec": m.tokens_per_sec,
-          "ttft_mean_s": m.ttft_mean_s, "ttft_max_s": m.ttft_max_s,
-          "itl_mean_s": m.itl_mean_s, "prefill_tokens": m.prefill_tokens,
-          "decode_tokens": m.decode_tokens,
-          "peak_blocks_used": m.peak_blocks_used,
-          "pool_blocks": m.pool_blocks, "shared_blocks": m.shared_blocks,
-          "re_prefill_avoided": m.re_prefill_avoided,
-          "preemptions": m.preemptions,
-          "peak_device_bytes": torch.cuda.max_memory_allocated(),
-          "launches": launches,
-          "launches_per_step": {k: v / eng.steps for k, v in launches.items()},
+    return launches, m, {
+        "requests": len(reqs), "engine_steps": eng.steps, "wall_s": wall,
+        "invariant_check_s": check_s, "tokens_per_sec": m.tokens_per_sec,
+        "ttft_mean_s": m.ttft_mean_s, "ttft_max_s": m.ttft_max_s,
+        "itl_mean_s": m.itl_mean_s, "prefill_tokens": m.prefill_tokens,
+        "decode_tokens": m.decode_tokens,
+        "peak_blocks_used": m.peak_blocks_used,
+        "pool_blocks": m.pool_blocks, "shared_blocks": m.shared_blocks,
+        "re_prefill_avoided": m.re_prefill_avoided,
+        "preemptions": m.preemptions,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+        "launches_per_step": {k: v / eng.steps for k, v in launches.items()}}
+
+
+def serve_phase(torch, cfg, params):
+    """The main path: 16 base requests, every kernel of the path launched."""
+    eng = serve_engine(cfg, params)
+    assert eng.kernel_plan is not None
+    launches, _, out = run_workload(torch, eng, workload(cfg.vocab))
+    assert launches["paged_attention"] > 0 and launches["rmsnorm"] > 0, \
+        launches
+    assert launches["lora_shrink"] == launches["lora_expand"] == 0, launches
+    emit({"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype, **out,
           "pages_per_fetch": eng.pages_per_fetch,
           "kernel_plan": repr(eng.kernel_plan),
           "compile_report_decode": eng.compile_report.summary().splitlines()})
     del eng
     torch.cuda.empty_cache()
-    plan_identity(torch, cfg, params)
-    del params
+    return launches, out
+
+
+TENANTS = ("tenant-0", "tenant-1", "tenant-2", "tenant-3")
+# at qwen3-0.6b's widths: launches of each LoRA kernel per dispatch with an
+# adapter row (7 adapted projections x 28 layers), and the adapter slab of
+# the store's defaults (8 slots x 28 layers x rank 16 x 22,528 summed
+# d_in + d_out of the 7 projections x 2 B)
+LORA_PER_DISPATCH = 7 * 28
+LORA_SLAB_BYTES = 8 * 28 * 16 * 22528 * 2
+
+
+def lora_serve_phase(torch, cfg, params, base):
+    """Multi-LoRA serving: the serve phase's engine with four tenants
+    loaded (rank 8, alpha 16) serves the same 16 requests, every fifth one
+    base; the LoRA kernels launch once per adapted projection and layer of
+    every dispatch that holds an adapter row, and never otherwise."""
+    eng = serve_engine(cfg, params)
+    for name in TENANTS:
+        eng.load_adapter(name, rank=8, alpha=16.0)
+    dispatches = {"lora": 0, "base": 0}
+
+    def counted(batch):
+        dispatches["lora" if "lora" in batch else "base"] += 1
+    launches, m, out = run_workload(
+        torch, eng, workload(cfg.vocab, tenants=(None,) + TENANTS), counted)
+    per = len(eng.adapters.projs) * cfg.n_layers
+    assert per == LORA_PER_DISPATCH, per
+    assert dispatches["lora"] > 0, dispatches
+    assert launches["lora_shrink"] == launches["lora_expand"] \
+        == per * dispatches["lora"], (launches, dispatches)
+    assert launches["paged_attention"] > 0 and launches["rmsnorm"] > 0
+    assert m.adapter_device_bytes == LORA_SLAB_BYTES, m.adapter_device_bytes
+    assert sorted(m.per_tenant) == sorted(("base",) + TENANTS), m.per_tenant
+    emit({"phase": "lora_serve", "arch": cfg.name, "dtype": cfg.dtype, **out,
+          "tenants": list(TENANTS), "lora_block_out": eng.lora_block_out,
+          "rank_cap": eng.adapters.rank_cap,
+          "adapter_device_bytes": m.adapter_device_bytes,
+          "dispatches": dispatches, "lora_launches_per_lora_dispatch": per,
+          "per_tenant": m.per_tenant,
+          "base_serve": {k: base[k] for k in (
+              "engine_steps", "wall_s", "tokens_per_sec", "ttft_mean_s",
+              "ttft_max_s", "itl_mean_s", "launches_per_step")}})
+    del eng
     torch.cuda.empty_cache()
     return launches
+
+
+def lora_identity_phase(torch, cfg, params):
+    """Greedy, 4 requests x 12 tokens: base rows with tenants loaded and
+    pinned equal an adapter-free engine's with no LoRA launch; a rank-0
+    tenant gives the base tokens; one prompt under two tenants gives two
+    streams and neither adopts the other's prefix."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, cfg.vocab, size=int(n)).tolist()
+               for n in (150, 300, 520, 700)]
+
+    def engine():
+        return ServeEngine(cfg, params, max_batch=4, max_len=1024,
+                           block_size=16, prefill_chunk_tokens=256)
+
+    def serve(eng, adapter_id=None, ps=prompts):
+        reqs = [Request(rid=i, prompt=list(p), max_new=12,
+                        adapter_id=adapter_id) for i, p in enumerate(ps)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        assert all(r.done and not r.rejected for r in reqs)
+        return [r.out for r in reqs]
+
+    base = serve(engine())
+    eng = engine()
+    for name in TENANTS:
+        eng.load_adapter(name, rank=8, alpha=16.0)
+        eng.adapters.pin(name)
+    zero_counts()
+    with_tenants = serve(eng)
+    torch.cuda.synchronize()
+    n = read_counts()
+    assert with_tenants == base, "base tokens moved with tenants loaded"
+    assert n["lora_shrink"] == n["lora_expand"] == 0, n
+    eng.load_adapter("null-tenant", rank=0)
+    rank0 = serve(eng, "null-tenant")
+    assert rank0 == base, "a rank-0 tenant changed the base tokens"
+    del eng
+    eng = engine()
+    for name in TENANTS[:2]:
+        eng.load_adapter(name, rank=8, alpha=16.0)
+    hits = []
+    outs = []
+    for name in (TENANTS[0], TENANTS[1], TENANTS[0]):
+        eng.reset_metrics()
+        outs.append(serve(eng, name, prompts[1:2])[0])
+        m = eng.metrics()
+        hits.append({"tenant": name, "shared_blocks": m.shared_blocks,
+                     "re_prefill_avoided": m.re_prefill_avoided})
+    assert outs[0] != outs[1], "two tenants gave the same tokens"
+    assert hits[1]["shared_blocks"] == hits[1]["re_prefill_avoided"] == 0, \
+        hits
+    assert hits[2]["re_prefill_avoided"] > 0, hits
+    emit({"phase": "lora_identity", "requests": len(prompts),
+          "tokens_each": 12, "base_identical_with_tenants": True,
+          "lora_launches_on_base_requests": n["lora_shrink"]
+          + n["lora_expand"], "rank0_identical": True,
+          "two_tenants_differ": True, "prefix_hits": hits,
+          "same_tenant_reuse_identical": outs[2] == outs[0]})
+    del eng
+    torch.cuda.empty_cache()
 
 
 def plan_identity(torch, cfg, params):
@@ -681,6 +979,78 @@ def oracle_phase(torch, cfg):
     torch.cuda.empty_cache()
 
 
+def lora_oracle_phase(torch, cfg, steps=8, chunk=256, bs=16):
+    """One tenant's request teacher-forced through the paged path: a
+    ``chunk``-token prompt and ``steps`` decode steps at full width, 2
+    layers, f32; the LoRA kernels and K1/K2 on the card against the plain
+    versions on the CPU, on the same weights and adapter."""
+    from repro_torch.models import build_model
+    from repro_torch.serve.adapters import AdapterStore
+    cfg = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    out = {"phase": "lora_oracle", "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "prompt_len": chunk, "decode_steps": steps}
+    gpu = build_model(cfg, DEV)
+    params = gpu.init(0)
+    sides = {}
+    for dev in (DEV, "cpu"):
+        fns = build_model(cfg, dev)
+        p = params if dev == DEV else _to(params, "cpu")
+        store = AdapterStore(cfg, device=dev)
+        slot = store.load(TENANTS[0], rank=8, alpha=16.0)
+        nb = -(-(chunk + steps) // bs)
+        sides[dev] = (fns, p, fns.make_paged_cache(nb + 1, bs), store, slot)
+    rng = np.random.default_rng(8)
+    prompt = rng.integers(1, cfg.vocab, size=chunk).tolist()
+    nb = -(-(chunk + steps) // bs)
+    gaps, logits = [], {}
+    zero_counts()
+    for i in range(steps + 1):
+        for dev, (fns, p, cache, store, slot) in sides.items():
+            table = torch.arange(1, nb + 1, dtype=torch.int32,
+                                 device=dev)[None, :]
+            lora = {"ids": torch.tensor([slot], dtype=torch.int32,
+                                        device=dev),
+                    "slabs": store.slabs()}
+            if i == 0:
+                batch = {"tokens": torch.tensor([prompt], device=dev),
+                         "block_table": table, "start": 0,
+                         "prompt_len": chunk, "lora": lora,
+                         "lora_block_out": LORA_BLOCK_OUT}
+                _, lg = fns.prefill_chunk(p, cache, batch, m_used=nb)
+                logits[dev] = lg[0, chunk - 1]
+            else:
+                batch = {"token": torch.tensor([[forced]], device=dev),
+                         "block_tables": table,
+                         "seq_lens": torch.tensor([chunk + i - 1],
+                                                  dtype=torch.int32,
+                                                  device=dev),
+                         "lora": lora, "lora_block_out": LORA_BLOCK_OUT}
+                _, lg = fns.decode_paged(p, cache, batch)
+                logits[dev] = lg[0]
+        want = logits["cpu"]
+        gaps.append(rel_err(logits[DEV].cpu(), want)[1])
+        forced = int(want.argmax())
+    torch.cuda.synchronize()
+    n = read_counts()
+    per = len(sides[DEV][3].projs) * cfg.n_layers
+    assert n["lora_shrink"] == n["lora_expand"] == per * (steps + 1), n
+    tol = 1e-3
+    out.update(max_rel_gap=max(gaps), gaps=gaps, tol=tol,
+               lora_launches=n["lora_shrink"] + n["lora_expand"])
+    emit(out)
+    assert max(gaps) <= tol, f"lora oracle: rel gap {max(gaps)} > {tol}"
+    del sides, params
+    torch.cuda.empty_cache()
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -692,9 +1062,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels import lora as lora_mod
     from repro_torch.kernels import matmul as mm_mod
     from repro_torch.kernels import paged_attention as pa_mod
     from repro_torch.kernels import rmsnorm as rn_mod
+    from repro_torch.models import build_model
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
@@ -707,9 +1079,10 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.build("paged_attention", "matmul")
+    build.build("paged_attention", "matmul", "lora")
     pa_mod.load_kernel()
     mm_mod.load_kernel()
+    lora_mod.load_kernels()
     nvcc_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     x = torch.ones((16, 1024), device=DEV)
@@ -726,42 +1099,61 @@ def main() -> int:
     check_paged_attention(torch, results)
     check_rmsnorm(torch, results)
     check_matmul(torch, results)
+    check_lora(torch, results)
     for r in results:
         emit({"phase": "kernel", **r})
 
-    counters = [pa_mod, rn_mod, mm_mod]
     cfg = get_config("qwen3-0.6b")
     # 4. the compile pipeline at full width, kernels on the card
-    compile_launches = compile_phase(torch, cfg, counters)
-    # 5. serve, full width, bf16, and a profiled window of a second engine
-    launches = serve_phase(torch, cfg, counters, [pa_mod, rn_mod])
-    launches["matmul"] = compile_launches["matmul"]
+    compile_launches = compile_phase(torch, cfg)
+    # 5. serve, full width, bf16: the base workload, then the same workload
+    # spread over four tenants; identity runs; a profiled window
+    params = build_model(cfg, DEV).init(0)
+    launches, base = serve_phase(torch, cfg, params)
+    plan_identity(torch, cfg, params)
+    lora_launches = lora_serve_phase(torch, cfg, params, base)
+    lora_identity_phase(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
     profile_phase(torch, cfg)
-    # 6. oracle in f32 and bf16
+    # 6. oracles: dense in f32 and bf16, one tenant's request in f32
     oracle_phase(torch, dataclasses.replace(cfg, dtype="float32"))
     oracle_phase(torch, cfg)
+    lora_oracle_phase(torch, cfg)
 
-    sources = {"paged_attention": (
-        "cuda", "src/repro_torch/kernels/csrc/paged_attention.cu",
-        "src/repro/kernels/paged_attention.py:113", "paged_attention"),
+    # each kernel's launches on its main path: the serve workload for K1/K2,
+    # the compile phase for K4, the multi-LoRA workload for K5/K6
+    launches["matmul"] = compile_launches["matmul"]
+    launches["lora_shrink"] = lora_launches["lora_shrink"]
+    launches["lora_expand"] = lora_launches["lora_expand"]
+    sources = {
+        "paged_attention": (
+            "cuda", "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "src/repro/kernels/paged_attention.py:113"),
         "rmsnorm": ("triton", "src/repro_torch/kernels/_rmsnorm_triton.py",
-                    "src/repro/kernels/rmsnorm.py:19", "rmsnorm"),
+                    "src/repro/kernels/rmsnorm.py:19"),
         "matmul": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu",
-                   "src/repro/kernels/matmul.py:33", "matmul")}
+                   "src/repro/kernels/matmul.py:33"),
+        "lora_shrink": ("cuda", "src/repro_torch/kernels/csrc/lora.cu",
+                        "src/repro/kernels/lora.py:64"),
+        "lora_expand": ("cuda", "src/repro_torch/kernels/csrc/lora.cu",
+                        "src/repro/kernels/lora.py:98")}
     summary = []
     for r in results:
         if r["dtype"] != "bfloat16":
             continue
-        route, source, replaces, counter = sources[r["name"].split("/")[0]]
+        kernel = r["name"].split("/")[0]
+        route, source, replaces = sources[kernel]
         summary.append({
             "name": f"{r['name']} {r['shape']}", "route": route,
             "source": source, "replaces": replaces,
-            "launches": launches[counter],
+            "launches": launches[kernel],
             "max_abs_err": r["max_abs_err"],
             "row_rel_err": r["row_rel_err"], "ms": r["kernel_ms"],
             "host_ms": r["host_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    assert {k["source"] for k in summary} >= {v[1] for v in sources.values()}
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

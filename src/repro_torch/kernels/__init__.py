@@ -1,2 +1,3 @@
-"""The port's kernels: CUDA C++ paged attention and matrix product, and
-Triton rmsnorm, each beside its plain PyTorch version (``ref``)."""
+"""The port's kernels: CUDA C++ paged attention, matrix product and
+segmented LoRA shrink/expand, and Triton rmsnorm, each beside its plain
+PyTorch version (``ref``)."""

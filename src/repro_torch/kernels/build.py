@@ -18,14 +18,15 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_FNS: Dict[str, object] = {}
+# (source name, symbol) -> loaded C function: one source may export several
+_FNS: Dict[Tuple[str, str], object] = {}
 # name -> nvcc's output (ptxas register and spill counts) of this process's
 # build; absent when an earlier build was reused
 BUILD_LOG: Dict[str, str] = {}
@@ -87,12 +88,12 @@ def load(name: str, symbol: str, argtypes: list):
     """The C function ``symbol`` of ``csrc/<name>.cu``, built first if
     needed, returning ``int``.  Pass every pointer and the stream as
     ``c_void_p`` in ``argtypes``, so ctypes never truncates an address."""
-    fn = _FNS.get(name)
+    fn = _FNS.get((name, symbol))
     if fn is not None:
         return fn
     build(name)
     fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    _FNS[name] = fn
+    _FNS[(name, symbol)] = fn
     return fn

@@ -1,13 +1,14 @@
 """Model-facing wrappers of the port's kernels (mirrors
 ``src/repro/kernels/ops.py``): the GQA grouping of the paged-attention
 callers, the row flattening of rmsnorm and the matrix product that the
-compiler's codegen calls.  Each wrapper hands its tensors
-to a kernel wrapper, which launches the kernel for CUDA tensors and runs the
-plain version for CPU tensors."""
+compiler's codegen calls, and the segmented LoRA shrink and expand.  Each
+wrapper hands its tensors to a kernel wrapper, which launches the kernel for
+CUDA tensors and runs the plain version for CPU tensors."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.lora import lora_expand_kernel, lora_shrink_kernel
 from repro_torch.kernels.matmul import matmul_kernel
 from repro_torch.kernels.paged_attention import paged_attention_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm_kernel
@@ -63,3 +64,21 @@ def matmul(a, b):
     """(M,K) @ (K,N) -> (M,N) in a's dtype with an f32 accumulator; any
     shape (the TPU kernel's block sizes are not carried over)."""
     return matmul_kernel(a.contiguous(), b.contiguous())
+
+
+def lora_shrink(x, a_slab, idx):
+    """Segmented LoRA down-projection: each row of x (T,d) contracts against
+    its own adapter's A, selected from the slab (S,d,R) by idx (T,) (-1 =
+    base row, exact-zero output) -> (T,R) f32.  The gather happens inside
+    the kernel; no per-row (d,R) copy is made."""
+    return lora_shrink_kernel(x.contiguous(), a_slab.contiguous(),
+                              idx.to(torch.int32).contiguous())
+
+
+def lora_expand(h, b_slab, idx, block_out: int = 256):
+    """Segmented LoRA up-projection: h (T,R) f32 against the slab (S,R,O) by
+    per-row idx (T,) -> (T,O) in the slab's dtype.  ``block_out`` tiles the
+    output features (the plan's choice, ``codegen.lora_tiles``)."""
+    return lora_expand_kernel(h.contiguous(), b_slab.contiguous(),
+                              idx.to(torch.int32).contiguous(),
+                              block_out=block_out)

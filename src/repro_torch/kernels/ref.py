@@ -4,7 +4,7 @@ Each mirrors its oracle in ``src/repro/kernels/ref.py``: the CPU tests hold
 the port against JAX through them, ``chip_smoke.py`` holds each kernel
 against them on the card, and the kernel wrappers run them for tensors that
 lie on the CPU.  They are deliberately straightforward: gather the whole
-span and take an exact masked softmax in f32.
+span (or each row's whole adapter matrix) and compute in f32.
 """
 from __future__ import annotations
 
@@ -69,6 +69,26 @@ def paged_attention_chunk_ref(q: torch.Tensor, k_pages: torch.Tensor,
 def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (M,K) @ b (K,N) in f32, cast to a's dtype."""
     return (a.float() @ b.float()).to(a.dtype)
+
+
+def lora_shrink_ref(x: torch.Tensor, a_slab: torch.Tensor, idx: torch.Tensor
+                    ) -> torch.Tensor:
+    """x (T,d), a_slab (S,d,R), idx (T,) int32 (-1 = no adapter) -> (T,R)
+    f32.  Gathers each row's whole adapter matrix; rows with idx < 0 are
+    exact zeros."""
+    a = a_slab[idx.clamp_min(0).long()].float()                # (T, d, R)
+    h = torch.einsum("td,tdr->tr", x.float(), a)
+    return torch.where((idx >= 0)[:, None], h, 0.0)
+
+
+def lora_expand_ref(h: torch.Tensor, b_slab: torch.Tensor, idx: torch.Tensor,
+                    out_dtype=None) -> torch.Tensor:
+    """h (T,R) f32, b_slab (S,R,O), idx (T,) -> (T,O) in ``out_dtype``
+    (default h's), exact zeros where idx < 0."""
+    bm = b_slab[idx.clamp_min(0).long()].float()               # (T, R, O)
+    y = torch.einsum("tr,tro->to", h.float(), bm)
+    y = torch.where((idx >= 0)[:, None], y, 0.0)
+    return y.to(out_dtype or h.dtype)
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5

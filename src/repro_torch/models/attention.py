@@ -1,6 +1,8 @@
 """GQA attention (mirrors ``src/repro/models/attention.py``, single device):
 the plain prefill and decode paths the dense oracle uses, and the paged
-block-pool paths the serve engine uses.
+block-pool paths the serve engine uses.  The paged paths take an optional
+per-layer ``lora`` descriptor (``repro_torch.models.lora``) that adds each
+row's adapter delta to the q/k/v and output projections.
 
 The paged paths update the KV slabs **in place** (the JAX functions return
 new arrays); they still return the slabs so call sites read the same.  They
@@ -15,6 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lora as lora_mod
 from repro_torch.models.layers import apply_rope, rms_norm, truncated_normal
 from repro_torch.perf import perf
 
@@ -150,19 +153,22 @@ def attention_decode_block_paged(cfg: ModelConfig, p, x: torch.Tensor,
                                  k_pages: torch.Tensor, v_pages: torch.Tensor,
                                  block_tables: torch.Tensor,
                                  seq_lens: torch.Tensor,
-                                 pages_per_fetch: int = 1):
+                                 pages_per_fetch: int = 1,
+                                 lora: Optional[dict] = None):
     """One-token attention against a paged cache.  x (B,1,d); pages
     (N,bs,KV,hd) updated in place; block_tables (B,M); seq_lens (B,) KV
     entries already written per row (the new token lands at seq_lens[b]);
-    ``pages_per_fetch`` is the kernel plan's, handed to the kernel.
-    Returns (out, k_pages, v_pages)."""
+    ``pages_per_fetch`` is the kernel plan's, handed to the kernel; ``lora``
+    one layer's adapter descriptor or None.  Returns (out, k_pages,
+    v_pages)."""
     seq_lens = seq_lens.to(torch.int32)
-    q, k, v = qkv_project(cfg, p, x, seq_lens[:, None])
+    q, k, v = qkv_project(cfg, p, x, seq_lens[:, None], lora=lora)
     paged_scatter_token(k_pages, block_tables, seq_lens, k[:, 0])
     paged_scatter_token(v_pages, block_tables, seq_lens, v[:, 0])
     o = _paged_decode_attend(q, k_pages, v_pages, block_tables, seq_lens,
                              pages_per_fetch)
-    out = o.reshape(x.shape[0], 1, cfg.q_dim) @ p["wo"]
+    oh = o.reshape(x.shape[0], 1, cfg.q_dim)
+    out = lora_mod.add_delta("o", oh @ p["wo"], oh, lora)
     return out, k_pages, v_pages
 
 
@@ -172,13 +178,15 @@ def attention_prefill_chunk_block(cfg: ModelConfig, p, x: torch.Tensor,
                                   chunk_pos: torch.Tensor,
                                   prompt_len: torch.Tensor,
                                   m_used: Optional[int] = None,
-                                  pages_per_fetch: int = 1):
+                                  pages_per_fetch: int = 1,
+                                  lora: Optional[dict] = None):
     """One prompt chunk's attention against the paged cache (batch of 1).
     x (1,C,d); block_table (1,M); chunk_pos (C,) absolute positions;
     positions >= prompt_len are padding whose KV goes to the null block.
-    ``m_used`` bounds the attended span to the table's first blocks.  Pages
-    are updated in place.  Returns (out, k_pages, v_pages)."""
-    q, k, v = qkv_project(cfg, p, x, chunk_pos[None, :])
+    ``m_used`` bounds the attended span to the table's first blocks; ``lora``
+    is one layer's adapter descriptor or None.  Pages are updated in place.
+    Returns (out, k_pages, v_pages)."""
+    q, k, v = qkv_project(cfg, p, x, chunk_pos[None, :], lora=lora)
     bs = k_pages.shape[1]
     if m_used is not None:
         block_table = block_table[:, :min(m_used, block_table.shape[1])]
@@ -192,7 +200,8 @@ def attention_prefill_chunk_block(cfg: ModelConfig, p, x: torch.Tensor,
     v_pages[blk, off] = v[0].to(v_pages.dtype)
     o = _paged_prefill_attend(cfg, q, k_pages, v_pages, block_table,
                               chunk_pos, pages_per_fetch)
-    out = o.reshape(1, x.shape[1], cfg.q_dim) @ p["wo"]
+    oh = o.reshape(1, x.shape[1], cfg.q_dim)
+    out = lora_mod.add_delta("o", oh @ p["wo"], oh, lora)
     return out, k_pages, v_pages
 
 
@@ -234,13 +243,18 @@ def init_attention(cfg: ModelConfig, gen, dtype, device):
 
 
 def qkv_project(cfg: ModelConfig, p, x: torch.Tensor,
-                positions: torch.Tensor):
-    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd) with qk-norm and RoPE."""
+                positions: torch.Tensor, lora: Optional[dict] = None):
+    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd) with qk-norm and RoPE.
+    ``lora`` (serve only) adds each row's adapter delta to the q/k/v
+    projections before reshape, qk-norm and RoPE; None runs none of it."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = lora_mod.add_delta("q", x @ p["wq"], x, lora) \
+        .reshape(b, s, cfg.n_heads, hd)
+    k = lora_mod.add_delta("k", x @ p["wk"], x, lora) \
+        .reshape(b, s, cfg.n_kv_heads, hd)
+    v = lora_mod.add_delta("v", x @ p["wv"], x, lora) \
+        .reshape(b, s, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)

@@ -2,18 +2,21 @@
 RoPE, MLPs, embeddings and the init helpers.
 
 Functions are plain PyTorch on tensors; params are plain dicts of tensors.
-Initializers draw from an explicit ``torch.Generator``.  M-RoPE and LoRA
-deltas are not in this slice (see ROADMAP.md).
+Initializers draw from an explicit ``torch.Generator``.  M-RoPE is not in
+this slice (see ROADMAP.md).  ``apply_mlp`` takes an optional per-layer LoRA
+descriptor (``repro_torch.models.lora``).
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models.lora import add_delta
 from repro_torch.perf import require_norm_f32
 
 
@@ -68,13 +71,16 @@ def init_mlp(cfg: ModelConfig, gen, d_ff: int, dtype, device):
     return {"wi": tn((d, d_ff), s_in), "wo": tn((d_ff, d), s_out)}
 
 
-def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor,
+              lora: Optional[dict] = None) -> torch.Tensor:
+    """The dense FFN; ``lora`` (serve only) adds each row's adapter delta to
+    the gate/up (or wi) and down projections."""
     if cfg.act == "swiglu":
-        g = x @ p["wi_gate"]
-        u = x @ p["wi_up"]
+        g = add_delta("gate", x @ p["wi_gate"], x, lora)
+        u = add_delta("up", x @ p["wi_up"], x, lora)
         h = F.silu(g.float()).to(x.dtype) * u
     else:
-        h = x @ p["wi"]
+        h = add_delta("wi", x @ p["wi"], x, lora)
         if cfg.act == "squared_relu":
             h = torch.square(F.relu(h.float())).to(x.dtype)
         elif cfg.act == "gelu":
@@ -82,7 +88,7 @@ def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
             h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
         else:
             raise ValueError(f"unknown activation {cfg.act!r}")
-    return h @ p["wo"]
+    return add_delta("down", h @ p["wo"], h, lora)
 
 
 def init_embed(cfg: ModelConfig, gen, dtype, device):

@@ -7,6 +7,11 @@ loop.  Caches keep the JAX layouts so they cross the bridge unchanged: the
 dense cache is ``(L, B, Smax, KV, hd)`` and the paged cache
 ``(L, N, bs, KV, hd)``, both slot-major (layer ``l`` of the forward pass
 uses cache row ``l`` for dense archs).  Every cache update is in place.
+
+Multi-LoRA: the paged functions read ``batch.get("lora")`` (the engine's
+adapter descriptor, ``repro_torch.models.lora``) and
+``batch.get("lora_block_out")``; when the descriptor is absent no LoRA code
+runs at all.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import lora as lora_mod
 from repro_torch.models.layers import (
     apply_mlp, embed_tokens, init_embed, init_mlp, logits_from_hidden,
     rms_norm,
@@ -52,11 +58,14 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
     }
 
 
-def _block(cfg: ModelConfig, lp, x: torch.Tensor, attend) -> torch.Tensor:
+def _block(cfg: ModelConfig, lp, x: torch.Tensor, attend,
+           lora: Optional[Dict] = None) -> torch.Tensor:
     """One pre-norm layer: ``attend`` maps the normed input to the
-    attention output (it owns the cache update)."""
+    attention output (it owns the cache update); ``lora`` is the layer's
+    adapter descriptor for the MLP, or None."""
     h = x + attend(rms_norm(x, lp["ln1"], cfg.norm_eps))
-    return h + apply_mlp(cfg, lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps))
+    return h + apply_mlp(cfg, lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
+                         lora=lora)
 
 
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -167,20 +176,26 @@ def paged_block_write(cache: Dict, idx, data: Dict) -> Dict:
 def lm_decode_step_paged(cfg: ModelConfig, params, cache: Dict, batch: Dict):
     """One decode step over a paged cache.  batch {"token" (B,1),
     "block_tables" (B,M) int32, "seq_lens" (B,) int32, optionally
-    "pages_per_fetch" (the kernel plan's, default 1)}: every row sits at its
-    own position.  Returns (cache, logits (B,V)); the cache is updated in
+    "pages_per_fetch" (the kernel plan's, default 1), "lora" (per-row
+    adapter slots, -1 for base rows, and the slabs) and "lora_block_out"
+    (the plan's expand tile, default 256)}: every row sits at its own
+    position.  Returns (cache, logits (B,V)); the cache is updated in
     place."""
     seq_lens = batch["seq_lens"].to(torch.int32)
     ppf = int(batch.get("pages_per_fetch", 1))
     tables = batch["block_tables"].to(torch.int32)
+    lora = batch.get("lora")
+    block_out = int(batch.get("lora_block_out", 256))
     x = embed_tokens(params["embed"], batch["token"])
     for i, lp in enumerate(params["layers"]):
-        def attend(xn, lp=lp, i=i):
+        ll = lora_mod.layer_slice(lora, i, block_out)
+
+        def attend(xn, lp=lp, i=i, ll=ll):
             o, _, _ = attn.attention_decode_block_paged(
                 cfg, lp["attn"], xn, cache["k"][i], cache["v"][i], tables,
-                seq_lens, pages_per_fetch=ppf)
+                seq_lens, pages_per_fetch=ppf, lora=ll)
             return o
-        x = _block(cfg, lp, x, attend)
+        x = _block(cfg, lp, x, attend, lora=ll)
     return cache, _head(cfg, params, x)[:, 0, :]
 
 
@@ -190,10 +205,11 @@ def lm_prefill_chunk(cfg: ModelConfig, params, cache: Dict, batch: Dict,
 
     batch {"tokens" (1,C) (null-padded past the prompt), "block_table"
     (1,M), "start" — absolute position of the chunk's first token,
-    "prompt_len" — the chunk's write limit, optionally "pages_per_fetch"}.
-    ``m_used`` restricts attention
-    to the table's first blocks.  Returns (cache, logits (1,C,V)); the cache
-    is updated in place."""
+    "prompt_len" — the chunk's write limit, optionally "pages_per_fetch",
+    "lora" (a one-element ids row, broadcast over the chunk) and
+    "lora_block_out"}.  ``m_used`` restricts attention to the table's first
+    blocks.  Returns (cache, logits (1,C,V)); the cache is updated in
+    place."""
     start = int(batch["start"])
     table = batch["block_table"].to(torch.int32)
     tokens = batch["tokens"]
@@ -202,12 +218,17 @@ def lm_prefill_chunk(cfg: ModelConfig, params, cache: Dict, batch: Dict,
                              device=tokens.device)
     prompt_len = int(batch["prompt_len"])
     ppf = int(batch.get("pages_per_fetch", 1))
+    lora = batch.get("lora")
+    block_out = int(batch.get("lora_block_out", 256))
     x = embed_tokens(params["embed"], tokens)
     for i, lp in enumerate(params["layers"]):
-        def attend(xn, lp=lp, i=i):
+        ll = lora_mod.layer_slice(lora, i, block_out)
+
+        def attend(xn, lp=lp, i=i, ll=ll):
             o, _, _ = attn.attention_prefill_chunk_block(
                 cfg, lp["attn"], xn, cache["k"][i], cache["v"][i], table,
-                chunk_pos, prompt_len, m_used=m_used, pages_per_fetch=ppf)
+                chunk_pos, prompt_len, m_used=m_used, pages_per_fetch=ppf,
+                lora=ll)
             return o
-        x = _block(cfg, lp, x, attend)
+        x = _block(cfg, lp, x, attend, lora=ll)
     return cache, _head(cfg, params, x)

@@ -18,6 +18,19 @@
       the serve engine (same meaning as in ``src/repro/perf.py``)
   REPRO_FAULT, REPRO_FAULT_SEED
       fault-injection spec and seed (``repro_torch.serve.faults``)
+  REPRO_LORA_MAX_ADAPTERS  int (8)
+      device-slot capacity of the serve engine's AdapterStore: at most this
+      many LoRA adapters resident in the device slab at once.  Loading past
+      the cap LRU-evicts an idle (refcount-0, unpinned) adapter to the host
+      tier; if every slot is busy the load fails and the request is
+      rejected rather than silently degrading a live tenant.
+  REPRO_LORA_RANK      int (8)
+      rank of adapters synthesized from their name (any declared tenant is
+      servable without a checkpoint).  Explicitly supplied weights keep
+      their own rank.
+  REPRO_LORA_ALPHA     float (16)
+      LoRA alpha of synthesized adapters; the alpha/rank scale is folded
+      into the B slab at load time so the kernels stay scale-free.
 
 ``REPRO_NORM_F32=0`` (rms_norm in the activation dtype) is not ported: the
 port's rms_norm always reduces in f32, and setting the knob raises.
@@ -38,6 +51,9 @@ class PerfConfig:
     serve_max_crashes: int = 3
     fault_spec: str = ""
     fault_seed: int = 0
+    lora_max_adapters: int = 8
+    lora_rank: int = 8
+    lora_alpha: float = 16.0
 
 
 def require_norm_f32() -> None:
@@ -63,5 +79,9 @@ def perf() -> PerfConfig:
         serve_max_crashes=int(os.environ.get("REPRO_SERVE_MAX_CRASHES", "3")),
         fault_spec=os.environ.get("REPRO_FAULT", ""),
         fault_seed=int(os.environ.get("REPRO_FAULT_SEED", "0")),
+        lora_max_adapters=int(
+            os.environ.get("REPRO_LORA_MAX_ADAPTERS", "8")),
+        lora_rank=int(os.environ.get("REPRO_LORA_RANK", "8")),
+        lora_alpha=float(os.environ.get("REPRO_LORA_ALPHA", "16")),
     )
 

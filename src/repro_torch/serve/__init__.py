@@ -1,2 +1,2 @@
-"""Paged serving stack of the port: block pool, tiered KV store, faults and
-the continuous-batching engine."""
+"""Paged serving stack of the port: block pool, tiered KV store, multi-LoRA
+adapter store, faults and the continuous-batching engine."""

@@ -28,17 +28,26 @@ and preempts the youngest request when the pool runs dry.
 Per-request sampling: greedy, temperature, top-k — Gumbel-max draws keyed on
 (request seed, token index), stateless and host-side.
 
+Multi-LoRA: requests name a tenant in ``adapter_id``.  Tenants share the
+base weights and the KV pool; their low-rank deltas live in one device slab
+(``repro_torch.serve.adapters.AdapterStore``, loaded with
+``load_adapter``), and every dispatch with an adapter row carries a
+``lora`` descriptor through which the segmented LoRA kernels apply each
+row's own delta.  Prefixes are registered per tenant namespace, and a
+dispatch without adapter rows runs no LoRA code at all.
+
 Kernel planning (``plan_kernels=True``, the default) compiles the paged
 decode and prefill-chunk attention terms through ``repro_torch.pipeline`` on
 the engine's hardware record, as the reference engine does; the plan's kv
-tile becomes the paged-attention kernel's ``pages_per_fetch``.
+tile becomes the paged-attention kernel's ``pages_per_fetch`` and its LoRA
+tile the expand kernel's ``block_out``.
 
 The model functions run eagerly and update the KV slab in place.  Paged
 attention launches the CUDA kernel for CUDA tensors and takes the gather
 path for CPU tensors (REPRO_PAGED_ATTN).  Not in this slice: multi-device
-pools and tensor parallelism (``mesh=``/``tp=``), multi-LoRA requests, the
-SSM/hybrid state slab, and ``cancel`` with the gateway's shed accounting
-(the async engine and gateway slice) — see ROADMAP.md.
+pools and tensor parallelism (``mesh=``/``tp=``), the SSM/hybrid state
+slab, and ``cancel`` with the gateway's shed accounting and ``base:adapter``
+routing (the async engine and gateway slice) — see ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -52,13 +61,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.codegen import paged_pages_per_fetch
+from repro_torch.core.codegen import lora_tiles, paged_pages_per_fetch
 from repro_torch.core.hardware import H100, Hardware
 from repro_torch.core.tensor_ir import inp, matmul, unary
 from repro_torch.models import build_model
 from repro_torch.perf import perf
 from repro_torch.pipeline import (CompileOptions, CompileTarget, Compiler,
                                   default_compiler)
+from repro_torch.serve.adapters import AdapterStore, AdapterStoreFull
 from repro_torch.serve.faults import (FaultInjector, InjectedFault,
                                       check_kv_invariants)
 from repro_torch.serve.kv_store import (DEVICE, HOST, Block, BlockTable,
@@ -87,8 +97,8 @@ class Request:
     prompt: List[int]
     max_new: int = 16
     sampling: SamplingParams = GREEDY
-    # multi-LoRA tenant; not ported yet — a request that names an adapter
-    # is refused at submit
+    # multi-LoRA tenant (None = base model); must be loaded (or evicted to
+    # the host tier) on the engine, see ServeEngine.load_adapter
     adapter_id: Optional[str] = None
     out: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
@@ -108,6 +118,10 @@ class Request:
     t_submit: float = 0.0
     t_first: float = 0.0
     t_done: float = 0.0
+    # engine-owned adapter bookkeeping: the device slot this request's rows
+    # use (-1 = base) and whether it still holds a ref on the store
+    _adapter_slot: int = -1
+    _adapter_held: bool = False
     # streaming hooks, run inside the step loop: on_token(token_id, index)
     # the moment a token is sampled; on_finish(request) exactly once, after
     # the terminal flag is set and the request's blocks are back in the pool
@@ -249,13 +263,23 @@ class ServeEngine:
             self.compile_reports = {"decode": dec.report, "prefill": pre.report}
             self.compile_report = dec.report
             self.kernel_plan = dec.report.kernel_plan
+        # multi-LoRA adapter store: per-tenant low-rank deltas in a
+        # refcounted two-tier slab (device + host write-through).  Zero
+        # device bytes until the first load.  In-flight requests hold a
+        # ref, so a live tenant is never evicted under its own decode.
+        self.adapters = AdapterStore(cfg, device=self.device)
+
         # the compiler's kv tile for the *decode* shape sets how many pages
         # the paged-attention kernel fetches at a time, on both the decode
-        # and the prefill-chunk path
+        # and the prefill-chunk path; the same plan sets the LoRA expand
+        # kernel's output tile
         self.pages_per_fetch = 1
+        self.lora_block_out = 256
         if self.kernel_plan is not None:
             self.pages_per_fetch = paged_pages_per_fetch(
                 self.kernel_plan, block_size, self.max_blocks_per_seq)
+            self.lora_block_out, _ = lora_tiles(
+                self.kernel_plan, cfg.d_model, self.adapters.rank_cap)
 
         # tiered KV store: device slab + pinned host swap tier + prefix registry
         self.swap_enabled = perf().kv_swap and (host_blocks is None
@@ -311,6 +335,9 @@ class ServeEngine:
         self._decode_tokens = 0
         self._preemptions = 0
         self._re_prefill_avoided = 0
+        # per-tenant delivery tallies (key: adapter_id, "base" for None)
+        self._tenant_tokens: Dict[str, int] = {}
+        self._tenant_finished: Dict[str, int] = {}
 
     @property
     def cache(self):
@@ -323,6 +350,38 @@ class ServeEngine:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    # -- multi-LoRA adapters -----------------------------------------------
+    def load_adapter(self, name: str, weights=None,
+                     rank: Optional[int] = None,
+                     alpha: Optional[float] = None) -> int:
+        """Make tenant ``name``'s adapter device-resident (synthesizing
+        deterministic factors from the name when ``weights`` is None) and
+        return its slot."""
+        return self.adapters.load(name, weights=weights, rank=rank,
+                                  alpha=alpha)
+
+    def _release_adapter(self, req: Request) -> None:
+        """Drop ``req``'s adapter ref exactly once, whichever terminal path
+        runs first (retire / reject / expire / quarantine)."""
+        if req._adapter_held:
+            req._adapter_held = False
+            self.adapters.release(req.adapter_id)
+
+    def _tenant_count(self, req: Request, n: int = 1) -> None:
+        t = req.adapter_id or "base"
+        self._tenant_tokens[t] = self._tenant_tokens.get(t, 0) + n
+
+    def _lora_descriptor(self, ids: np.ndarray) -> Optional[dict]:
+        """``batch["lora"]`` for one dispatch (``ids``: adapter slot per
+        row, -1 = base), or None when no row uses an adapter.  The None
+        keeps every LoRA op out of the dispatch: that absence is the
+        ``adapter_id=None`` bitwise-identity contract."""
+        if not (ids >= 0).any():
+            return None
+        slabs = self.adapters.slabs()
+        assert slabs is not None, "row holds an adapter slot but no slab"
+        return {"ids": self._to_device(ids), "slabs": slabs}
+
     # -- request lifecycle -----------------------------------------------
     def submit(self, req: Request) -> None:
         """Enqueue ``req`` (FIFO); admission control runs inside ``step``.
@@ -330,10 +389,6 @@ class ServeEngine:
         stamped here and enforced by the step loop's reaper."""
         req.t_submit = time.monotonic()
         self._submitted += 1
-        if req.adapter_id is not None:
-            raise NotImplementedError(
-                "multi-LoRA requests are not served by repro_torch yet "
-                "(ROADMAP A7)")
         if self.max_queue and len(self.queue) >= self.max_queue:
             req.shed = True
             req.done = True
@@ -342,6 +397,19 @@ class ServeEngine:
             if req.on_finish is not None:
                 req.on_finish(req)
             return
+        if req.adapter_id is not None:
+            if not self.adapters.known(req.adapter_id):
+                self._reject(req, f"unknown adapter {req.adapter_id!r}")
+                return
+            try:
+                if not self.adapters.is_loaded(req.adapter_id):
+                    # evicted to the host tier; a slab write brings it back
+                    self.adapters.load(req.adapter_id)
+                req._adapter_slot = self.adapters.acquire(req.adapter_id)
+            except AdapterStoreFull as e:
+                self._reject(req, f"adapter store full: {e}")
+                return
+            req._adapter_held = True
         dl = req.deadline_ms if req.deadline_ms is not None \
             else self.default_deadline_ms
         if dl and dl > 0:
@@ -349,6 +417,7 @@ class ServeEngine:
         self.queue.append(req)
 
     def _reject(self, req: Request, reason: str) -> None:
+        self._release_adapter(req)
         req.rejected = True
         req.done = True
         req.reject_reason = reason
@@ -566,12 +635,16 @@ class ServeEngine:
             # counters report *delivered* work: back out discarded tokens
             self._prefill_tokens -= victim.next_prefill
             self._decode_tokens -= max(len(req.out) - 1, 0)
+            self._tenant_count(req, -len(req.out))  # the replay re-emits them
             req.out.clear()
         self.queue.insert(0, req)
         self.slots[self.slots.index(victim)] = None
         self._preemptions += 1
 
     def _retire(self, a: _Active, now: Optional[float] = None) -> None:
+        self._release_adapter(a.req)
+        t = a.req.adapter_id or "base"
+        self._tenant_finished[t] = self._tenant_finished.get(t, 0) + 1
         a.req.done = True
         a.req.t_done = time.monotonic() if now is None else now
         a.table.release_to(self.store)
@@ -604,7 +677,15 @@ class ServeEngine:
         a.reserved_left = 0
         self.slots[self.slots.index(a)] = None
 
+    def _drop_parked(self, rid: int) -> None:
+        """Free the KV blocks a preempted request parked, if any."""
+        parked = self._parked.pop(rid, None)
+        if parked is not None:
+            for b in parked.blocks:
+                self.store.decref(b)
+
     def _finish_expired(self, req: Request) -> None:
+        self._release_adapter(req)
         req.expired = True
         req.done = True
         req.t_done = time.monotonic()
@@ -615,6 +696,7 @@ class ServeEngine:
     def _fail_request(self, req: Request, msg: str) -> None:
         """Terminal error state (quarantine outcome); a raising on_finish
         hook must not re-crash the recovery path."""
+        self._release_adapter(req)
         req.errored = True
         req.error = msg
         req.done = True
@@ -658,10 +740,8 @@ class ServeEngine:
                 self._release_active(a)
                 self._fail_request(a.req, msg)
                 return True
-        parked = self._parked.pop(rid, None)
-        if parked is not None:
-            for b in parked.blocks:
-                self.store.decref(b)
+        if rid in self._parked:
+            self._drop_parked(rid)
             return True
         return False
 
@@ -749,7 +829,11 @@ class ServeEngine:
         prompt position must run to produce the first token's logits)."""
         req = a.req
         plen, bs = len(req.prompt), self.block_size
-        n, blocks = self.store.match_prefix(req.prompt)
+        # prefixes are namespaced by tenant: one prompt under two adapters
+        # has two different KVs, and a cross-tenant hit would serve one
+        # tenant's activations to another
+        n, blocks = self.store.match_prefix(req.prompt,
+                                            namespace=req.adapter_id)
         n = min(n, plen - 1)
         if n <= 0:
             return
@@ -792,7 +876,12 @@ class ServeEngine:
             "start": start,
             "prompt_len": end,
             "pages_per_fetch": self.pages_per_fetch,
+            "lora_block_out": self.lora_block_out,
         }
+        lora = self._lora_descriptor(
+            np.asarray([a.req._adapter_slot], np.int32))
+        if lora is not None:
+            batch["lora"] = lora
         m_used = min(blocks_for_tokens(end, self.block_size),
                      self.max_blocks_per_seq)
         if self.faults is not None:
@@ -805,11 +894,13 @@ class ServeEngine:
             a.pos = plen
             self.store.register_prefix(
                 req.prompt,
-                a.table.blocks[:blocks_for_tokens(plen, self.block_size)])
+                a.table.blocks[:blocks_for_tokens(plen, self.block_size)],
+                namespace=req.adapter_id)
             # one logit row to the host, not the whole (1, C, V) chunk
             row = logits[0, plen - 1 - start].float().cpu().numpy()
             first = self._sample(row, req.sampling, 0)
             req.out.append(first)
+            self._tenant_count(req)
             req.t_first = time.monotonic()
             if req.on_token is not None:
                 req.on_token(first, 0)
@@ -834,6 +925,7 @@ class ServeEngine:
         tok = np.zeros((self.max_batch, 1), np.int32)
         tables = np.zeros((self.max_batch, m), np.int32)
         lens = np.zeros((self.max_batch,), np.int32)
+        adapter_ids = np.full((self.max_batch,), -1, np.int32)
         rows = []
         for a in live:
             i = self.slots.index(a)
@@ -841,10 +933,15 @@ class ServeEngine:
             tok[i, 0] = a.req.out[-1]
             tables[i] = a.table.padded(m)
             lens[i] = a.pos
+            adapter_ids[i] = a.req._adapter_slot
         batch = {"token": self._to_device(tok),
                  "block_tables": self._to_device(tables),
                  "seq_lens": self._to_device(lens),
-                 "pages_per_fetch": self.pages_per_fetch}
+                 "pages_per_fetch": self.pages_per_fetch,
+                 "lora_block_out": self.lora_block_out}
+        lora = self._lora_descriptor(adapter_ids)
+        if lora is not None:
+            batch["lora"] = lora
         if self.faults is not None:
             self.faults.check("step")
         self.cache, logits = self.fns.decode_paged(self.params, self.cache,
@@ -859,6 +956,7 @@ class ServeEngine:
                 req.out.append(nxt)
                 a.pos += 1
                 self._decode_tokens += 1
+                self._tenant_count(req)
                 if req.on_token is not None:
                     req.on_token(nxt, len(req.out) - 1)
                 if len(req.out) >= req.max_new or a.pos >= self.max_len:
@@ -904,6 +1002,8 @@ class ServeEngine:
         self._decode_tokens = 0
         self._preemptions = 0
         self._re_prefill_avoided = 0
+        self._tenant_tokens = {}
+        self._tenant_finished = {}
         self.store.reset_counters()
         self.finished = []
         self.rejected = []
@@ -924,6 +1024,8 @@ class ServeEngine:
         ttfts = [r.t_first - r.t_submit for r in fin if r.t_first > 0]
         itl_num = sum(r.t_done - r.t_first for r in fin if len(r.out) > 1)
         itl_den = sum(len(r.out) - 1 for r in fin if len(r.out) > 1)
+        am = self.adapters.metrics()
+        tenants = sorted(set(self._tenant_tokens) | set(self._tenant_finished))
         return ServeMetrics(
             wall_s=wall,
             requests_submitted=self._submitted,
@@ -956,6 +1058,16 @@ class ServeEngine:
             degraded=self.degraded,
             param_bytes_per_device=self.param_bytes_per_device,
             param_bytes_replicated=self.param_bytes_replicated,
+            adapters_loaded=am["adapters_loaded"],
+            adapter_loads=am["adapter_loads"],
+            adapter_evictions=am["adapter_evictions"],
+            adapter_host_reloads=am["adapter_host_reloads"],
+            adapter_device_bytes=am["adapter_device_bytes"],
+            adapter_host_bytes=am["adapter_host_bytes"],
+            per_tenant={
+                t: {"tokens": self._tenant_tokens.get(t, 0),
+                    "requests_finished": self._tenant_finished.get(t, 0)}
+                for t in tenants},
         )
 
 

@@ -216,7 +216,7 @@ def test_launch_hygiene_in_the_sources():
     on a non-zero one, and no ``except`` in the kernels package or in
     chip_smoke.py can fall back to a plain version."""
     assert "sm_90a" in (KERNELS / "build.py").read_text()
-    for name in ("paged_attention", "matmul"):
+    for name in ("paged_attention", "matmul", "lora"):
         cu = (KERNELS / "csrc" / f"{name}.cu").read_text()
         assert "return cudaGetLastError();" in cu
         wrapper = ast.parse((KERNELS / f"{name}.py").read_text())
@@ -232,6 +232,33 @@ def test_launch_hygiene_in_the_sources():
                     if isinstance(n, ast.ExceptHandler)]
         assert not handlers, f"{f.name}: except clause at line " \
                              f"{handlers[0].lineno}"
+
+
+def test_build_load_keeps_one_function_per_symbol(monkeypatch):
+    """One source that exports two entry points (``csrc/lora.cu``: shrink
+    and expand) hands out each under its own symbol, each with its own
+    ``argtypes``, and a second call of either returns the cached one."""
+    import ctypes
+    from repro_torch.kernels import build
+
+    class Fn:
+        pass
+
+    class FakeLib:
+        def __init__(self, path):
+            self.repro_lora_shrink = Fn()
+            self.repro_lora_expand = Fn()
+
+    monkeypatch.setattr(build, "_FNS", {})
+    monkeypatch.setattr(build, "build", lambda *names: None)
+    monkeypatch.setattr(build.ctypes, "CDLL", FakeLib)
+    shrink = build.load("lora", "repro_lora_shrink", [ctypes.c_int])
+    expand = build.load("lora", "repro_lora_expand", [ctypes.c_void_p])
+    assert shrink is not expand
+    assert shrink.argtypes == [ctypes.c_int]
+    assert expand.argtypes == [ctypes.c_void_p]
+    assert build.load("lora", "repro_lora_shrink", []) is shrink
+    assert build.load("lora", "repro_lora_expand", []) is expand
 
 
 def test_kernel_modules_import_without_triton_or_nvcc():

@@ -252,8 +252,9 @@ def test_prefix_sharing_prefills_shared_prefix_once(setup):
 
 def test_step_guarded_quarantines_and_adapters_are_refused(setup):
     """An injected step fault fails one request and leaves the pool
-    consistent; LoRA requests are out of this slice, and kernel planning is
-    on by default."""
+    consistent; a request for a loaded adapter is accepted and served, one
+    for an unknown adapter is refused at submit; kernel planning is on by
+    default and sets the LoRA expand tile."""
     from repro_torch.serve.faults import FaultInjector
     _, cfg, _, params = setup
     eng = ServeEngine(cfg, params, max_batch=2, max_len=32, block_size=4,
@@ -265,10 +266,21 @@ def test_step_guarded_quarantines_and_adapters_are_refused(setup):
         assert eng.check_invariants() == []
     assert sorted(r.finish_reason for r in reqs) == ["error", "length"]
     assert eng.invariant_violations == []
-    with pytest.raises(NotImplementedError):
-        eng.submit(Request(rid=9, prompt=[1, 2], adapter_id="tenant-a"))
+    eng.load_adapter("tenant-a")
+    tenant = Request(rid=9, prompt=[1, 2], max_new=3, adapter_id="tenant-a")
+    unknown = Request(rid=10, prompt=[1, 2], adapter_id="tenant-b")
+    eng.submit(tenant)
+    eng.submit(unknown)
+    assert not tenant.rejected and eng.adapters.refcount("tenant-a") == 1
+    assert unknown.rejected and "unknown adapter" in unknown.reject_reason
+    while eng.step_guarded():
+        assert eng.check_invariants() == []
+    assert tenant.finish_reason == "length" and len(tenant.out) == 3
+    assert eng.adapters.refcount("tenant-a") == 0
     assert set(eng.compile_reports) == {"decode", "prefill"}
     assert eng.kernel_plan is not None and eng.pages_per_fetch >= 1
+    assert eng.lora_block_out == min(eng.kernel_plan.lora_block_out,
+                                     cfg.d_model)
 
 
 def test_serve_cli_on_cpu_and_refusals(monkeypatch, capsys):
