@@ -7,9 +7,11 @@ Phases, each printing JSON objects one per line:
 
 1. card     — nvidia-smi's name and power limit, torch and CUDA versions.
 2. build    — nvcc builds the CUDA kernels (paged attention, matmul, LoRA
-              shrink and expand) from the repo's sources for sm_90a, one nvcc
-              process per source, all started together, and prints ptxas's
-              register and spill lines; Triton compiles the rmsnorm kernel.
+              shrink and expand, selective scan) from the repo's sources for
+              sm_90a, one nvcc process per source, all started together, and
+              prints ptxas's register and spill lines; Triton compiles the
+              rmsnorm kernel (its registers and spills are printed per width
+              in the kernel lines).
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the shapes its path gives it (f32 and bf16), row by row
               (``ref.row_rel_err``), and planted faults that the same gate
@@ -19,12 +21,25 @@ Phases, each printing JSON objects one per line:
               (a yardstick the port never calls), the kernel wrapper's
               host-inclusive time, and the least time the card could take
               (bytes moved over 3.35 TB/s or operations over the type's peak
-              rate).  The LoRA kernels run at the serve path's shapes (T = 8
+              rate).  Paged attention runs at both head layouts that serve
+              (qwen3-0.6b: 16 heads over 8 KV heads, head_dim 128; zamba2's
+              shared block: 32 heads over 32, head_dim 80), through the
+              model-facing ``ops`` entries.  The LoRA kernels run at the
+              serve path's shapes (T = 8
               decode rows and a 256-row prefill chunk, every projection's
               widths, rank 16, 8 slots, block_out 128) under four slot mixes;
               base rows must be exact zeros and the expand output bitwise the
               same for block_out 33, 128 and 256; their yardstick is
               ``torch.bmm`` over per-row factors gathered before the call.
+              The selective scan (K7) runs at the ssm path's shapes (a
+              decode step of 8 rows, a 256-step prefill chunk, a 300-step
+              prefill, d_inner 8,192, state 16, f32): y and h_last row by
+              row, one launch bitwise equal to the engine's split into
+              chunks of 256 (state carried, identity-padded tail), and three
+              planted faults (h0 ignored, the last step dropped, one tile of
+              d unwritten); it has no library call.  rmsnorm also runs at
+              the ssm and hybrid widths (4,096, 2,560 and the gated norm's
+              5,120) at decode and prefill-chunk rows.
 4. compile  — ``repro_torch.pipeline.compile()`` with the H100 record on the
               serve engine's full-width decode attention term, a full-width
               qwen3-0.6b SwiGLU MLP term (not vectorized, so its products stay
@@ -59,8 +74,25 @@ Phases, each printing JSON objects one per line:
               steps, full width, 2 layers, f32) through the paged path with
               the kernels on the card against the same path with the plain
               versions on the CPU.
+7. ssm_serve, hybrid_serve — the serve workload through full-width
+              falcon-mamba-7b and zamba2-2.7b in bf16 (random weights from
+              seed 0): every request finishes, the invariants hold after
+              every step, the state slab is empty at the end, the
+              attention-free engine allocates no KV block, and each dispatch
+              launches K7 once per Mamba1 layer (64, ssm) or never (hybrid)
+              and K1 once per shared-block call site (9, hybrid) or never
+              (ssm).  ssm_swap_resume: a greedy request preempted by swap
+              resumes from the slab's host tier with the unpreempted run's
+              tokens.  ssm_profile, hybrid_profile: a profiled window each.
+8. ssm_oracle, hybrid_oracle — one request (a 256-token prompt chunk and 8
+              decode steps, full width, f32; 2 Mamba1 layers, or 2 hybrid
+              segments) through the paged path with the kernels on the card
+              against the same path with the plain versions on the CPU;
+              then the same tokens through the dense path (plain attention,
+              no K1) on the card against the CPU.
 
-Then a ``{"kernels": [...]}`` summary line, nvidia-smi's line, and, last,
+Then a ``{"kernels": [...]}`` summary line (each row's launches from the
+main path that gives its shape, named in its ``path``), nvidia-smi's line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
 non-zero before that line.  Without a CUDA device, or without the repo's
 ``src/`` beside it, the script exits non-zero and prints no result.
@@ -173,12 +205,14 @@ def bound(nbytes: float, ops: float, dtype: str) -> tuple:
 
 def counters() -> dict:
     """Each kernel's launch counter: name -> (wrapper module, attribute)."""
-    from repro_torch.kernels import lora, matmul, paged_attention, rmsnorm
+    from repro_torch.kernels import (lora, matmul, paged_attention, rmsnorm,
+                                     ssm_scan)
     return {"paged_attention": (paged_attention, "launches"),
             "rmsnorm": (rmsnorm, "launches"),
             "matmul": (matmul, "launches"),
             "lora_shrink": (lora, "shrink_launches"),
-            "lora_expand": (lora, "expand_launches")}
+            "lora_expand": (lora, "expand_launches"),
+            "ssm_scan": (ssm_scan, "launches")}
 
 
 def zero_counts() -> None:
@@ -219,11 +253,26 @@ def _tables(torch, lens, m, bs, n, rng):
     return torch.from_numpy(tables).to(DEV)
 
 
+# paged attention's head layouts, each with the main path that gives it:
+# qwen3-0.6b (16 query heads over 8 KV heads, head_dim 128) and zamba2-2.7b's
+# shared block (32 heads, one per KV head, head_dim 80)
+PAGED_SHAPES = (("serve", 16, 8, 128), ("hybrid_serve", 32, 32, 80))
+
+
 def check_paged_attention(torch, results):
+    for path, h, kv, hd in PAGED_SHAPES:
+        _check_paged_attention(torch, results, path, h, kv, hd)
+
+
+def _check_paged_attention(torch, results, path, h, kv, hd):
+    """K1 through ``ops.paged_attention`` / ``ops.paged_attention_chunk``
+    (so the callers' grouping copies are covered) at one head layout: a
+    decode batch of 8 rows over ragged spans up to 2,048 and a 256-token
+    prefill chunk at two offsets, f32 and bf16."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.models.attention import paged_gather
-    b, h, kv, hd, bs, max_len = 8, 16, 8, 128, 16, 2048
+    b, bs, max_len = 8, 16, 2048
     m = max_len // bs
     n = b * m + 1
     rng = np.random.default_rng(0)
@@ -259,7 +308,7 @@ def check_paged_attention(torch, results):
             + 2 * live * kv * hd * esize
         t_bound, by = bound(nbytes, 4.0 * h * hd * live, dname)
         results.append(dict(
-            name="paged_attention/decode", dtype=dname,
+            name="paged_attention/decode", dtype=dname, path=path,
             shape=f"B={b} H={h} KV={kv} hd={hd} bs={bs} lens={lens_list}",
             **checked,
             kernel_ms=graph_ms(lambda: ops.paged_attention(
@@ -306,6 +355,7 @@ def check_paged_attention(torch, results):
             t_bound, by = bound(nbytes, 4.0 * h * hd * pairs, dname)
             results.append(dict(
                 name="paged_attention/prefill_chunk", dtype=dname,
+                path=path,
                 shape=f"C={c} start={start} H={h} KV={kv} hd={hd} bs={bs}",
                 **checked,
                 kernel_ms=graph_ms(lambda: ops.paged_attention_chunk(
@@ -320,6 +370,33 @@ def check_paged_attention(torch, results):
         del kp, vp
 
 
+# rmsnorm's shapes, at decode and prefill-chunk rows: qwen3-0.6b's norms
+# (d 1,024, the q/k norms at 128), falcon-mamba-7b's layer norms (4,096),
+# zamba2-2.7b's layer and shared-block norms (2,560) and its Mamba2 gated
+# norm over d_inner (5,120); and the main path that gives each width
+RMSNORM_SHAPES = ((8, 1024), (256, 1024), (8 * 16, 128), (256 * 16, 128),
+                  (8, 4096), (256, 4096), (8, 2560), (256, 2560),
+                  (8, 5120), (256, 5120))
+RMSNORM_PATH = {1024: "serve", 128: "serve", 4096: "ssm_serve",
+                2560: "hybrid_serve", 5120: "hybrid_serve"}
+
+
+def triton_registers(torch, x, w, eps):
+    """Registers and spills of the Triton rmsnorm kernel compiled for x's
+    width: one direct launch, whose compiled kernel reports them (None
+    where this Triton version does not)."""
+    from repro_torch.kernels._rmsnorm_triton import rmsnorm_rows
+    from repro_torch.kernels.rmsnorm import _block_shape
+    n, d = x.shape
+    block_d, rows = _block_shape(d)
+    ck = rmsnorm_rows[(-(-n // rows),)](x, w, torch.empty_like(x), n, d,
+                                       float(eps), BLOCK_D=block_d,
+                                       ROWS=rows, num_warps=4)
+    return {"block_d": block_d, "rows": rows,
+            "registers": getattr(ck, "n_regs", None),
+            "spills": getattr(ck, "n_spills", None)}
+
+
 def check_rmsnorm(torch, results):
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -329,8 +406,7 @@ def check_rmsnorm(torch, results):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         esize = torch.finfo(dtype).bits // 8
-        for rows, d in ((8, 1024), (256, 1024), (8 * 16, 128),
-                        (256 * 16, 128)):
+        for rows, d in RMSNORM_SHAPES:
             x = torch.randn((rows, d), generator=gen, device=DEV).to(dtype)
             w = (1 + 0.1 * torch.randn((d,), generator=gen,
                                        device=DEV)).to(dtype)
@@ -346,7 +422,8 @@ def check_rmsnorm(torch, results):
                                 dname)
             results.append(dict(
                 name=f"rmsnorm/d{d}", dtype=dname, shape=f"({rows}, {d})",
-                **checked,
+                path=RMSNORM_PATH[d],
+                **checked, triton=triton_registers(torch, x, w, eps),
                 kernel_ms=graph_ms(lambda: rmsnorm_kernel(x, w, eps)),
                 host_ms=host_ms(lambda: rmsnorm_kernel(x, w, eps)),
                 plain_ms=graph_ms(lambda: ref.rmsnorm_ref(x, w, eps)),
@@ -387,6 +464,7 @@ def check_matmul(torch, results):
                                 2.0 * m * n * k, dname)
             results.append(dict(
                 name="matmul", dtype=dname, shape=f"({m},{k})@({k},{n})",
+                path="compile",
                 **checked,
                 kernel_ms=graph_ms(lambda: matmul_kernel(a, b)),
                 host_ms=host_ms(lambda: matmul_kernel(a, b)),
@@ -462,7 +540,7 @@ def check_lora(torch, results):
                         + rows * 4 + rows * r * 4,
                         2.0 * n_live * d * r, dname)
                     results.append(dict(
-                        name="lora_shrink", dtype=dname,
+                        name="lora_shrink", dtype=dname, path="lora_serve",
                         shape=f"T={rows} d={d} R={r} S={s} {mix}", **checked,
                         kernel_ms=graph_ms(lambda: lora_shrink_kernel(
                             x, a, idx)),
@@ -506,7 +584,7 @@ def check_lora(torch, results):
                         rows * r * 4 + n_adapters * r * o * esize + rows * 4
                         + rows * o * esize, 2.0 * n_live * r * o, dname)
                     results.append(dict(
-                        name="lora_expand", dtype=dname,
+                        name="lora_expand", dtype=dname, path="lora_serve",
                         shape=f"T={rows} O={o} R={r} S={s} "
                               f"block_out={LORA_BLOCK_OUT} {mix}", **checked,
                         kernel_ms=graph_ms(lambda: lora_expand_kernel(
@@ -519,6 +597,110 @@ def check_lora(torch, results):
                         library="torch.bmm over per-row B gathered before "
                                 "the call (yardstick)",
                         bound_ms=t_bound, bound_by=by))
+
+
+# the selective scan's shapes on the ssm path (falcon-mamba-7b: d_inner
+# 8,192, state 16): a decode step of 8 rows, one 256-token prefill chunk, and
+# a 300-token prefill (one launch over all 300 steps, held bitwise against
+# the engine's split into chunks of 256 with an identity-padded tail)
+SSM_D, SSM_N, SSM_CHUNK = 8192, 16, 256
+SSM_CASES = (("decode", 8, 1), ("prefill_chunk", 1, 256),
+             ("chunked_ragged", 1, 300))
+SSM_LIBRARY = ("none: no single PyTorch call computes a linear recurrence "
+               "(torch.cumsum/cumprod are associative scans of one operator)")
+
+
+def _ssm_inputs(torch, gen, b, t, d, n):
+    """The layer's own distributions: a = exp(dt A) with dt = softplus(~-4.6)
+    and A = -(1..N), b = dt B x, c = C, a non-zero h0."""
+    import torch.nn.functional as F
+    dt = F.softplus(torch.randn((b, t, d), generator=gen, device=DEV) * 0.5
+                    - 4.6)
+    A = -torch.arange(1, n + 1, dtype=torch.float32, device=DEV)
+    a = torch.exp(dt[..., None] * A)
+    bb = dt[..., None] * torch.randn((b, t, 1, n), generator=gen, device=DEV) \
+        * torch.randn((b, t, d, 1), generator=gen, device=DEV)
+    c = torch.randn((b, t, n), generator=gen, device=DEV)
+    h0 = torch.randn((b, d, n), generator=gen, device=DEV) * 0.5
+    return a.contiguous(), bb.contiguous(), c, h0
+
+
+def _split_scan(torch, a, bb, c, h0, chunk):
+    """The scan as the engine's chunked prefill runs it: one launch per
+    ``chunk`` steps, each resuming from the last launch's h_last, the
+    ragged last chunk padded to ``chunk`` steps with identity steps (a = 1,
+    b = 0, as ``mamba1_chunk`` makes a masked position)."""
+    from repro_torch.kernels import ops
+    bsz, t, d, n = a.shape
+    ys, h = [], h0
+    for s in range(0, t, chunk):
+        at, bt, ct = a[:, s:s + chunk], bb[:, s:s + chunk], c[:, s:s + chunk]
+        pad = chunk - at.shape[1]
+        if pad:
+            at = torch.cat([at, at.new_ones((bsz, pad, d, n))], dim=1)
+            bt = torch.cat([bt, bt.new_zeros((bsz, pad, d, n))], dim=1)
+            ct = torch.cat([ct, ct.new_zeros((bsz, pad, n))], dim=1)
+        y, h = ops.ssm_scan(at, bt, ct, h)
+        ys.append(y[:, :chunk - pad])
+    return torch.cat(ys, dim=1), h
+
+
+def check_ssm_scan(torch, results):
+    """K7 against its plain sequential version at the ssm path's shapes, row
+    by row for y and h_last; one launch bitwise equal to the engine's split
+    into chunks (state carried, identity-padded tail); three planted faults
+    (h0 ignored, the last step dropped, one tile of d left unwritten) must
+    fail the same gate.  Times: the kernel and the plain version from graph
+    replay, the wrapper eagerly; bound = bytes of a, b, c, h0, y and h_last
+    over 3.35 TB/s."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    d, n = SSM_D, SSM_N
+    tile = 256 // n                  # the d values one block of the kernel owns
+    for case, b, t in SSM_CASES:
+        a, bb, c, h0 = _ssm_inputs(torch, gen, b, t, d, n)
+        chunk = SSM_CHUNK if case == "chunked_ragged" else t
+
+        def run(a=a, bb=bb, c=c, h0=h0):
+            return ops.ssm_scan_chunked(a, bb, c, h0, chunk=chunk)
+        y, h = run()
+        ry, rh = ref.ssm_scan_ref(a, bb, c, h0)
+        split_y, split_h = _split_scan(torch, a, bb, c, h0, chunk)
+        bitwise = bool(torch.equal(y, split_y) and torch.equal(h, split_h))
+        assert bitwise, f"ssm_scan {case}: one launch differs from the " \
+            f"engine's split into chunks of {chunk}"
+        fy0, fh0 = ops.ssm_scan(a, bb, c, torch.zeros_like(h0))
+        a_drop, b_drop = a.clone(), bb.clone()
+        a_drop[:, -1] = 1.0
+        b_drop[:, -1] = 0.0
+        fyd, fhd = ops.ssm_scan(a_drop, b_drop, c, h0)
+        skip_y, skip_h = y.clone(), h.clone()
+        skip_y[..., d // 2:d // 2 + tile] = 0
+        skip_h[:, d // 2:d // 2 + tile] = 0
+        gy = gate(f"ssm_scan {case} y", y, ry, {
+            "h0_ignored": fy0, "last_step_dropped": fyd,
+            "d_tile_skipped": skip_y})
+        gh = gate(f"ssm_scan {case} h_last", h, rh, {
+            "h0_ignored": fh0, "last_step_dropped": fhd,
+            "d_tile_skipped": skip_h})
+        nbytes = 4 * (2 * a.numel() + c.numel() + 2 * h0.numel() + y.numel())
+        t_bound, by = bound(nbytes, 4.0 * a.numel() + 2.0 * y.numel() * n,
+                            "float32")
+        plain_reps = 20 if t == 1 else 2
+        results.append(dict(
+            name=f"ssm_scan/{case}", dtype="float32", path="ssm_serve",
+            shape=f"B={b} T={t} D={d} N={n} chunk={chunk}",
+            max_abs_err=max(gy["max_abs_err"], gh["max_abs_err"]),
+            row_rel_err=max(gy["row_rel_err"], gh["row_rel_err"]),
+            tol=gy["tol"], y_gate=gy, h_last_gate=gh,
+            one_launch_bitwise_split=bitwise,
+            h_last_bitwise_plain=bool(torch.equal(h, rh)),
+            kernel_ms=graph_ms(run), host_ms=host_ms(run),
+            plain_ms=graph_ms(lambda: ref.ssm_scan_chunked_ref(
+                a, bb, c, h0, chunk), reps=plain_reps),
+            library_ms=None, library=SSM_LIBRARY,
+            bound_ms=t_bound, bound_by=by))
+        del a, bb, c, h0, a_drop, b_drop
 
 
 # ---------------------------------------------------------------------------
@@ -650,8 +832,9 @@ def run_workload(torch, eng, reqs, counted=None):
     """Warm the engine up on two short requests (cuBLAS handles, Triton's
     specialisations, the LoRA kernels for a tenant's warm-up request), zero
     every launch count, serve ``reqs`` checking the KV invariants after
-    every step, and read the counts.  ``counted`` is called with each
-    dispatch's batch."""
+    every step, and read the counts.  Each dispatch goes through
+    ``counted(kind, batch, call)`` ("prefill" or "decode"), which must
+    return ``call()``."""
     from repro_torch.serve.engine import Request
     vocab = eng.cfg.vocab
     for i, r in enumerate(reqs[:2]):
@@ -665,12 +848,11 @@ def run_workload(torch, eng, reqs, counted=None):
         fns = eng.fns
 
         def prefill(p, c, b, m_used=None):
-            counted(b)
-            return fns.prefill_chunk(p, c, b, m_used=m_used)
+            return counted("prefill", b, lambda: fns.prefill_chunk(
+                p, c, b, m_used=m_used))
 
         def decode(p, c, b):
-            counted(b)
-            return fns.decode_paged(p, c, b)
+            return counted("decode", b, lambda: fns.decode_paged(p, c, b))
         eng.fns = dataclasses.replace(fns, prefill_chunk=prefill,
                                       decode_paged=decode)
     torch.cuda.synchronize()
@@ -692,6 +874,9 @@ def run_workload(torch, eng, reqs, counted=None):
     assert all(r.done and not r.rejected and len(r.out) == r.max_new
                for r in reqs), [r.finish_reason for r in reqs]
     assert m.requests_finished == len(reqs)
+    # a stateful engine's slab holds no slot once every request retired
+    assert eng.state_store is None \
+        or eng.state_store.device.pool.num_used == 0
     return launches, m, {
         "requests": len(reqs), "engine_steps": eng.steps, "wall_s": wall,
         "invariant_check_s": check_s, "tokens_per_sec": m.tokens_per_sec,
@@ -743,8 +928,9 @@ def lora_serve_phase(torch, cfg, params, base):
         eng.load_adapter(name, rank=8, alpha=16.0)
     dispatches = {"lora": 0, "base": 0}
 
-    def counted(batch):
+    def counted(kind, batch, call):
         dispatches["lora" if "lora" in batch else "base"] += 1
+        return call()
     launches, m, out = run_workload(
         torch, eng, workload(cfg.vocab, tenants=(None,) + TENANTS), counted)
     per = len(eng.adapters.projs) * cfg.n_layers
@@ -858,14 +1044,16 @@ def plan_identity(torch, cfg, params):
     assert outs[0] == outs[1], "planning changed greedy tokens"
 
 
-def profile_phase(torch, cfg, steps=12):
+def profile_phase(torch, cfg, params=None, steps=12, phase="profile"):
     """Device busy time by kernel over a steady window of engine steps
-    (torch.profiler), against the window's host wall time."""
+    (torch.profiler), against the window's host wall time.  Builds the
+    arch's weights from seed 0 unless ``params`` is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import build_model
     from repro_torch.serve.engine import ServeEngine
-    params = build_model(cfg, DEV).init(0)
+    if params is None:
+        params = build_model(cfg, DEV).init(0)
     eng = ServeEngine(cfg, params, max_batch=8, max_len=2048, block_size=16,
                       prefill_chunk_tokens=256)
     for r in workload(cfg.vocab, n=12, seed=1):
@@ -889,17 +1077,15 @@ def profile_phase(torch, cfg, steps=12):
             us = e.self_cuda_time_total
         kernels[e.key] = kernels.get(e.key, 0.0) + us
         counts[e.key] = counts.get(e.key, 0) + e.count
-    groups = {"paged_attention": 0.0, "rmsnorm": 0.0, "gemm": 0.0,
-              "other": 0.0}
-    ported = {"paged_attention": 0, "rmsnorm": 0}
+    groups = {"paged_attention": 0.0, "rmsnorm": 0.0, "ssm_scan": 0.0,
+              "gemm": 0.0, "other": 0.0}
+    ported = {"paged_attention": 0, "rmsnorm": 0, "ssm_scan": 0}
     for name, us in kernels.items():
         low = name.lower()
-        if "paged_attention" in low:
-            groups["paged_attention"] += us
-            ported["paged_attention"] += counts[name]
-        elif "rmsnorm" in low:
-            groups["rmsnorm"] += us
-            ported["rmsnorm"] += counts[name]
+        hit = next((k for k in ported if k in low), None)
+        if hit is not None:
+            groups[hit] += us
+            ported[hit] += counts[name]
         elif any(t in low for t in ("gemm", "cutlass", "xmma", "nvjet",
                                     "cublas")):
             groups["gemm"] += us
@@ -907,7 +1093,8 @@ def profile_phase(torch, cfg, steps=12):
             groups["other"] += us
     busy = sum(groups.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": "profile", "steps": steps, "wall_ms": wall_us / 1e3,
+    emit({"phase": phase, "arch": cfg.name, "steps": steps,
+          "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy / 1e3,
           "device_idle_share": 1 - busy / wall_us if wall_us else None,
           "busy_ms_by_group": {k: v / 1e3 for k, v in groups.items()},
@@ -917,6 +1104,93 @@ def profile_phase(torch, cfg, steps=12):
                              for k, n in ported.items()},
           "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top]})
     del eng, params
+    torch.cuda.empty_cache()
+
+
+SSM_ARCH, HYBRID_ARCH = "falcon-mamba-7b", "zamba2-2.7b"
+
+
+def stateful_serve_phase(torch, cfg, params):
+    """ssm_serve / hybrid_serve: the serve workload through the full-width
+    ssm or hybrid arch.  Every request finishes with the invariants clean
+    after every step and the slab empty at the end; per dispatch, K7
+    launches once per Mamba1 layer (ssm) or never (hybrid), K1 once per
+    shared-block call site (hybrid) or never (ssm), K2 at least once; the
+    attention-free engine allocates no KV block."""
+    eng = serve_engine(cfg, params)
+    ssm = cfg.family == "ssm"
+    sites = 0 if ssm else cfg.n_layers // cfg.hybrid.attn_every
+    # a prefill chunk launches K7 once per layer, over all its positions
+    want = {"prefill": {"ssm_scan": cfg.n_layers if ssm else 0,
+                        "paged_attention": sites},
+            "decode": {"ssm_scan": cfg.n_layers if ssm else 0,
+                       "paged_attention": sites}}
+    per = {"prefill": [], "decode": []}
+
+    def counted(kind, batch, call):
+        n0 = read_counts()
+        out = call()
+        n1 = read_counts()
+        per[kind].append({k: n1[k] - n0[k] for k in n1})
+        return out
+    launches, m, out = run_workload(torch, eng, workload(cfg.vocab), counted)
+    for kind, deltas in per.items():
+        assert deltas, f"{cfg.name}: no {kind} dispatch"
+        for dl in deltas:
+            assert all(dl[k] == v for k, v in want[kind].items()) \
+                and dl["rmsnorm"] > 0, (kind, dl, want)
+    assert launches["ssm_scan"] == sum(
+        want[k]["ssm_scan"] * len(v) for k, v in per.items()), launches
+    assert launches["lora_shrink"] == launches["matmul"] == 0, launches
+    if ssm:
+        assert m.peak_blocks_used == 0 and eng.kernel_plan is None, m
+    slab = sum(t.numel() * t.element_size()
+               for t in (eng.cache.values() if ssm
+                         else eng.cache["ssm"].values()))
+    emit({"phase": f"{cfg.family}_serve", "arch": cfg.name,
+          "dtype": cfg.dtype, **out,
+          "prefill_chunk_tokens": eng.prefill_chunk_tokens,
+          "dispatches": {k: len(v) for k, v in per.items()},
+          "launches_per_dispatch": want, "state_slots": eng.state_slots,
+          "state_slab_bytes": slab,
+          "param_bytes": eng.param_bytes_per_device})
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def swap_resume_phase(torch, cfg, params, preempt_at=4):
+    """One greedy request (300-token prompt, 12 new tokens) preempted by
+    swap after ``preempt_at`` tokens: its state parks on the slab's host
+    tier, comes back, and the request gives the unpreempted run's tokens."""
+    from repro_torch.serve.engine import Request
+    prompt = np.random.default_rng(10).integers(1, cfg.vocab,
+                                                size=300).tolist()
+
+    def serve(at):
+        eng = serve_engine(cfg, params)
+        r = Request(rid=0, prompt=list(prompt), max_new=12)
+        eng.submit(r)
+        tier = None
+        while eng.step():
+            assert eng.check_invariants() == []
+            if at and tier is None and len(r.out) >= at:
+                eng._requeue(next(a for a in eng.slots if a is not None))
+                tier = eng._parked[0].state.tier
+        m = eng.metrics()
+        assert r.done and eng.state_store.device.pool.num_used == 0
+        del eng
+        return r.out, tier, m
+    base, _, _ = serve(0)
+    resumed, tier, m = serve(preempt_at)
+    emit({"phase": f"{cfg.family}_swap_resume", "arch": cfg.name,
+          "preempted_after_tokens": preempt_at, "parked_tier": tier,
+          "swap_out_blocks": m.swap_out_blocks,
+          "swap_in_blocks": m.swap_in_blocks,
+          "identical": resumed == base})
+    assert tier == "host" and m.swap_out_blocks >= 1 \
+        and m.swap_in_blocks >= 1, (tier, m)
+    assert resumed == base, "swap-resume changed the greedy tokens"
     torch.cuda.empty_cache()
 
 
@@ -1043,6 +1317,105 @@ def lora_oracle_phase(torch, cfg, steps=8, chunk=256, bs=16):
     torch.cuda.empty_cache()
 
 
+def stateful_oracle_phase(torch, cfg, n_layers, steps=8, chunk=256, bs=16):
+    """One request teacher-forced through the paged path of the ssm or the
+    hybrid arch: a ``chunk``-token prompt into slab slot 1 and ``steps``
+    decode steps, full width, ``n_layers`` layers, f32; the kernels on the
+    card (K7 on every Mamba1 layer; K1 at head_dim 80 and K2 for the
+    hybrid) against the plain versions on the CPU, on the same weights.
+    Then the same tokens through the dense path (whole-prompt prefill and
+    decode steps, plain attention: no K1) on the card against the CPU, so
+    that a gap the paged path shares with it is not K1's."""
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
+    out = {"phase": f"{cfg.family}_oracle", "arch": cfg.name,
+           "layers": cfg.n_layers, "dtype": cfg.dtype, "prompt_len": chunk,
+           "decode_steps": steps}
+    params = build_model(cfg, DEV).init(0)
+    nb = -(-(chunk + steps) // bs)
+    sides = {}
+    for dev in (DEV, "cpu"):
+        fns = build_model(cfg, dev)
+        p = params if dev == DEV else _to(params, "cpu")
+        sides[dev] = (fns, p, fns.make_paged_cache(nb + 1, bs, state_slots=2))
+    prompt = np.random.default_rng(11).integers(1, cfg.vocab,
+                                                size=chunk).tolist()
+    gaps, logits, forced_tokens = [], {}, []
+    zero_counts()
+    for i in range(steps + 1):
+        for dev, (fns, p, cache) in sides.items():
+            table = torch.arange(1, nb + 1, dtype=torch.int32,
+                                 device=dev)[None, :]
+            if i == 0:
+                batch = {"tokens": torch.tensor([prompt], device=dev),
+                         "block_table": table, "state_slot": 1, "start": 0,
+                         "prompt_len": chunk}
+                _, lg = fns.prefill_chunk(p, cache, batch, m_used=nb)
+                logits[dev] = lg[0, chunk - 1]
+            else:
+                batch = {"token": torch.tensor([[forced]], device=dev),
+                         "block_tables": table,
+                         "seq_lens": torch.tensor([chunk + i - 1],
+                                                  dtype=torch.int32,
+                                                  device=dev),
+                         "state_slots": torch.tensor([1], dtype=torch.int32,
+                                                     device=dev)}
+                _, lg = fns.decode_paged(p, cache, batch)
+                logits[dev] = lg[0]
+        want = logits["cpu"]
+        gaps.append(rel_err(logits[DEV].cpu(), want)[1])
+        forced = int(want.argmax())
+        forced_tokens.append(forced)
+    torch.cuda.synchronize()
+    n = read_counts()
+    if cfg.family == "ssm":
+        # one launch per layer for the prompt chunk and per decode step
+        assert n["ssm_scan"] == cfg.n_layers * (1 + steps), n
+    else:
+        sites = cfg.n_layers // cfg.hybrid.attn_every
+        assert n["ssm_scan"] == 0 and n["rmsnorm"] > 0 \
+            and n["paged_attention"] == sites * (steps + 1), n
+    dense_gaps = _dense_oracle_gaps(torch, cfg, sides, prompt,
+                                    forced_tokens[:-1])
+    tol = 1e-3
+    out.update(max_rel_gap=max(gaps), gaps=gaps, tol=tol, launches=n,
+               dense_path_max_rel_gap=max(dense_gaps),
+               dense_path_gaps=dense_gaps)
+    emit(out)
+    assert max(gaps) <= tol, f"{cfg.name} oracle: rel gap {max(gaps)} > {tol}"
+    assert max(dense_gaps) <= tol, \
+        f"{cfg.name} dense oracle: rel gap {max(dense_gaps)} > {tol}"
+    del sides, params
+    torch.cuda.empty_cache()
+
+
+def _dense_oracle_gaps(torch, cfg, sides, prompt, forced_tokens):
+    """The stateful arch's dense path (whole-prompt prefill, then one decode
+    step per forced token) on the card against the CPU: each step's largest
+    logit gap over the CPU's largest logit."""
+    caps = len(prompt) + len(forced_tokens)
+    logits, caches = {}, {}
+    for dev, (fns, p, _) in sides.items():
+        cache, logits[dev] = fns.prefill(
+            p, {"tokens": torch.tensor([prompt], device=dev)})
+        if cfg.family == "hybrid":
+            big = fns.make_cache(1, caps)
+            for k in ("k", "v"):
+                big[k][:, :, :len(prompt)] = cache[k]
+            cache = dict(big, ssm=cache["ssm"])
+        caches[dev] = cache
+    gaps = [rel_err(logits[DEV][0].cpu(), logits["cpu"][0])[1]]
+    for i, tok in enumerate(forced_tokens):
+        for dev, (fns, p, _) in sides.items():
+            caches[dev], lg = fns.decode_step(
+                p, caches[dev], {"token": torch.tensor([[tok]], device=dev),
+                                 "cur_len": len(prompt) + i})
+            logits[dev] = lg[0]
+        gaps.append(rel_err(logits[DEV].cpu(), logits["cpu"])[1])
+    del caches
+    return gaps
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -1066,6 +1439,7 @@ def main() -> int:
     from repro_torch.kernels import matmul as mm_mod
     from repro_torch.kernels import paged_attention as pa_mod
     from repro_torch.kernels import rmsnorm as rn_mod
+    from repro_torch.kernels import ssm_scan as k7_mod
     from repro_torch.models import build_model
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1079,10 +1453,11 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.build("paged_attention", "matmul", "lora")
+    build.build("paged_attention", "matmul", "lora", "ssm_scan")
     pa_mod.load_kernel()
     mm_mod.load_kernel()
     lora_mod.load_kernels()
+    k7_mod.load_kernel()
     nvcc_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     x = torch.ones((16, 1024), device=DEV)
@@ -1100,6 +1475,7 @@ def main() -> int:
     check_rmsnorm(torch, results)
     check_matmul(torch, results)
     check_lora(torch, results)
+    check_ssm_scan(torch, results)
     for r in results:
         emit({"phase": "kernel", **r})
 
@@ -1121,11 +1497,34 @@ def main() -> int:
     oracle_phase(torch, cfg)
     lora_oracle_phase(torch, cfg)
 
-    # each kernel's launches on its main path: the serve workload for K1/K2,
-    # the compile phase for K4, the multi-LoRA workload for K5/K6
-    launches["matmul"] = compile_launches["matmul"]
-    launches["lora_shrink"] = lora_launches["lora_shrink"]
-    launches["lora_expand"] = lora_launches["lora_expand"]
+    # 7. the stateful families at full width, bf16, one at a time: the serve
+    # workload, a swap-resume (ssm) and a profiled window each
+    ssm_cfg = get_config(SSM_ARCH)
+    params = build_model(ssm_cfg, DEV).init(0)
+    ssm_launches = stateful_serve_phase(torch, ssm_cfg, params)
+    swap_resume_phase(torch, ssm_cfg, params)
+    profile_phase(torch, ssm_cfg, params, steps=8, phase="ssm_profile")
+    del params
+    torch.cuda.empty_cache()
+    hy_cfg = get_config(HYBRID_ARCH)
+    params = build_model(hy_cfg, DEV).init(0)
+    hybrid_launches = stateful_serve_phase(torch, hy_cfg, params)
+    profile_phase(torch, hy_cfg, params, steps=8, phase="hybrid_profile")
+    del params
+    torch.cuda.empty_cache()
+    # 8. their oracles: 2 Mamba1 layers; 2 hybrid segments
+    stateful_oracle_phase(torch, ssm_cfg, n_layers=2)
+    stateful_oracle_phase(torch, hy_cfg,
+                          n_layers=2 * hy_cfg.hybrid.attn_every)
+
+    # each row's launches come from the main path that gives its shape
+    # (the row's ``path``): the qwen3-0.6b serve workload (K1 at head_dim
+    # 128, K2 at 1,024 and 128), the compile phase (K4), the multi-LoRA
+    # workload (K5/K6), the ssm workload (K7, K2 at 4,096) and the hybrid
+    # workload (K1 at head_dim 80, K2 at 2,560 and 5,120)
+    path_launches = {"serve": launches, "compile": compile_launches,
+                     "lora_serve": lora_launches, "ssm_serve": ssm_launches,
+                     "hybrid_serve": hybrid_launches}
     sources = {
         "paged_attention": (
             "cuda", "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1137,23 +1536,28 @@ def main() -> int:
         "lora_shrink": ("cuda", "src/repro_torch/kernels/csrc/lora.cu",
                         "src/repro/kernels/lora.py:64"),
         "lora_expand": ("cuda", "src/repro_torch/kernels/csrc/lora.cu",
-                        "src/repro/kernels/lora.py:98")}
+                        "src/repro/kernels/lora.py:98"),
+        "ssm_scan": ("cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu",
+                     "src/repro/kernels/ssm_scan.py:33")}
     summary = []
     for r in results:
-        if r["dtype"] != "bfloat16":
+        # the bf16 rows, and K7's, whose path is f32 only
+        if r["dtype"] != "bfloat16" and not r["name"].startswith("ssm_scan"):
             continue
         kernel = r["name"].split("/")[0]
         route, source, replaces = sources[kernel]
         summary.append({
             "name": f"{r['name']} {r['shape']}", "route": route,
-            "source": source, "replaces": replaces,
-            "launches": launches[kernel],
+            "source": source, "replaces": replaces, "path": r["path"],
+            "launches": path_launches[r["path"]][kernel],
             "max_abs_err": r["max_abs_err"],
             "row_rel_err": r["row_rel_err"], "ms": r["kernel_ms"],
             "host_ms": r["host_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     assert {k["source"] for k in summary} >= {v[1] for v in sources.values()}
+    assert all(k["launches"] > 0 for k in summary), \
+        [k["name"] for k in summary if not k["launches"]]
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,11 +6,13 @@ recognised by its dtype *name* and crosses as a bit-exact ``uint16`` view;
 on the way back, bf16 tensors come out as ``uint16`` arrays unless the
 caller passes its own bf16 numpy dtype (``bf16_dtype=ml_dtypes.bfloat16``).
 
-Parameter layout: ``transformer.init_lm`` in the JAX package stacks layer
-weights on a leading axis under ``params["layers"]`` (a tuple with one stack
-per layer kind of a super-layer).  The port keeps ``params["layers"]`` as a
-list of per-layer dicts in forward order; ``every`` is the super-layer size
-(1 for dense archs).
+Parameter layout: the JAX package stacks layer weights on leading axes
+under ``params["layers"]``: ``transformer.init_lm`` as a tuple with one
+(L/every, ...) stack per layer kind of a super-layer, ``ssm_lm.init_ssm_lm``
+as one dict of (L, ...) stacks, ``hybrid.init_hybrid`` as one dict of
+(n_seg, per, ...) stacks beside its ``shared`` block.  The port keeps
+``params["layers"]`` as a list of per-layer dicts in forward order for every
+family.
 """
 from __future__ import annotations
 
@@ -45,8 +47,14 @@ def _map(tree, fn):
 
 
 def params_from_numpy(tree: Dict, device="cpu") -> Dict:
-    """JAX ``init_lm`` pytree (numpy leaves) -> the port's param dict."""
+    """JAX ``init`` pytree (numpy leaves) of a dense, ssm or hybrid model ->
+    the port's param dict."""
     stacks = tree["layers"]
+    if isinstance(stacks, dict):
+        # one stack: (L, ...) for ssm, (n_seg, per, ...) for the hybrid
+        lead = 2 if "shared" in tree else 1
+        stacks = (_map(stacks, lambda a: np.asarray(a).reshape(
+            (-1,) + np.asarray(a).shape[lead:])),)
     every = len(stacks)
     n_super = _leading(stacks[0])
     layers: List[Dict] = []
@@ -72,21 +80,32 @@ def _stack(trees: List):
     return np.stack(trees)
 
 
-def params_to_numpy(params: Dict, every: int = 1, bf16_dtype=None) -> Dict:
-    """Inverse of ``params_from_numpy``: re-stack the per-layer dicts."""
+def params_to_numpy(params: Dict, every: int = 1, bf16_dtype=None,
+                    family: str = "dense") -> Dict:
+    """Inverse of ``params_from_numpy``: re-stack the per-layer dicts in the
+    family's JAX layout.  ``every`` is the super-layer size of a dense arch
+    and the segment length (``attn_every``) of a hybrid."""
     conv = lambda t: tensor_to_numpy(t, bf16_dtype)  # noqa: E731
     layers = [_map(lp, conv) for lp in params["layers"]]
-    stacks = tuple(_stack(layers[j::every]) for j in range(every))
     out = {k: _map(v, conv) for k, v in params.items() if k != "layers"}
-    out["layers"] = stacks
+    if family == "dense":
+        out["layers"] = tuple(_stack(layers[j::every]) for j in range(every))
+    elif family == "ssm":
+        out["layers"] = _stack(layers)
+    elif family == "hybrid":
+        out["layers"] = _map(_stack(layers), lambda a: a.reshape(
+            (a.shape[0] // every, every) + a.shape[1:]))
+    else:
+        raise NotImplementedError(f"family {family!r} has no bridge layout")
     return out
 
 
-def paged_cache_from_numpy(cache: Dict, device="cpu") -> Dict[str, torch.Tensor]:
-    """Paged KV cache ``{"k","v": (L, N, bs, KV, hd)}``, layout unchanged."""
-    return {k: tensor_from_numpy(v, device) for k, v in cache.items()}
+def paged_cache_from_numpy(cache: Dict, device="cpu") -> Dict:
+    """A cache pytree (the paged KV ``{"k","v": (L, N, bs, KV, hd)}``, a
+    state slab, or the hybrid's mix of both), layout unchanged."""
+    return _map(cache, lambda a: tensor_from_numpy(a, device))
 
 
-def paged_cache_to_numpy(cache: Dict[str, torch.Tensor],
+def paged_cache_to_numpy(cache: Dict,
                          bf16_dtype: Optional[object] = None) -> Dict:
-    return {k: tensor_to_numpy(v, bf16_dtype) for k, v in cache.items()}
+    return _map(cache, lambda t: tensor_to_numpy(t, bf16_dtype))

@@ -1,9 +1,10 @@
 """Model-facing wrappers of the port's kernels (mirrors
 ``src/repro/kernels/ops.py``): the GQA grouping of the paged-attention
 callers, the row flattening of rmsnorm and the matrix product that the
-compiler's codegen calls, and the segmented LoRA shrink and expand.  Each
-wrapper hands its tensors to a kernel wrapper, which launches the kernel for
-CUDA tensors and runs the plain version for CPU tensors."""
+compiler's codegen calls, the segmented LoRA shrink and expand, and the
+selective scan with its chunked-prefill entry.  Each wrapper hands its
+tensors to a kernel wrapper, which launches the kernel for CUDA tensors and
+runs the plain version for CPU tensors."""
 from __future__ import annotations
 
 import torch
@@ -12,6 +13,7 @@ from repro_torch.kernels.lora import lora_expand_kernel, lora_shrink_kernel
 from repro_torch.kernels.matmul import matmul_kernel
 from repro_torch.kernels.paged_attention import paged_attention_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm_kernel
+from repro_torch.kernels.ssm_scan import ssm_scan_kernel
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
@@ -40,8 +42,9 @@ def paged_attention_chunk(q, k_pages, v_pages, block_tables, chunk_pos,
     b, c, h, hd = q.shape
     kv = k_pages.shape[2]
     group = h // kv
-    # rows grouped per KV head: r = g_i * C + c_i
-    qg = q.transpose(1, 2).reshape(b, kv, group * c, hd)
+    # rows grouped per KV head: r = g_i * C + c_i (with one query head per
+    # KV head the reshape is a strided view, hence the copy)
+    qg = q.transpose(1, 2).reshape(b, kv, group * c, hd).contiguous()
     qpos = chunk_pos.to(torch.int32).repeat(group)[None, :] \
         .expand(b, group * c).contiguous()
     o = paged_attention_kernel(qg, k_pages, v_pages,
@@ -73,6 +76,27 @@ def lora_shrink(x, a_slab, idx):
     the kernel; no per-row (d,R) copy is made."""
     return lora_shrink_kernel(x.contiguous(), a_slab.contiguous(),
                               idx.to(torch.int32).contiguous())
+
+
+def ssm_scan(a, b, c, h0):
+    """Batched selective scan: a, b (B,T,D,N), c (B,T,N), h0 (B,D,N), all
+    f32 -> (y (B,T,D), h_last (B,D,N)).  The batch axis is the kernel's
+    own (the JAX entry vmaps a single-sequence kernel)."""
+    return ssm_scan_kernel(a.contiguous(), b.contiguous(), c.contiguous(),
+                           h0.contiguous())
+
+
+def ssm_scan_chunked(a, b, c, h0, chunk: int):
+    """Batched chunked-prefill scan: the shapes and result of the reference's
+    ``chunk``-steps-a-launch scan (state carried between chunks, a ragged
+    tail padded with the identity step a = 1, b = 0).  The recurrence is
+    sequential, so chunking changes no bit of y or h_last
+    (``ref.ssm_scan_chunked_ref`` shows it), and the CUDA kernel keeps its
+    state in registers rather than a tile of ``chunk`` steps: one launch
+    over all T, with ``chunk`` checked and otherwise unused."""
+    if chunk < 1:
+        raise ValueError(f"ssm_scan_chunked: chunk must be >= 1, got {chunk}")
+    return ssm_scan(a, b, c, h0)
 
 
 def lora_expand(h, b_slab, idx, block_out: int = 256):

@@ -98,6 +98,34 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
+def ssm_scan_ref(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                 h0: torch.Tensor):
+    """Sequential selective scan with a batch axis: a, b (B,T,D,N), c
+    (B,T,N), h0 (B,D,N) -> (y (B,T,D), h_last (B,D,N)), one step at a time:
+    ``h = a_t * h + b_t``, ``y_t = sum_n h * c_t``."""
+    h = h0
+    ys = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        ys.append((h * c[:, t, None, :]).sum(-1))
+    if not ys:
+        return a.new_zeros(a.shape[:3]), h0.clone()
+    return torch.stack(ys, dim=1), h
+
+
+def ssm_scan_chunked_ref(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                         h0: torch.Tensor, chunk: int):
+    """Oracle of ``ops.ssm_scan_chunked``: sequential scans over
+    ``chunk``-step slices, each resuming from the previous slice's final
+    state (the chunked-prefill carry contract spelled out)."""
+    ys, h = [], h0
+    for s in range(0, a.shape[1], chunk):
+        y, h = ssm_scan_ref(a[:, s:s + chunk], b[:, s:s + chunk],
+                            c[:, s:s + chunk], h)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
 # Largest ``row_rel_err`` a kernel may show against its plain version, by the
 # output's dtype.  bf16: kernel and plain version each round their f32 result
 # once, and where the two f32 values straddle a rounding midpoint they land

@@ -9,6 +9,8 @@ Same CLI as ``repro.launch.serve`` with three differences: ``--device``
 (default: the config's, bf16 for the registered archs), and no ``--mesh`` /
 ``--tp`` (multi-device serving is a later slice).  Without ``--smoke`` it
 serves the arch at its full width with random weights from ``--seed``.
+The dense archs, ``falcon-mamba-7b`` (ssm) and ``zamba2-2.7b`` (hybrid) are
+served; a stateful arch's prefill chunk is rounded up to its scan granule.
 """
 from __future__ import annotations
 

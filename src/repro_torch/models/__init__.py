@@ -1,2 +1,2 @@
-"""Models of the port (dense family in this slice)."""
+"""Models of the port: the dense, ssm and hybrid families."""
 from repro_torch.models.model_zoo import ModelFns, build_model  # noqa: F401

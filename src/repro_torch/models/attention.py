@@ -267,6 +267,18 @@ def qkv_project(cfg: ModelConfig, p, x: torch.Tensor,
     return q, k, v
 
 
+def attention_block(cfg: ModelConfig, p, x: torch.Tensor,
+                    positions: torch.Tensor, causal: bool = True
+                    ) -> torch.Tensor:
+    """Full-sequence attention with its projections and no cache: x (B,S,d)
+    at positions (B,S) -> (B,S,d).  The hybrid's shared block over a whole
+    sequence (the JAX package's ``hybrid._segment_fwd``)."""
+    q, k, v = qkv_project(cfg, p, x, positions)
+    o = multi_head_attention(q, k, v, causal=causal)
+    b, s = x.shape[:2]
+    return o.reshape(b, s, cfg.q_dim) @ p["wo"]
+
+
 def attention_decode_block(cfg: ModelConfig, p, x: torch.Tensor,
                            k_cache: torch.Tensor, v_cache: torch.Tensor,
                            cur_len: int, positions: torch.Tensor):

@@ -1,19 +1,18 @@
 """Model dispatch (mirrors ``src/repro/models/model_zoo.py``): one
-``ModelFns`` bundle per architecture family.  This slice ports the dense
-family; the others raise and name the ROADMAP slice that brings them."""
+``ModelFns`` bundle per architecture family.  The port serves the dense,
+ssm and hybrid families; the others raise and name the ROADMAP slice that
+brings them."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, ssm_lm, transformer
 
 _LATER_SLICES = {
     "moe": "A6 (MoE)",
-    "ssm": "A8 (SSM and hybrid)",
-    "hybrid": "A8 (SSM and hybrid)",
     "vlm": "A11 (enc-dec and VLM)",
     "audio": "A11 (enc-dec and VLM)",
 }
@@ -25,26 +24,81 @@ class ModelFns:
     prefill: Callable           # (params, batch) -> (cache, logits)
     decode_step: Callable       # (params, cache, batch) -> (cache, logits)
     make_cache: Callable        # (batch_size, max_len) -> cache
-    # paged serving interface (block-table-aware); caches update in place
-    make_paged_cache: Callable  # (num_blocks, block_size) -> cache
+    # paged serving interface (block-table-aware); caches update in place.
+    # Stateful families (ssm, hybrid) take ``state_slots=`` on
+    # make_paged_cache and read "state_slot(s)" from the batch.
+    make_paged_cache: Callable  # (num_blocks, block_size[, state_slots=]) -> cache
     decode_paged: Callable      # (params, cache, batch) -> (cache, logits)
     prefill_chunk: Callable     # (params, cache, batch, m_used=) -> (cache, logits)
     # KVStore data plane: per-block device copy and device<->host movement
     paged_block_copy: Callable  # (cache, src, dst) -> cache
     paged_block_read: Callable  # (cache, idx) -> host tensors
     paged_block_write: Callable  # (cache, idx, data) -> cache
+    # StateSlab data plane: the same three operations at slot granularity
+    # over the same cache; present exactly for the stateful families
+    state_slot_copy: Optional[Callable] = None   # (cache, src, dst) -> cache
+    state_slot_read: Optional[Callable] = None   # (cache, idx) -> host tensors
+    state_slot_write: Optional[Callable] = None  # (cache, idx, data) -> cache
 
 
 def build_model(cfg: ModelConfig, device=None) -> ModelFns:
     """The family's functions, with params and caches on ``device``
     (default cuda)."""
-    if cfg.family != "dense":
-        slice_ = _LATER_SLICES.get(cfg.family, "a later slice")
+    fam = cfg.family
+    if fam not in ("dense", "ssm", "hybrid"):
+        slice_ = _LATER_SLICES.get(fam, "a later slice")
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet: "
+            f"family {fam!r} is not ported to repro_torch yet: "
             f"ROADMAP {slice_}")
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
+    if fam == "ssm":
+        # attention-free: the "paged" cache is all slab, no KV pages, and
+        # the block data plane is a no-op (the engine never grows a table)
+        return ModelFns(
+            init=lambda seed=0: ssm_lm.init_ssm_lm(cfg, seed, dev),
+            prefill=lambda p, b: ssm_lm.ssm_lm_prefill(cfg, p, b),
+            decode_step=lambda p, c, b: ssm_lm.ssm_lm_decode_step(
+                cfg, p, c, b),
+            make_cache=lambda bs, ml: ssm_lm.make_ssm_cache(cfg, bs, dtype,
+                                                            dev),
+            make_paged_cache=lambda nb, bsz, state_slots=1:
+                ssm_lm.make_ssm_paged_cache(cfg, state_slots, dtype, dev),
+            decode_paged=lambda p, c, b: ssm_lm.ssm_lm_decode_step_paged(
+                cfg, p, c, b),
+            prefill_chunk=lambda p, c, b, m_used=None:
+                ssm_lm.ssm_lm_prefill_chunk(cfg, p, c, b),
+            paged_block_copy=lambda c, src, dst: c,
+            paged_block_read=lambda c, idx: {},
+            paged_block_write=lambda c, idx, data: c,
+            state_slot_copy=ssm_lm.state_slot_copy,
+            state_slot_read=ssm_lm.state_slot_read,
+            state_slot_write=ssm_lm.state_slot_write,
+        )
+    if fam == "hybrid":
+        # mixed layout: KV pages for the shared block's call sites and a
+        # state slab for the Mamba2 backbone, in one cache
+        return ModelFns(
+            init=lambda seed=0: hybrid.init_hybrid(cfg, seed, dev),
+            prefill=lambda p, b: hybrid.hybrid_prefill(cfg, p, b),
+            decode_step=lambda p, c, b: hybrid.hybrid_decode_step(
+                cfg, p, c, b),
+            make_cache=lambda bs, ml: hybrid.make_hybrid_cache(
+                cfg, bs, ml, dtype, dev),
+            make_paged_cache=lambda nb, bsz, state_slots=1:
+                hybrid.make_hybrid_paged_cache(cfg, nb, bsz, state_slots,
+                                               dtype, dev),
+            decode_paged=lambda p, c, b: hybrid.hybrid_decode_step_paged(
+                cfg, p, c, b),
+            prefill_chunk=lambda p, c, b, m_used=None:
+                hybrid.hybrid_prefill_chunk(cfg, p, c, b, m_used=m_used),
+            paged_block_copy=hybrid.paged_block_copy,
+            paged_block_read=hybrid.paged_block_read,
+            paged_block_write=hybrid.paged_block_write,
+            state_slot_copy=hybrid.state_slot_copy,
+            state_slot_read=hybrid.state_slot_read,
+            state_slot_write=hybrid.state_slot_write,
+        )
     return ModelFns(
         init=lambda seed=0: transformer.init_lm(cfg, seed, dev),
         prefill=lambda p, b: transformer.lm_prefill(cfg, p, b),

@@ -1,5 +1,5 @@
 """Paged-KV continuous-batching serve engine over a tiered KVStore (the
-single-device dense port of ``src/repro/serve/engine.py``).
+single-device port of ``src/repro/serve/engine.py``).
 
 KV memory is owned by ``repro_torch.serve.kv_store``: refcounted block
 handles in named storage tiers — the device block pool
@@ -42,12 +42,21 @@ the engine's hardware record, as the reference engine does; the plan's kv
 tile becomes the paged-attention kernel's ``pages_per_fetch`` and its LoRA
 tile the expand kernel's ``block_out``.
 
-The model functions run eagerly and update the KV slab in place.  Paged
-attention launches the CUDA kernel for CUDA tensors and takes the gather
-path for CPU tensors (REPRO_PAGED_ATTN).  Not in this slice: multi-device
-pools and tensor parallelism (``mesh=``/``tp=``), the SSM/hybrid state
-slab, and ``cancel`` with the gateway's shed accounting and ``base:adapter``
-routing (the async engine and gateway slice) — see ROADMAP.md.
+Stateful families (ssm, hybrid) carry each request's O(1) recurrent state
+in a ``StateSlab`` beside the block pool: one slab slot per live request
+(slot 0 is the null slot of padded decode rows), claimed at admission,
+swapped whole to the slab's host tier when the request is preempted and
+released on every terminal path.  The attention-free ssm family reserves
+and grows no KV blocks at all; the hybrid holds both.  Prefix sharing is
+off for both (adopted KV blocks cannot rebuild a scan state), and their
+prefill chunks are rounded up to the scan granule ``cfg.ssm.chunk``.
+
+The model functions run eagerly and update the KV slab and the state slab
+in place.  Paged attention launches the CUDA kernel for CUDA tensors and
+takes the gather path for CPU tensors (REPRO_PAGED_ATTN).  Not in this
+slice: multi-device pools and tensor parallelism (``mesh=``/``tp=``), and
+``cancel`` with the gateway's shed accounting and ``base:adapter`` routing
+(the async engine and gateway slice) — see ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -72,7 +81,8 @@ from repro_torch.serve.adapters import AdapterStore, AdapterStoreFull
 from repro_torch.serve.faults import (FaultInjector, InjectedFault,
                                       check_kv_invariants)
 from repro_torch.serve.kv_store import (DEVICE, HOST, Block, BlockTable,
-                                        DeviceTier, HostTier, KVStore)
+                                        DeviceTier, HostTier, KVStore,
+                                        SlabDeviceView, StateSlab)
 from repro_torch.serve.paged_cache import (BlockPool, PoolExhausted,
                                            ServeMetrics, blocks_for_tokens,
                                            dense_equiv_blocks,
@@ -155,6 +165,9 @@ class _Active:
     admit_seq: int              # admission order (preemption picks the max)
     next_prefill: int = 0       # prompt tokens already prefilled
     pos: int = 0                # KV entries written (valid only post-prefill)
+    # stateful families (ssm/hybrid): the request's recurrent-state slab
+    # slot (a one-block handle in the engine's StateSlab)
+    state: Optional[Block] = None
 
     @property
     def prefill_done(self) -> bool:
@@ -169,6 +182,9 @@ class _Parked:
     blocks: List[Block]
     next_prefill: int
     pos: int
+    # stateful families: the recurrent state, swapped whole to the slab's
+    # host tier (a state is never shared, so it always moves on park)
+    state: Optional[Block] = None
 
 
 # ---------------------------------------------------------------------------
@@ -224,10 +240,6 @@ class ServeEngine:
         # the admission queue (None consults REPRO_SERVE_MAX_QUEUE, 0 =
         # unbounded).  fault_injector: None consults REPRO_FAULT, False
         # forces off.  The device is the one ``params`` live on.
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not served by repro_torch yet "
-                "(see ROADMAP.md)")
         assert admission in ("conservative", "optimistic")
         self.cfg = cfg
         self.params = params
@@ -242,13 +254,27 @@ class ServeEngine:
         self.admission = admission
         self.prefill_chunk_tokens = prefill_chunk_tokens or block_size
         self.fns = build_model(cfg, self.device)
+        # stateful families (ssm, hybrid) carry O(1) recurrent state per
+        # request in a StateSlab beside the block pool; attention-free
+        # families never touch the block table at all
+        self.has_attention = cfg.family in ("dense", "moe", "hybrid")
+        self.has_state = self.fns.state_slot_copy is not None
+        if self.has_state:
+            # engine chunk boundaries land on multiples of the scan granule,
+            # as in the JAX engine (whose associative-scan tree must match
+            # the dense oracle's); the port's sequential scan gives the same
+            # state wherever a chunk ends, so this keeps the two engines'
+            # dispatches one for one
+            g = cfg.ssm.chunk
+            self.prefill_chunk_tokens = max(
+                g * ((self.prefill_chunk_tokens + g - 1) // g), g)
 
         # unified pipeline: compile the paged attention shapes once (cached,
         # so a second engine on the same shapes skips the search passes)
         self.compile_reports: Dict[str, object] = {}
         self.compile_report = None
         self.kernel_plan = None
-        if plan_kernels:
+        if plan_kernels and self.has_attention:
             compiler = compiler or default_compiler()
             hd = cfg.resolved_head_dim
             span = self.max_blocks_per_seq * block_size
@@ -288,15 +314,40 @@ class ServeEngine:
             if self.swap_enabled else 0
         prefix_budget = prefix_cache_blocks if prefix_cache_blocks \
             is not None else self.pool.usable_blocks // 4
+        if self.has_state:
+            # adopted KV blocks cannot reproduce a request's scan state, so
+            # prefix sharing is off for stateful families: budget 0 makes
+            # match_prefix miss and register_prefix a no-op
+            prefix_budget = 0
         self.param_bytes_replicated = self.param_bytes_per_device = sum(
             t.numel() * t.element_size() for t in _leaves(params))
-        device = DeviceTier(self.fns.make_paged_cache(num_blocks, block_size),
-                            self.pool,
+        # slot 0 of the state slab is the null slot (padded decode rows)
+        self.state_slots = max_batch + 1 if self.has_state else 0
+        cache0 = (self.fns.make_paged_cache(num_blocks, block_size,
+                                            state_slots=self.state_slots)
+                  if self.has_state
+                  else self.fns.make_paged_cache(num_blocks, block_size))
+        device = DeviceTier(cache0, self.pool,
                             copy_block=self.fns.paged_block_copy,
                             read_block=self.fns.paged_block_read,
                             write_block=self.fns.paged_block_write)
         self.store = KVStore(device, HostTier(n_host),
                              prefix_cache_blocks=prefix_budget)
+
+        # state slab: per-request recurrent state as the one-block case of
+        # the block pool (same refcounted handles, host swap tier and
+        # invariants); the slab view shares the DeviceTier's cache, and its
+        # data plane touches only the state leaves
+        self.state_store: Optional[StateSlab] = None
+        if self.has_state:
+            slab_view = SlabDeviceView(device, BlockPool(self.state_slots, 1),
+                                       self.fns.state_slot_copy,
+                                       self.fns.state_slot_read,
+                                       self.fns.state_slot_write)
+            # parked states can outnumber the live slots; a full host tier
+            # downgrades the park to drop-and-restart (perf, not correctness)
+            n_state_host = 4 * max_batch if self.swap_enabled else 0
+            self.state_store = StateSlab(slab_view, HostTier(n_state_host))
 
         if fault_injector is False:
             self.faults = None
@@ -305,6 +356,9 @@ class ServeEngine:
                 else FaultInjector.from_env()
         self.pool.fault_injector = self.faults
         self.store.fault_injector = self.faults
+        if self.state_store is not None:
+            self.state_store.fault_injector = self.faults
+            self.state_store.device.pool.fault_injector = self.faults
         self.max_queue = perf().serve_max_queue if max_queue is None \
             else max_queue
         self.default_deadline_ms = perf().serve_deadline_ms
@@ -398,6 +452,13 @@ class ServeEngine:
                 req.on_finish(req)
             return
         if req.adapter_id is not None:
+            if self.has_state:
+                # the stateful families' layers read no LoRA factors: refuse
+                # rather than serve the base model's tokens under a tenant
+                self._reject(req, f"LoRA adapters are served for the dense "
+                             f"family only, not {self.cfg.family!r} (see "
+                             f"ROADMAP)")
+                return
             if not self.adapters.known(req.adapter_id):
                 self._reject(req, f"unknown adapter {req.adapter_id!r}")
                 return
@@ -429,7 +490,11 @@ class ServeEngine:
         """Blocks to reserve at admission: the exact lifetime bound plus a
         copy-on-write spare (conservative), or just the prompt (optimistic).
         A restored request reserves its remaining growth plus one slot per
-        host block to swap back in."""
+        host block to swap back in.  Attention-free families reserve
+        nothing: their footprint is one state slot, bounded by the batch
+        slots."""
+        if not self.has_attention:
+            return 0
         plen, bs = len(req.prompt), self.block_size
         worst = worst_case_blocks(plen, req.max_new, bs)
         if parked is not None:
@@ -466,7 +531,7 @@ class ServeEngine:
                 self._reject(req, f"prompt+max_new {len(req.prompt) + req.max_new}"
                                   f" exceeds max_len {self.max_len}")
                 continue
-            if worst > self.pool.usable_blocks:
+            if self.has_attention and worst > self.pool.usable_blocks:
                 self.queue.pop(0)
                 self._reject(req, f"worst-case footprint {worst} blocks exceeds "
                                   f"pool capacity {self.pool.usable_blocks}")
@@ -496,6 +561,21 @@ class ServeEngine:
                     a.table.release_to(self.store)
                     self.pool.release(a.reserved_left)
                     a.reserved_left = 0
+                    if a.state is not None:
+                        self.state_store.decref(a.state)
+                        a.state = None
+                    raise
+            elif self.state_store is not None:
+                # a fresh stateful request claims its slab slot now; a free
+                # batch slot implies a free slab slot, so a raise here is an
+                # injected slab_alloc fault, and quarantine finds the
+                # request still at the queue head holding nothing
+                try:
+                    with self._blame(req.rid):
+                        a.state = self.state_store.alloc()
+                except BaseException:
+                    self.pool.release(a.reserved_left)
+                    a.reserved_left = 0
                     raise
             self.slots[slot] = a
             self._admit_seq += 1
@@ -507,7 +587,16 @@ class ServeEngine:
         """Re-admission of a preempted request: swap its parked blocks back
         onto the device and resume exactly where it stopped.  Blocks leave
         ``parked.blocks`` only once restored, so a failure midway leaves
-        nothing double-owned."""
+        nothing double-owned.  A parked recurrent state comes back first, into
+        a fresh slab slot."""
+        if parked.state is not None:
+            dst = self.state_store.alloc()
+            try:
+                a.state = self.state_store.swap_in(parked.state, dst)
+            except BaseException:
+                self.state_store.decref(dst)
+                raise
+            parked.state = None
         while parked.blocks:
             b = parked.blocks[0]
             if b.tier == DEVICE:
@@ -577,6 +666,8 @@ class ServeEngine:
     def _grow(self, a: _Active, n_tokens: int) -> bool:
         """Grow ``a``'s table to hold ``n_tokens`` positions; False if
         preemption evicted ``a`` itself."""
+        if not self.has_attention:
+            return True  # attention-free: no KV table to grow
         while a.table.capacity < n_tokens:
             blk = self._alloc_device(a)
             if blk is None:
@@ -587,6 +678,8 @@ class ServeEngine:
     def _make_writable(self, a: _Active, start: int, end: int) -> bool:
         """Copy-on-write every shared block overlapping write positions
         [start, end).  False if allocating a copy preempted ``a`` itself."""
+        if not self.has_attention:
+            return True
         bs = self.block_size
         for i in range(start // bs, min((end - 1) // bs + 1,
                                         len(a.table.blocks))):
@@ -601,37 +694,68 @@ class ServeEngine:
         return True
 
     def _requeue(self, victim: _Active) -> None:
-        """Preempt ``victim`` back to the queue head, parking its KV on the
-        host tier when swap is enabled and the tier has room; otherwise drop
-        it and restart from the prompt."""
+        """Preempt ``victim`` back to the queue head, parking its KV (and its
+        recurrent state) on the host tiers when swap is enabled and the
+        tiers have room; otherwise drop it and restart from the prompt."""
         self.pool.release(victim.reserved_left)
         victim.reserved_left = 0
         req = victim.req
+        # attention families park only victims that hold KV (an empty table
+        # would re-admit with no reservation and ping-pong back into
+        # preemption); stateful families park whenever their state can move,
+        # since the state slot is the resumable footprint
         parked: Optional[List[Block]] = None
-        if self.swap_enabled and victim.table.blocks \
-                and self.store.can_swap_out(victim.table.blocks):
-            parked = []
-            try:
-                for b in victim.table.blocks:
-                    parked.append(self.store.swap_out(b))
-            except Exception as e:  # noqa: BLE001 — downgrade, don't crash
-                self._swap_failures += 1
-                print(f"serve-engine: swap_out failed parking request "
-                      f"{req.rid} ({type(e).__name__}: {e}); dropping its "
-                      "KV (restart from prompt)", file=sys.stderr)
-                for b in parked:
-                    self.store.decref(b)
-                for b in victim.table.blocks[len(parked):]:
-                    self.store.decref(b)
-                victim.table.blocks = []
-                parked = None
+        state_parked: Optional[Block] = None
+        holds = bool(victim.table.blocks) or victim.state is not None
+        can = self.swap_enabled and holds \
+            and self.store.can_swap_out(victim.table.blocks)
+        if can and self.state_store is not None:
+            can = victim.state is not None \
+                and self.state_store.can_swap_out([victim.state])
+        if can:
+            park_ok = True
+            if self.state_store is not None:
+                try:
+                    state_parked = self.state_store.swap_out(victim.state)
+                    victim.state = None
+                except Exception as e:  # noqa: BLE001 — downgrade
+                    self._swap_failures += 1
+                    print(f"serve-engine: state swap_out failed parking "
+                          f"request {req.rid} ({type(e).__name__}: {e}); "
+                          "dropping its state (restart from prompt)",
+                          file=sys.stderr)
+                    park_ok = False
+            if park_ok:
+                parked = []
+                try:
+                    for b in victim.table.blocks:
+                        parked.append(self.store.swap_out(b))
+                except Exception as e:  # noqa: BLE001 — downgrade
+                    self._swap_failures += 1
+                    print(f"serve-engine: swap_out failed parking request "
+                          f"{req.rid} ({type(e).__name__}: {e}); dropping "
+                          "its KV (restart from prompt)", file=sys.stderr)
+                    for b in parked:
+                        self.store.decref(b)
+                    for b in victim.table.blocks[len(parked):]:
+                        self.store.decref(b)
+                    victim.table.blocks = []
+                    parked = None
+                    if state_parked is not None:
+                        # already on the slab's host tier; the restart
+                        # rebuilds the state from the prompt
+                        self.state_store.decref(state_parked)
+                        state_parked = None
         if parked is not None:
             victim.table.blocks = []
             self._parked[req.rid] = _Parked(
                 blocks=parked, next_prefill=victim.next_prefill,
-                pos=victim.pos)
+                pos=victim.pos, state=state_parked)
         else:
             victim.table.release_to(self.store)
+            if victim.state is not None:
+                self.state_store.decref(victim.state)
+                victim.state = None
             # counters report *delivered* work: back out discarded tokens
             self._prefill_tokens -= victim.next_prefill
             self._decode_tokens -= max(len(req.out) - 1, 0)
@@ -650,6 +774,9 @@ class ServeEngine:
         a.table.release_to(self.store)
         self.pool.release(a.reserved_left)
         a.reserved_left = 0
+        if a.state is not None:
+            self.state_store.decref(a.state)
+            a.state = None
         self.finished.append(a.req)
         self.slots[self.slots.index(a)] = None
         if a.req.on_finish is not None:
@@ -675,14 +802,20 @@ class ServeEngine:
         a.table.release_to(self.store)
         self.pool.release(a.reserved_left)
         a.reserved_left = 0
+        if a.state is not None:
+            self.state_store.decref(a.state)
+            a.state = None
         self.slots[self.slots.index(a)] = None
 
     def _drop_parked(self, rid: int) -> None:
-        """Free the KV blocks a preempted request parked, if any."""
+        """Free the KV blocks (and state) a preempted request parked, if
+        any."""
         parked = self._parked.pop(rid, None)
         if parked is not None:
             for b in parked.blocks:
                 self.store.decref(b)
+            if parked.state is not None:
+                self.state_store.decref(parked.state)
 
     def _finish_expired(self, req: Request) -> None:
         self._release_adapter(req)
@@ -878,12 +1011,15 @@ class ServeEngine:
             "pages_per_fetch": self.pages_per_fetch,
             "lora_block_out": self.lora_block_out,
         }
+        if a.state is not None:
+            batch["state_slot"] = a.state.idx
         lora = self._lora_descriptor(
             np.asarray([a.req._adapter_slot], np.int32))
         if lora is not None:
             batch["lora"] = lora
+        # attention-free prefill attends over no span
         m_used = min(blocks_for_tokens(end, self.block_size),
-                     self.max_blocks_per_seq)
+                     self.max_blocks_per_seq) if self.has_attention else 0
         if self.faults is not None:
             self.faults.check("step")
         self.cache, logits = self.fns.prefill_chunk(self.params, self.cache,
@@ -925,6 +1061,7 @@ class ServeEngine:
         tok = np.zeros((self.max_batch, 1), np.int32)
         tables = np.zeros((self.max_batch, m), np.int32)
         lens = np.zeros((self.max_batch,), np.int32)
+        state_slots = np.zeros((self.max_batch,), np.int32)  # 0 = null slot
         adapter_ids = np.full((self.max_batch,), -1, np.int32)
         rows = []
         for a in live:
@@ -933,12 +1070,16 @@ class ServeEngine:
             tok[i, 0] = a.req.out[-1]
             tables[i] = a.table.padded(m)
             lens[i] = a.pos
+            if a.state is not None:
+                state_slots[i] = a.state.idx
             adapter_ids[i] = a.req._adapter_slot
         batch = {"token": self._to_device(tok),
                  "block_tables": self._to_device(tables),
                  "seq_lens": self._to_device(lens),
                  "pages_per_fetch": self.pages_per_fetch,
                  "lora_block_out": self.lora_block_out}
+        if self.has_state:
+            batch["state_slots"] = self._to_device(state_slots)
         lora = self._lora_descriptor(adapter_ids)
         if lora is not None:
             batch["lora"] = lora
@@ -1005,6 +1146,8 @@ class ServeEngine:
         self._tenant_tokens = {}
         self._tenant_finished = {}
         self.store.reset_counters()
+        if self.state_store is not None:
+            self.state_store.reset_counters()
         self.finished = []
         self.rejected = []
         self.expired = []
@@ -1047,8 +1190,12 @@ class ServeEngine:
             preemptions=self._preemptions,
             shared_blocks=self.store.shared_blocks,
             cow_copies=self.store.cow_copies,
-            swap_out_blocks=self.store.swapped_out,
-            swap_in_blocks=self.store.swapped_in,
+            # the state slab is the one-block case of the pool: its swaps
+            # are the same tier movement, folded into the same counters
+            swap_out_blocks=self.store.swapped_out
+            + (self.state_store.swapped_out if self.state_store else 0),
+            swap_in_blocks=self.store.swapped_in
+            + (self.state_store.swapped_in if self.state_store else 0),
             re_prefill_avoided=self._re_prefill_avoided,
             requests_expired=len(self.expired),
             requests_shed=len(self.shed),

@@ -17,6 +17,7 @@ Spec grammar (comma-separated, one rule per clause)::
     REPRO_FAULT="alloc:p=0.05,swap_out:after=3,step:exc=1"
 
     site := alloc | swap_out | swap_in | step
+          | slab_alloc | slab_swap_out | slab_swap_in   (state-slab ops)
     mode := p=<float>   each check at the site fires with probability p
                         (seeded RNG: REPRO_FAULT_SEED, default 0)
           | after=<N>   the (N+1)-th check fires, exactly once
@@ -33,7 +34,11 @@ import os
 import random
 from typing import Dict, List, Optional
 
-SITES = ("alloc", "swap_out", "swap_in", "step")
+SITES = ("alloc", "swap_out", "swap_in", "step",
+         # recurrent-state slab (SSM / hybrid families): same operations,
+         # separately addressable so chaos runs can stress slab traffic
+         # without also failing every block allocation
+         "slab_alloc", "slab_swap_out", "slab_swap_in")
 
 
 class InjectedFault(RuntimeError):
@@ -139,8 +144,9 @@ def check_kv_invariants(engine) -> List[str]:
     Recovery paths call this after every quarantine so a leak shows up at
     the fault that caused it, not at end-of-run teardown.  (Unlike the JAX
     package's copy, the free lists are compared as sets, so a check costs
-    O(blocks) and can run after every step of a full-size pool; the port has
-    no recurrent-state slab to check.)
+    O(blocks) and can run after every step of a full-size pool.)  For the
+    ssm and hybrid families the recurrent-state slab is held to the same
+    contract at slot granularity.
     """
     from repro_torch.serve.kv_store import DEVICE, HOST
 
@@ -191,4 +197,43 @@ def check_kv_invariants(engine) -> List[str]:
         errs.append(f"reservation ledger {pool.num_reserved} != "
                     f"sum of slot reservations {reserved}")
 
+    # recurrent-state slab (SSM / hybrid families): every allocated slot must
+    # be some active request's state handle, every parked state must sit in
+    # the slab's host tier, and refcounts must match holder counts: the same
+    # contract as blocks, at slot granularity
+    state_store = getattr(engine, "state_store", None)
+    if state_store is not None:
+        sholders: Dict[object, int] = {}
+        for a in engine.slots:
+            if a is not None and getattr(a, "state", None) is not None:
+                sholders[a.state] = sholders.get(a.state, 0) + 1
+        for parked in engine._parked.values():
+            if getattr(parked, "state", None) is not None:
+                sholders[parked.state] = sholders.get(parked.state, 0) + 1
+        for b, n in sholders.items():
+            if b.refcount != n:
+                errs.append(f"state {b.tier} slot {b.idx}: refcount "
+                            f"{b.refcount} != {n} holder reference(s)")
+        spool = state_store.device.pool
+        slab_live = {b.idx for b in sholders if b.tier == DEVICE}
+        slab_used = set(range(1, spool.num_blocks)) - set(spool._free)
+        leaked = sorted(slab_used - slab_live)
+        phantom = sorted(slab_live - slab_used)
+        if leaked:
+            errs.append(f"state slots leaked (allocated, no holder): {leaked}")
+        if phantom:
+            errs.append(f"state slots held but marked free: {phantom}")
+        shost = state_store.host
+        sh_live = {b.idx for b in sholders if b.tier == HOST}
+        sh_used = set(range(shost.num_blocks)) - set(shost._free)
+        h_leaked = sorted(sh_used - sh_live)
+        h_phantom = sorted(sh_live - sh_used)
+        if h_leaked:
+            errs.append(f"host state slots leaked (allocated, no holder): "
+                        f"{h_leaked}")
+        if h_phantom:
+            errs.append(f"host state slots held but marked free: {h_phantom}")
+        if spool.num_reserved:
+            errs.append(f"state slab has {spool.num_reserved} reserved slots "
+                        "(slots are never reserved)")
     return errs

@@ -24,9 +24,10 @@ from the model family (``ModelFns.paged_block_*``), so the store itself stays
 family-agnostic and the bookkeeping is plain Python — unit-testable in
 milliseconds with stub tiers.
 
-A copy of ``src/repro/serve/kv_store.py`` for the single-device port of the
-dense family: the mesh-sharded slab (``shardings`` / ``_pin``) and the
-recurrent-state slab (``SlabDeviceView`` / ``StateSlab``) are not ported.
+A copy of ``src/repro/serve/kv_store.py`` for the single-device port: the
+recurrent-state slab (``SlabDeviceView`` / ``StateSlab``) of the ssm and
+hybrid families is here; the mesh-sharded slab (``shardings`` / ``_pin``)
+is not ported.
 """
 from __future__ import annotations
 
@@ -407,3 +408,74 @@ class BlockTable:
         for b in self.blocks:
             store.decref(b)
         self.blocks = []
+
+
+class SlabDeviceView:
+    """Device tier over the recurrent-state *slots* of a shared cache.
+
+    SSM/hybrid requests carry O(1) state (conv window + scan state) instead
+    of, or for hybrids beside, per-token KV.  The state lives in the same
+    cache the block tier hands to the model functions (one holder: the base
+    ``DeviceTier``); this view indexes its *slot* axis instead of the block
+    axis.  Slot 0 is the null slot (as ``NULL_BLOCK``): padded decode rows
+    scatter there, and it is never allocated.  Data-plane callbacks come
+    from the model family (``ModelFns.state_slot_*``), so the view assumes
+    no leaf layout: for hybrids they touch only the ``ssm`` leaves and the
+    block callbacks only the ``k``/``v`` leaves of one cache.
+    """
+
+    name = DEVICE
+
+    def __init__(self, base: DeviceTier, pool: BlockPool,
+                 copy_slot: Callable, read_slot: Callable,
+                 write_slot: Callable):
+        self.base = base
+        self.pool = pool
+        self._copy = copy_slot
+        self._read = read_slot
+        self._write = write_slot
+
+    @property
+    def cache(self):
+        return self.base.cache
+
+    @property
+    def block_size(self) -> int:
+        return 1                      # one slot holds one request's state
+
+    def alloc(self, reserved: bool = False) -> int:
+        return self.pool.alloc(reserved=reserved)
+
+    def free(self, idx: int) -> None:
+        self.pool.free([idx])
+
+    def copy(self, src: int, dst: int) -> None:
+        self.base.cache = self._copy(self.base.cache, src, dst)
+
+    def read(self, idx: int):
+        return self._read(self.base.cache, idx)
+
+    def write(self, idx: int, data) -> None:
+        self.base.cache = self._write(self.base.cache, idx, data)
+
+
+class StateSlab(KVStore):
+    """Recurrent-state tier: the one-block case of the block pool.
+
+    A request's scan state has a fixed size, so its "table" is a single
+    refcounted ``Block`` whose ``idx`` is a slot of the state slab.  The
+    KVStore machinery carries over unchanged: refcounting, ``fork`` +
+    ``cow_into`` (state CoW), ``swap_out``/``swap_in`` to a host tier (a
+    parked state survives preemption as parked KV does).  Only the chaos
+    sites are renamed, so ``REPRO_FAULT`` can target slab traffic apart
+    from block traffic.  The prefix registry is inherited and unused (a
+    state snapshot encodes the whole prefix, not a block-aligned piece).
+    """
+
+    SITE_SWAP_OUT = "slab_swap_out"
+    SITE_SWAP_IN = "slab_swap_in"
+
+    def __init__(self, device: SlabDeviceView,
+                 host: Optional[HostTier] = None):
+        super().__init__(device, host, prefix_cache_blocks=0)
+        device.pool.fault_site = "slab_alloc"

@@ -71,3 +71,40 @@ def test_paged_cache_round_trip_bitwise(dtype):
             assert raw[k].dtype == np.uint16
             np.testing.assert_array_equal(
                 tcache[k].float().numpy(), cache[k].astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,family", [("falcon-mamba-7b", "ssm"),
+                                         ("zamba2-2.7b", "hybrid")])
+def test_stateful_params_round_trip_bitwise(arch, family, dtype):
+    """``init_ssm_lm`` ((L, ...) stacks in one dict) and ``init_hybrid``
+    ((n_seg, per, ...) stacks beside the shared block) cross to per-layer
+    dicts in forward order and back, bit for bit."""
+    cfg = dataclasses.replace(reduced_config(get_config(arch)), dtype=dtype)
+    tree = jax.tree.map(np.asarray,
+                        build_model(cfg).init(jax.random.PRNGKey(0)))
+    params = bridge.params_from_numpy(tree, "cpu")
+    assert len(params["layers"]) == cfg.n_layers
+    last = cfg.n_layers - 1
+    want = tree["layers"]["mamba"]["in_proj" if family == "ssm"
+                                   else "in_proj_zx"]
+    want = want[last] if family == "ssm" \
+        else want[last // cfg.hybrid.attn_every, last % cfg.hybrid.attn_every]
+    got = params["layers"][last]["mamba"]["in_proj" if family == "ssm"
+                                          else "in_proj_zx"]
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  want.astype(np.float32))
+    every = cfg.hybrid.attn_every if family == "hybrid" else 1
+    back = bridge.params_to_numpy(params, every=every, family=family,
+                                  bf16_dtype=ml_dtypes.bfloat16)
+    got, want = dict(_flat(back)), dict(_flat(tree))
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype
+        np.testing.assert_array_equal(got[k].view(np.uint8),
+                                      want[k].view(np.uint8), err_msg=k)
+    jcache = build_model(cfg).make_paged_cache(5, 4, state_slots=3)
+    tcache = bridge.paged_cache_from_numpy(jax.tree.map(np.asarray, jcache))
+    again = bridge.paged_cache_to_numpy(tcache, bf16_dtype=ml_dtypes.bfloat16)
+    assert jax.tree.structure(again) == jax.tree.structure(
+        jax.tree.map(np.asarray, jcache))

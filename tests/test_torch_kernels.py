@@ -129,6 +129,22 @@ def test_chunk_offsets(start, bf16):
     _close(got, jref.paged_attention_chunk_ref(jq, jk, jv, *args), tol)
 
 
+@pytest.mark.parametrize("h,kv", [(4, 4), (8, 1)])
+def test_chunk_gqa_ratios(h, kv):
+    """One query head per KV head (the hybrid's shared block) hands the
+    kernel a q that must still be contiguous after the per-KV-head
+    grouping; several query heads per KV head as well."""
+    b, m, bs, hd, c = 1, 3, 4, 16, 5
+    k, v, tables, rng = _pool(b, m, bs, kv, hd, seed=7)
+    q = (rng.normal(size=(b, c, h, hd)) * 0.4).astype(np.float32)
+    cpos = np.arange(2, 2 + c, dtype=np.int32)
+    kvl = np.asarray([2 + c], np.int32)
+    got = ops.paged_attention_chunk(*(torch.from_numpy(x) for x in (
+        q, k, v, tables, cpos, kvl)))
+    _close(got, jref.paged_attention_chunk_ref(*(jnp.asarray(x) for x in (
+        q, k, v, tables, cpos, kvl))), F32_TOL)
+
+
 @pytest.mark.parametrize("d", [64, 16])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_rmsnorm_matches_jax(d, bf16):
@@ -216,7 +232,7 @@ def test_launch_hygiene_in_the_sources():
     on a non-zero one, and no ``except`` in the kernels package or in
     chip_smoke.py can fall back to a plain version."""
     assert "sm_90a" in (KERNELS / "build.py").read_text()
-    for name in ("paged_attention", "matmul", "lora"):
+    for name in ("paged_attention", "matmul", "lora", "ssm_scan"):
         cu = (KERNELS / "csrc" / f"{name}.cu").read_text()
         assert "return cudaGetLastError();" in cu
         wrapper = ast.parse((KERNELS / f"{name}.py").read_text())
