@@ -7,7 +7,8 @@ Phases, each printing JSON objects one per line:
 
 1. card     — nvidia-smi's name and power limit, torch and CUDA versions.
 2. build    — nvcc builds the CUDA kernels (paged attention, matmul, LoRA
-              shrink and expand, selective scan) from the repo's sources for
+              shrink and expand, selective scan, flash attention forward
+              and backward) from the repo's sources for
               sm_90a, one nvcc process per source, all started together, and
               prints ptxas's register and spill lines; Triton compiles the
               rmsnorm kernel (its registers and spills are printed per width
@@ -39,7 +40,26 @@ Phases, each printing JSON objects one per line:
               planted faults (h0 ignored, the last step dropped, one tile of
               d unwritten); it has no library call.  rmsnorm also runs at
               the ssm and hybrid widths (4,096, 2,560 and the gated norm's
-              5,120) at decode and prefill-chunk rows.
+              5,120) at decode and prefill-chunk rows, and at the training
+              step's rows (4,096 x 1,024, the q norms' 65,536 x 128 and the
+              k norms' 32,768 x 128); each K2 row also times RMSNormFn's
+              host cost beside the wrapper's (grad on, inputs needing
+              none, as the serve engine calls ops.rmsnorm).  Flash
+              attention (K3) at the training step's shape (B 8 x 16 heads,
+              S 512, head_dim 128, causal; f32 and bf16): o, lse, dq, dk and
+              dv row by row (gradient rows floored at 1e-2 of the largest
+              and held to 1e-4 in f32, ``ref.GRAD_ROW_FLOOR`` and
+              ``GRAD_ROW_TOL``), two launches bitwise equal, planted
+              faults (a kv tile dropped, the causal mask flipped, dO rows
+              zeroed, lse shifted, D from a zero O); its yardstick is SDPA,
+              forward and backward, both from graph replay.  A
+              ``flash_attention_grad_witness`` line holds the f32 kernel and
+              the f32 plain versions each against the plain versions in f64
+              at the training shape.  The same gates, untimed, non-causal,
+              with q_offset (128 queries after 512 keys), ragged (S 300)
+              and at head_dim 256.  ``rmsnorm_grad`` lines: RMSNormFn's dx
+              and dw (torch ops, not a kernel) against autograd of the
+              plain rmsnorm at the training rows.
 4. compile  — ``repro_torch.pipeline.compile()`` with the H100 record on the
               serve engine's full-width decode attention term, a full-width
               qwen3-0.6b SwiGLU MLP term (not vectorized, so its products stay
@@ -90,6 +110,22 @@ Phases, each printing JSON objects one per line:
               against the same path with the plain versions on the CPU;
               then the same tokens through the dense path (plain attention,
               no K1) on the card against the CPU.
+9. train    — full-width qwen3-0.6b in bf16 through ``Trainer`` (B 8 x S
+              512, 10 steps, AdamW as the train CLI builds it, remat on):
+              losses finite and falling, step seconds, tokens/s without step
+              0, peak memory, and exactly 56 K3 forward, 28 K3 backward and
+              225 K2 launches a step (no serve kernel); train_int8: three
+              steps with int8 moments, finite and falling.  train_restart:
+              2 layers at full width, 8 steps checkpointed every 4, a failure
+              at step 6; the final loss equals a clean run's bit for bit.
+              train_oracle: 2 layers at full width, f32, loss and every
+              gradient leaf on the card against the CPU's plain versions
+              (1e-4 relative, 1e-3 of each leaf's largest value), and remat
+              off / dots / nothing agreeing on the card.  train_remat: four
+              full-width steps under each REPRO_REMAT_POLICY, step time and
+              peak memory.  train_profile:
+              torch.profiler over 3 steps, busy time by group and the idle
+              share.
 
 Then a ``{"kernels": [...]}`` summary line (each row's launches from the
 main path that gives its shape, named in its ``path``), nvidia-smi's line, and, last,
@@ -179,17 +215,20 @@ def graph_ms(fn, reps: int = 20, samples: int = 21) -> float:
     return statistics.median(times)
 
 
-def gate(name, got, want, faults, margin=4.0) -> dict:
+def gate(name, got, want, faults, margin=4.0, floor=0.0, tols=None) -> dict:
     """Hold a kernel's output to its plain version row by row, and check
     that each planted fault (a wrong output at the same shape) fails the
-    same gate by ``margin`` times its tolerance."""
+    same gate by ``margin`` times its tolerance.  ``floor`` and ``tols``
+    (limits by dtype, default ``ref.ROW_TOL``): gradients take
+    ``ref.GRAD_ROW_FLOOR`` and ``ref.GRAD_ROW_TOL``."""
     from repro_torch.kernels import ref
     import torch
-    tol = ref.ROW_TOL[want.dtype]
+    tol = (tols or ref.ROW_TOL)[want.dtype]
     assert torch.isfinite(got.float()).all(), f"{name}: non-finite output"
-    err, rel = ref.row_rel_err(got, want)
+    err, rel = ref.row_rel_err(got, want, floor)
     assert rel <= tol, f"{name}: row rel err {rel} > {tol}"
-    planted = {k: ref.row_rel_err(f, want)[1] for k, f in faults.items()}
+    planted = {k: ref.row_rel_err(f, want, floor)[1]
+               for k, f in faults.items()}
     for k, r in planted.items():
         assert r > margin * tol, \
             f"{name}: planted fault {k} passes the gate ({r})"
@@ -205,14 +244,16 @@ def bound(nbytes: float, ops: float, dtype: str) -> tuple:
 
 def counters() -> dict:
     """Each kernel's launch counter: name -> (wrapper module, attribute)."""
-    from repro_torch.kernels import (lora, matmul, paged_attention, rmsnorm,
-                                     ssm_scan)
+    from repro_torch.kernels import (flash_attention, lora, matmul,
+                                     paged_attention, rmsnorm, ssm_scan)
     return {"paged_attention": (paged_attention, "launches"),
             "rmsnorm": (rmsnorm, "launches"),
             "matmul": (matmul, "launches"),
             "lora_shrink": (lora, "shrink_launches"),
             "lora_expand": (lora, "expand_launches"),
-            "ssm_scan": (ssm_scan, "launches")}
+            "ssm_scan": (ssm_scan, "launches"),
+            "flash_attention": (flash_attention, "launches"),
+            "flash_attention_bwd": (flash_attention, "bwd_launches")}
 
 
 def zero_counts() -> None:
@@ -373,12 +414,20 @@ def _check_paged_attention(torch, results, path, h, kv, hd):
 # rmsnorm's shapes, at decode and prefill-chunk rows: qwen3-0.6b's norms
 # (d 1,024, the q/k norms at 128), falcon-mamba-7b's layer norms (4,096),
 # zamba2-2.7b's layer and shared-block norms (2,560) and its Mamba2 gated
-# norm over d_inner (5,120); and the main path that gives each width
+# norm over d_inner (5,120); then qwen3-0.6b's training step (B 8 x S 512
+# rows at 1,024, times 16 query heads and 8 key heads at 128); and the main
+# path that gives each
 RMSNORM_SHAPES = ((8, 1024), (256, 1024), (8 * 16, 128), (256 * 16, 128),
                   (8, 4096), (256, 4096), (8, 2560), (256, 2560),
-                  (8, 5120), (256, 5120))
+                  (8, 5120), (256, 5120), (4096, 1024), (4096 * 16, 128),
+                  (4096 * 8, 128))
 RMSNORM_PATH = {1024: "serve", 128: "serve", 4096: "ssm_serve",
                 2560: "hybrid_serve", 5120: "hybrid_serve"}
+RMSNORM_TRAIN_SHAPES = ((4096, 1024), (4096 * 16, 128), (4096 * 8, 128))
+
+
+def rmsnorm_path(rows, d):
+    return "train" if (rows, d) in RMSNORM_TRAIN_SHAPES else RMSNORM_PATH[d]
 
 
 def triton_registers(torch, x, w, eps):
@@ -398,9 +447,13 @@ def triton_registers(torch, x, w, eps):
 
 
 def check_rmsnorm(torch, results):
+    """K2 against its plain version at every path's rows.  ``host_ms`` is
+    the wrapper's eager cost, ``function_host_ms`` that of ``RMSNormFn``
+    with grad on and inputs needing none (how the serve engine reaches
+    ``ops.rmsnorm``): what the Function adds to a serve step's norms."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import rmsnorm_kernel
+    from repro_torch.kernels.rmsnorm import RMSNormFn, rmsnorm_kernel
     gen = torch.Generator(device=DEV).manual_seed(1)
     eps = 1e-6
     for dtype in (torch.float32, torch.bfloat16):
@@ -422,10 +475,11 @@ def check_rmsnorm(torch, results):
                                 dname)
             results.append(dict(
                 name=f"rmsnorm/d{d}", dtype=dname, shape=f"({rows}, {d})",
-                path=RMSNORM_PATH[d],
+                path=rmsnorm_path(rows, d),
                 **checked, triton=triton_registers(torch, x, w, eps),
                 kernel_ms=graph_ms(lambda: rmsnorm_kernel(x, w, eps)),
                 host_ms=host_ms(lambda: rmsnorm_kernel(x, w, eps)),
+                function_host_ms=host_ms(lambda: RMSNormFn.apply(x, w, eps)),
                 plain_ms=graph_ms(lambda: ref.rmsnorm_ref(x, w, eps)),
                 library_ms=graph_ms(lib) if lib else None,
                 bound_ms=t_bound, bound_by=by))
@@ -701,6 +755,246 @@ def check_ssm_scan(torch, results):
             library_ms=None, library=SSM_LIBRARY,
             bound_ms=t_bound, bound_by=by))
         del a, bb, c, h0, a_drop, b_drop
+
+
+# qwen3-0.6b's training step through K3: B 8 x 16 heads (the KV heads
+# repeated), S 512, head_dim 128, causal; then the gates at other shapes
+# the kernel takes (no main path gives them, so they carry no times)
+FLASH_TRAIN = (8 * 16, 512, 512, 128, True, 0)
+FLASH_GATES = (("non_causal", 32, 512, 512, 128, False, 0),
+               ("q_offset", 32, 128, 640, 128, True, 512),
+               ("ragged", 32, 300, 300, 128, True, 0),
+               ("head_dim_256", 8, 200, 200, 256, True, 0))
+
+
+def _flash_case(torch, name, dtype, bh, sq, skv, hd, causal, off, gen):
+    """Gate K3's forward (o, lse) and backward (dq, dk, dv) against the
+    plain versions, with planted faults: the last kv tile dropped and the
+    causal mask flipped (forward); the last 64 rows of dO zeroed, lse
+    shifted by 0.5 and D computed from a zero O (backward; D does not reach
+    dV).  Two launches of each must be bitwise equal."""
+    from repro_torch.kernels import flash_attention as k3, ref
+    q, k, v, do = ((torch.randn((bh, n, hd), generator=gen, device=DEV))
+                   .to(dtype) for n in (sq, skv, skv, sq))
+    dname = str(dtype).split(".")[1]
+    o, lse = k3.flash_attention_kernel(q, k, v, causal, off)
+    ro, rlse = ref.flash_attention_ref(q, k, v, causal, off)
+    cut = (skv - 1) // 64 * 64
+    fo_cut, flse_cut = k3.flash_attention_kernel(
+        q, k[:, :cut].contiguous(), v[:, :cut].contiguous(), causal, off)
+    fo_flip, flse_flip = k3.flash_attention_kernel(q, k, v, not causal, off)
+    go = gate(f"flash_attention {name} o {dname}", o, ro, {
+        "last_kv_tile_dropped": fo_cut, "causal_flipped": fo_flip})
+    gl = gate(f"flash_attention {name} lse {dname}", lse, rlse, {
+        "last_kv_tile_dropped": flse_cut, "causal_flipped": flse_flip})
+    grads = k3.flash_attention_bwd_kernel(q, k, v, o, lse, do, causal, off)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal, off)
+    do_cut = do.clone()
+    do_cut[:, -64:] = 0
+    faults = (k3.flash_attention_bwd_kernel(q, k, v, o, lse, do_cut, causal,
+                                            off),
+              k3.flash_attention_bwd_kernel(q, k, v, o, lse + 0.5, do, causal,
+                                            off),
+              k3.flash_attention_bwd_kernel(q, k, v, torch.zeros_like(o), lse,
+                                            do, causal, off))
+    gg = {}
+    for i, g in enumerate(("dq", "dk", "dv")):
+        planted = {"do_last_rows_zeroed": faults[0][i],
+                   "lse_shifted": faults[1][i]}
+        if g != "dv":
+            planted["D_from_zero_o"] = faults[2][i]
+        gg[g] = gate(f"flash_attention {name} {g} {dname}", grads[i],
+                     want[i], planted, floor=ref.GRAD_ROW_FLOOR,
+                     tols=ref.GRAD_ROW_TOL)
+    o2, lse2 = k3.flash_attention_kernel(q, k, v, causal, off)
+    again = k3.flash_attention_bwd_kernel(q, k, v, o, lse, do, causal, off)
+    bitwise = bool(torch.equal(o, o2) and torch.equal(lse, lse2)
+                   and all(torch.equal(a, b) for a, b in zip(grads, again)))
+    assert bitwise, f"flash_attention {name} {dname}: two launches differ"
+    shape = f"BH={bh} Sq={sq} Skv={skv} hd={hd} causal={causal} " \
+        f"q_offset={off}"
+    fwd = dict(name="flash_attention/forward", dtype=dname, shape=shape,
+               o_gate=go, lse_gate=gl, two_launches_bitwise=bitwise,
+               max_abs_err=max(go["max_abs_err"], gl["max_abs_err"]),
+               row_rel_err=go["row_rel_err"], tol=go["tol"])
+    bwd = dict(name="flash_attention/backward", dtype=dname, shape=shape,
+               counter="flash_attention_bwd", two_launches_bitwise=bitwise,
+               max_abs_err=max(x["max_abs_err"] for x in gg.values()),
+               row_rel_err=max(x["row_rel_err"] for x in gg.values()),
+               tol=gg["dq"]["tol"], floor=ref.GRAD_ROW_FLOOR,
+               **{f"{g}_gate": x for g, x in gg.items()})
+    return (q, k, v, do, o, lse), fwd, bwd
+
+
+def _worst_row(torch, got, exact, floor):
+    """(row_rel_err per row against ``exact`` with the floor) -> the worst
+    row's (bh, row), its exact largest value, and how many rows exceed 2e-5
+    and 4e-5."""
+    diff = (got.double() - exact).abs().amax(-1)
+    scale = exact.abs().amax(-1).clamp_min(floor * float(exact.abs().max()))
+    rel = diff / scale.clamp_min(1e-300)
+    j = int(rel.argmax())
+    return {"worst_row": list(divmod(j, rel.shape[1])),
+            "worst_row_exact_max": float(exact.abs().amax(-1).flatten()[j]),
+            "rows_over_2e-5": int((rel > 2e-5).sum()),
+            "rows_over_4e-5": int((rel > 4e-5).sum())}
+
+
+def grad_witness(torch, q, k, v, do, o, lse, causal, off):
+    """The f32 kernel and the f32 plain versions each against the plain
+    versions in f64 on the same inputs (the kernel's o and lse widened for
+    the backward), row by row with the gradient floor: the error of each
+    f32 side alone, where each side's worst row lies and how many rows pass
+    2e-5 and 4e-5; and, apart, how far the f32 rounding of o and lse moves
+    the f64 backward (against one given the f64 forward's o and lse).  The
+    kernel may be at most twice as far from f64 as the plain f32 version
+    is, and within the gates' limits."""
+    from repro_torch.kernels import flash_attention as k3, ref
+    wide = [x.double() for x in (q, k, v, do, o, lse)]
+    o64, lse64 = ref.flash_attention_ref(*wide[:3], causal, off)
+    po, plse = ref.flash_attention_ref(q, k, v, causal, off)
+    pairs = {"o": (o, po, o64, 0.0), "lse": (lse, plse, lse64, 0.0)}
+    g64 = ref.flash_attention_bwd_ref(*wide[:3], wide[4], wide[5], wide[3],
+                                      causal, off)
+    g64f = ref.flash_attention_bwd_ref(*wide[:3], o64, lse64, wide[3],
+                                       causal, off)
+    g32 = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal, off)
+    gk = k3.flash_attention_bwd_kernel(q, k, v, o, lse, do, causal, off)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        pairs[name] = (gk[i], g32[i], g64[i], ref.GRAD_ROW_FLOOR)
+    line = {}
+    for name, (kern, plain, exact, floor) in pairs.items():
+        line[name] = {
+            "kernel_vs_f64": ref.row_rel_err(kern, exact, floor)[1],
+            "plain_f32_vs_f64": ref.row_rel_err(plain, exact, floor)[1],
+            "kernel_vs_plain_f32": ref.row_rel_err(kern, plain, floor)[1]}
+        if name.startswith("d"):
+            i = ("dq", "dk", "dv").index(name)
+            line[name].update(
+                kernel=_worst_row(torch, kern, exact, floor),
+                plain_f32=_worst_row(torch, plain, exact, floor),
+                f64_from_f32_forward_vs_f64_forward=ref.row_rel_err(
+                    exact, g64f[i], floor)[1])
+    emit({"phase": "flash_attention_grad_witness",
+          "shape": f"BH={q.shape[0]} S={q.shape[1]} hd={q.shape[2]} "
+                   f"causal={causal}", "floor": ref.GRAD_ROW_FLOOR, **line})
+    for name, r in line.items():
+        tol = (ref.GRAD_ROW_TOL if name.startswith("d")
+               else ref.ROW_TOL)[torch.float32]
+        assert r["kernel_vs_f64"] <= max(2 * r["plain_f32_vs_f64"], tol / 4), \
+            f"flash_attention {name}: kernel {r['kernel_vs_f64']} from f64 " \
+            f"against the plain f32 version's {r['plain_f32_vs_f64']}"
+    del wide, g64, g64f, g32, gk
+    torch.cuda.empty_cache()
+
+
+def check_flash_attention(torch, results):
+    """K3 at the training shape (f32 and bf16, timed) and at the gate-only
+    shapes.  Times: kernel and plain version from graph replay, the wrapper
+    eagerly; the library yardstick is SDPA (causal) on the same tensors
+    viewed as (B, H, S, hd), its forward and its forward + backward
+    (``autograd.grad`` of a fresh forward) from graph replay, the backward
+    alone their difference.  Bound: q, k, v, o (and lse) moved once over 3.35
+    TB/s against 4 hd flops per visible (query, key) pair forward, 10 hd
+    backward (S recomputed, dP, dV, dK, dQ), at the type's peak."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as k3, ref
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    bh, sq, skv, hd, causal, off = FLASH_TRAIN
+    b, h = 8, bh // 8
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        esize = torch.finfo(dtype).bits // 8
+        (q, k, v, do, o, lse), fwd, bwd = _flash_case(
+            torch, "train", dtype, bh, sq, skv, hd, causal, off, gen)
+        pairs = bh * sum(min(skv, off + i + 1) for i in range(sq))
+        n = bh * sq * hd
+        f_bound, f_by = bound(4 * n * esize + bh * sq * 4, 4.0 * hd * pairs,
+                              dname)
+        b_bound, b_by = bound(8 * n * esize + bh * sq * 4, 10.0 * hd * pairs,
+                              dname)
+        if dtype == torch.float32:
+            grad_witness(torch, q, k, v, do, o, lse, causal, off)
+        q4, k4, v4, do4 = (x.view(b, h, -1, hd) for x in (q, k, v, do))
+        ql, kl, vl = (x.detach().clone().requires_grad_()
+                      for x in (q4, k4, v4))
+        lib_fwd_grad = graph_ms(lambda: F.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=True), reps=5)
+        lib_fwd_bwd = graph_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(ql, kl, vl, is_causal=True),
+            (ql, kl, vl), do4), reps=5)
+        fwd_ms = graph_ms(lambda: k3.flash_attention_kernel(q, k, v, causal,
+                                                            off))
+        bwd_ms = graph_ms(lambda: k3.flash_attention_bwd_kernel(
+            q, k, v, o, lse, do, causal, off), reps=5)
+        fwd.update(
+            path="train", kernel_ms=fwd_ms,
+            host_ms=host_ms(lambda: k3.flash_attention_kernel(
+                q, k, v, causal, off)),
+            plain_ms=graph_ms(lambda: ref.flash_attention_ref(
+                q, k, v, causal, off), reps=2),
+            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True)),
+            bound_ms=f_bound, bound_by=f_by, flops=4.0 * hd * pairs)
+        bwd.update(
+            path="train", kernel_ms=bwd_ms, fwd_plus_bwd_ms=fwd_ms + bwd_ms,
+            host_ms=host_ms(lambda: k3.flash_attention_bwd_kernel(
+                q, k, v, o, lse, do, causal, off), reps=2),
+            plain_ms=graph_ms(lambda: ref.flash_attention_bwd_ref(
+                q, k, v, o, lse, do, causal, off), reps=2),
+            library_ms=lib_fwd_bwd - lib_fwd_grad,
+            library_fwd_bwd_ms=lib_fwd_bwd,
+            bound_ms=b_bound, bound_by=b_by, flops=10.0 * hd * pairs)
+        results.extend([fwd, bwd])
+        del q, k, v, do, o, lse, ql, kl, vl
+        for name, *shape in FLASH_GATES:
+            _, fwd, bwd = _flash_case(torch, name, dtype, *shape, gen)
+            results.extend([dict(fwd, path=None), dict(bwd, path=None)])
+    torch.cuda.empty_cache()
+
+
+# RMSNormFn's backward (torch ops, not a kernel) at the training step's norm
+# rows: the layer norms (4,096 x 1,024), the q norms (65,536 x 128) and the
+# k norms (32,768 x 128)
+RMSNORM_GRAD_SHAPES = RMSNORM_TRAIN_SHAPES
+
+
+def check_rmsnorm_grad(torch):
+    """RMSNormFn's dx and dw against autograd of the plain rmsnorm, with
+    planted faults (the output gradient's rows shifted by one; dw summed
+    without the last quarter of the rows).  The backward is torch ops, so
+    its lines are not kernel rows; its time from graph replay beside
+    autograd of the plain version, eagerly."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import RMSNormFn, rmsnorm_bwd
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    eps = 1e-6
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for rows, d in RMSNORM_GRAD_SHAPES:
+            x = torch.randn((rows, d), generator=gen, device=DEV).to(dtype)
+            w = (1 + 0.5 * torch.randn((d,), generator=gen, device=DEV)) \
+                .to(dtype)
+            g = torch.randn((rows, d), generator=gen, device=DEV).to(dtype)
+            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+            dx, dw = torch.autograd.grad(RMSNormFn.apply(xg, wg, eps),
+                                         (xg, wg), g)
+            xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+            rdx, rdw = torch.autograd.grad(ref.rmsnorm_ref(xr, wr, eps),
+                                           (xr, wr), g)
+            sdx, sdw = rmsnorm_bwd(x, w, g.roll(1, 0), eps)
+            _, qdw = rmsnorm_bwd(x[:3 * rows // 4], w, g[:3 * rows // 4], eps)
+            gx = gate(f"rmsnorm grad dx ({rows},{d}) {dname}", dx, rdx,
+                      {"g_rows_shifted": sdx})
+            gw = gate(f"rmsnorm grad dw ({rows},{d}) {dname}", dw[None],
+                      rdw[None], {"g_rows_shifted": sdw[None],
+                                  "last_quarter_dropped": qdw[None]})
+            emit({"phase": "rmsnorm_grad", "dtype": dname,
+                  "shape": f"({rows}, {d})", "not_a_kernel": True,
+                  "dx_gate": gx, "dw_gate": gw,
+                  "backward_ms": graph_ms(lambda: rmsnorm_bwd(x, w, g, eps)),
+                  "plain_autograd_ms": host_ms(lambda: torch.autograd.grad(
+                      ref.rmsnorm_ref(xr, wr, eps), (xr, wr), g))})
 
 
 # ---------------------------------------------------------------------------
@@ -1416,6 +1710,257 @@ def _dense_oracle_gaps(torch, cfg, sides, prompt, forced_tokens):
     return gaps
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: training
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 10
+TRAIN_LR = 3e-4
+
+
+def _trainer(cfg, steps, opt_state="f32", **kw):
+    from repro_torch.launch.train import opt_config
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    tcfg = TrainerConfig(seq_len=512, global_batch=8, steps=steps,
+                         log_every=1, **kw)
+    return Trainer(cfg, tcfg, opt_config(TRAIN_LR, steps, opt_state),
+                   device=DEV)
+
+
+def _losses(res, steps):
+    losses = [e["loss"] for e in res["log"]]
+    assert len(losses) == steps, res["log"]
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    return losses
+
+
+def train_phase(torch, cfg):
+    """The training path: full-width qwen3-0.6b in bf16 through ``Trainer``
+    (B 8 x S 512, AdamW as the train CLI builds it, remat on), every count
+    zeroed just before and read just after.  Each step launches K3's forward
+    twice a layer (the forward and the rematerialised recompute), its
+    backward once a layer and K2 eight times a layer plus the final norm
+    (ln1, ln2, q and k norms, forward and recompute); no serve kernel.  The
+    loss is finite and falls.  Then three steps with int8 moments."""
+    trainer = _trainer(cfg, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    losses = _losses(res, TRAIN_STEPS)
+    layers = cfg.n_layers
+    want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
+            "rmsnorm": 8 * layers + 1}
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    assert {k: per_step[k] for k in want} == want, per_step
+    assert all(v == 0 for k, v in launches.items() if k not in want), \
+        launches
+    secs = [e["sec"] for e in res["log"]]
+    toks = 8 * 512
+    emit({"phase": "train", "arch": cfg.name, "dtype": cfg.dtype,
+          "layers": layers, "batch": 8, "seq_len": 512,
+          "steps": TRAIN_STEPS, "losses": losses,
+          "grad_norms": [e["grad_norm"] for e in res["log"]],
+          "step_s": secs, "wall_s": wall,
+          "tokens_per_s_after_step0": toks * (TRAIN_STEPS - 1)
+          / sum(secs[1:]),
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches, "launches_per_step": per_step})
+    del trainer, res
+    torch.cuda.empty_cache()
+    res8 = _trainer(cfg, 3, "int8").train()
+    emit({"phase": "train_int8", "arch": cfg.name, "steps": 3,
+          "losses": _losses(res8, 3),
+          "step_s": [e["sec"] for e in res8["log"]]})
+    del res8
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_remat_phase(torch, cfg, steps=4):
+    """What REPRO_REMAT_POLICY selects: four full-width bf16 steps under
+    "dots" and under "nothing", each with its step time (median after step
+    0) and peak device memory.  The policy changes what is kept, not what
+    is computed, so the losses are equal."""
+    import os
+    runs = {}
+    for policy in ("dots", "nothing"):
+        os.environ["REPRO_REMAT_POLICY"] = policy
+        try:
+            trainer = _trainer(cfg, steps)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res = trainer.train()
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("REPRO_REMAT_POLICY")
+        secs = [e["sec"] for e in res["log"]]
+        runs[policy] = {"losses": _losses(res, steps), "step_s": secs,
+                        "median_step_s_after_step0":
+                            statistics.median(secs[1:]),
+                        "peak_device_bytes":
+                            torch.cuda.max_memory_allocated()}
+        del trainer, res
+        torch.cuda.empty_cache()
+    emit({"phase": "train_remat", "arch": cfg.name, "dtype": cfg.dtype,
+          "layers": cfg.n_layers, "batch": 8, "seq_len": 512,
+          "steps": steps, **runs})
+    assert runs["dots"]["losses"] == runs["nothing"]["losses"], runs
+
+
+def train_restart_phase(torch, cfg):
+    """Checkpoint/restart on the card: 2 layers at full width, bf16, 8
+    steps checkpointed every 4 with a failure injected at step 6 (restore
+    step 4, replay); the final loss equals a clean run's bit for bit (the
+    reference bounds the gap at 5e-3)."""
+    import tempfile
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        res = _trainer(cfg2, 8, workdir=d, checkpoint_every=4) \
+            .train(fail_at=6)
+        failed_s = time.perf_counter() - t0
+        assert res["final_step"] == 8
+        from repro_torch.train.checkpoint import list_checkpoints
+        ckpts = [s for s, _ in list_checkpoints(d)]
+    clean = _trainer(cfg2, 8).train()
+    gap = abs(res["log"][-1]["loss"] - clean["log"][-1]["loss"])
+    emit({"phase": "train_restart", "arch": cfg.name, "layers": 2,
+          "steps": 8, "checkpoint_every": 4, "fail_at": 6,
+          "checkpoints": ckpts, "replayed_steps": [e["step"]
+                                                  for e in res["log"]],
+          "final_loss": res["log"][-1]["loss"],
+          "clean_final_loss": clean["log"][-1]["loss"], "gap": gap,
+          "bitwise": gap == 0.0, "run_with_failure_s": failed_s})
+    assert res["log"][-1]["step"] == clean["log"][-1]["step"] == 7
+    assert gap == 0.0, f"restart replay differs from the clean run by {gap}"
+    torch.cuda.empty_cache()
+
+
+def _loss_and_grads(torch, cfg, params, batch, remat):
+    from repro_torch.models import build_model
+    from repro_torch.train.tree import leaves, map_tree
+    ps = map_tree(lambda t: t.detach().clone().requires_grad_(), params)
+    dev = leaves(ps)[0].device
+    loss = build_model(cfg, dev).loss(
+        ps, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+        remat=remat)
+    loss.backward()
+    return float(loss), [p.grad.detach() for p in leaves(ps)]
+
+
+def train_oracle_phase(torch, cfg):
+    """2 layers at full width, f32: ``lm_loss`` and every gradient leaf on
+    the card (K2, K3 forward and backward) against the CPU's (their plain
+    versions) from the same weights and batch (B 2 x S 512): loss within
+    1e-4 relative, each leaf within 1e-3 of its largest value.  On the card,
+    remat off, "dots" and "nothing" give the same loss and gradients."""
+    import os
+    from repro_torch.models import build_model
+    from repro_torch.train.data import TokenPipeline
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params = build_model(cfg2, "cpu").init(0)
+    batch = TokenPipeline(cfg2.vocab, 512, 2, seed=5).batch_at(0)
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = _loss_and_grads(torch, cfg2, params, batch, False)
+    cpu_s = time.perf_counter() - t0
+    gpu = _to(params, DEV)
+    runs = {}
+    for mode in ("off", "dots", "nothing"):
+        os.environ["REPRO_REMAT_POLICY"] = "nothing" if mode == "nothing" \
+            else "dots"
+        runs[mode] = _loss_and_grads(torch, cfg2, gpu, batch, mode != "off")
+    os.environ.pop("REPRO_REMAT_POLICY")
+    loss, grads = runs["dots"]
+    loss_rel = abs(loss - cpu_loss) / abs(cpu_loss)
+    leaf_rel = [float((g.cpu() - w).abs().max() / w.abs().max().clamp_min(
+        1e-30)) for g, w in zip(grads, cpu_grads)]
+    remat_gap = 0.0
+    bitwise = True
+    for mode in ("off", "nothing"):
+        other_loss, other = runs[mode]
+        remat_gap = max(remat_gap, abs(other_loss - loss) / abs(loss),
+                        *(float((a - b).abs().max()
+                                / b.abs().max().clamp_min(1e-30))
+                          for a, b in zip(other, grads)))
+        bitwise = bitwise and other_loss == loss and all(
+            torch.equal(a, b) for a, b in zip(other, grads))
+    emit({"phase": "train_oracle", "arch": cfg.name, "layers": 2,
+          "dtype": "float32", "batch": 2, "seq_len": 512, "loss": loss,
+          "cpu_loss": cpu_loss, "loss_rel_err": loss_rel,
+          "grad_leaves": len(grads), "grad_leaf_rel_err_max": max(leaf_rel),
+          "remat_off_dots_nothing_gap": remat_gap,
+          "remat_bitwise": bitwise, "cpu_s": cpu_s})
+    assert loss_rel <= 1e-4, loss_rel
+    assert max(leaf_rel) <= 1e-3, leaf_rel
+    assert remat_gap <= 1e-6, remat_gap
+    del gpu, runs, grads
+    torch.cuda.empty_cache()
+
+
+def train_profile_phase(torch, cfg, steps=3):
+    """torch.profiler over 3 full-width bf16 train steps (after one warm-up
+    step): the device's idle share of the window and busy time by group
+    (K3 forward, K3 backward, GEMMs, K2, everything else)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    trainer = _trainer(cfg, steps + 1)
+    state = trainer.init_state()
+    batches = [{k: torch.from_numpy(v).to(DEV)
+                for k, v in trainer.pipeline.batch_at(i).items()}
+               for i in range(steps + 1)]
+    params, opt, _ = trainer._step(state["params"], state["opt"], batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            params, opt, m = trainer._step(params, opt, b)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    groups = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0,
+              "gemm": 0.0, "rmsnorm": 0.0, "other": 0.0}
+    counts = dict.fromkeys(groups, 0)
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        low = e.key.lower()
+        if "flash_fwd" in low:
+            g = "flash_attention_fwd"
+        elif "flash_bwd" in low:
+            g = "flash_attention_bwd"
+        elif "rmsnorm" in low:
+            g = "rmsnorm"
+        elif any(t in low for t in ("gemm", "cutlass", "xmma", "nvjet",
+                                    "cublas")):
+            g = "gemm"
+        else:
+            g = "other"
+        groups[g] += us
+        counts[g] += e.count
+        kernels[e.key] = kernels.get(e.key, 0.0) + us
+    busy = sum(groups.values())
+    assert groups["flash_attention_fwd"] > 0 and groups["gemm"] > 0, groups
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    emit({"phase": "train_profile", "arch": cfg.name, "steps": steps,
+          "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+          "device_idle_share": 1 - busy / wall_us,
+          "busy_ms_by_group": {k: v / 1e3 for k, v in groups.items()},
+          "launches_by_group": counts,
+          "top_kernels_ms": [[k[:90], v / 1e3] for k, v in top]})
+    del trainer, state, params, opt
+    torch.cuda.empty_cache()
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -1435,6 +1980,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import lora as lora_mod
     from repro_torch.kernels import matmul as mm_mod
     from repro_torch.kernels import paged_attention as pa_mod
@@ -1453,11 +1999,13 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.build("paged_attention", "matmul", "lora", "ssm_scan")
+    build.build("paged_attention", "matmul", "lora", "ssm_scan",
+                "flash_attention")
     pa_mod.load_kernel()
     mm_mod.load_kernel()
     lora_mod.load_kernels()
     k7_mod.load_kernel()
+    fa_mod.load_kernels()
     nvcc_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     x = torch.ones((16, 1024), device=DEV)
@@ -1476,8 +2024,10 @@ def main() -> int:
     check_matmul(torch, results)
     check_lora(torch, results)
     check_ssm_scan(torch, results)
+    check_flash_attention(torch, results)
     for r in results:
         emit({"phase": "kernel", **r})
+    check_rmsnorm_grad(torch)
 
     cfg = get_config("qwen3-0.6b")
     # 4. the compile pipeline at full width, kernels on the card
@@ -1517,14 +2067,25 @@ def main() -> int:
     stateful_oracle_phase(torch, hy_cfg,
                           n_layers=2 * hy_cfg.hybrid.attn_every)
 
+    # 9. training: full-width qwen3-0.6b bf16 through the Trainer (K3
+    # forward and backward, K2 through RMSNormFn), int8 moments, a restart,
+    # the card's gradients against the CPU's, a profiled window
+    train_launches = train_phase(torch, cfg)
+    train_remat_phase(torch, cfg)
+    train_restart_phase(torch, cfg)
+    train_oracle_phase(torch, cfg)
+    train_profile_phase(torch, cfg)
+
     # each row's launches come from the main path that gives its shape
     # (the row's ``path``): the qwen3-0.6b serve workload (K1 at head_dim
     # 128, K2 at 1,024 and 128), the compile phase (K4), the multi-LoRA
     # workload (K5/K6), the ssm workload (K7, K2 at 4,096) and the hybrid
-    # workload (K1 at head_dim 80, K2 at 2,560 and 5,120)
+    # workload (K1 at head_dim 80, K2 at 2,560 and 5,120) and the training
+    # run (K3 forward and backward, K2 at the training rows)
     path_launches = {"serve": launches, "compile": compile_launches,
                      "lora_serve": lora_launches, "ssm_serve": ssm_launches,
-                     "hybrid_serve": hybrid_launches}
+                     "hybrid_serve": hybrid_launches,
+                     "train": train_launches}
     sources = {
         "paged_attention": (
             "cuda", "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1538,18 +2099,24 @@ def main() -> int:
         "lora_expand": ("cuda", "src/repro_torch/kernels/csrc/lora.cu",
                         "src/repro/kernels/lora.py:98"),
         "ssm_scan": ("cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu",
-                     "src/repro/kernels/ssm_scan.py:33")}
+                     "src/repro/kernels/ssm_scan.py:33"),
+        "flash_attention": (
+            "cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:65")}
     summary = []
     for r in results:
-        # the bf16 rows, and K7's, whose path is f32 only
+        # the bf16 rows, and K7's, whose path is f32 only; not the
+        # gate-only shapes no path gives
         if r["dtype"] != "bfloat16" and not r["name"].startswith("ssm_scan"):
+            continue
+        if r["path"] is None:
             continue
         kernel = r["name"].split("/")[0]
         route, source, replaces = sources[kernel]
         summary.append({
             "name": f"{r['name']} {r['shape']}", "route": route,
             "source": source, "replaces": replaces, "path": r["path"],
-            "launches": path_launches[r["path"]][kernel],
+            "launches": path_launches[r["path"]][r.get("counter", kernel)],
             "max_abs_err": r["max_abs_err"],
             "row_rel_err": r["row_rel_err"], "ms": r["kernel_ms"],
             "host_ms": r["host_ms"],

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, refuse_grad
 
 # kernel launches since the last reset (chip_smoke.py reads and zeroes them)
 shrink_launches = 0
@@ -75,6 +75,7 @@ def lora_shrink_kernel(x: torch.Tensor, a_slab: torch.Tensor,
     """x (T, d); a_slab (S, d, R); idx (T,) int32 slot per row, -1 = no
     adapter -> (T, R) float32.  x and the slab share a dtype."""
     global shrink_launches
+    refuse_grad("lora_shrink", x, a_slab)
     _check_common("lora_shrink", x, a_slab, idx, 2)
     if x.dtype != a_slab.dtype:
         raise TypeError(f"lora_shrink: x and a_slab must share a dtype, got "
@@ -111,6 +112,7 @@ def lora_expand_kernel(h: torch.Tensor, b_slab: torch.Tensor,
     slab's dtype.  ``block_out`` is the output-feature tile one block
     covers; the result is bitwise the same for every value."""
     global expand_launches
+    refuse_grad("lora_expand", h, b_slab)
     _check_common("lora_expand", h, b_slab, idx, 1)
     if h.dtype != torch.float32:
         raise TypeError(f"lora_expand: h must be float32, got {h.dtype}")

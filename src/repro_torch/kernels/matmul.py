@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, refuse_grad
 
 # kernel launches since the last reset (chip_smoke.py reads and zeroes it)
 launches = 0
@@ -38,6 +38,7 @@ def load_kernel():
 def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (M, K) @ b (K, N) -> (M, N) in a's dtype, accumulated in f32."""
     global launches
+    refuse_grad("matmul", a, b)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul: a (M,K) and b (K,N), got {tuple(a.shape)} "
                          f"and {tuple(b.shape)}")

@@ -1,6 +1,7 @@
 """Model-facing wrappers of the port's kernels (mirrors
 ``src/repro/kernels/ops.py``): the GQA grouping of the paged-attention
-callers, the row flattening of rmsnorm and the matrix product that the
+callers, flash attention (the training path's, differentiable), the row
+flattening of rmsnorm (differentiable) and the matrix product that the
 compiler's codegen calls, the segmented LoRA shrink and expand, and the
 selective scan with its chunked-prefill entry.  Each wrapper hands its
 tensors to a kernel wrapper, which launches the kernel for CUDA tensors and
@@ -9,10 +10,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import FlashAttentionFn
 from repro_torch.kernels.lora import lora_expand_kernel, lora_shrink_kernel
 from repro_torch.kernels.matmul import matmul_kernel
 from repro_torch.kernels.paged_attention import paged_attention_kernel
-from repro_torch.kernels.rmsnorm import rmsnorm_kernel
+from repro_torch.kernels.rmsnorm import RMSNormFn
 from repro_torch.kernels.ssm_scan import ssm_scan_kernel
 
 
@@ -55,12 +57,36 @@ def paged_attention_chunk(q, k_pages, v_pages, block_tables, chunk_pos,
         .reshape(b, c, h, hd)
 
 
+def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
+    """q (B,Sq,H,hd), k/v (B,Skv,KV,hd) -> (B,Sq,H,hd).  GQA repeats the KV
+    heads before the kernel (as the JAX entry does), so autograd sums dK and
+    dV over each group.  The call goes through ``FlashAttentionFn`` (forward
+    and backward kernels), which records nothing when no input requires
+    grad or grad mode is off.  The repeat is an expand
+    (head h reads KV head h // group), whose backward is a sum over the
+    group in a fixed order: ``repeat_interleave``'s backward accumulates with
+    atomics on CUDA and would make the gradients vary from run to run."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    if kvh != h:
+        k = k[:, :, :, None, :].expand(b, skv, kvh, h // kvh, hd) \
+            .reshape(b, skv, h, hd)
+        v = v[:, :, :, None, :].expand(b, skv, kvh, h // kvh, hd) \
+            .reshape(b, skv, h, hd)
+    qf = q.transpose(1, 2).reshape(b * h, sq, hd).contiguous()
+    kf = k.transpose(1, 2).reshape(b * h, -1, hd).contiguous()
+    vf = v.transpose(1, 2).reshape(b * h, -1, hd).contiguous()
+    o = FlashAttentionFn.apply(qf, kf, vf, causal, q_offset)
+    return o.reshape(b, h, sq, hd).transpose(1, 2)
+
+
 def rmsnorm(x, w, eps: float = 1e-5):
-    """RMSNorm over the last axis of x (any leading shape)."""
+    """RMSNorm over the last axis of x (any leading shape), through
+    ``RMSNormFn``: the kernel forward on CUDA tensors, recording a graph
+    only when grad mode is on and an input requires it."""
     shape = x.shape
-    out = rmsnorm_kernel(x.reshape(-1, shape[-1]).contiguous(),
-                         w.contiguous(), eps)
-    return out.reshape(shape)
+    x2, w2 = x.reshape(-1, shape[-1]).contiguous(), w.contiguous()
+    return RMSNormFn.apply(x2, w2, eps).reshape(shape)
 
 
 def matmul(a, b):

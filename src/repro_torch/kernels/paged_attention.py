@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, refuse_grad
 
 # kernel launches since the last reset (chip_smoke.py reads and zeroes it)
 launches = 0
@@ -74,6 +74,7 @@ def paged_attention_kernel(q: torch.Tensor, k_pages: torch.Tensor,
     (``codegen.paged_pages_per_fetch``).  The CUDA kernel does not use it:
     its tile walk replaces per-fetch page grouping."""
     global launches
+    refuse_grad("paged_attention", q, k_pages, v_pages)
     _check(q, k_pages, v_pages, block_tables, q_pos, kv_lens)
     if q.device.type == "cpu":
         return ref.paged_attention_rows_ref(

@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, refuse_grad
 
 # kernel launches since the last reset (chip_smoke.py reads and zeroes it)
 launches = 0
@@ -70,6 +70,7 @@ def ssm_scan_kernel(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     h_last (B,D,N) f32): ``h_t = a_t * h_{t-1} + b_t``, ``y_t = <h_t, c_t>``
     over the state axis.  T may be 0 (then h_last equals h0)."""
     global launches
+    refuse_grad("ssm_scan", a, b, c, h0)
     _check(a, b, c, h0)
     if a.device.type == "cpu":
         return ref.ssm_scan_ref(a, b, c, h0)

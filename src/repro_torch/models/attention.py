@@ -62,9 +62,22 @@ def _causal_mask_add(qpos, kpos):
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, q_offset: int = 0,
-                         chunk: int = Q_CHUNK) -> torch.Tensor:
-    """q (B,Sq,H,hd), k/v (B,Skv,KV,hd) -> (B,Sq,H,hd).  Long queries go in
-    chunks so the score tensor never exceeds (B, H, chunk, Skv)."""
+                         chunk: int = Q_CHUNK,
+                         impl: Optional[str] = None) -> torch.Tensor:
+    """q (B,Sq,H,hd), k/v (B,Skv,KV,hd) -> (B,Sq,H,hd).
+
+    ``impl`` (the reference's argument): "reference" (the default) is the
+    plain path, which the dense oracle keeps; long queries go in chunks so
+    the score tensor never exceeds (B, H, chunk, Skv).  "kernel" (the
+    reference's "pallas") is ``ops.flash_attention``: the flash-attention
+    kernel on CUDA tensors, differentiable through its backward kernel."""
+    impl = impl or "reference"
+    if impl == "kernel":
+        from repro_torch.kernels import ops
+        return ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    if impl != "reference":
+        raise ValueError(f"multi_head_attention: impl {impl!r} is not "
+                         "'reference' or 'kernel'")
     b, sq, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(hd)
@@ -268,13 +281,14 @@ def qkv_project(cfg: ModelConfig, p, x: torch.Tensor,
 
 
 def attention_block(cfg: ModelConfig, p, x: torch.Tensor,
-                    positions: torch.Tensor, causal: bool = True
-                    ) -> torch.Tensor:
+                    positions: torch.Tensor, causal: bool = True,
+                    impl: Optional[str] = None) -> torch.Tensor:
     """Full-sequence attention with its projections and no cache: x (B,S,d)
     at positions (B,S) -> (B,S,d).  The hybrid's shared block over a whole
-    sequence (the JAX package's ``hybrid._segment_fwd``)."""
+    sequence (the JAX package's ``hybrid._segment_fwd``) and each layer of
+    ``transformer.lm_loss`` (with ``impl="kernel"``)."""
     q, k, v = qkv_project(cfg, p, x, positions)
-    o = multi_head_attention(q, k, v, causal=causal)
+    o = multi_head_attention(q, k, v, causal=causal, impl=impl)
     b, s = x.shape[:2]
     return o.reshape(b, s, cfg.q_dim) @ p["wo"]
 

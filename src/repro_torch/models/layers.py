@@ -1,5 +1,5 @@
 """Shared layer primitives (mirrors ``src/repro/models/layers.py``): rms_norm,
-RoPE, MLPs, embeddings and the init helpers.
+RoPE, MLPs, embeddings, the loss and the init helpers.
 
 Functions are plain PyTorch on tensors; params are plain dicts of tensors.
 Initializers draw from an explicit ``torch.Generator``.  M-RoPE is not in
@@ -33,7 +33,9 @@ def truncated_normal(gen: torch.Generator, shape, scale, dtype,
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
              ) -> torch.Tensor:
     """f32 reduction and scale, result in x's dtype.  CUDA tensors run the
-    Triton rmsnorm kernel, CPU tensors its plain version."""
+    Triton rmsnorm kernel, CPU tensors its plain version, both through
+    ``RMSNormFn`` (``ops.rmsnorm``), which records only when autograd
+    does."""
     require_norm_f32()
     return ops.rmsnorm(x, w, eps)
 
@@ -109,3 +111,12 @@ def logits_from_hidden(cfg: ModelConfig, p, h: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return h @ p["embed"].T
     return h @ p["unembed"]
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                          ) -> torch.Tensor:
+    """Mean next-token loss; logits (B,S,V) any dtype, labels (B,S) int."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return (lse - ll).mean()

@@ -21,6 +21,7 @@ _LATER_SLICES = {
 @dataclasses.dataclass(frozen=True)
 class ModelFns:
     init: Callable              # (seed) -> params on the bundle's device
+    loss: Callable              # (params, batch, remat=) -> scalar loss
     prefill: Callable           # (params, batch) -> (cache, logits)
     decode_step: Callable       # (params, cache, batch) -> (cache, logits)
     make_cache: Callable        # (batch_size, max_len) -> cache
@@ -41,6 +42,15 @@ class ModelFns:
     state_slot_write: Optional[Callable] = None  # (cache, idx, data) -> cache
 
 
+def _loss_not_ported(family: str) -> Callable:
+    def loss(params, batch, **kw):
+        raise NotImplementedError(
+            f"the {family} family's loss is not ported to repro_torch yet "
+            "(ROADMAP A12): its training needs a backward of the selective-"
+            "scan kernel, which every path of the port runs")
+    return loss
+
+
 def build_model(cfg: ModelConfig, device=None) -> ModelFns:
     """The family's functions, with params and caches on ``device``
     (default cuda)."""
@@ -57,6 +67,7 @@ def build_model(cfg: ModelConfig, device=None) -> ModelFns:
         # the block data plane is a no-op (the engine never grows a table)
         return ModelFns(
             init=lambda seed=0: ssm_lm.init_ssm_lm(cfg, seed, dev),
+            loss=_loss_not_ported(fam),
             prefill=lambda p, b: ssm_lm.ssm_lm_prefill(cfg, p, b),
             decode_step=lambda p, c, b: ssm_lm.ssm_lm_decode_step(
                 cfg, p, c, b),
@@ -80,6 +91,7 @@ def build_model(cfg: ModelConfig, device=None) -> ModelFns:
         # state slab for the Mamba2 backbone, in one cache
         return ModelFns(
             init=lambda seed=0: hybrid.init_hybrid(cfg, seed, dev),
+            loss=_loss_not_ported(fam),
             prefill=lambda p, b: hybrid.hybrid_prefill(cfg, p, b),
             decode_step=lambda p, c, b: hybrid.hybrid_decode_step(
                 cfg, p, c, b),
@@ -101,6 +113,7 @@ def build_model(cfg: ModelConfig, device=None) -> ModelFns:
         )
     return ModelFns(
         init=lambda seed=0: transformer.init_lm(cfg, seed, dev),
+        loss=lambda p, b, **kw: transformer.lm_loss(cfg, p, b, **kw),
         prefill=lambda p, b: transformer.lm_prefill(cfg, p, b),
         decode_step=lambda p, c, b: transformer.lm_decode_step(cfg, p, c, b),
         make_cache=lambda bs, ml: transformer.make_decode_cache(

@@ -8,6 +8,12 @@ dense cache is ``(L, B, Smax, KV, hd)`` and the paged cache
 ``(L, N, bs, KV, hd)``, both slot-major (layer ``l`` of the forward pass
 uses cache row ``l`` for dense archs).  Every cache update is in place.
 
+Training: ``lm_loss`` runs every layer's attention through the
+flash-attention kernel (``impl="kernel"``), forward and backward, and every
+norm through ``RMSNormFn``; ``forward_hidden(remat=True)`` recomputes each
+layer in the backward (``torch.utils.checkpoint``), keeping what
+``REPRO_REMAT_POLICY`` says.
+
 Multi-LoRA: the paged functions read ``batch.get("lora")`` (the engine's
 adapter descriptor, ``repro_torch.models.lora``) and
 ``batch.get("lora_block_out")``; when the descriptor is absent no LoRA code
@@ -18,6 +24,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import resolve_device
@@ -25,8 +32,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import lora as lora_mod
 from repro_torch.models.layers import (
     apply_mlp, embed_tokens, init_embed, init_mlp, logits_from_hidden,
-    rms_norm,
+    rms_norm, softmax_cross_entropy,
 )
+from repro_torch.perf import perf
 
 
 def _require_dense(cfg: ModelConfig) -> None:
@@ -71,6 +79,73 @@ def _block(cfg: ModelConfig, lp, x: torch.Tensor, attend,
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_from_hidden(cfg, params["embed"], h)
+
+
+# ---------------------------------------------------------------------------
+# Training forward and loss
+# ---------------------------------------------------------------------------
+
+def _layer_fwd(cfg: ModelConfig, lp, x: torch.Tensor, positions: torch.Tensor,
+               impl: Optional[str]) -> torch.Tensor:
+    return _block(cfg, lp, x, lambda xn: attn.attention_block(
+        cfg, lp["attn"], xn, positions, causal=True, impl=impl))
+
+
+# the products a "dots" rematerialisation keeps: matrix products without
+# batch dims (the reference's ``dots_with_no_batch_dims_saveable``)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _remat_context_fn():
+    """``checkpoint``'s context_fn for REPRO_REMAT_POLICY: "dots" (the
+    default) keeps the ``_SAVED_DOTS`` outputs and recomputes the rest;
+    "nothing" runs everything in the layer again."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts,
+                                        noop_context_fn)
+    if perf().remat_policy == "nothing":
+        return noop_context_fn
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+    return lambda: create_selective_checkpoint_contexts(policy)
+
+
+def forward_hidden(cfg: ModelConfig, params, embeds: torch.Tensor,
+                   positions: torch.Tensor, remat: bool = False,
+                   impl: Optional[str] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """embeds (B,S,d) -> (final-normed hidden (B,S,d), moe_aux scalar; 0 for
+    the dense family).  ``remat`` recomputes each layer in the backward."""
+    _require_dense(cfg)
+    x = embeds
+    context_fn = _remat_context_fn() if remat else None
+    for lp in params["layers"]:
+        if remat:
+            x = checkpoint(_layer_fwd, cfg, lp, x, positions, impl,
+                           use_reentrant=False, context_fn=context_fn)
+        else:
+            x = _layer_fwd(cfg, lp, x, positions, impl)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def lm_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True
+            ) -> torch.Tensor:
+    """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,S),
+    every attention through the flash-attention kernel."""
+    if "embeds" in batch:
+        raise NotImplementedError(
+            "the VLM stub frontend's loss is not ported yet (ROADMAP A11)")
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    embeds = embed_tokens(params["embed"], tokens)
+    positions = torch.arange(s, device=embeds.device)[None, :].expand(b, s)
+    h, aux = forward_hidden(cfg, params, embeds, positions, remat=remat,
+                            impl="kernel")
+    logits = logits_from_hidden(cfg, params["embed"], h)
+    return softmax_cross_entropy(logits, batch["labels"]) + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,15 @@
-"""Serve knobs the port honours (a subset of ``src/repro/perf.py``).
+"""Serve and train knobs the port honours (a subset of ``src/repro/perf.py``).
+
+  REPRO_REMAT_POLICY   dots | nothing
+      what a rematerialised layer of ``transformer.forward_hidden(remat=
+      True)`` keeps for the backward: dots — the outputs of its matrix
+      products without batch dims (``aten.mm``/``addmm``: every projection
+      and MLP product), so only the norms, attention and elementwise ops run
+      again; nothing — only the layer's input, everything runs again
+  REPRO_OPT_STATE      f32 | int8
+      AdamW's moments when the trainer builds its optimizer without an
+      explicit config: int8 stores them block-quantized (block 256, f32
+      scales), ~2.03 B a parameter instead of 8
 
   REPRO_PAGED_ATTN     auto | kernel | gather
       auto   — paged decode/prefill attention launches the CUDA paged-
@@ -54,6 +65,8 @@ class PerfConfig:
     lora_max_adapters: int = 8
     lora_rank: int = 8
     lora_alpha: float = 16.0
+    remat_policy: str = "dots"
+    opt_state: str = "f32"
 
 
 def require_norm_f32() -> None:
@@ -69,6 +82,12 @@ def perf() -> PerfConfig:
     mode = os.environ.get("REPRO_PAGED_ATTN", "auto")
     if mode not in ("auto", "kernel", "gather"):
         raise ValueError(f"bad REPRO_PAGED_ATTN {mode!r}")
+    remat = os.environ.get("REPRO_REMAT_POLICY", "dots")
+    if remat not in ("dots", "nothing"):
+        raise ValueError(f"bad REPRO_REMAT_POLICY {remat!r}")
+    opt_state = os.environ.get("REPRO_OPT_STATE", "f32")
+    if opt_state not in ("f32", "int8"):
+        raise ValueError(f"bad REPRO_OPT_STATE {opt_state!r}")
     return PerfConfig(
         paged_attn=mode,
         kv_swap=os.environ.get("REPRO_KV_SWAP", "1") == "1",
@@ -83,5 +102,7 @@ def perf() -> PerfConfig:
             os.environ.get("REPRO_LORA_MAX_ADAPTERS", "8")),
         lora_rank=int(os.environ.get("REPRO_LORA_RANK", "8")),
         lora_alpha=float(os.environ.get("REPRO_LORA_ALPHA", "16")),
+        remat_policy=remat,
+        opt_state=opt_state,
     )
 

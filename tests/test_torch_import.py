@@ -30,6 +30,7 @@ for n in names:
     if n != "repro_torch.kernels._rmsnorm_triton":
         importlib.import_module(n)
 assert "repro_torch.launch.serve" in names, names
+assert "repro_torch.launch.train" in names, names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "triton")
              or m == "repro" or m.startswith("repro."))
@@ -43,7 +44,7 @@ def test_importing_every_module_pulls_in_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 54
+    assert int(n) >= 72
     assert bad == "[]", f"forbidden modules imported: {bad}"
 
 

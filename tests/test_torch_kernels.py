@@ -232,7 +232,8 @@ def test_launch_hygiene_in_the_sources():
     on a non-zero one, and no ``except`` in the kernels package or in
     chip_smoke.py can fall back to a plain version."""
     assert "sm_90a" in (KERNELS / "build.py").read_text()
-    for name in ("paged_attention", "matmul", "lora", "ssm_scan"):
+    for name in ("paged_attention", "matmul", "lora", "ssm_scan",
+                 "flash_attention"):
         cu = (KERNELS / "csrc" / f"{name}.cu").read_text()
         assert "return cudaGetLastError();" in cu
         wrapper = ast.parse((KERNELS / f"{name}.py").read_text())
