@@ -45,21 +45,28 @@ Phases, each printing JSON objects one per line:
               k norms' 32,768 x 128); each K2 row also times RMSNormFn's
               host cost beside the wrapper's (grad on, inputs needing
               none, as the serve engine calls ops.rmsnorm).  Flash
-              attention (K3) at the training step's shape (B 8 x 16 heads,
-              S 512, head_dim 128, causal; f32 and bf16): o, lse, dq, dk and
+              attention (K3) at the training step's shape (B 8 x 16 query
+              heads over 8 KV heads, read grouped by the kernel, S 512,
+              head_dim 128, causal; f32 and bf16): o, lse, dq, dk and
               dv row by row (gradient rows floored at 1e-2 of the largest
               and held to 1e-4 in f32, ``ref.GRAD_ROW_FLOOR`` and
               ``GRAD_ROW_TOL``), two launches bitwise equal, planted
               faults (a kv tile dropped, the causal mask flipped, dO rows
-              zeroed, lse shifted, D from a zero O); its yardstick is SDPA,
-              forward and backward, both from graph replay.  A
+              zeroed, lse shifted, D from a zero O); its yardstick is SDPA
+              (with ``enable_gqa``), forward and backward, both from graph
+              replay.  Each K3 row carries ``sass_mma``, the tensor-core
+              instructions ``cuobjdump -sass`` finds in its kernels: bf16
+              must have them, f32 must have none.  A
               ``flash_attention_grad_witness`` line holds the f32 kernel and
               the f32 plain versions each against the plain versions in f64
               at the training shape.  The same gates, untimed, non-causal,
-              with q_offset (128 queries after 512 keys), ragged (S 300)
-              and at head_dim 256.  ``rmsnorm_grad`` lines: RMSNormFn's dx
-              and dw (torch ops, not a kernel) against autograd of the
-              plain rmsnorm at the training rows.
+              with q_offset (128 queries after 512 keys), ragged (S 300),
+              at head_dim 256, at head_dim 80 (zamba2's shared block, 32
+              heads over 32), with 8 query heads a KV head, and at head_dim
+              40 (ragged, q_offset 3).
+              ``rmsnorm_grad`` lines: RMSNormFn's dx and dw (torch ops, not
+              a kernel) against autograd of the plain rmsnorm at the
+              training rows.
 4. compile  — ``repro_torch.pipeline.compile()`` with the H100 record on the
               serve engine's full-width decode attention term, a full-width
               qwen3-0.6b SwiGLU MLP term (not vectorized, so its products stay
@@ -757,25 +764,84 @@ def check_ssm_scan(torch, results):
         del a, bb, c, h0, a_drop, b_drop
 
 
-# qwen3-0.6b's training step through K3: B 8 x 16 heads (the KV heads
-# repeated), S 512, head_dim 128, causal; then the gates at other shapes
-# the kernel takes (no main path gives them, so they carry no times)
-FLASH_TRAIN = (8 * 16, 512, 512, 128, True, 0)
-FLASH_GATES = (("non_causal", 32, 512, 512, 128, False, 0),
-               ("q_offset", 32, 128, 640, 128, True, 512),
-               ("ragged", 32, 300, 300, 128, True, 0),
-               ("head_dim_256", 8, 200, 200, 256, True, 0))
+# qwen3-0.6b's training step through K3: B 8 x 16 query heads over 8 KV
+# heads (q 128 rows, k/v 64, GQA read in the kernel), S 512, head_dim 128,
+# causal; then the gates at other shapes the kernel takes (no main path
+# gives them, so they carry no times): zamba2's shared attention block
+# (32 heads over 32, head_dim 80), a group of 8 among them, and head_dim 40
+# (the bf16 kernels' zero columns up to their 64-wide tile).  Each entry:
+# (q rows B*H, k/v rows B*KV, Sq, Skv, head_dim, causal, q_offset).
+FLASH_TRAIN = (8 * 16, 8 * 8, 512, 512, 128, True, 0)
+FLASH_GATES = (("non_causal", 32, 16, 512, 512, 128, False, 0),
+               ("q_offset", 32, 16, 128, 640, 128, True, 512),
+               ("ragged", 32, 16, 300, 300, 128, True, 0),
+               ("head_dim_256", 8, 8, 200, 200, 256, True, 0),
+               ("head_dim_80", 2 * 32, 2 * 32, 512, 512, 80, True, 0),
+               ("group_8", 64, 8, 512, 512, 128, True, 0),
+               ("head_dim_40", 8, 4, 100, 100, 40, True, 3))
+# SASS function-name fragments of K3's kernels by dtype and direction
+K3_SASS = {("bfloat16", "forward"): ("flash_fwd_mma_kernel",),
+           ("bfloat16", "backward"): ("flash_bwd_dkdv_mma_kernel",
+                                      "flash_bwd_dq_mma_kernel"),
+           ("float32", "forward"): ("flash_fwd_kernelIf",),
+           ("float32", "backward"): ("flash_bwd_dkdv_kernelIf",
+                                     "flash_bwd_dq_kernelIf")}
 
 
-def _flash_case(torch, name, dtype, bh, sq, skv, hd, causal, off, gen):
+def cuobjdump() -> str:
+    """The CUDA toolkit's cuobjdump, else the copy in Triton's package."""
+    import importlib.util
+    import shutil
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    from repro_torch.kernels import build
+    path = Path(build.nvcc()).parent / "cuobjdump"
+    if path.exists():
+        return str(path)
+    spec = importlib.util.find_spec("triton")
+    assert spec is not None, "no cuobjdump in the CUDA toolkit or Triton"
+    path = Path(spec.origin).parent / "backends/nvidia/bin/cuobjdump"
+    assert path.exists(), f"no cuobjdump at {path}"
+    return str(path)
+
+
+def sass_mma(name: str) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in each kernel of the built
+    library ``name``, from ``cuobjdump -sass``: {function: count}."""
+    from repro_torch.kernels import build
+    out = subprocess.run([cuobjdump(), "-sass",
+                          str(build.library_path(name))], check=True,
+                         capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "MMA" in line and \
+                ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return counts
+
+
+def _k3_sass(counts, dname, direction) -> dict:
+    """K3's tensor-core instruction counts for one row: each kernel of the
+    row's dtype and direction, summed over its head_dim instances."""
+    return {frag: sum(c for f, c in counts.items() if frag in f)
+            for frag in K3_SASS[(dname, direction)]}
+
+
+def _flash_case(torch, name, dtype, bh, bkv, sq, skv, hd, causal, off, gen):
     """Gate K3's forward (o, lse) and backward (dq, dk, dv) against the
     plain versions, with planted faults: the last kv tile dropped and the
     causal mask flipped (forward); the last 64 rows of dO zeroed, lse
     shifted by 0.5 and D computed from a zero O (backward; D does not reach
-    dV).  Two launches of each must be bitwise equal."""
+    dV).  q has ``bh`` rows and k/v ``bkv`` (GQA).  Two launches of each
+    must be bitwise equal."""
     from repro_torch.kernels import flash_attention as k3, ref
-    q, k, v, do = ((torch.randn((bh, n, hd), generator=gen, device=DEV))
-                   .to(dtype) for n in (sq, skv, skv, sq))
+    q, k, v, do = ((torch.randn((rows, n, hd), generator=gen, device=DEV))
+                   .to(dtype) for rows, n in ((bh, sq), (bkv, skv),
+                                              (bkv, skv), (bh, sq)))
     dname = str(dtype).split(".")[1]
     o, lse = k3.flash_attention_kernel(q, k, v, causal, off)
     ro, rlse = ref.flash_attention_ref(q, k, v, causal, off)
@@ -811,8 +877,8 @@ def _flash_case(torch, name, dtype, bh, sq, skv, hd, causal, off, gen):
     bitwise = bool(torch.equal(o, o2) and torch.equal(lse, lse2)
                    and all(torch.equal(a, b) for a, b in zip(grads, again)))
     assert bitwise, f"flash_attention {name} {dname}: two launches differ"
-    shape = f"BH={bh} Sq={sq} Skv={skv} hd={hd} causal={causal} " \
-        f"q_offset={off}"
+    shape = f"BH={bh} BKV={bkv} Sq={sq} Skv={skv} hd={hd} " \
+        f"causal={causal} q_offset={off}"
     fwd = dict(name="flash_attention/forward", dtype=dname, shape=shape,
                o_gate=go, lse_gate=gl, two_launches_bitwise=bitwise,
                max_abs_err=max(go["max_abs_err"], gl["max_abs_err"]),
@@ -892,37 +958,52 @@ def check_flash_attention(torch, results):
     """K3 at the training shape (f32 and bf16, timed) and at the gate-only
     shapes.  Times: kernel and plain version from graph replay, the wrapper
     eagerly; the library yardstick is SDPA (causal) on the same tensors
-    viewed as (B, H, S, hd), its forward and its forward + backward
-    (``autograd.grad`` of a fresh forward) from graph replay, the backward
-    alone their difference.  Bound: q, k, v, o (and lse) moved once over 3.35
-    TB/s against 4 hd flops per visible (query, key) pair forward, 10 hd
-    backward (S recomputed, dP, dV, dK, dQ), at the type's peak."""
+    viewed as (B, H, S, hd) and (B, KV, S, hd) with ``enable_gqa`` (or,
+    where this torch lacks it, on K/V repeated to every head before the
+    timed call), its forward and its forward + backward (``autograd.grad``
+    of a fresh forward) from graph replay, the backward alone their
+    difference.  Bound: q and o at the query heads, k and v at the KV heads
+    (and lse) moved once over 3.35 TB/s forward; q, o, dO, dQ, k, v, dK,
+    dV and lse backward; against 4 hd flops per visible (query, key) pair
+    forward, 10 hd backward (S recomputed, dP, dV, dK, dQ), at the type's
+    peak.  Each row carries ``sass_mma``: the tensor-core instructions in
+    its dtype's kernels (bf16 must have them; f32 must not, or it would be
+    TF32)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as k3, ref
     gen = torch.Generator(device=DEV).manual_seed(3)
-    bh, sq, skv, hd, causal, off = FLASH_TRAIN
-    b, h = 8, bh // 8
+    bh, bkv, sq, skv, hd, causal, off = FLASH_TRAIN
+    b, h, kvh = 8, bh // 8, bkv // 8
+    counts = sass_mma("flash_attention")
+    # SDPA is a builtin without a signature; its docstring names the option
+    gqa = "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or "")
+    extra = {"enable_gqa": True} if gqa else {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         esize = torch.finfo(dtype).bits // 8
         (q, k, v, do, o, lse), fwd, bwd = _flash_case(
-            torch, "train", dtype, bh, sq, skv, hd, causal, off, gen)
+            torch, "train", dtype, bh, bkv, sq, skv, hd, causal, off, gen)
         pairs = bh * sum(min(skv, off + i + 1) for i in range(sq))
-        n = bh * sq * hd
-        f_bound, f_by = bound(4 * n * esize + bh * sq * 4, 4.0 * hd * pairs,
-                              dname)
-        b_bound, b_by = bound(8 * n * esize + bh * sq * 4, 10.0 * hd * pairs,
-                              dname)
+        nq, nkv = bh * sq * hd, bkv * skv * hd
+        f_bound, f_by = bound((2 * nq + 2 * nkv) * esize + bh * sq * 4,
+                              4.0 * hd * pairs, dname)
+        b_bound, b_by = bound((4 * nq + 4 * nkv) * esize + bh * sq * 4,
+                              10.0 * hd * pairs, dname)
         if dtype == torch.float32:
             grad_witness(torch, q, k, v, do, o, lse, causal, off)
-        q4, k4, v4, do4 = (x.view(b, h, -1, hd) for x in (q, k, v, do))
+        q4, do4 = (x.view(b, h, -1, hd) for x in (q, do))
+        k4, v4 = (x.view(b, kvh, -1, hd) if gqa
+                  else x.view(b, kvh, -1, hd).repeat_interleave(h // kvh, 1)
+                  for x in (k, v))
         ql, kl, vl = (x.detach().clone().requires_grad_()
                       for x in (q4, k4, v4))
         lib_fwd_grad = graph_ms(lambda: F.scaled_dot_product_attention(
-            ql, kl, vl, is_causal=True), reps=5)
+            ql, kl, vl, is_causal=True, **extra), reps=5)
         lib_fwd_bwd = graph_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(ql, kl, vl, is_causal=True),
+            F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                           **extra),
             (ql, kl, vl), do4), reps=5)
+        library = "SDPA enable_gqa" if gqa else "SDPA on K/V repeated"
         fwd_ms = graph_ms(lambda: k3.flash_attention_kernel(q, k, v, causal,
                                                             off))
         bwd_ms = graph_ms(lambda: k3.flash_attention_bwd_kernel(
@@ -934,7 +1015,7 @@ def check_flash_attention(torch, results):
             plain_ms=graph_ms(lambda: ref.flash_attention_ref(
                 q, k, v, causal, off), reps=2),
             library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True)),
+                q4, k4, v4, is_causal=True, **extra)), library=library,
             bound_ms=f_bound, bound_by=f_by, flops=4.0 * hd * pairs)
         bwd.update(
             path="train", kernel_ms=bwd_ms, fwd_plus_bwd_ms=fwd_ms + bwd_ms,
@@ -943,13 +1024,21 @@ def check_flash_attention(torch, results):
             plain_ms=graph_ms(lambda: ref.flash_attention_bwd_ref(
                 q, k, v, o, lse, do, causal, off), reps=2),
             library_ms=lib_fwd_bwd - lib_fwd_grad,
-            library_fwd_bwd_ms=lib_fwd_bwd,
+            library_fwd_bwd_ms=lib_fwd_bwd, library=library,
             bound_ms=b_bound, bound_by=b_by, flops=10.0 * hd * pairs)
         results.extend([fwd, bwd])
-        del q, k, v, do, o, lse, ql, kl, vl
+        del q, k, v, do, o, lse, ql, kl, vl, q4, k4, v4, do4
         for name, *shape in FLASH_GATES:
             _, fwd, bwd = _flash_case(torch, name, dtype, *shape, gen)
             results.extend([dict(fwd, path=None), dict(bwd, path=None)])
+    for r in results:
+        if r["name"].startswith("flash_attention/"):
+            r["sass_mma"] = _k3_sass(counts, r["dtype"],
+                                     r["name"].split("/")[1])
+            if r["dtype"] == "bfloat16":
+                assert all(r["sass_mma"].values()), r["sass_mma"]
+            else:
+                assert not any(r["sass_mma"].values()), r["sass_mma"]
     torch.cuda.empty_cache()
 
 
@@ -2121,7 +2210,8 @@ def main() -> int:
             "row_rel_err": r["row_rel_err"], "ms": r["kernel_ms"],
             "host_ms": r["host_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"sass_mma": r["sass_mma"]} if "sass_mma" in r else {})})
     assert {k["source"] for k in summary} >= {v[1] for v in sources.values()}
     assert all(k["launches"] > 0 for k in summary), \
         [k["name"] for k in summary if not k["launches"]]

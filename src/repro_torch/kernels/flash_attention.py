@@ -3,7 +3,10 @@
 Replaces the Pallas TPU kernel ``flash_attention_kernel`` of
 ``src/repro/kernels/flash_attention.py`` and adds the backward that the TPU
 kernel lacks; the source file's header says how the kernels are laid out and
-what bounds them.  ``flash_attention_kernel`` returns the output and the
+what bounds them (bf16 on the tensor cores, f32 on the CUDA cores).
+Grouped-query attention is read in the kernels: q is (B*H, Sq, hd) and k/v
+(B*KV, Skv, hd), with B*KV dividing B*H, and no KV head is repeated.
+``flash_attention_kernel`` returns the output and the
 per-row log-sum-exp, ``flash_attention_bwd_kernel`` the three input
 gradients from them, and ``FlashAttentionFn`` joins the two as a
 ``torch.autograd.Function``.  The wrappers check what they are given and
@@ -26,14 +29,15 @@ launches = 0
 bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# repro_flash_attention_fwd(q, k, v, o, lse, BH, Sq, Skv, hd, causal,
+# repro_flash_attention_fwd(q, k, v, o, lse, BH, BKV, Sq, Skv, hd, causal,
 #                           q_offset, dtype, stream)
-_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-# repro_flash_attention_bwd(q, k, v, o, lse, do, dq, dk, dv, D, BH, Sq, Skv,
-#                           hd, causal, q_offset, dtype, stream)
-_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
+_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# repro_flash_attention_bwd(q, k, v, o, lse, do, dq, dk, dv, D, BH, BKV, Sq,
+#                           Skv, hd, causal, q_offset, dtype, stream)
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
     + [ctypes.c_void_p]
 MAX_BH = 65535      # the kernels' grid puts (batch, head) on its y axis
+ALIGN = 16          # the bf16 kernels copy rows in 16-byte cp.async chunks
 
 
 def load_kernels():
@@ -55,10 +59,11 @@ def _check(q, k, v, q_offset, extra=()) -> None:
         raise TypeError(f"flash_attention: q/k/v must be one of float32 or "
                         f"bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
-            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
-        raise ValueError(f"flash_attention: q (BH,Sq,hd), k/v (BH,Skv,hd), "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+            or k.shape[2] != q.shape[2] or k.shape[0] < 1 \
+            or q.shape[0] % k.shape[0]:
+        raise ValueError(f"flash_attention: q (BH,Sq,hd), k/v (BKV,Skv,hd) "
+                         f"with BKV dividing BH, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     bh, _, hd = q.shape
     if hd % 8 or hd > 256:
         raise ValueError(f"flash_attention: head_dim {hd} must be a multiple "
@@ -79,9 +84,16 @@ def _check(q, k, v, q_offset, extra=()) -> None:
         raise ValueError("flash_attention: inputs must be contiguous")
 
 
+def _check_aligned(*ts) -> None:
+    if any(t.data_ptr() % ALIGN for t in ts):
+        raise ValueError(f"flash_attention: CUDA inputs must be "
+                         f"{ALIGN}-byte aligned")
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            causal: bool = True, q_offset: int = 0):
-    """q (BH,Sq,hd), k/v (BH,Skv,hd) -> (o (BH,Sq,hd) in q's dtype,
+    """q (BH,Sq,hd), k/v (BKV,Skv,hd), BKV dividing BH (query head bh
+    reads KV head bh // (BH // BKV)) -> (o (BH,Sq,hd) in q's dtype,
     lse (BH,Sq) f32)."""
     global launches
     refuse_grad("flash_attention", q, k, v)
@@ -90,6 +102,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.flash_attention_ref(q, k, v, causal, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_aligned(q, k, v)
     bh, sq, hd = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
@@ -97,8 +110,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  lse.data_ptr(), bh, sq, k.shape[1], hd, int(bool(causal)),
-                  int(q_offset), _DTYPES[q.dtype], stream)
+                  lse.data_ptr(), bh, k.shape[0], sq, k.shape[1], hd,
+                  int(bool(causal)), int(q_offset), _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention forward launch failed: "
                            f"cudaError {err}")
@@ -109,7 +122,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_bwd_kernel(q, k, v, o, lse, do, causal: bool = True,
                                q_offset: int = 0):
     """Gradients of ``flash_attention_kernel``'s o: q, k, v, o, do as in the
-    forward, lse (BH,Sq) f32 from it -> (dq, dk, dv) in q's dtype."""
+    forward, lse (BH,Sq) f32 from it -> (dq, dk, dv) in q's dtype, dk and dv
+    (BKV,Skv,hd) summed over each KV head's group of query heads."""
     global bwd_launches
     refuse_grad("flash_attention_bwd", q, k, v, o, lse, do)
     _check(q, k, v, q_offset, extra=(
@@ -120,6 +134,7 @@ def flash_attention_bwd_kernel(q, k, v, o, lse, do, causal: bool = True,
                                            q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_aligned(q, k, v, o, do)
     bh, sq, hd = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
@@ -129,9 +144,9 @@ def flash_attention_bwd_kernel(q, k, v, o, lse, do, causal: bool = True,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), bh, sq,
-                  k.shape[1], hd, int(bool(causal)), int(q_offset),
-                  _DTYPES[q.dtype], stream)
+                  dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), bh,
+                  k.shape[0], sq, k.shape[1], hd, int(bool(causal)),
+                  int(q_offset), _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed: "
                            f"cudaError {err}")
@@ -140,8 +155,9 @@ def flash_attention_bwd_kernel(q, k, v, o, lse, do, causal: bool = True,
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """o = attention(q, k, v) on (BH,S,hd) tensors: the forward kernel, and
-    the backward kernel from the saved (q, k, v, o, lse)."""
+    """o = attention(q, k, v) on q (BH,Sq,hd) and k/v (BKV,Skv,hd): the
+    forward kernel, and the backward kernel from the saved (q, k, v, o,
+    lse), whose dk and dv already hold each group's sum."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, q_offset: int):

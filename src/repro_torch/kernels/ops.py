@@ -58,24 +58,20 @@ def paged_attention_chunk(q, k_pages, v_pages, block_tables, chunk_pos,
 
 
 def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
-    """q (B,Sq,H,hd), k/v (B,Skv,KV,hd) -> (B,Sq,H,hd).  GQA repeats the KV
-    heads before the kernel (as the JAX entry does), so autograd sums dK and
-    dV over each group.  The call goes through ``FlashAttentionFn`` (forward
-    and backward kernels), which records nothing when no input requires
-    grad or grad mode is off.  The repeat is an expand
-    (head h reads KV head h // group), whose backward is a sum over the
-    group in a fixed order: ``repeat_interleave``'s backward accumulates with
-    atomics on CUDA and would make the gradients vary from run to run."""
+    """q (B,Sq,H,hd), k/v (B,Skv,KV,hd) -> (B,Sq,H,hd).  GQA is read in the
+    kernels: query head h reads KV head h // (H // KV), no KV head is
+    repeated, and the backward kernel sums dK and dV over each group in a
+    fixed order (no atomics, so the gradients are the same bits every run).
+    The one copy of K and V is the move of the heads ahead of the sequence
+    into the kernels' (B*KV, Skv, hd) layout (``contiguous`` copies nothing
+    after the reshape has).  The call goes through
+    ``FlashAttentionFn`` (forward and backward kernels), which records
+    nothing when no input requires grad or grad mode is off."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
-    if kvh != h:
-        k = k[:, :, :, None, :].expand(b, skv, kvh, h // kvh, hd) \
-            .reshape(b, skv, h, hd)
-        v = v[:, :, :, None, :].expand(b, skv, kvh, h // kvh, hd) \
-            .reshape(b, skv, h, hd)
     qf = q.transpose(1, 2).reshape(b * h, sq, hd).contiguous()
-    kf = k.transpose(1, 2).reshape(b * h, -1, hd).contiguous()
-    vf = v.transpose(1, 2).reshape(b * h, -1, hd).contiguous()
+    kf = k.transpose(1, 2).reshape(b * kvh, skv, hd).contiguous()
+    vf = v.transpose(1, 2).reshape(b * kvh, skv, hd).contiguous()
     o = FlashAttentionFn.apply(qf, kf, vf, causal, q_offset)
     return o.reshape(b, h, sq, hd).transpose(1, 2)
 

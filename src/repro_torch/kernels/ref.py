@@ -72,9 +72,22 @@ def _acc(t: torch.Tensor) -> torch.dtype:
     return torch.float64 if t.dtype == torch.float64 else torch.float32
 
 
+def _group_kv(q, k):
+    """k (BKV,S,hd) repeated to q's BH rows: row bh is KV row bh // group."""
+    group = q.shape[0] // k.shape[0]
+    return k if group == 1 else k.repeat_interleave(group, dim=0)
+
+
+def _sum_groups(g, kv_rows):
+    """(BH,S,hd) gradient of the repeated K or V -> (BKV,S,hd), each KV
+    row the sum over its group in one fixed order."""
+    return g if g.shape[0] == kv_rows else \
+        g.unflatten(0, (kv_rows, -1)).sum(1)
+
+
 def _flash_scores(q, k, causal, q_offset):
-    """Scaled scores (BH,Sq,Skv) in ``_acc`` and the visibility mask
-    (Sq,Skv)."""
+    """Scaled scores (BH,Sq,Skv) in ``_acc`` (k already at q's BH rows) and
+    the visibility mask (Sq,Skv)."""
     sq, skv, hd = q.shape[1], k.shape[1], q.shape[2]
     acc = _acc(q)
     s = torch.einsum("bqd,bkd->bqk", q.to(acc), k.to(acc)) / math.sqrt(hd)
@@ -86,9 +99,11 @@ def _flash_scores(q, k, causal, q_offset):
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, q_offset: int = 0):
-    """q (BH,Sq,hd), k/v (BH,Skv,hd): exact softmax attention in f32 (f64
-    for f64 inputs) -> (o in q's dtype, lse (BH,Sq) in the accumulation
-    type, the log-sum-exp of each row's scaled scores)."""
+    """q (BH,Sq,hd), k/v (BKV,Skv,hd), BKV dividing BH (query head bh reads
+    KV head bh // (BH // BKV)): exact softmax attention in f32 (f64 for f64
+    inputs) -> (o in q's dtype, lse (BH,Sq) in the accumulation type, the
+    log-sum-exp of each row's scaled scores)."""
+    k, v = _group_kv(q, k), _group_kv(q, v)
     s, live = _flash_scores(q, k, causal, q_offset)
     s = torch.where(live, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -100,7 +115,9 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
                             q_offset: int = 0):
     """The analytic gradient of ``flash_attention_ref``'s o, with P
     recomputed from lse: (dq, dk, dv) in q's dtype, computed in f32 (f64
-    for f64 inputs)."""
+    for f64 inputs); dk and dv (BKV,Skv,hd) summed over each group."""
+    kv_rows = k.shape[0]
+    k, v = _group_kv(q, k), _group_kv(q, v)
     s, live = _flash_scores(q, k, causal, q_offset)
     acc = s.dtype
     p = torch.where(live, torch.exp(s - lse.to(acc)[..., None]), 0.0)
@@ -111,7 +128,8 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
     ds = p * (dp - delta) / math.sqrt(q.shape[2])
     dq = torch.einsum("bqk,bkd->bqd", ds, k.to(acc))
     dk = torch.einsum("bqk,bqd->bkd", ds, q.to(acc))
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq.to(q.dtype), _sum_groups(dk, kv_rows).to(k.dtype), \
+        _sum_groups(dv, kv_rows).to(v.dtype)
 
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,8 @@ from repro_torch.models import lora as lora_mod
 from repro_torch.models.layers import apply_rope, rms_norm, truncated_normal
 from repro_torch.perf import perf
 
-# q chunks of this size bound the live score tensor to (B,H,CHUNK,S_kv)
+# q chunks of this size bound the live score tensor to (B,H,CHUNK,S_kv);
+# REPRO_ATTN_CHUNK overrides it where a caller passes this default
 Q_CHUNK = 1024
 NEG_INF = -1e30
 
@@ -68,7 +69,9 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``impl`` (the reference's argument): "reference" (the default) is the
     plain path, which the dense oracle keeps; long queries go in chunks so
-    the score tensor never exceeds (B, H, chunk, Skv).  "kernel" (the
+    the score tensor never exceeds (B, H, chunk, Skv), the chunk taken from
+    ``REPRO_ATTN_CHUNK`` when the caller passes the default (as the
+    reference does).  "kernel" (the
     reference's "pallas") is ``ops.flash_attention``: the flash-attention
     kernel on CUDA tensors, differentiable through its backward kernel."""
     impl = impl or "reference"
@@ -78,6 +81,7 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl != "reference":
         raise ValueError(f"multi_head_attention: impl {impl!r} is not "
                          "'reference' or 'kernel'")
+    chunk = perf().attn_chunk if chunk == Q_CHUNK else chunk
     b, sq, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(hd)

@@ -10,6 +10,11 @@
       AdamW's moments when the trainer builds its optimizer without an
       explicit config: int8 stores them block-quantized (block 256, f32
       scales), ~2.03 B a parameter instead of 8
+  REPRO_ATTN_CHUNK     int (1024)
+      the q chunk of the plain ``multi_head_attention`` path when its
+      caller passes the default: queries longer than twice the chunk that
+      it divides go in chunks, so the score tensor never exceeds
+      (B, H, chunk, S_kv).  It changes memory, not values.
 
   REPRO_PAGED_ATTN     auto | kernel | gather
       auto   — paged decode/prefill attention launches the CUDA paged-
@@ -45,6 +50,9 @@
 
 ``REPRO_NORM_F32=0`` (rms_norm in the activation dtype) is not ported: the
 port's rms_norm always reduces in f32, and setting the knob raises.
+``REPRO_SERVE_MESH`` (anything but "0", "" or "off") and
+``REPRO_SERVE_TP=1`` (a sharded serve engine) are not ported either: the
+port's ``ServeEngine`` raises when either is set (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -67,6 +75,7 @@ class PerfConfig:
     lora_alpha: float = 16.0
     remat_policy: str = "dots"
     opt_state: str = "f32"
+    attn_chunk: int = 1024
 
 
 def require_norm_f32() -> None:
@@ -75,6 +84,21 @@ def require_norm_f32() -> None:
         raise NotImplementedError(
             "REPRO_NORM_F32=0 (rms_norm in the activation dtype) is not "
             "ported to repro_torch yet; see ROADMAP.md")
+
+
+def require_single_device_serve() -> None:
+    """Raise if ``REPRO_SERVE_MESH`` or ``REPRO_SERVE_TP`` asks for a
+    sharded serve engine, which the port lacks (the reference builds one
+    from them when no mesh is passed)."""
+    mesh = os.environ.get("REPRO_SERVE_MESH", "0")
+    if mesh not in ("0", "", "off"):
+        raise NotImplementedError(
+            f"REPRO_SERVE_MESH={mesh!r} (a serve engine sharded over a "
+            "mesh) is not ported to repro_torch yet; see ROADMAP.md A10")
+    if os.environ.get("REPRO_SERVE_TP", "0") == "1":
+        raise NotImplementedError(
+            "REPRO_SERVE_TP=1 (tensor-parallel serving) is not ported to "
+            "repro_torch yet; see ROADMAP.md A10")
 
 
 def perf() -> PerfConfig:
@@ -88,6 +112,9 @@ def perf() -> PerfConfig:
     opt_state = os.environ.get("REPRO_OPT_STATE", "f32")
     if opt_state not in ("f32", "int8"):
         raise ValueError(f"bad REPRO_OPT_STATE {opt_state!r}")
+    attn_chunk = int(os.environ.get("REPRO_ATTN_CHUNK", "1024"))
+    if attn_chunk < 1:
+        raise ValueError(f"bad REPRO_ATTN_CHUNK {attn_chunk}")
     return PerfConfig(
         paged_attn=mode,
         kv_swap=os.environ.get("REPRO_KV_SWAP", "1") == "1",
@@ -104,5 +131,6 @@ def perf() -> PerfConfig:
         lora_alpha=float(os.environ.get("REPRO_LORA_ALPHA", "16")),
         remat_policy=remat,
         opt_state=opt_state,
+        attn_chunk=attn_chunk,
     )
 

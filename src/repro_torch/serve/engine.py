@@ -74,7 +74,7 @@ from repro_torch.core.codegen import lora_tiles, paged_pages_per_fetch
 from repro_torch.core.hardware import H100, Hardware
 from repro_torch.core.tensor_ir import inp, matmul, unary
 from repro_torch.models import build_model
-from repro_torch.perf import perf
+from repro_torch.perf import perf, require_single_device_serve
 from repro_torch.pipeline import (CompileOptions, CompileTarget, Compiler,
                                   default_compiler)
 from repro_torch.serve.adapters import AdapterStore, AdapterStoreFull
@@ -240,6 +240,8 @@ class ServeEngine:
         # the admission queue (None consults REPRO_SERVE_MAX_QUEUE, 0 =
         # unbounded).  fault_injector: None consults REPRO_FAULT, False
         # forces off.  The device is the one ``params`` live on.
+        # REPRO_SERVE_MESH / REPRO_SERVE_TP ask for sharding the port lacks
+        require_single_device_serve()
         assert admission in ("conservative", "optimistic")
         self.cfg = cfg
         self.params = params

@@ -9,8 +9,11 @@ block sizes would not divide the sequence, against the reference's
 ``multi_head_attention``.  The Pallas kernel has no backward, so the
 backward is held against ``jax.grad`` of ``multi_head_attention`` (what the
 JAX trainer differentiates) and against torch autograd of the port's plain
-attention.  The test marked ``gpu`` holds the CUDA kernels against the plain
-versions on a card and skips without one.
+attention.  Grouped-query attention is read by the kernels (k/v at the KV
+heads, groups of up to 8 here): the grouped call equals the call on K/V
+repeated to every query head, with dK/dV summed over each group.  The test
+marked ``gpu`` holds the CUDA kernels against the plain versions on a card
+and skips without one.
 """
 import jax
 import jax.numpy as jnp
@@ -57,7 +60,7 @@ def _close(got, want, tol, what=""):
 # -- forward -----------------------------------------------------------------
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (8, 1), (16, 2)])
 def test_forward_matches_pallas_interpret(causal, h, kv):
     q, k, v = _qkv(2, 128, 128, h, kv, 64)
     want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
@@ -123,7 +126,8 @@ def test_lse_is_the_row_logsumexp():
 # -- backward ----------------------------------------------------------------
 
 BWD_CASES = [(2, 32, 32, 4, 2, True, 0), (2, 24, 24, 4, 4, False, 0),
-             (1, 29, 45, 4, 1, True, 16), (2, 17, 17, 2, 2, True, 0)]
+             (1, 29, 45, 4, 1, True, 16), (2, 17, 17, 2, 2, True, 0),
+             (2, 33, 33, 16, 2, True, 0)]
 
 
 def _jax_grads(q, k, v, do, causal, off):
@@ -136,8 +140,8 @@ def _jax_grads(q, k, v, do, causal, off):
 
 @pytest.mark.parametrize("b,sq,skv,h,kv,causal,off", BWD_CASES)
 def test_backward_matches_jax_grad(b, sq, skv, h, kv, causal, off):
-    """dQ, dK, dV through FlashAttentionFn (GQA sums dK/dV over each group
-    by autograd of the repeat) against jax.grad of the reference."""
+    """dQ, dK, dV through FlashAttentionFn (GQA read by the kernels, which
+    sum dK/dV over each group) against jax.grad of the reference."""
     q, k, v = _qkv(b, sq, skv, h, kv, 16, seed=3)
     do = np.random.default_rng(4).normal(size=q.shape).astype(np.float32)
     want = _jax_grads(q, k, v, do, causal, off)
@@ -203,6 +207,53 @@ def test_plain_backward_matches_jax_grad_directly():
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         g = g.reshape(1, 3, -1, 16).transpose(1, 2)
         _close(g, w, TOL, name)
+
+
+def _heads(x):
+    """(B,S,heads,hd) numpy -> the kernels' (B*heads,S,hd) tensor."""
+    b, n, h, hd = x.shape
+    return torch.from_numpy(x).transpose(1, 2).reshape(b * h, n, hd) \
+        .contiguous()
+
+
+@pytest.mark.parametrize("causal,off", [(True, 0), (False, 0), (True, 7)])
+@pytest.mark.parametrize("group", [2, 8])
+def test_grouped_call_equals_the_call_on_repeated_kv(group, causal, off):
+    """The wrappers on (BKV,Skv,hd) k/v give the output, lse and dq of the
+    same call on k/v repeated to every query head, and dk/dv equal to that
+    call's summed over each group (through FlashAttentionFn too)."""
+    q, k, v = _qkv(2, 19, 19 + off, 2 * group, 2, 16, seed=12)
+    do = _heads(np.random.default_rng(13).normal(size=q.shape)
+                .astype(np.float32))
+    tq, tk, tv = _heads(q), _heads(k), _heads(v)
+    rk, rv = (t.repeat_interleave(group, dim=0) for t in (tk, tv))
+    o, lse = k3.flash_attention_kernel(tq, tk, tv, causal, off)
+    ro, rlse = k3.flash_attention_kernel(tq, rk, rv, causal, off)
+    torch.testing.assert_close(o, ro, rtol=0, atol=0)
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=0)
+    got = k3.flash_attention_bwd_kernel(tq, tk, tv, o, lse, do, causal, off)
+    want = k3.flash_attention_bwd_kernel(tq, rk, rv, ro, rlse, do, causal,
+                                         off)
+    assert got[1].shape == tk.shape and got[2].shape == tv.shape
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w.unflatten(0, (4, group)).sum(1),
+                                   rtol=0, atol=1e-6)
+    ts = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    fn = torch.autograd.grad(k3.FlashAttentionFn.apply(*ts, causal, off), ts,
+                             do)
+    for g, w in zip(fn, got):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bh,bkv", [(6, 4), (4, 8), (6, 0)])
+def test_wrappers_refuse_kv_heads_that_do_not_divide(bh, bkv):
+    q = torch.zeros(bh, 5, 8)
+    kv = torch.zeros(bkv, 5, 8)
+    with pytest.raises(ValueError, match="BKV dividing BH"):
+        k3.flash_attention_kernel(q, kv, kv)
+    with pytest.raises(ValueError, match="BKV dividing BH"):
+        k3.flash_attention_bwd_kernel(q, kv, kv, q, torch.zeros(bh, 5), q)
 
 
 def test_function_path_is_taken_only_when_grad_is_needed():
@@ -319,17 +370,22 @@ def cuda():
 @pytest.mark.gpu
 def test_flash_kernels_match_plain_versions_on_cuda(cuda):
     """K3's forward (o, lse) and backward (dq, dk, dv) against the plain
-    versions, f32 and bf16, causal with and without q_offset, non-causal and
-    ragged; two backward launches are bitwise equal."""
+    versions, f32 and bf16, causal with and without q_offset, non-causal,
+    ragged, at head_dim 40, 80, 128 and 256, and with KV heads grouped by
+    2 and 8; two backward launches are bitwise equal."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     for dtype in (torch.float32, torch.bfloat16):
-        for bh, sq, skv, hd, causal, off in ((4, 300, 300, 128, True, 0),
-                                             (4, 128, 640, 128, True, 512),
-                                             (3, 70, 90, 256, False, 0),
-                                             (2, 65, 65, 40, True, 3)):
-            q, k, v, do = (torch.randn((bh, n, hd), generator=gen,
-                                       device=cuda).to(dtype)
-                           for n in (sq, skv, skv, sq))
+        for bh, bkv, sq, skv, hd, causal, off in (
+                (4, 4, 300, 300, 128, True, 0),
+                (4, 4, 128, 640, 128, True, 512),
+                (3, 3, 70, 90, 256, False, 0),
+                (2, 2, 65, 65, 40, True, 3),
+                (8, 4, 97, 97, 80, True, 0),
+                (16, 2, 128, 128, 128, True, 0)):
+            q, do = (torch.randn((bh, sq, hd), generator=gen,
+                                 device=cuda).to(dtype) for _ in range(2))
+            k, v = (torch.randn((bkv, skv, hd), generator=gen,
+                                device=cuda).to(dtype) for _ in range(2))
             n0, b0 = k3.launches, k3.bwd_launches
             o, lse = k3.flash_attention_kernel(q, k, v, causal, off)
             grads = k3.flash_attention_bwd_kernel(q, k, v, o, lse, do,
