@@ -25,7 +25,15 @@ Phases, each printing JSON objects one per line:
               rate).  Paged attention runs at both head layouts that serve
               (qwen3-0.6b: 16 heads over 8 KV heads, head_dim 128; zamba2's
               shared block: 32 heads over 32, head_dim 80), through the
-              model-facing ``ops`` entries.  The LoRA kernels run at the
+              model-facing ``ops`` entries.  K1 and K4 rows also hold two
+              launches bitwise equal, each decode row run alone bitwise
+              equal to its row of the batch, a planted fault of each
+              redesign (a middle split, a middle K slice dropped) failing
+              the gate, and ``sass_mma`` (> 0 in the bf16 GEMM and chunk
+              kernels, 0 in the f32 ones); gate-only rows take K1 to its
+              split boundaries (spans 511 to 2,048), a group of 8, block
+              size 5 at head_dim 40 and ragged chunks, and K4 to K or N
+              not a multiple of 8 and K = 0.  The LoRA kernels run at the
               serve path's shapes (T = 8
               decode rows and a 256-row prefill chunk, every projection's
               widths, rank 16, 8 slots, block_out 128) under four slot mixes;
@@ -139,6 +147,9 @@ main path that gives its shape, named in its ``path``), nvidia-smi's line, and, 
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
 non-zero before that line.  Without a CUDA device, or without the repo's
 ``src/`` beside it, the script exits non-zero and prints no result.
+
+``--only paged_attention,matmul`` (any kernel checks) runs phases 1-3 for
+those kernels alone and prints no result line: a quick check of a kernel.
 """
 from __future__ import annotations
 
@@ -305,11 +316,144 @@ def _tables(torch, lens, m, bs, n, rng):
 # qwen3-0.6b (16 query heads over 8 KV heads, head_dim 128) and zamba2-2.7b's
 # shared block (32 heads, one per KV head, head_dim 80)
 PAGED_SHAPES = (("serve", 16, 8, 128), ("hybrid_serve", 32, 32, 80))
+# gate-only decode rows (no main path gives them, so no times): spans at the
+# split-KV kernel's split boundaries (512 keys, ``ref.PAGED_SPLIT``) at both
+# serve layouts, a group of 8 query heads a KV head, and a block size that
+# divides nothing at head_dim 40 (an odd count of 16-byte chunks a row).
+# Each entry: (name, H, KV, head_dim, block size, spans).
+PAGED_GATES = (("split_boundaries", 16, 8, 128, 16,
+                (511, 512, 513, 1025, 2048)),
+               ("split_boundaries", 32, 32, 80, 16,
+                (511, 512, 513, 1025, 2048)),
+               ("group_8", 32, 4, 128, 16,
+                (1, 17, 255, 512, 1000, 1537, 2000, 2048)),
+               ("block_size_5", 4, 1, 40, 5, (1, 7, 513, 1100)))
+# gate-only prefill chunks: C = 100 at start 37 (q tiles of 64 rows that
+# straddle two heads' rows and end ragged) at both serve layouts, and C = 70
+# at start 600 with block size 5 and head_dim 40 (two splits in f32).
+# Each entry: (name, H, KV, head_dim, block size, C, start).
+PAGED_CHUNK_GATES = (("ragged_chunk", 16, 8, 128, 16, 100, 37),
+                     ("ragged_chunk", 32, 32, 80, 16, 100, 37),
+                     ("block_size_5", 4, 1, 40, 5, 70, 600))
+# SASS function-name fragments of K1's kernels: split-KV (decode in both
+# dtypes, f32 chunks; CUDA cores) and the bf16 chunk kernel (tensor cores)
+K1_SASS = {("bfloat16", "decode"): "paged_split_kernelI13__nv_bfloat16",
+           ("float32", "decode"): "paged_split_kernelIf",
+           ("bfloat16", "prefill_chunk"): "paged_chunk_mma_kernel",
+           ("float32", "prefill_chunk"): "paged_split_kernelIf"}
 
 
 def check_paged_attention(torch, results):
+    counts = sass_mma("paged_attention")
     for path, h, kv, hd in PAGED_SHAPES:
         _check_paged_attention(torch, results, path, h, kv, hd)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, h, kv, hd, bs, lens in PAGED_GATES:
+            results.append(_paged_gate(torch, name, dtype, h, kv, hd, bs,
+                                       lens))
+        for name, *shape in PAGED_CHUNK_GATES:
+            results.append(_paged_chunk_gate(torch, name, dtype, *shape))
+    for r in results:
+        if r["name"].startswith("paged_attention/"):
+            frag = K1_SASS[(r["dtype"], r["name"].split("/")[1])]
+            r["sass_mma"] = {frag: sum(c for f, c in counts.items()
+                                       if frag in f)}
+            if (r["dtype"], r["name"]) == ("bfloat16",
+                                           "paged_attention/prefill_chunk"):
+                assert r["sass_mma"][frag] > 0, r["sass_mma"]
+            elif r["dtype"] == "float32":
+                assert r["sass_mma"][frag] == 0, r["sass_mma"]
+
+
+def _drop_split(torch, q, kp, vp, tables, lens, drop=1):
+    """A planted fault of the split-KV design: decode with one middle split
+    of every span left out (``ref.paged_attention_split_ref``)."""
+    from repro_torch.kernels import ref
+    b, _, h, hd = q.shape
+    group = h // kp.shape[2]
+    o = ref.paged_attention_split_ref(
+        q.reshape(b, -1, group, hd), kp, vp, tables,
+        (lens - 1)[:, None].expand(b, group).contiguous(), lens, drop=drop)
+    return o.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def _k1_split_checks(torch, name, q, kp, vp, tables, lens, got, want,
+                     checked) -> dict:
+    """K1's decode checks of the split-KV design, added to a row's gate:
+    the planted fault of a dropped middle split (gated on the rows whose
+    span it reaches, those over 1,024 keys), two launches bitwise equal,
+    and each batch row run alone (B = 1) bitwise equal to its row of the
+    batch."""
+    from repro_torch.kernels import ops
+    long = lens > 1024
+    checked["planted_fault_row_rel_err"]["drop_middle_split"] = gate(
+        f"{name} rows over 1024", got[long], want[long],
+        {"drop_middle_split": _drop_split(torch, q, kp, vp, tables,
+                                          lens)[long]})[
+        "planted_fault_row_rel_err"]["drop_middle_split"]
+    assert torch.equal(got, ops.paged_attention(q, kp, vp, tables, lens)), \
+        f"{name}: two launches differ"
+    for i in range(q.shape[0]):
+        alone = ops.paged_attention(q[i:i + 1], kp, vp, tables[i:i + 1],
+                                    lens[i:i + 1])
+        assert torch.equal(alone, got[i:i + 1]), \
+            f"{name}: batch row {i} alone differs from the batch"
+    return dict(checked, bitwise_repeat=True,
+                batch_invariant_rows=q.shape[0])
+
+
+def _paged_gate(torch, name, dtype, h, kv, hd, bs, lens_list):
+    """A gate-only K1 decode row: per-row gate with its planted faults, two
+    launches bitwise equal, every row bitwise batch-invariant."""
+    from repro_torch.kernels import ops, ref
+    b, max_len = len(lens_list), 2048
+    m = -(-max_len // bs)
+    n = b * m + 1
+    rng = np.random.default_rng(1)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    dname = str(dtype).split(".")[1]
+    kp, vp = _pool(torch, gen, n, bs, kv, hd, dtype)
+    tables = _tables(torch, list(lens_list), m, bs, n, rng)
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=DEV)
+    q = (torch.randn((b, 1, h, hd), generator=gen, device=DEV)
+         * 0.5).to(dtype)
+    got = ops.paged_attention(q, kp, vp, tables, lens)
+    want = ref.paged_attention_ref(q, kp, vp, tables, lens)
+    label = f"paged_attention {name} H={h} KV={kv} hd={hd} {dname}"
+    checked = _k1_split_checks(torch, label, q, kp, vp, tables, lens, got,
+                               want, gate(label, got, want, {}))
+    return dict(name="paged_attention/decode", dtype=dname, path=None,
+                gate=name, shape=f"B={b} H={h} KV={kv} hd={hd} bs={bs} "
+                                 f"lens={list(lens_list)}", **checked)
+
+
+def _paged_chunk_gate(torch, name, dtype, h, kv, hd, bs, c, start):
+    """A gate-only K1 prefill chunk: per-row gate with a planted fault, two
+    launches bitwise equal."""
+    from repro_torch.kernels import ops, ref
+    kv_len = start + c
+    m = -(-kv_len // bs) + 2                   # a null-padded table tail
+    rng = np.random.default_rng(2)
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    dname = str(dtype).split(".")[1]
+    kp, vp = _pool(torch, gen, m + 1, bs, kv, hd, dtype)
+    tables = _tables(torch, [kv_len], m, bs, m + 1, rng)
+    cpos = torch.arange(start, kv_len, dtype=torch.int32, device=DEV)
+    kvl = torch.tensor([kv_len], dtype=torch.int32, device=DEV)
+    q = (torch.randn((1, c, h, hd), generator=gen, device=DEV)
+         * 0.5).to(dtype)
+    got = ops.paged_attention_chunk(q, kp, vp, tables, cpos, kvl)
+    want = ref.paged_attention_chunk_ref(q, kp, vp, tables, cpos, kvl)
+    zeroed = got.clone()
+    zeroed[:, -1] = 0
+    label = f"paged_attention chunk {name} H={h} KV={kv} hd={hd} {dname}"
+    checked = gate(label, got, want, {"zero_last_token": zeroed})
+    assert torch.equal(got, ops.paged_attention_chunk(
+        q, kp, vp, tables, cpos, kvl)), f"{label}: two launches differ"
+    return dict(name="paged_attention/prefill_chunk", dtype=dname,
+                path=None, gate=name, bitwise_repeat=True,
+                shape=f"C={c} start={start} H={h} KV={kv} hd={hd} bs={bs}",
+                **checked)
 
 
 def _check_paged_attention(torch, results, path, h, kv, hd):
@@ -344,6 +488,9 @@ def _check_paged_attention(torch, results, path, h, kv, hd):
         checked = gate(f"paged_attention decode {dname}", got, want, {
             "zero_spans_over_255": zeroed,
             "skip_last_page": ops.paged_attention(q, kp, vp, tables, skip)})
+        checked = _k1_split_checks(
+            torch, f"paged_attention decode {dname}", q, kp, vp, tables,
+            lens, got, want, checked)
         kg = paged_gather(kp, tables).repeat_interleave(h // kv, dim=2) \
             .transpose(1, 2)
         vg = paged_gather(vp, tables).repeat_interleave(h // kv, dim=2) \
@@ -381,6 +528,8 @@ def _check_paged_attention(torch, results, path, h, kv, hd):
                  * 0.5).to(dtype)
             got = ops.paged_attention_chunk(q, kp, vp, tables, cpos, kvl)
             want = ref.paged_attention_chunk_ref(q, kp, vp, tables, cpos, kvl)
+            assert torch.equal(got, ops.paged_attention_chunk(
+                q, kp, vp, tables, cpos, kvl)), "chunk: two launches differ"
             zeroed = got.clone()
             zeroed[:, -1] = 0
             checked = gate(f"paged_attention chunk@{start} {dname}", got,
@@ -496,12 +645,29 @@ def check_rmsnorm(torch, results):
 # products, the prefill chunk's first, the SwiGLU MLP's two
 MATMUL_SHAPES = ((1, 128, 2048), (1, 2048, 128), (256, 128, 2048),
                  (256, 1024, 3072), (256, 3072, 1024))
-MATMUL_BK = 32      # csrc/matmul.cu's k step
+# gate-only shapes (no main path gives them, so no times): ragged M, K and N
+# on every kernel (K or N not a multiple of 8 takes the element loads),
+# M = 15 (the widest skinny product), a long K that splits, K = 0
+MATMUL_GATES = ((37, 100, 77), (65, 33, 129), (16, 4104, 520),
+                (15, 4096, 64), (4, 1000, 77), (3, 0, 5), (40, 0, 8))
+# planted faults of the function (not of any tiling): the last 32
+# positions of K left out, the last 64 columns zeroed, and the middle
+# slice of a 4-way split of K left out (``ref.matmul_split_k_ref``)
+MATMUL_K_TAIL = 32
+MATMUL_ZERO_COLS = 64
+# SASS function-name fragments of K4's kernels: the bf16 tensor-core GEMM
+# (M >= 16), the f32 CUDA-core GEMM (M >= 16), the split-K kernels of the
+# skinny products (M < 16, CUDA cores) by dtype
+K4_SASS = {("bfloat16", True): "mm_tc_kernel",
+           ("float32", True): "mm_f32_kernel",
+           ("bfloat16", False): "mm_skinny_kernelI13__nv_bfloat16",
+           ("float32", False): "mm_skinny_kernelIf"}
 
 
 def check_matmul(torch, results):
     from repro_torch.kernels import ref
     from repro_torch.kernels.matmul import matmul_kernel
+    counts = sass_mma("matmul")
     gen = torch.Generator(device=DEV).manual_seed(2)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
@@ -511,27 +677,57 @@ def check_matmul(torch, results):
             b = torch.randn((k, n), generator=gen, device=DEV).to(dtype)
             got = matmul_kernel(a, b)
             want = ref.matmul_ref(a, b)
-            kk = (k - 1) // MATMUL_BK * MATMUL_BK
+            assert torch.equal(got, matmul_kernel(a, b)), \
+                f"matmul ({m},{k})@({k},{n}): two launches differ"
+            kk = k - MATMUL_K_TAIL
             zeroed = got.clone()
-            zeroed[:, (n - 1) // 64 * 64:] = 0
-            # the k-skip fault moves a row by about sqrt(32 / K) of its
+            zeroed[:, n - MATMUL_ZERO_COLS:] = 0
+            # the k-tail fault moves a row by about sqrt(32 / K) of its
             # largest value (0.10 at K = 3072): a margin of 2 keeps it clear
             # of the bf16 tolerance at every shape here
             checked = gate(f"matmul ({m},{k})@({k},{n}) {dname}", got, want, {
-                "skip_last_k_tile": matmul_kernel(a[:, :kk].contiguous(),
-                                                  b[:kk].contiguous()),
-                "zero_last_column_tile": zeroed}, margin=2.0)
+                "skip_last_32_k": matmul_kernel(a[:, :kk].contiguous(),
+                                                b[:kk].contiguous()),
+                "zero_last_64_columns": zeroed,
+                "drop_middle_k_slice": ref.matmul_split_k_ref(a, b, 4,
+                                                              drop=1)},
+                margin=2.0)
+            frag = K4_SASS[(dname, m >= 16)]
+            sass = {frag: sum(c for f, c in counts.items() if frag in f)}
+            if dname == "bfloat16" and m >= 16:
+                assert sass[frag] > 0, sass
+            elif dname == "float32":
+                assert sass[frag] == 0, sass
             t_bound, by = bound((m * k + k * n + m * n) * esize,
                                 2.0 * m * n * k, dname)
             results.append(dict(
                 name="matmul", dtype=dname, shape=f"({m},{k})@({k},{n})",
                 path="compile",
-                **checked,
+                **checked, bitwise_repeat=True, sass_mma=sass,
                 kernel_ms=graph_ms(lambda: matmul_kernel(a, b)),
                 host_ms=host_ms(lambda: matmul_kernel(a, b)),
                 plain_ms=graph_ms(lambda: ref.matmul_ref(a, b)),
                 library_ms=graph_ms(lambda: torch.matmul(a, b)),
                 bound_ms=t_bound, bound_by=by))
+        for m, k, n in MATMUL_GATES:
+            a = torch.randn((m, k), generator=gen, device=DEV).to(dtype)
+            b = torch.randn((k, n), generator=gen, device=DEV).to(dtype)
+            got = matmul_kernel(a, b)
+            want = ref.matmul_ref(a, b)
+            assert torch.equal(got, matmul_kernel(a, b)), \
+                f"matmul ({m},{k})@({k},{n}): two launches differ"
+            if k == 0:
+                assert torch.equal(got, torch.zeros_like(got)), "K = 0"
+                checked = dict(max_abs_err=0.0, row_rel_err=0.0)
+            else:
+                checked = gate(f"matmul ({m},{k})@({k},{n}) {dname}", got,
+                               want, {"drop_middle_k_slice":
+                                      ref.matmul_split_k_ref(a, b, 4,
+                                                             drop=1)},
+                               margin=2.0)
+            results.append(dict(name="matmul", dtype=dname, path=None,
+                                shape=f"({m},{k})@({k},{n})",
+                                bitwise_repeat=True, **checked))
 
 
 # the LoRA kernels' shapes on the serve path: rows of a decode step and of a
@@ -1427,6 +1623,14 @@ def plan_identity(torch, cfg, params):
     assert outs[0] == outs[1], "planning changed greedy tokens"
 
 
+# device kernel-name fragments of each ported kernel on the serve paths
+# (K1: the split-KV kernel and its combine, the bf16 chunk kernel)
+PROFILE_KERNELS = {"paged_attention": ("paged_split_kernel",
+                                       "paged_combine_kernel",
+                                       "paged_chunk_mma_kernel"),
+                   "rmsnorm": ("rmsnorm",), "ssm_scan": ("ssm_scan",)}
+
+
 def profile_phase(torch, cfg, params=None, steps=12, phase="profile"):
     """Device busy time by kernel over a steady window of engine steps
     (torch.profiler), against the window's host wall time.  Builds the
@@ -1465,10 +1669,14 @@ def profile_phase(torch, cfg, params=None, steps=12, phase="profile"):
     ported = {"paged_attention": 0, "rmsnorm": 0, "ssm_scan": 0}
     for name, us in kernels.items():
         low = name.lower()
-        hit = next((k for k in ported if k in low), None)
+        hit = next((k for k, frags in PROFILE_KERNELS.items()
+                    if any(f in low for f in frags)), None)
         if hit is not None:
             groups[hit] += us
-            ported[hit] += counts[name]
+            # a wrapper call is one launch: K1's split-KV combine (its
+            # second kernel) adds time, not launches
+            if "combine" not in low:
+                ported[hit] += counts[name]
         elif any(t in low for t in ("gemm", "cutlass", "xmma", "nvjet",
                                     "cublas")):
             groups["gemm"] += us
@@ -2060,7 +2268,21 @@ def _to(tree, dev):
 
 # ---------------------------------------------------------------------------
 
+# the kernel checks that ``--only`` can name
+KERNEL_CHECKS = ("paged_attention", "rmsnorm", "matmul", "lora", "ssm_scan",
+                 "flash_attention")
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", type=lambda v: v.split(","), default=None,
+                    help="run only the card, build and these kernel checks "
+                         f"(comma-separated: {', '.join(KERNEL_CHECKS)}) and "
+                         "print no result line: a quick check of kernels")
+    args = ap.parse_args()
+    assert args.only is None or set(args.only) <= set(KERNEL_CHECKS), \
+        args.only
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2108,14 +2330,17 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     results = []
-    check_paged_attention(torch, results)
-    check_rmsnorm(torch, results)
-    check_matmul(torch, results)
-    check_lora(torch, results)
-    check_ssm_scan(torch, results)
-    check_flash_attention(torch, results)
+    checks = {"paged_attention": check_paged_attention,
+              "rmsnorm": check_rmsnorm, "matmul": check_matmul,
+              "lora": check_lora, "ssm_scan": check_ssm_scan,
+              "flash_attention": check_flash_attention}
+    for name in args.only or KERNEL_CHECKS:
+        checks[name](torch, results)
     for r in results:
         emit({"phase": "kernel", **r})
+    if args.only is not None:
+        print(smi, flush=True)
+        return 0
     check_rmsnorm_grad(torch)
 
     cfg = get_config("qwen3-0.6b")

@@ -3,8 +3,9 @@
 ``csrc/<name>.cu`` exposes a plain C interface; it is compiled with ``nvcc``
 for ``sm_90a`` into a shared library under ``build/repro_torch/`` at the
 repository root (listed in ``.gitignore``) and loaded with ``ctypes``.  The
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and an unchanged one is reused.  Nothing is built at
+library's file name carries a hash of its source, the headers it includes
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is reused.  Nothing is built at
 import time: the first launch builds what it needs, and ``build`` compiles
 several sources at once, one ``nvcc`` process each, all started together.
 
@@ -15,10 +16,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -45,9 +47,31 @@ def nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every file it includes by a quoted
+    ``#include`` (relative to the including file), transitively, in the
+    order first reached."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [(path.parent / m.decode()).resolve()
+                 for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, keyed by the bytes of its source, of every
+    header the source includes, and of the flags: editing a shared header
+    rebuilds every library that includes it."""
+    data = b"".join(p.read_bytes() for p in sources(name))
+    key = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
@@ -84,16 +108,17 @@ def build(*names: str) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def load(name: str, symbol: str, argtypes: list):
+def load(name: str, symbol: str, argtypes: list, restype=ctypes.c_int):
     """The C function ``symbol`` of ``csrc/<name>.cu``, built first if
-    needed, returning ``int``.  Pass every pointer and the stream as
-    ``c_void_p`` in ``argtypes``, so ctypes never truncates an address."""
+    needed, returning ``restype`` (``int`` by default).  Pass every pointer
+    and the stream as ``c_void_p`` in ``argtypes``, so ctypes never
+    truncates an address."""
     fn = _FNS.get((name, symbol))
     if fn is not None:
         return fn
     build(name)
     fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
     fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     _FNS[(name, symbol)] = fn
     return fn

@@ -5,8 +5,10 @@ Replaces the Pallas TPU kernel ``matmul_kernel`` of
 kernel is laid out and what bounds it.  The compiler's codegen
 (``repro_torch.core.codegen.compile_term(use_kernels=True)``) reaches it for
 every logical ``matmul``.  The wrapper checks what it is given and raises
-on anything the kernel does not take, allocates the output with
-``torch.empty`` and launches on the current CUDA stream.  Tensors that lie
+on anything the kernel does not take, allocates the output and the split-K
+workspace (its size from ``repro_matmul_workspace``) with ``torch.empty``
+and launches on the current CUDA stream; a split product's second kernel
+(the partials summed in split order) belongs to the same call and count.  Tensors that lie
 on the CPU take the plain version (``ref.matmul_ref``); CUDA tensors launch
 the kernel or raise.
 """
@@ -22,10 +24,12 @@ from repro_torch.kernels import build, ref, refuse_grad
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# repro_matmul(a, b, c, M, N, K, dtype, stream)
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-# the kernel's grid puts 64-row tiles on its y axis (at most 65535)
-MAX_ROWS = 65535 * 64
+# repro_matmul(a, b, c, ws, M, N, K, dtype, stream)
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# repro_matmul_workspace(M, N, K, dtype) -> f32 elements
+_WS_ARGTYPES = [ctypes.c_int] * 4
+# the kernels' grids put 128-row tiles on their y axis (at most 65535)
+MAX_ROWS = 65535 * 128
 _INT_MAX = 2**31 - 1
 
 
@@ -33,6 +37,13 @@ def load_kernel():
     """The kernel's C entry point, built from ``csrc/matmul.cu`` at the
     first call."""
     return build.load("matmul", "repro_matmul", _ARGTYPES)
+
+
+def _workspace_size():
+    """repro_matmul_workspace: the split-K workspace's f32 elements for a
+    shape (0: none; -1: refused)."""
+    return build.load("matmul", "repro_matmul_workspace", _WS_ARGTYPES,
+                      restype=ctypes.c_longlong)
 
 
 def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -62,9 +73,15 @@ def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if m == 0 or n == 0:
         return out
     fn = load_kernel()
+    ws_n = _workspace_size()(m, n, k, _DTYPES[a.dtype])
+    if ws_n < 0:
+        raise ValueError(f"matmul: shape ({m},{k})@({k},{n}) refused")
+    ws = torch.empty(ws_n, dtype=torch.float32, device=a.device) \
+        if ws_n else None
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 ws.data_ptr() if ws is not None else None, m, n, k,
                  _DTYPES[a.dtype], stream)
     if err != 0:
         raise RuntimeError(f"matmul kernel launch failed: cudaError {err}")

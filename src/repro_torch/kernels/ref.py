@@ -36,6 +36,53 @@ def paged_attention_rows_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return torch.einsum("bkrs,bskd->bkrd", p, vg)
 
 
+# csrc/paged_attention.cu's split length (key positions a split-KV block)
+PAGED_SPLIT = 512
+
+
+def paged_attention_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              block_tables: torch.Tensor, q_pos: torch.Tensor,
+                              kv_lens: torch.Tensor, split: int = PAGED_SPLIT,
+                              drop=None) -> torch.Tensor:
+    """The split-KV kernel's algorithm in plain PyTorch (the tests hold it
+    against the Pallas kernel): the span cut at fixed multiples of
+    ``split``, each slice's (m, l, acc) in f32 with p rounded to v's dtype
+    in acc, the slices merged in order (weights exp(m_j - max m)), l
+    floored at 1e-30 -> (B,KV,R,hd) f32.  A slice that a row cannot see
+    enters with weight exactly 0.  ``drop``: one slice left out (the
+    planted fault of ``chip_smoke.py``)."""
+    b, kv, r, hd = q.shape
+    bs = k_pages.shape[1]
+    m = block_tables.shape[1]
+    tables = block_tables.long()
+    kg = k_pages[tables].reshape(b, m * bs, kv, hd).float()
+    vg = v_pages[tables].reshape(b, m * bs, kv, hd).to(v_pages.dtype)
+    s = torch.einsum("bkrd,bskd->bkrs", q.float(), kg) / math.sqrt(hd)
+    kpos = torch.arange(m * bs, device=q.device)[None, None, None, :]
+    live = (kpos <= q_pos[:, None, :, None]) & \
+           (kpos < kv_lens[:, None, None, None])
+    x = torch.where(live, s, NEG_INF)
+    parts = []
+    for j, lo in enumerate(range(0, m * bs, split)):
+        if j == drop:
+            continue
+        xj = x[..., lo:lo + split]
+        mj = xj.amax(-1)
+        pj = torch.exp(xj - mj[..., None])
+        acc = torch.einsum("bkrs,bskd->bkrd", pj.to(vg.dtype).float(),
+                           vg[:, lo:lo + split].float())
+        parts.append((mj, pj.sum(-1), acc))
+    mm = torch.stack([mj for mj, _, _ in parts]).amax(0)
+    acc = torch.zeros_like(parts[0][2])
+    ll = torch.zeros_like(mm)
+    for mj, lj, aj in parts:
+        w = torch.exp(mj - mm)
+        acc = acc + w[..., None] * aj
+        ll = ll + w * lj
+    return acc / ll.clamp_min(1e-30)[..., None]
+
+
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, block_tables: torch.Tensor,
                         seq_lens: torch.Tensor) -> torch.Tensor:
@@ -135,6 +182,23 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
 def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (M,K) @ b (K,N) in f32, cast to a's dtype."""
     return (a.float() @ b.float()).to(a.dtype)
+
+
+def matmul_split_k_ref(a: torch.Tensor, b: torch.Tensor, splits: int,
+                       drop=None) -> torch.Tensor:
+    """Split-K in plain PyTorch, the matmul kernel's reduction (the tests
+    hold it against the Pallas kernel): K cut into ``splits`` slices of
+    equal length, each slice's f32 partial product, the partials summed in
+    slice order and cast to a's dtype.  ``drop``: one slice left out (the
+    planted fault of ``chip_smoke.py``)."""
+    k = a.shape[1]
+    per = max(1, -(-k // splits))
+    total = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                        device=a.device)
+    for j, lo in enumerate(range(0, k, per)):
+        if j != drop:
+            total = total + a[:, lo:lo + per].float() @ b[lo:lo + per].float()
+    return total.to(a.dtype)
 
 
 def lora_shrink_ref(x: torch.Tensor, a_slab: torch.Tensor, idx: torch.Tensor

@@ -8,8 +8,8 @@ Same CLI as ``repro.launch.train`` with ``--device`` added (default cuda;
 asking for cuda without a card is an error) and no ``--mesh`` (training on
 several devices is a later slice, ROADMAP A10).  ``--smoke`` swaps in the
 reduced same-family config; without it the arch trains at full width from
-random weights.  The dense archs train; ssm and hybrid raise (their loss
-needs a selective-scan backward).
+random weights.  The dense archs train; ssm and hybrid raise (the ssm loss
+needs a selective-scan backward, the hybrid's is not ported yet).
 """
 from __future__ import annotations
 

@@ -42,12 +42,21 @@ class ModelFns:
     state_slot_write: Optional[Callable] = None  # (cache, idx, data) -> cache
 
 
+# why each stateful family's loss still raises, and the ROADMAP item that
+# lifts it
+_LOSS_NOT_PORTED = {
+    "ssm": "(ROADMAP A12): its training needs a backward of the selective-"
+           "scan kernel K7 (ROADMAP B), which every Mamba1 layer runs",
+    "hybrid": "(ROADMAP A12b): hybrid_loss itself is not ported; its "
+              "Mamba2 layers run no K7 (their SSD is einsums)",
+}
+
+
 def _loss_not_ported(family: str) -> Callable:
     def loss(params, batch, **kw):
         raise NotImplementedError(
             f"the {family} family's loss is not ported to repro_torch yet "
-            "(ROADMAP A12): its training needs a backward of the selective-"
-            "scan kernel, which every path of the port runs")
+            + _LOSS_NOT_PORTED[family])
     return loss
 
 

@@ -371,6 +371,26 @@ def test_kernels_match_plain_versions_on_cuda(cuda, dtype):
         got = ops.paged_attention_chunk(qc, *pages, tables[:1], cpos, kvl)
         want = ref.paged_attention_chunk_ref(qc, *pages, tables[:1], cpos, kvl)
         assert ref.row_rel_err(got, want)[1] <= tol
+    # spans at the split-KV kernel's split boundaries (512 keys), qwen3's
+    # and a group-8 layout; two launches bitwise equal; each row alone
+    # bitwise equal to its row in the batch
+    lens_list = [511, 512, 513, 1025, 2048]
+    for h, kv, hd in ((16, 8, 128), (32, 4, 128), (32, 32, 80)):
+        b, bs, m = len(lens_list), 16, 128
+        pages = [torch.randn((b * m + 1, bs, kv, hd), generator=gen,
+                             device=cuda).to(dtype) for _ in range(2)]
+        tables = torch.randperm(b * m, generator=gen, device=cuda) \
+            .reshape(b, m).to(torch.int32) + 1
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=cuda)
+        q = torch.randn((b, 1, h, hd), generator=gen, device=cuda).to(dtype)
+        got = ops.paged_attention(q, *pages, tables, lens)
+        want = ref.paged_attention_ref(q, *pages, tables, lens)
+        assert ref.row_rel_err(got, want)[1] <= tol
+        assert torch.equal(got, ops.paged_attention(q, *pages, tables, lens))
+        for i in range(b):
+            alone = ops.paged_attention(q[i:i + 1], *pages, tables[i:i + 1],
+                                        lens[i:i + 1])
+            assert torch.equal(alone, got[i:i + 1])
     x = torch.randn((37, 1000), generator=gen, device=cuda).to(dtype)
     w = torch.randn((1000,), generator=gen, device=cuda).to(dtype)
     n0 = rn.launches
@@ -386,8 +406,13 @@ def test_matmul_kernel_matches_plain_version_on_cuda(cuda, dtype):
     from repro_torch.kernels import matmul as mm
     gen = torch.Generator(device=cuda).manual_seed(0)
     tol = ref.ROW_TOL[dtype]
+    # the compile path's shapes (the skinny decode terms split K, the MLP's
+    # tiles split K), ragged and unaligned shapes on every kernel (M < 16
+    # or not), K = 0; two launches bitwise equal
     for m, k, n in ((1, 128, 2048), (1, 2048, 128), (256, 128, 2048),
-                    (37, 100, 77), (65, 33, 129), (3, 0, 5)):
+                    (256, 1024, 3072), (256, 3072, 1024), (15, 4096, 64),
+                    (4, 1000, 77), (37, 100, 77), (65, 33, 129),
+                    (16, 4104, 520), (3, 0, 5), (40, 0, 8)):
         a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
         b = torch.randn((k, n), generator=gen, device=cuda).to(dtype)
         n0 = mm.launches
@@ -399,3 +424,140 @@ def test_matmul_kernel_matches_plain_version_on_cuda(cuda, dtype):
             assert torch.equal(got, want)
         else:
             assert ref.row_rel_err(got, want)[1] <= tol
+        assert torch.equal(got, ops.matmul(a, b))
+
+
+# ---------------------------------------------------------------------------
+# The redesigned kernels' algorithms, in plain PyTorch, against Pallas
+# ---------------------------------------------------------------------------
+
+def _rows_case(b, m, bs, kv, r, hd, lens, qpos, seed, null_from=None,
+               bf16=False):
+    """Kernel-interface inputs (q (B,KV,R,hd), per-row q_pos) as a
+    (jax, torch) pair each."""
+    k, v, tables, rng = _pool(b, m, bs, kv, hd, seed=seed)
+    if null_from is not None:
+        for i, u in enumerate(null_from):
+            tables[i, u:] = 0
+    q = (rng.normal(size=(b, kv, r, hd)) * 0.4).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, bf16) for x in (q, k, v))
+    qpos = np.asarray(qpos, np.int32).reshape(b, r)
+    lens = np.asarray(lens, np.int32)
+    return ((jq, jk, jv, jnp.asarray(tables), jnp.asarray(qpos),
+             jnp.asarray(lens)),
+            (tq, tk, tv, torch.from_numpy(tables), torch.from_numpy(qpos),
+             torch.from_numpy(lens)))
+
+
+def _pallas_rows(jargs, pages_per_fetch=1):
+    from repro.kernels.paged_attention import paged_attention_kernel as pk
+    out = pk(*jargs, pages_per_fetch=pages_per_fetch, interpret=True)
+    return torch.from_numpy(np.array(out.astype(jnp.float32)))
+
+
+# (B, M, bs, KV, R, hd, lens, q_pos, null_from, bf16): the decode grid of
+# the tests above (ragged, null-padded, block sizes that divide nothing,
+# GQA groups, bf16 pages) and chunk-like rows whose q_pos differ
+_SPLIT_GRID = {
+    "ragged": (4, 4, 8, 2, 4, 32, [1, 7, 16, 29],
+               [[0] * 4, [6] * 4, [15] * 4, [28] * 4], None, False),
+    "null_padding": (3, 4, 8, 2, 2, 32, [5, 13, 21],
+                     [[4] * 2, [12] * 2, [20] * 2], [1, 2, 3], False),
+    "block_size_5": (2, 5, 5, 2, 2, 16, [6, 13], [[5] * 2, [12] * 2],
+                     None, False),
+    "group_8": (2, 3, 4, 1, 8, 16, [5, 12], [[4] * 8, [11] * 8], None,
+                False),
+    "chunk_rows": (1, 4, 8, 2, 6, 16, [27],
+                   [[3, 9, 16, 21, 25, 26]], None, False),
+    "bf16": (2, 3, 8, 2, 2, 32, [9, 20], [[8] * 2, [19] * 2], None, True),
+}
+
+
+@pytest.mark.parametrize("split", [4, 8, 16])
+@pytest.mark.parametrize("case", sorted(_SPLIT_GRID))
+def test_split_kv_combine_matches_pallas(case, split):
+    """K1's split-KV algorithm (per-split m, l, acc merged in split order)
+    against the Pallas kernel in interpret mode on the decode grid, with
+    splits short enough that every span is cut several times."""
+    b, m, bs, kv, r, hd, lens, qpos, null_from, bf16 = _SPLIT_GRID[case]
+    jargs, targs = _rows_case(b, m, bs, kv, r, hd, lens, [qpos], seed=11,
+                              null_from=null_from, bf16=bf16)
+    want = _pallas_rows(jargs)
+    got = ref.paged_attention_split_ref(*targs, split=split)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    assert ref.row_rel_err(got.to(dtype), want)[1] <= ref.ROW_TOL[dtype]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_split_kv_at_split_boundaries(bf16):
+    """Spans one short of, at and one past the kernel's split length
+    (512), two splits and a position (1,025 keys: three), and rows whose
+    q_pos stop in different splits; dropping the middle split is a fault
+    the per-row gate rejects."""
+    lens = [511, 512, 513, 1025]
+    b, bs, kv, r, hd = len(lens), 16, 1, 2, 16
+    m = -(-max(lens) // bs)
+    qpos = [[ln - 1, min(ln - 1, 600)] for ln in lens]
+    jargs, targs = _rows_case(b, m, bs, kv, r, hd, lens, qpos, seed=12,
+                              bf16=bf16)
+    want = _pallas_rows(jargs, pages_per_fetch=8)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    tol = ref.ROW_TOL[dtype]
+    got = ref.paged_attention_split_ref(*targs)
+    assert ref.row_rel_err(got.to(dtype), want)[1] <= tol
+    assert ref.row_rel_err(ref.paged_attention_rows_ref(*targs).to(dtype),
+                           want)[1] <= tol
+    dropped = ref.paged_attention_split_ref(*targs, drop=1)
+    assert ref.row_rel_err(dropped[3:, :, :1].to(dtype),
+                           want[3:, :, :1])[1] > 4 * tol
+    # spans of one split are untouched by it
+    assert torch.equal(dropped[:2], got[:2])
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 512, 128),
+                                   (384, 256, 512), (16, 768, 256)])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_split_k_reduction_matches_pallas(m, k, n, splits, bf16):
+    """K4's split-K (f32 partials of equal K slices summed in slice order,
+    one cast) against the Pallas ``matmul_kernel`` in interpret mode; with
+    a middle slice dropped it fails the gate."""
+    from repro.kernels.matmul import matmul_kernel as pallas_mm
+    rng = np.random.default_rng(k + n)
+    (ja, ta), (jb, tb) = (_both((rng.normal(size=s) * 0.5)
+                                .astype(np.float32), bf16)
+                          for s in ((m, k), (k, n)))
+    want = torch.from_numpy(np.array(
+        pallas_mm(ja, jb, block_m=min(m, 128), block_n=128, block_k=128,
+                  interpret=True).astype(jnp.float32)))
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    tol = ref.ROW_TOL[dtype]
+    got = ref.matmul_split_k_ref(ta, tb, splits)
+    assert got.dtype == dtype
+    assert ref.row_rel_err(got, want)[1] <= tol
+    if splits >= 3:
+        dropped = ref.matmul_split_k_ref(ta, tb, splits, drop=1)
+        assert ref.row_rel_err(dropped, want)[1] > 4 * tol
+
+
+def test_split_k_of_an_empty_depth_is_zero():
+    got = ref.matmul_split_k_ref(torch.ones(3, 0), torch.ones(0, 5), 4)
+    assert torch.equal(got, torch.zeros(3, 5))
+
+
+def test_library_key_follows_included_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source and every header it includes by
+    a quoted ``#include``: editing a shared header rebuilds each library
+    that includes it, and none that does not."""
+    from repro_torch.kernels import build
+    for name in ("matmul", "paged_attention", "flash_attention"):
+        assert KERNELS / "csrc" / "sm90_mma.cuh" in build.sources(name)
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\nint a;\n')
+    (tmp_path / "b.cu").write_text("#include <cuda_runtime.h>\nint b;\n")
+    (tmp_path / "h.cuh").write_text('#include "g.cuh"\n')
+    (tmp_path / "g.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build.library_path(n) for n in ("a", "b")}
+    (tmp_path / "g.cuh").write_text("// two\n")
+    assert build.library_path("a") != before["a"]
+    assert build.library_path("b") == before["b"]

@@ -391,6 +391,23 @@ def test_trainer_refuses_a_mesh_and_unported_families():
             fns.loss(None, {})
 
 
+@pytest.mark.parametrize("arch,names,never", [
+    ("falcon-mamba-7b", ("ROADMAP A12", "K7", "ROADMAP B",
+                         "selective-scan"), ("A12b",)),
+    ("zamba2-2.7b", ("ROADMAP A12b", "hybrid_loss", "no K7"),
+     ("selective-scan", "backward"))])
+def test_unported_loss_names_its_family_reason(arch, names, never):
+    """Each stateful family's refusal names its own reason: ssm waits for
+    the K7 backward; the hybrid, whose Mamba2 runs no K7, waits for its
+    hybrid_loss port and never claims a selective-scan backward."""
+    fns = build_model(reduced_config(get_config(arch)), "cpu")
+    with pytest.raises(NotImplementedError) as info:
+        fns.loss(None, {})
+    msg = str(info.value)
+    assert all(n in msg for n in names), msg
+    assert not any(n in msg for n in never), msg
+
+
 def test_train_cli_runs():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
