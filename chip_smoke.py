@@ -7,8 +7,8 @@ Phases, each printing JSON objects one per line:
 
 1. card     — nvidia-smi's name and power limit, torch and CUDA versions.
 2. build    — nvcc builds the CUDA kernels (paged attention, matmul, LoRA
-              shrink and expand, selective scan, flash attention forward
-              and backward) from the repo's sources for
+              shrink, expand and fused delta, selective scan, flash
+              attention forward and backward) from the repo's sources for
               sm_90a, one nvcc process per source, all started together, and
               prints ptxas's register and spill lines; Triton compiles the
               rmsnorm kernel (its registers and spills are printed per width
@@ -34,12 +34,21 @@ Phases, each printing JSON objects one per line:
               split boundaries (spans 511 to 2,048), a group of 8, block
               size 5 at head_dim 40 and ragged chunks, and K4 to K or N
               not a multiple of 8 and K = 0.  The LoRA kernels run at the
-              serve path's shapes (T = 8
-              decode rows and a 256-row prefill chunk, every projection's
-              widths, rank 16, 8 slots, block_out 128) under four slot mixes;
-              base rows must be exact zeros and the expand output bitwise the
-              same for block_out 33, 128 and 256; their yardstick is
-              ``torch.bmm`` over per-row factors gathered before the call.
+              serve path's shapes (T = 8 decode rows and a 256-row prefill
+              chunk, every projection's widths, rank 16, 8 slots, block_out
+              128) under four per-row slot mixes and the engine's chunk (one
+              sequence of 256 rows, with and without an adapter); K5 and K6
+              base rows must be exact zeros and the expand output bitwise
+              the same for block_out 33, 128 and 256.  The fused delta
+              (K5 then K6 plus the base, one launch) runs at the seven
+              projections' width pairs: the row gate with three planted
+              faults (slot 0, one d-slice of its cluster sum dropped, the
+              last output tile unwritten), bitwise equal to K5 then K6 plus
+              the base, base rows bitwise base + 0, bitwise across three
+              tiles, a relaunch and each sequence alone; K5 and the delta
+              carry ``sass_mma`` (> 0 on the bf16 chunk's tensor-core
+              tile).  Their yardstick is ``torch.bmm`` over per-row factors
+              gathered before the call (for the delta, bmm then baddbmm).
               The selective scan (K7) runs at the ssm path's shapes (a
               decode step of 8 rows, a 256-step prefill chunk, a 300-step
               prefill, d_inner 8,192, state 16, f32): y and h_last row by
@@ -92,9 +101,10 @@ Phases, each printing JSON objects one per line:
               same 16 requests, every fifth one base and the others spread
               over the tenants: every request finishes, the invariants hold
               after every step, the adapter slab is the size its shape gives,
-              and each LoRA kernel launches exactly once per adapted
+              the fused LoRA kernel launches exactly once per adapted
               projection and layer of every dispatch that holds an adapter
-              row.
+              row (K5 and K6 never alone), and the host time of a dispatch
+              stands beside the serve phase's.
    lora_identity — greedy tokens: base requests on an engine with tenants
               loaded and pinned equal an adapter-free engine's (with no LoRA
               launch), a rank-0 tenant gives the base tokens, and one prompt
@@ -269,6 +279,7 @@ def counters() -> dict:
             "matmul": (matmul, "launches"),
             "lora_shrink": (lora, "shrink_launches"),
             "lora_expand": (lora, "expand_launches"),
+            "lora_delta": (lora, "delta_launches"),
             "ssm_scan": (ssm_scan, "launches"),
             "flash_attention": (flash_attention, "launches"),
             "flash_attention_bwd": (flash_attention, "bwd_launches")}
@@ -732,12 +743,38 @@ def check_matmul(torch, results):
 
 # the LoRA kernels' shapes on the serve path: rows of a decode step and of a
 # prefill chunk; the projections' input and output widths at qwen3-0.6b
-# (q, k/v, o, gate/up, down); the store's rank slot and slot count; the H100
-# plan's expand tile
+# (each width, and each projection's pair for the fused delta: q, k and v,
+# o, gate and up, down); the store's rank slot and slot count; the H100
+# plan's expand tile and two others
 LORA_ROWS = (8, 256)
 LORA_D_IN = (1024, 2048, 3072)
 LORA_D_OUT = (1024, 2048, 3072)
+LORA_PROJS = {"q": (1024, 2048), "k,v": (1024, 1024), "o": (2048, 1024),
+              "gate,up": (1024, 3072), "down": (3072, 1024)}
 LORA_RANK, LORA_SLOTS, LORA_BLOCK_OUT = 16, 8, 128
+LORA_BLOCK_OUTS = (33, 128, 256)
+# the engine's prefill chunk: one sequence of 256 rows, one slot
+LORA_CHUNK_MIXES = {"one_sequence": [1], "base_sequence": [-1]}
+# the timed mix of each row count: a decode step over three adapters, the
+# engine's chunk
+LORA_TIMED = {8: "repeats", 256: "one_sequence"}
+# gate-only cases of the fused delta that no serve path gives, (ids,
+# rows_per_seq, d, O, R, block_out): the tensor-core tile at ranks that pad
+# to 16, 32 and 64 (at 64 its receive area reuses the shrink's ring), a
+# ragged 20-row sequence, and d, O and block_out off the 8-column grid (d
+# not a multiple of 8 keeps 32 rows a sequence on the CUDA cores)
+LORA_GATE_CASES = (([1], 256, 1024, 2048, 8, 128),
+                   ([2, -1], 64, 1024, 1024, 24, 128),
+                   ([1], 256, 3072, 1024, 64, 128),
+                   ([0, 3, -1], 20, 1024, 200, 16, 33),
+                   ([1, -1, 2], 5, 1001, 77, 16, 33),
+                   ([1], 32, 1001, 64, 16, 128))
+# the tensor-core cluster kernels (rows_per_seq >= 16, bf16) and the CUDA
+# core ones, by a fragment of their mangled names
+LORA_SASS = {"tc": ("lora_cluster_kernelI13__nv_bfloat16Li16E",),
+             "bfloat16": ("lora_cluster_kernelI13__nv_bfloat16Li1E",
+                          "lora_cluster_kernelI13__nv_bfloat16Li8E"),
+             "float32": ("lora_cluster_kernelIf",)}
 
 
 def lora_mixes(t):
@@ -750,34 +787,65 @@ def lora_mixes(t):
             "single_row": [1]}
 
 
+def lora_cases(t):
+    """(mix, per-sequence ids, rows_per_seq) at ``t`` rows: every per-row
+    mix, and at 256 rows the engine's chunk (one sequence) with an adapter
+    and without."""
+    cases = [(mix, ids, 1) for mix, ids in lora_mixes(t).items()]
+    if t == 256:
+        cases += [(mix, ids, t) for mix, ids in LORA_CHUNK_MIXES.items()]
+    return cases
+
+
+def _lora_sass(counts, dname, tc) -> dict:
+    """Tensor-core instructions in the cluster kernels of one row's regime
+    (the tensor-core tile, or the CUDA cores of its dtype)."""
+    return {f: sum(c for fn, c in counts.items() if f in fn)
+            for f in LORA_SASS["tc" if tc else dname]}
+
+
 def check_lora(torch, results):
-    """K5 and K6 against their plain versions at the serve path's shapes:
-    every mix in f32 and bf16 through the row gate, exact zeros on base
-    rows, the expand output bitwise the same for three tiles, and two
-    planted faults per kernel (every row reads slot 0; the last rank block
-    or output tile left zero).  The "repeats" mix is timed."""
+    """K5, K6 and the fused delta against their plain versions at the serve
+    path's shapes: every mix and the engine's chunk in f32 and bf16 through
+    the row gate, exact zeros (K5, K6) or base + 0 (the delta) on base rows,
+    the expand and the delta bitwise the same for three tiles, planted
+    faults (every row reads slot 0; K5's last rank block, K6's last output
+    tile or the delta's left unwritten; one d-slice of the delta's cluster
+    sum dropped).  The delta is also held bitwise to K5 then K6 plus the
+    base, to a relaunch, and each sequence run alone to its rows of the
+    batch.  The decode "repeats" mix and the chunk are timed; K5 and the
+    delta carry ``sass_mma`` of their regime (> 0 on the bf16 chunk's
+    tensor-core tile, 0 on the CUDA cores)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.lora import lora_expand_kernel, lora_shrink_kernel
+    from repro_torch.kernels.lora import (lora_expand_kernel,
+                                          lora_shrink_kernel,
+                                          tensor_core_rows)
+    counts = sass_mma("lora")
+    assert sum(c for f, c in counts.items() if "lora_expand" in f) == 0
     gen = torch.Generator(device=DEV).manual_seed(4)
     r, s = LORA_RANK, LORA_SLOTS
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         esize = torch.finfo(dtype).bits // 8
         for t in LORA_ROWS:
-            for mix, idx_list in lora_mixes(t).items():
-                idx = torch.tensor(idx_list, dtype=torch.int32, device=DEV)
-                rows = len(idx_list)
-                live = idx >= 0
-                slot0 = torch.where(live, 0, idx)
+            for mix, id_list, seq in lora_cases(t):
+                idx = torch.tensor(id_list, dtype=torch.int32, device=DEV)
+                rows_idx = idx.repeat_interleave(seq)
+                rows = len(id_list) * seq
+                live = rows_idx >= 0
+                slot0 = torch.where(idx >= 0, 0, idx)
                 n_live = int(live.sum())
-                n_adapters = len({i for i in idx_list if i >= 0})
+                n_adapters = len({i for i in id_list if i >= 0})
+                timed = mix == LORA_TIMED[t]
+                label = f"T={rows} rows_per_seq={seq} R={r} S={s} {mix}"
                 for d in LORA_D_IN:
                     x = torch.randn((rows, d), generator=gen,
                                     device=DEV).to(dtype)
                     a = (torch.randn((s, d, r), generator=gen, device=DEV)
                          * 0.1).to(dtype)
-                    got = lora_shrink_kernel(x, a, idx)
-                    want = ref.lora_shrink_ref(x, a, idx)
+                    tc = tensor_core_rows(dtype, d, seq)
+                    got = lora_shrink_kernel(x, a, idx, seq)
+                    want = ref.lora_shrink_ref(x, a, rows_idx)
                     assert torch.equal(got[~live], torch.zeros_like(
                         got[~live])), "lora_shrink: base rows not zero"
                     faults = {}
@@ -785,26 +853,29 @@ def check_lora(torch, results):
                         tail = got.clone()
                         tail[:, -8:] = 0
                         faults = {"every_row_reads_slot_0":
-                                  lora_shrink_kernel(x, a, slot0),
+                                  lora_shrink_kernel(x, a, slot0, seq),
                                   "last_rank_block_zero": tail}
-                    checked = gate(f"lora_shrink T={rows} d={d} {mix} "
-                                   f"{dname}", got, want, faults)
-                    if mix != "repeats":
+                    checked = gate(f"lora_shrink d={d} {label} {dname}",
+                                   got, want, faults)
+                    if not timed:
                         continue
-                    a_rows = a[idx.clamp_min(0).long()]
+                    sass = _lora_sass(counts, dname, tc)
+                    assert (sum(sass.values()) > 0) == tc, sass
+                    a_rows = a[rows_idx.clamp_min(0).long()]
                     t_bound, by = bound(
                         (rows * d + n_adapters * d * r) * esize
-                        + rows * 4 + rows * r * 4,
+                        + len(id_list) * 4 + rows * r * 4,
                         2.0 * n_live * d * r, dname)
                     results.append(dict(
                         name="lora_shrink", dtype=dname, path="lora_serve",
-                        shape=f"T={rows} d={d} R={r} S={s} {mix}", **checked,
+                        counter="lora_delta", shape=f"d={d} {label}",
+                        tensor_cores=tc, sass_mma=sass, **checked,
                         kernel_ms=graph_ms(lambda: lora_shrink_kernel(
-                            x, a, idx)),
+                            x, a, idx, seq)),
                         host_ms=host_ms(lambda: lora_shrink_kernel(
-                            x, a, idx)),
+                            x, a, idx, seq)),
                         plain_ms=graph_ms(lambda: ref.lora_shrink_ref(
-                            x, a, idx)),
+                            x, a, rows_idx)),
                         library_ms=graph_ms(lambda: torch.bmm(
                             x[:, None, :], a_rows)),
                         library="torch.bmm over per-row A gathered before "
@@ -814,13 +885,13 @@ def check_lora(torch, results):
                     h = torch.randn((rows, r), generator=gen, device=DEV)
                     b = (torch.randn((s, r, o), generator=gen, device=DEV)
                          * 0.1).to(dtype)
-                    got = lora_expand_kernel(h, b, idx, LORA_BLOCK_OUT)
-                    want = ref.lora_expand_ref(h, b, idx, dtype)
+                    got = lora_expand_kernel(h, b, idx, LORA_BLOCK_OUT, seq)
+                    want = ref.lora_expand_ref(h, b, rows_idx, dtype)
                     assert torch.equal(got[~live], torch.zeros_like(
                         got[~live])), "lora_expand: base rows not zero"
-                    for bo in (33, 256):
-                        assert torch.equal(lora_expand_kernel(h, b, idx, bo),
-                                           got), \
+                    for bo in LORA_BLOCK_OUTS:
+                        assert torch.equal(
+                            lora_expand_kernel(h, b, idx, bo, seq), got), \
                             f"lora_expand: block_out {bo} changed the output"
                     faults = {}
                     if bool((idx > 0).any()):
@@ -829,31 +900,137 @@ def check_lora(torch, results):
                              * LORA_BLOCK_OUT:] = 0
                         faults = {"every_row_reads_slot_0":
                                   lora_expand_kernel(h, b, slot0,
-                                                     LORA_BLOCK_OUT),
+                                                     LORA_BLOCK_OUT, seq),
                                   "last_output_tile_unwritten": tail}
-                    checked = gate(f"lora_expand T={rows} O={o} {mix} "
-                                   f"{dname}", got, want, faults)
-                    if mix != "repeats":
+                    checked = gate(f"lora_expand O={o} {label} {dname}",
+                                   got, want, faults)
+                    if not timed:
                         continue
-                    b_rows = b[idx.clamp_min(0).long()]
+                    b_rows = b[rows_idx.clamp_min(0).long()]
                     hb = h.to(dtype)[:, None, :]
                     t_bound, by = bound(
-                        rows * r * 4 + n_adapters * r * o * esize + rows * 4
-                        + rows * o * esize, 2.0 * n_live * r * o, dname)
+                        rows * r * 4 + n_adapters * r * o * esize
+                        + len(id_list) * 4 + rows * o * esize,
+                        2.0 * n_live * r * o, dname)
                     results.append(dict(
                         name="lora_expand", dtype=dname, path="lora_serve",
-                        shape=f"T={rows} O={o} R={r} S={s} "
-                              f"block_out={LORA_BLOCK_OUT} {mix}", **checked,
+                        counter="lora_delta",
+                        shape=f"O={o} block_out={LORA_BLOCK_OUT} {label}",
+                        sass_mma={"lora_expand_kernel": 0}, **checked,
                         kernel_ms=graph_ms(lambda: lora_expand_kernel(
-                            h, b, idx, LORA_BLOCK_OUT)),
+                            h, b, idx, LORA_BLOCK_OUT, seq)),
                         host_ms=host_ms(lambda: lora_expand_kernel(
-                            h, b, idx, LORA_BLOCK_OUT)),
+                            h, b, idx, LORA_BLOCK_OUT, seq)),
                         plain_ms=graph_ms(lambda: ref.lora_expand_ref(
-                            h, b, idx, dtype)),
+                            h, b, rows_idx, dtype)),
                         library_ms=graph_ms(lambda: torch.bmm(hb, b_rows)),
                         library="torch.bmm over per-row B gathered before "
                                 "the call (yardstick)",
                         bound_ms=t_bound, bound_by=by))
+                for proj, (d, o) in LORA_PROJS.items():
+                    _check_lora_delta(
+                        torch, results, counts, gen, dtype, d, o, idx,
+                        rows_idx, seq, f"{proj} d={d} O={o} {label}", timed)
+        for id_list, seq, d, o, rank, bo in LORA_GATE_CASES:
+            idx = torch.tensor(id_list, dtype=torch.int32, device=DEV)
+            label = (f"d={d} O={o} T={len(id_list) * seq} rows_per_seq={seq} "
+                     f"R={rank} S={s} gate-only")
+            results.append(dict(
+                name="lora_delta", dtype=dname, path=None,
+                shape=f"{label} block_out={bo} +base",
+                tensor_cores=tensor_core_rows(dtype, d, seq),
+                **_check_lora_delta(torch, results, counts, gen, dtype, d, o,
+                                    idx, idx.repeat_interleave(seq), seq,
+                                    label, False, rank, bo)))
+
+
+def _check_lora_delta(torch, results, counts, gen, dtype, d, o, idx,
+                      rows_idx, seq, label, timed, r=LORA_RANK,
+                      bo=LORA_BLOCK_OUT):
+    """The fused delta at one width pair and one case: the row gate with
+    its planted faults, bitwise K5 then K6 plus the base (and without a
+    base, K5 then K6), base rows base + 0, three tiles, a relaunch, each
+    sequence alone; timed (a row of ``results``) when ``timed``.  Returns
+    the gate's record."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.lora import (SLICES, lora_delta_kernel,
+                                          tensor_core_rows)
+    s = LORA_SLOTS
+    dname = str(dtype).split(".")[1]
+    esize = torch.finfo(dtype).bits // 8
+    rows = rows_idx.shape[0]
+    live = rows_idx >= 0
+    x = torch.randn((rows, d), generator=gen, device=DEV).to(dtype)
+    a = (torch.randn((s, d, r), generator=gen, device=DEV) * 0.1).to(dtype)
+    b = (torch.randn((s, r, o), generator=gen, device=DEV) * 0.1).to(dtype)
+    base = torch.randn((rows, o), generator=gen, device=DEV).to(dtype)
+
+    def delta(ids=idx, block_out=bo, xx=x, bb=base):
+        return lora_delta_kernel(xx, a, b, ids, seq, block_out, bb)
+    got = delta()
+    composed = ops.lora_expand(ops.lora_shrink(x, a, idx, seq), b, idx, bo,
+                               seq)
+    assert torch.equal(got, base + composed), \
+        f"lora_delta {label}: not K5 then K6 plus the base, bitwise"
+    assert torch.equal(delta(bb=None), composed), \
+        f"lora_delta {label}: not K5 then K6, bitwise"
+    assert torch.equal(got[~live], base[~live] + 0), \
+        f"lora_delta {label}: base rows are not base + 0"
+    for other in LORA_BLOCK_OUTS:
+        assert torch.equal(delta(block_out=other), got), \
+            f"lora_delta {label}: block_out {other} changed the output"
+    assert torch.equal(delta(), got), f"lora_delta {label}: relaunch differs"
+    for i in range(idx.shape[0]):
+        sl = slice(i * seq, (i + 1) * seq)
+        assert torch.equal(delta(ids=idx[i:i + 1], xx=x[sl], bb=base[sl]),
+                           got[sl]), \
+            f"lora_delta {label}: sequence {i} alone differs from the batch"
+    want = ref.lora_delta_ref(x, a, b, rows_idx, base)
+    faults = {}
+    if bool(live.any()):
+        tail = got.clone()
+        tail[:, (o - 1) // bo * bo:] = 0
+        faults = {"drop_one_d_slice": ref.lora_delta_ref(
+                      x, a, b, rows_idx, base, drop_slice=3, slices=SLICES),
+                  "last_output_tile_unwritten": tail}
+        if bool((idx > 0).any()):
+            faults["every_row_reads_slot_0"] = delta(
+                ids=torch.where(idx >= 0, 0, idx))
+    # dropping one of 8 slices moves h by about 1/sqrt(8) of itself, and y
+    # is some third of a row beside a unit base at d = 1024: a margin of 2
+    # keeps that fault clear of the bf16 tolerance at every width here
+    checked = gate(f"lora_delta {label} {dname}", got, want, faults,
+                   margin=2.0)
+    checked.update(composition_bitwise=True, bitwise_repeat=True,
+                   block_out_invariant=list(LORA_BLOCK_OUTS),
+                   batch_invariant_seqs=int(idx.shape[0]))
+    if not timed:
+        return checked
+    tc = tensor_core_rows(dtype, d, seq)
+    sass = _lora_sass(counts, dname, tc)
+    assert (sum(sass.values()) > 0) == tc, sass
+    gathered = rows_idx.clamp_min(0).long()
+    a_rows, b_rows = a[gathered], b[gathered]
+    x3, base3 = x[:, None, :], base[:, None, :]
+    n_live = int(live.sum())
+    n_adapters = len({int(i) for i in idx.tolist() if i >= 0})
+    t_bound, by = bound(
+        (rows * d + n_adapters * (d + o) * r + 2 * rows * o) * esize
+        + idx.shape[0] * 4, 2.0 * n_live * r * (d + o), dname)
+    results.append(dict(
+        name="lora_delta", dtype=dname, path="lora_serve",
+        shape=f"{label} block_out={bo} +base", tensor_cores=tc,
+        sass_mma=sass, **checked,
+        kernel_ms=graph_ms(delta), host_ms=host_ms(delta),
+        plain_ms=graph_ms(lambda: ref.lora_delta_ref(x, a, b, rows_idx,
+                                                     base)),
+        library_ms=graph_ms(lambda: torch.baddbmm(
+            base3, torch.bmm(x3, a_rows), b_rows)),
+        library="torch.bmm then torch.baddbmm (adds the base) over per-row "
+                "A and B gathered before the calls: the two yardsticks "
+                "(two calls)",
+        bound_ms=t_bound, bound_by=by))
+    return checked
 
 
 # the selective scan's shapes on the ssm path (falcon-mamba-7b: d_inner
@@ -1471,14 +1648,40 @@ def run_workload(torch, eng, reqs, counted=None):
         "launches_per_step": {k: v / eng.steps for k, v in launches.items()}}
 
 
+def dispatch_timer():
+    """A ``counted`` hook for ``run_workload`` and its tally: dispatches by
+    kind ("decode"/"prefill") and by whether they hold an adapter row, with
+    the host seconds of each model call (it launches its kernels and
+    returns: nothing in it waits for the card)."""
+    tally = {}
+
+    def counted(kind, batch, call):
+        t0 = time.perf_counter()
+        out = call()
+        key = f"{kind}_{'lora' if 'lora' in batch else 'base'}"
+        n, sec = tally.get(key, (0, 0.0))
+        tally[key] = (n + 1, sec + time.perf_counter() - t0)
+        return out
+    return tally, counted
+
+
+def host_ms_per_dispatch(tally) -> dict:
+    return {k: {"dispatches": n, "host_ms": 1e3 * sec / n}
+            for k, (n, sec) in sorted(tally.items())}
+
+
 def serve_phase(torch, cfg, params):
-    """The main path: 16 base requests, every kernel of the path launched."""
+    """The main path: 16 base requests, every kernel of the path launched;
+    the host time of each dispatch."""
     eng = serve_engine(cfg, params)
     assert eng.kernel_plan is not None
-    launches, _, out = run_workload(torch, eng, workload(cfg.vocab))
+    tally, counted = dispatch_timer()
+    launches, _, out = run_workload(torch, eng, workload(cfg.vocab), counted)
+    out["host_ms_per_dispatch"] = host_ms_per_dispatch(tally)
     assert launches["paged_attention"] > 0 and launches["rmsnorm"] > 0, \
         launches
-    assert launches["lora_shrink"] == launches["lora_expand"] == 0, launches
+    assert launches["lora_shrink"] == launches["lora_expand"] \
+        == launches["lora_delta"] == 0, launches
     emit({"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype, **out,
           "pages_per_fetch": eng.pages_per_fetch,
           "kernel_plan": repr(eng.kernel_plan),
@@ -1489,8 +1692,9 @@ def serve_phase(torch, cfg, params):
 
 
 TENANTS = ("tenant-0", "tenant-1", "tenant-2", "tenant-3")
-# at qwen3-0.6b's widths: launches of each LoRA kernel per dispatch with an
-# adapter row (7 adapted projections x 28 layers), and the adapter slab of
+# at qwen3-0.6b's widths: launches of the fused LoRA kernel per dispatch
+# with an adapter row (7 adapted projections x 28 layers), and the adapter
+# slab of
 # the store's defaults (8 slots x 28 layers x rank 16 x 22,528 summed
 # d_in + d_out of the 7 projections x 2 B)
 LORA_PER_DISPATCH = 7 * 28
@@ -1500,23 +1704,24 @@ LORA_SLAB_BYTES = 8 * 28 * 16 * 22528 * 2
 def lora_serve_phase(torch, cfg, params, base):
     """Multi-LoRA serving: the serve phase's engine with four tenants
     loaded (rank 8, alpha 16) serves the same 16 requests, every fifth one
-    base; the LoRA kernels launch once per adapted projection and layer of
-    every dispatch that holds an adapter row, and never otherwise."""
+    base; the fused LoRA kernel launches once per adapted projection and
+    layer of every dispatch that holds an adapter row, and never otherwise,
+    and K5 and K6 never launch on their own.  The host time of a dispatch
+    is printed beside the base serve phase's."""
     eng = serve_engine(cfg, params)
     for name in TENANTS:
         eng.load_adapter(name, rank=8, alpha=16.0)
-    dispatches = {"lora": 0, "base": 0}
-
-    def counted(kind, batch, call):
-        dispatches["lora" if "lora" in batch else "base"] += 1
-        return call()
+    tally, counted = dispatch_timer()
     launches, m, out = run_workload(
         torch, eng, workload(cfg.vocab, tenants=(None,) + TENANTS), counted)
+    dispatches = {k: sum(n for key, (n, _) in tally.items()
+                         if key.endswith(k)) for k in ("lora", "base")}
     per = len(eng.adapters.projs) * cfg.n_layers
     assert per == LORA_PER_DISPATCH, per
     assert dispatches["lora"] > 0, dispatches
-    assert launches["lora_shrink"] == launches["lora_expand"] \
-        == per * dispatches["lora"], (launches, dispatches)
+    assert launches["lora_delta"] == per * dispatches["lora"], \
+        (launches, dispatches)
+    assert launches["lora_shrink"] == launches["lora_expand"] == 0, launches
     assert launches["paged_attention"] > 0 and launches["rmsnorm"] > 0
     assert m.adapter_device_bytes == LORA_SLAB_BYTES, m.adapter_device_bytes
     assert sorted(m.per_tenant) == sorted(("base",) + TENANTS), m.per_tenant
@@ -1525,10 +1730,12 @@ def lora_serve_phase(torch, cfg, params, base):
           "rank_cap": eng.adapters.rank_cap,
           "adapter_device_bytes": m.adapter_device_bytes,
           "dispatches": dispatches, "lora_launches_per_lora_dispatch": per,
+          "host_ms_per_dispatch": host_ms_per_dispatch(tally),
           "per_tenant": m.per_tenant,
           "base_serve": {k: base[k] for k in (
               "engine_steps", "wall_s", "tokens_per_sec", "ttft_mean_s",
-              "ttft_max_s", "itl_mean_s", "launches_per_step")}})
+              "ttft_max_s", "itl_mean_s", "launches_per_step",
+              "host_ms_per_dispatch")}})
     del eng
     torch.cuda.empty_cache()
     return launches
@@ -1567,7 +1774,7 @@ def lora_identity_phase(torch, cfg, params):
     torch.cuda.synchronize()
     n = read_counts()
     assert with_tenants == base, "base tokens moved with tenants loaded"
-    assert n["lora_shrink"] == n["lora_expand"] == 0, n
+    assert n["lora_shrink"] == n["lora_expand"] == n["lora_delta"] == 0, n
     eng.load_adapter("null-tenant", rank=0)
     rank0 = serve(eng, "null-tenant")
     assert rank0 == base, "a rank-0 tenant changed the base tokens"
@@ -1590,7 +1797,7 @@ def lora_identity_phase(torch, cfg, params):
     emit({"phase": "lora_identity", "requests": len(prompts),
           "tokens_each": 12, "base_identical_with_tenants": True,
           "lora_launches_on_base_requests": n["lora_shrink"]
-          + n["lora_expand"], "rank0_identical": True,
+          + n["lora_expand"] + n["lora_delta"], "rank0_identical": True,
           "two_tenants_differ": True, "prefix_hits": hits,
           "same_tenant_reuse_identical": outs[2] == outs[0]})
     del eng
@@ -1732,7 +1939,8 @@ def stateful_serve_phase(torch, cfg, params):
                 and dl["rmsnorm"] > 0, (kind, dl, want)
     assert launches["ssm_scan"] == sum(
         want[k]["ssm_scan"] * len(v) for k, v in per.items()), launches
-    assert launches["lora_shrink"] == launches["matmul"] == 0, launches
+    assert launches["lora_shrink"] == launches["lora_delta"] \
+        == launches["matmul"] == 0, launches
     if ssm:
         assert m.peak_blocks_used == 0 and eng.kernel_plan is None, m
     slab = sum(t.numel() * t.element_size()
@@ -1898,10 +2106,11 @@ def lora_oracle_phase(torch, cfg, steps=8, chunk=256, bs=16):
     torch.cuda.synchronize()
     n = read_counts()
     per = len(sides[DEV][3].projs) * cfg.n_layers
-    assert n["lora_shrink"] == n["lora_expand"] == per * (steps + 1), n
+    assert n["lora_shrink"] == n["lora_expand"] == 0, n
+    assert n["lora_delta"] == per * (steps + 1), n
     tol = 1e-3
     out.update(max_rel_gap=max(gaps), gaps=gaps, tol=tol,
-               lora_launches=n["lora_shrink"] + n["lora_expand"])
+               lora_launches=n["lora_delta"])
     emit(out)
     assert max(gaps) <= tol, f"lora oracle: rel gap {max(gaps)} > {tol}"
     del sides, params
@@ -2393,9 +2602,11 @@ def main() -> int:
     # each row's launches come from the main path that gives its shape
     # (the row's ``path``): the qwen3-0.6b serve workload (K1 at head_dim
     # 128, K2 at 1,024 and 128), the compile phase (K4), the multi-LoRA
-    # workload (K5/K6), the ssm workload (K7, K2 at 4,096) and the hybrid
-    # workload (K1 at head_dim 80, K2 at 2,560 and 5,120) and the training
-    # run (K3 forward and backward, K2 at the training rows)
+    # workload (the fused delta, whose launches run K5's and K6's device
+    # code: their rows count its launches, ``launches_of``), the ssm
+    # workload (K7, K2 at 4,096) and the hybrid workload (K1 at head_dim
+    # 80, K2 at 2,560 and 5,120) and the training run (K3 forward and
+    # backward, K2 at the training rows)
     path_launches = {"serve": launches, "compile": compile_launches,
                      "lora_serve": lora_launches, "ssm_serve": ssm_launches,
                      "hybrid_serve": hybrid_launches,
@@ -2412,6 +2623,8 @@ def main() -> int:
                         "src/repro/kernels/lora.py:64"),
         "lora_expand": ("cuda", "src/repro_torch/kernels/csrc/lora.cu",
                         "src/repro/kernels/lora.py:98"),
+        "lora_delta": ("cuda", "src/repro_torch/kernels/csrc/lora.cu",
+                       "src/repro/kernels/lora.py:64+98"),
         "ssm_scan": ("cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan.py:33"),
         "flash_attention": (
@@ -2431,6 +2644,7 @@ def main() -> int:
             "name": f"{r['name']} {r['shape']}", "route": route,
             "source": source, "replaces": replaces, "path": r["path"],
             "launches": path_launches[r["path"]][r.get("counter", kernel)],
+            **({"launches_of": r["counter"]} if "counter" in r else {}),
             "max_abs_err": r["max_abs_err"],
             "row_rel_err": r["row_rel_err"], "ms": r["kernel_ms"],
             "host_ms": r["host_ms"],

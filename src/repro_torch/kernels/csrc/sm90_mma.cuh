@@ -1,6 +1,6 @@
 // Warp-level tensor-core and copy helpers for Hopper (sm_90a), shared by
-// the port's bf16 kernels: flash attention (K3), paged attention (K1) and
-// the matrix product (K4).
+// the port's bf16 kernels: flash attention (K3), paged attention (K1), the
+// matrix product (K4) and the LoRA shrink's chunk tile (K5).
 //
 // - `cp.async` copies global -> shared (16 and 4 bytes; a src size of 0
 //   writes zeros), with commit/wait groups for multi-stage rings.

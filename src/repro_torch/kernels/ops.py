@@ -2,20 +2,29 @@
 ``src/repro/kernels/ops.py``): the GQA grouping of the paged-attention
 callers, flash attention (the training path's, differentiable), the row
 flattening of rmsnorm (differentiable) and the matrix product that the
-compiler's codegen calls, the segmented LoRA shrink and expand, and the
-selective scan with its chunked-prefill entry.  Each wrapper hands its
-tensors to a kernel wrapper, which launches the kernel for CUDA tensors and
-runs the plain version for CPU tensors."""
+compiler's codegen calls, the segmented LoRA shrink, expand and fused
+delta, and the selective scan with its chunked-prefill entry.  Each wrapper
+hands its tensors to a kernel wrapper, which launches the kernel for CUDA
+tensors and runs the plain version for CPU tensors."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.flash_attention import FlashAttentionFn
-from repro_torch.kernels.lora import lora_expand_kernel, lora_shrink_kernel
+from repro_torch.kernels.lora import (lora_delta_kernel, lora_expand_kernel,
+                                     lora_shrink_kernel)
 from repro_torch.kernels.matmul import matmul_kernel
 from repro_torch.kernels.paged_attention import paged_attention_kernel
 from repro_torch.kernels.rmsnorm import RMSNormFn
 from repro_torch.kernels.ssm_scan import ssm_scan_kernel
+
+
+def _int32(ids):
+    """ids as a contiguous int32 tensor, with no call where they are one
+    already (the LoRA wrappers run once per adapted projection)."""
+    if ids.dtype != torch.int32:
+        ids = ids.to(torch.int32)
+    return ids.contiguous()
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,
@@ -91,13 +100,15 @@ def matmul(a, b):
     return matmul_kernel(a.contiguous(), b.contiguous())
 
 
-def lora_shrink(x, a_slab, idx):
+def lora_shrink(x, a_slab, idx, rows_per_seq: int = 1):
     """Segmented LoRA down-projection: each row of x (T,d) contracts against
-    its own adapter's A, selected from the slab (S,d,R) by idx (T,) (-1 =
-    base row, exact-zero output) -> (T,R) f32.  The gather happens inside
-    the kernel; no per-row (d,R) copy is made."""
+    its own adapter's A, selected from the slab (S,d,R) by idx (-1 = base
+    row, exact-zero output) -> (T,R) f32.  idx holds one slot per sequence
+    of ``rows_per_seq`` rows (per row by default).  The gather happens
+    inside the kernel; no per-row (d,R) copy is made."""
     return lora_shrink_kernel(x.contiguous(), a_slab.contiguous(),
-                              idx.to(torch.int32).contiguous())
+                              _int32(idx),
+                              rows_per_seq=rows_per_seq)
 
 
 def ssm_scan(a, b, c, h0):
@@ -121,10 +132,25 @@ def ssm_scan_chunked(a, b, c, h0, chunk: int):
     return ssm_scan(a, b, c, h0)
 
 
-def lora_expand(h, b_slab, idx, block_out: int = 256):
+def lora_expand(h, b_slab, idx, block_out: int = 256, rows_per_seq: int = 1):
     """Segmented LoRA up-projection: h (T,R) f32 against the slab (S,R,O) by
-    per-row idx (T,) -> (T,O) in the slab's dtype.  ``block_out`` tiles the
-    output features (the plan's choice, ``codegen.lora_tiles``)."""
+    idx (one slot per sequence of ``rows_per_seq`` rows) -> (T,O) in the
+    slab's dtype.  ``block_out`` tiles the output features (the plan's
+    choice, ``codegen.lora_tiles``)."""
     return lora_expand_kernel(h.contiguous(), b_slab.contiguous(),
-                              idx.to(torch.int32).contiguous(),
-                              block_out=block_out)
+                              _int32(idx),
+                              block_out=block_out, rows_per_seq=rows_per_seq)
+
+
+def lora_delta(x, a_slab, b_slab, ids, rows_per_seq: int = 1,
+               block_out: int = 256, base=None):
+    """The segmented LoRA delta in one launch: x (T,d) through each
+    sequence's own A (S,d,R) and B (S,R,O), ids (T / rows_per_seq,) one slot
+    per sequence -> (T,O) in x's dtype, plus ``base`` (T,O) when given.
+    Bitwise ``lora_expand(lora_shrink(x))`` (+ base) at the same
+    ``rows_per_seq``; h never leaves the chip."""
+    return lora_delta_kernel(x.contiguous(), a_slab.contiguous(),
+                             b_slab.contiguous(),
+                             _int32(ids),
+                             rows_per_seq=rows_per_seq, block_out=block_out,
+                             base=None if base is None else base.contiguous())

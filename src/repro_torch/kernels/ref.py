@@ -221,6 +221,24 @@ def lora_expand_ref(h: torch.Tensor, b_slab: torch.Tensor, idx: torch.Tensor,
     return y.to(out_dtype or h.dtype)
 
 
+def lora_delta_ref(x: torch.Tensor, a_slab: torch.Tensor,
+                   b_slab: torch.Tensor, idx: torch.Tensor,
+                   base: torch.Tensor = None, drop_slice=None,
+                   slices: int = 8) -> torch.Tensor:
+    """The fused LoRA delta: ``lora_expand_ref(lora_shrink_ref(x))`` in x's
+    dtype (per-row idx), plus ``base`` when given, added as PyTorch adds
+    two tensors of that dtype.  ``drop_slice``: d cut into ``slices`` slices
+    of equal length (the fused kernel's cluster) and that one left out of
+    the shrink, the planted fault of ``chip_smoke.py``."""
+    if drop_slice is not None:
+        per = -(-x.shape[1] // slices)
+        x = x.clone()
+        x[:, drop_slice * per:(drop_slice + 1) * per] = 0
+    y = lora_expand_ref(lora_shrink_ref(x, a_slab, idx), b_slab, idx,
+                        x.dtype)
+    return y if base is None else base + y
+
+
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
                 ) -> torch.Tensor:
     xf = x.float()

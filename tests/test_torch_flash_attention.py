@@ -312,6 +312,10 @@ WRAPPER_CALLS = {
     "lora_expand": lambda g: k56.lora_expand_kernel(
         _f(2, 8), _f(2, 8, 8).requires_grad_(g),
         torch.tensor([1, 0], dtype=torch.int32)),
+    "lora_delta": lambda g: k56.lora_delta_kernel(
+        _f(2, 8), _f(2, 8, 8), _f(2, 8, 4),
+        torch.tensor([1, -1], dtype=torch.int32),
+        base=_f(2, 4).requires_grad_(g)),
     "ssm_scan": lambda g: k7.ssm_scan_kernel(
         _f(1, 3, 4, 2).requires_grad_(g), _f(1, 3, 4, 2), _f(1, 3, 2),
         _f(1, 4, 2)),

@@ -4,7 +4,8 @@ base, on the CPU.
 The engine contracts of ``tests/test_multilora.py``: base requests are
 bitwise the adapter-free engine's even with tenants loaded, an all-base
 dispatch runs no LoRA op at all (counted at ``kernels.ops``, where the
-model calls the shrink and expand kernels), a rank-0 tenant gives the base
+model calls the fused delta kernel, and the shrink and expand besides), a
+rank-0 tenant gives the base
 tokens, a real tenant diverges, one prompt under two tenants is never
 cross-served from the prefix registry, and every terminal path returns the
 request's adapter ref; plus a full store that rejects a new tenant without
@@ -32,8 +33,8 @@ def setup():
 
 @pytest.fixture
 def lora_calls(monkeypatch):
-    """Calls of the shrink and expand ops, by name."""
-    calls = {"shrink": 0, "expand": 0}
+    """Calls of the shrink, expand and fused delta ops, by name."""
+    calls = {"shrink": 0, "expand": 0, "delta": 0}
 
     def counted(name, fn):
         def wrapper(*args, **kw):
@@ -42,6 +43,7 @@ def lora_calls(monkeypatch):
         return wrapper
     monkeypatch.setattr(ops, "lora_shrink", counted("shrink", ops.lora_shrink))
     monkeypatch.setattr(ops, "lora_expand", counted("expand", ops.lora_expand))
+    monkeypatch.setattr(ops, "lora_delta", counted("delta", ops.lora_delta))
     return calls
 
 
@@ -81,12 +83,13 @@ def test_base_request_bitwise_identical_with_adapters_loaded(setup,
     eng.adapters.pin("tenant-a")
     [got] = _run(eng, Request(rid=0, prompt=list(PROMPT), max_new=6))
     assert got == want
-    assert lora_calls == {"shrink": 0, "expand": 0}
+    assert lora_calls == {"shrink": 0, "expand": 0, "delta": 0}
 
 
 def test_all_base_batch_runs_no_lora_ops(setup, lora_calls):
     """An all-base dispatch carries no descriptor and calls no LoRA op; a
-    mixed one calls each op once per adapted projection per layer, and its
+    mixed one calls the fused delta op once per adapted projection per
+    layer (and neither the shrink nor the expand on its own), and its
     base row's logits equal the all-base dispatch's exactly."""
     _, cfg, _, params = setup
     eng = _engine(cfg, params)
@@ -106,11 +109,11 @@ def test_all_base_batch_runs_no_lora_ops(setup, lora_calls):
         return eng.fns.decode_paged(params, cache, b)[1]
 
     base = decode(batch)
-    assert lora_calls == {"shrink": 0, "expand": 0}
+    assert lora_calls == {"shrink": 0, "expand": 0, "delta": 0}
     mixed = decode(dict(batch, lora=eng._lora_descriptor(
         np.asarray([slot, -1], np.int32))))
     per = len(eng.adapters.projs) * cfg.n_layers
-    assert lora_calls == {"shrink": per, "expand": per}
+    assert lora_calls == {"shrink": 0, "expand": 0, "delta": per}
     assert torch.equal(mixed[1], base[1])
     assert not torch.equal(mixed[0], base[0])
 
