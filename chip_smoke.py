@@ -6,13 +6,12 @@
 Phases, each printing JSON objects one per line:
 
 1. card     — nvidia-smi's name and power limit, torch and CUDA versions.
-2. build    — nvcc builds the CUDA kernels (paged attention, matmul, LoRA
-              shrink, expand and fused delta, selective scan, flash
-              attention forward and backward) from the repo's sources for
-              sm_90a, one nvcc process per source, all started together, and
-              prints ptxas's register and spill lines; Triton compiles the
-              rmsnorm kernel (its registers and spills are printed per width
-              in the kernel lines).
+2. build    — nvcc builds the CUDA kernels (paged attention, rmsnorm
+              forward, pair and backward, matmul, LoRA shrink, expand and
+              fused delta, selective scan, flash attention forward and
+              backward) from the repo's sources for sm_90a, one nvcc process
+              per source, all started together, and prints ptxas's register
+              and spill lines (rmsnorm's also in its kernel lines).
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the shapes its path gives it (f32 and bf16), row by row
               (``ref.row_rel_err``), and planted faults that the same gate
@@ -55,13 +54,24 @@ Phases, each printing JSON objects one per line:
               row, one launch bitwise equal to the engine's split into
               chunks of 256 (state carried, identity-padded tail), and three
               planted faults (h0 ignored, the last step dropped, one tile of
-              d unwritten); it has no library call.  rmsnorm also runs at
-              the ssm and hybrid widths (4,096, 2,560 and the gated norm's
-              5,120) at decode and prefill-chunk rows, and at the training
-              step's rows (4,096 x 1,024, the q norms' 65,536 x 128 and the
-              k norms' 32,768 x 128); each K2 row also times RMSNormFn's
-              host cost beside the wrapper's (grad on, inputs needing
-              none, as the serve engine calls ops.rmsnorm).  Flash
+              d unwritten); it has no library call.  rmsnorm (K2) runs at
+              qwen3-0.6b's serve rows, the ssm and hybrid widths (4,096,
+              2,560 and the gated norm's 5,120) at decode and prefill-chunk
+              rows, and at the training step's rows (4,096 x 1,024, the q
+              norms' 65,536 x 128 and the k norms' 32,768 x 128): each row
+              bitwise across two launches, sample rows alone and the first
+              8 rows bitwise their rows in the batch, a planted fault (tail
+              columns zeroed); ``ops_host_ms`` beside the wrapper's
+              ``host_ms`` (the no-Function path the serve engine takes) and
+              RMSNormFn's.  The pair (q and k norms in one launch) at
+              qwen's decode, chunk and training q/k rows, each output
+              bitwise its single launch, timed beside two single launches.
+              The backward (row pass and column pass) at the training
+              rows: dx and dw against the plain backward, with planted
+              faults (g's rows shifted, the last quarter of the rows out of
+              dw, one row block out of the column sum, dx without its mean
+              term), two launches bitwise equal; its yardstick is autograd
+              of ``F.rms_norm``, forward + backward less forward.  Flash
               attention (K3) at the training step's shape (B 8 x 16 query
               heads over 8 KV heads, read grouped by the kernel, S 512,
               head_dim 128, causal; f32 and bf16): o, lse, dq, dk and
@@ -81,9 +91,6 @@ Phases, each printing JSON objects one per line:
               at head_dim 256, at head_dim 80 (zamba2's shared block, 32
               heads over 32), with 8 query heads a KV head, and at head_dim
               40 (ragged, q_offset 3).
-              ``rmsnorm_grad`` lines: RMSNormFn's dx and dw (torch ops, not
-              a kernel) against autograd of the plain rmsnorm at the
-              training rows.
 4. compile  — ``repro_torch.pipeline.compile()`` with the H100 record on the
               serve engine's full-width decode attention term, a full-width
               qwen3-0.6b SwiGLU MLP term (not vectorized, so its products stay
@@ -95,8 +102,10 @@ Phases, each printing JSON objects one per line:
 5. serve    — the port's ServeEngine (kernel planning on, the default)
               serves 16 requests of full-width qwen3-0.6b in bf16 (random
               weights from seed 0); every kernel's launch count is zeroed
-              just before and read just after.  A short greedy run with
-              planning off must give the same tokens as one with it on.
+              just before and read just after: K2 launches exactly 85 times
+              a model call (ln1, ln2 and the q/k pair a layer, the final
+              norm).  A short greedy run with planning off must give the
+              same tokens as one with it on.
    lora     — the same engine with four synthesized tenants loaded serves the
               same 16 requests, every fifth one base and the others spread
               over the tenants: every request finishes, the invariants hold
@@ -138,8 +147,9 @@ Phases, each printing JSON objects one per line:
 9. train    — full-width qwen3-0.6b in bf16 through ``Trainer`` (B 8 x S
               512, 10 steps, AdamW as the train CLI builds it, remat on):
               losses finite and falling, step seconds, tokens/s without step
-              0, peak memory, and exactly 56 K3 forward, 28 K3 backward and
-              225 K2 launches a step (no serve kernel); train_int8: three
+              0, peak memory, and exactly 56 K3 forward, 28 K3 backward,
+              169 K2 forward launches and 85 K2 backward calls a step (no
+              serve kernel); train_int8: three
               steps with int8 moments, finite and falling.  train_restart:
               2 layers at full width, 8 steps checkpointed every 4, a failure
               at step 6; the final loss equals a clean run's bit for bit.
@@ -276,6 +286,7 @@ def counters() -> dict:
                                      paged_attention, rmsnorm, ssm_scan)
     return {"paged_attention": (paged_attention, "launches"),
             "rmsnorm": (rmsnorm, "launches"),
+            "rmsnorm_bwd": (rmsnorm, "bwd_launches"),
             "matmul": (matmul, "launches"),
             "lora_shrink": (lora, "shrink_launches"),
             "lora_expand": (lora, "expand_launches"),
@@ -583,44 +594,59 @@ def _check_paged_attention(torch, results, path, h, kv, hd):
 # zamba2-2.7b's layer and shared-block norms (2,560) and its Mamba2 gated
 # norm over d_inner (5,120); then qwen3-0.6b's training step (B 8 x S 512
 # rows at 1,024, times 16 query heads and 8 key heads at 128); and the main
-# path that gives each
+# path that gives each.  The q/k norms at 128 run as a pair on every path
+# (``RMSNORM_PAIR_SHAPES``), so their single rows are gate-only (path None)
 RMSNORM_SHAPES = ((8, 1024), (256, 1024), (8 * 16, 128), (256 * 16, 128),
                   (8, 4096), (256, 4096), (8, 2560), (256, 2560),
                   (8, 5120), (256, 5120), (4096, 1024), (4096 * 16, 128),
                   (4096 * 8, 128))
-RMSNORM_PATH = {1024: "serve", 128: "serve", 4096: "ssm_serve",
+RMSNORM_PATH = {1024: "serve", 128: None, 4096: "ssm_serve",
                 2560: "hybrid_serve", 5120: "hybrid_serve"}
 RMSNORM_TRAIN_SHAPES = ((4096, 1024), (4096 * 16, 128), (4096 * 8, 128))
 
 
 def rmsnorm_path(rows, d):
+    if d == 128:
+        return None
     return "train" if (rows, d) in RMSNORM_TRAIN_SHAPES else RMSNORM_PATH[d]
 
 
-def triton_registers(torch, x, w, eps):
-    """Registers and spills of the Triton rmsnorm kernel compiled for x's
-    width: one direct launch, whose compiled kernel reports them (None
-    where this Triton version does not)."""
-    from repro_torch.kernels._rmsnorm_triton import rmsnorm_rows
-    from repro_torch.kernels.rmsnorm import _block_shape
-    n, d = x.shape
-    block_d, rows = _block_shape(d)
-    ck = rmsnorm_rows[(-(-n // rows),)](x, w, torch.empty_like(x), n, d,
-                                       float(eps), BLOCK_D=block_d,
-                                       ROWS=rows, num_warps=4)
-    return {"block_d": block_d, "rows": rows,
-            "registers": getattr(ck, "n_regs", None),
-            "spills": getattr(ck, "n_spills", None)}
+def ptxas_info(name: str) -> dict:
+    """ptxas's register and spill lines for each kernel of the library
+    ``name``, from this process's build: {mangled function: [lines]};
+    empty where an earlier build was reused."""
+    from repro_torch.kernels import build
+    info, fn = {}, None
+    for ln in build.BUILD_LOG.get(name, "").splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif fn is not None and ("registers" in ln or "spill" in ln):
+            info.setdefault(fn, []).append(ln.split(":", 1)[-1].strip())
+    return info
+
+
+def k2_ptxas(info, kernels, dname) -> dict:
+    """The rows of ``ptxas_info("rmsnorm")`` for K2's ``kernels`` at x and
+    w both of ``dname`` (the template arguments in the mangled name)."""
+    arg = "f" if dname == "float32" else "13__nv_bfloat16"
+    other = "13" if dname == "float32" else "f"
+    return {fn: v for fn, v in info.items()
+            for k in kernels if f"{k}I{arg}" in fn
+            and f"{k}I{arg}{other}" not in fn}
 
 
 def check_rmsnorm(torch, results):
-    """K2 against its plain version at every path's rows.  ``host_ms`` is
-    the wrapper's eager cost, ``function_host_ms`` that of ``RMSNormFn``
-    with grad on and inputs needing none (how the serve engine reaches
-    ``ops.rmsnorm``): what the Function adds to a serve step's norms."""
+    """K2 against its plain version at every path's rows: the forward, the
+    pair (qwen's q and k norms in one launch) and the backward.  Forward
+    rows: two launches bitwise equal, sample rows alone and the first 8
+    rows bitwise their rows in the batch.  ``host_ms`` is the wrapper's
+    eager cost, ``ops_host_ms`` that of ``ops.rmsnorm`` with nothing
+    recording (how the serve engine reaches it: the kernel, no Function)
+    and ``function_host_ms`` that of ``RMSNormFn``."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.rmsnorm import RMSNormFn, rmsnorm_kernel
+    info = ptxas_info("rmsnorm")
     gen = torch.Generator(device=DEV).manual_seed(1)
     eps = 1e-6
     for dtype in (torch.float32, torch.bfloat16):
@@ -636,20 +662,92 @@ def check_rmsnorm(torch, results):
             tail[:, -d // 8:] = 0
             checked = gate(f"rmsnorm ({rows},{d}) {dname}", got, want,
                            {"zero_tail_columns": tail})
+            name = f"rmsnorm ({rows},{d}) {dname}"
+            assert torch.equal(got, rmsnorm_kernel(x, w, eps)), \
+                f"{name}: two launches differ"
+            assert torch.equal(rmsnorm_kernel(x[:8], w, eps), got[:8]), \
+                f"{name}: the first 8 rows alone differ"
+            for i in sorted({0, rows // 2, rows - 1}):
+                assert torch.equal(rmsnorm_kernel(x[i:i + 1], w, eps),
+                                   got[i:i + 1]), f"{name}: row {i} alone"
             lib = (lambda: F.rms_norm(x, (d,), w, eps)) \
                 if hasattr(F, "rms_norm") else None
             t_bound, by = bound((2 * rows * d + d) * esize, 4.0 * rows * d,
                                 dname)
+            with torch.no_grad():
+                ops_host = host_ms(lambda: ops.rmsnorm(x, w, eps))
             results.append(dict(
                 name=f"rmsnorm/d{d}", dtype=dname, shape=f"({rows}, {d})",
                 path=rmsnorm_path(rows, d),
-                **checked, triton=triton_registers(torch, x, w, eps),
+                **checked, bitwise_repeat=True, batch_invariant_rows=True,
+                ptxas=k2_ptxas(info, ("rmsnorm_fwd_kernel",), dname),
                 kernel_ms=graph_ms(lambda: rmsnorm_kernel(x, w, eps)),
                 host_ms=host_ms(lambda: rmsnorm_kernel(x, w, eps)),
+                ops_host_ms=ops_host,
                 function_host_ms=host_ms(lambda: RMSNormFn.apply(x, w, eps)),
                 plain_ms=graph_ms(lambda: ref.rmsnorm_ref(x, w, eps)),
                 library_ms=graph_ms(lib) if lib else None,
                 bound_ms=t_bound, bound_by=by))
+        del x, w, got, want, tail
+        _check_rmsnorm_pair(torch, results, dtype, gen, eps, info)
+    check_rmsnorm_grad(torch, results, info)
+
+
+# the pair's rows: qwen3-0.6b's q and k norms (16 and 8 heads of 128) at a
+# decode step (B 8), a prefill chunk (256 tokens) and the training step
+# (B 8 x S 512)
+RMSNORM_PAIR_SHAPES = ((8 * 16, 8 * 8, 128), (256 * 16, 256 * 8, 128),
+                       (4096 * 16, 4096 * 8, 128))
+
+
+def _check_rmsnorm_pair(torch, results, dtype, gen, eps, info):
+    """K2's pair: each output against the plain version and bitwise its
+    single launch; timed beside two single launches (``singles_ms``,
+    ``singles_host_ms``); plain version and yardstick are two calls."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import (rmsnorm_kernel,
+                                             rmsnorm_pair_kernel)
+    dname = str(dtype).split(".")[1]
+    esize = torch.finfo(dtype).bits // 8
+    for r1, r2, d in RMSNORM_PAIR_SHAPES:
+        x1, x2 = (torch.randn((r, d), generator=gen, device=DEV).to(dtype)
+                  for r in (r1, r2))
+        w1, w2 = ((1 + 0.1 * torch.randn((d,), generator=gen, device=DEV))
+                  .to(dtype) for _ in range(2))
+        y1, y2 = rmsnorm_pair_kernel(x1, w1, x2, w2, eps)
+        name = f"rmsnorm pair ({r1}+{r2},{d}) {dname}"
+        assert torch.equal(y1, rmsnorm_kernel(x1, w1, eps)) and torch.equal(
+            y2, rmsnorm_kernel(x2, w2, eps)), f"{name}: not its single launch"
+        got, want = torch.cat([y1, y2]), torch.cat(
+            [ref.rmsnorm_ref(x1, w1, eps), ref.rmsnorm_ref(x2, w2, eps)])
+        swapped = torch.cat([ref.rmsnorm_ref(x1, w2, eps),
+                             ref.rmsnorm_ref(x2, w1, eps)])
+        checked = gate(name, got, want, {"weights_swapped": swapped})
+
+        def singles():
+            rmsnorm_kernel(x1, w1, eps)
+            rmsnorm_kernel(x2, w2, eps)
+
+        def lib():
+            F.rms_norm(x1, (d,), w1, eps)
+            F.rms_norm(x2, (d,), w2, eps)
+        t_bound, by = bound((2 * (r1 + r2) * d + 2 * d) * esize,
+                            4.0 * (r1 + r2) * d, dname)
+        results.append(dict(
+            name=f"rmsnorm_pair/d{d}", dtype=dname,
+            shape=f"({r1}+{r2}, {d})", counter="rmsnorm",
+            path="train" if r1 == 4096 * 16 else "serve",
+            **checked, bitwise_single_launches=True,
+            kernel_ms=graph_ms(lambda: rmsnorm_pair_kernel(x1, w1, x2, w2,
+                                                           eps)),
+            host_ms=host_ms(lambda: rmsnorm_pair_kernel(x1, w1, x2, w2,
+                                                        eps)),
+            singles_ms=graph_ms(singles), singles_host_ms=host_ms(singles),
+            plain_ms=graph_ms(lambda: (ref.rmsnorm_ref(x1, w1, eps),
+                                       ref.rmsnorm_ref(x2, w2, eps))),
+            library_ms=graph_ms(lib) if hasattr(F, "rms_norm") else None,
+            bound_ms=t_bound, bound_by=by))
 
 
 # the matmul kernel's shapes on the compile path: the decode term's two
@@ -1415,48 +1513,166 @@ def check_flash_attention(torch, results):
     torch.cuda.empty_cache()
 
 
-# RMSNormFn's backward (torch ops, not a kernel) at the training step's norm
-# rows: the layer norms (4,096 x 1,024), the q norms (65,536 x 128) and the
-# k norms (32,768 x 128)
+# K2's backward at the training step's norm rows: the layer norms (4,096 x
+# 1,024), the q norms (65,536 x 128) and the k norms (32,768 x 128); the
+# train path runs the last two as one pair (``_check_rmsnorm_pair_grad``)
 RMSNORM_GRAD_SHAPES = RMSNORM_TRAIN_SHAPES
 
 
-def check_rmsnorm_grad(torch):
-    """RMSNormFn's dx and dw against autograd of the plain rmsnorm, with
-    planted faults (the output gradient's rows shifted by one; dw summed
-    without the last quarter of the rows).  The backward is torch ops, so
-    its lines are not kernel rows; its time from graph replay beside
-    autograd of the plain version, eagerly."""
+def check_rmsnorm_grad(torch, results, info):
+    """K2's backward (row pass and column pass) against its plain version
+    (``ref.rmsnorm_bwd_ref``), dx row by row and dw as one row, with
+    planted faults: g's rows shifted by one, dw without the last quarter of
+    the rows, and two of the design's, dx without its mean term and dw
+    without one middle row block of the column sum.  In bf16 those two are
+    held at a margin of 1.5 times the limit, not 4: one of 256-512 row
+    blocks moves dw by about 1/16-1/23 of its largest value, 2-4 times the
+    bf16 limit (f32 keeps the margin of 4).  Two
+    launches bitwise equal; ``RMSNormFn`` gives the kernel's bits.  The
+    yardstick is autograd of ``F.rms_norm``: forward + backward less
+    forward, both from graph replay."""
+    import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import RMSNormFn, rmsnorm_bwd
+    from repro_torch.kernels import rmsnorm as k2
     gen = torch.Generator(device=DEV).manual_seed(4)
     eps = 1e-6
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
+        esize = torch.finfo(dtype).bits // 8
+        margin = 4.0 if dtype == torch.float32 else 1.5
         for rows, d in RMSNORM_GRAD_SHAPES:
             x = torch.randn((rows, d), generator=gen, device=DEV).to(dtype)
             w = (1 + 0.5 * torch.randn((d,), generator=gen, device=DEV)) \
                 .to(dtype)
             g = torch.randn((rows, d), generator=gen, device=DEV).to(dtype)
+            name = f"rmsnorm bwd ({rows},{d}) {dname}"
+            dx, dw = k2.rmsnorm_bwd_kernel(x, w, g, eps)
+            again = k2.rmsnorm_bwd_kernel(x, w, g, eps)
+            assert torch.equal(again[0], dx) and torch.equal(again[1], dw), \
+                f"{name}: two launches differ"
             xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
-            dx, dw = torch.autograd.grad(RMSNormFn.apply(xg, wg, eps),
-                                         (xg, wg), g)
-            xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
-            rdx, rdw = torch.autograd.grad(ref.rmsnorm_ref(xr, wr, eps),
-                                           (xr, wr), g)
-            sdx, sdw = rmsnorm_bwd(x, w, g.roll(1, 0), eps)
-            _, qdw = rmsnorm_bwd(x[:3 * rows // 4], w, g[:3 * rows // 4], eps)
-            gx = gate(f"rmsnorm grad dx ({rows},{d}) {dname}", dx, rdx,
-                      {"g_rows_shifted": sdx})
-            gw = gate(f"rmsnorm grad dw ({rows},{d}) {dname}", dw[None],
-                      rdw[None], {"g_rows_shifted": sdw[None],
-                                  "last_quarter_dropped": qdw[None]})
-            emit({"phase": "rmsnorm_grad", "dtype": dname,
-                  "shape": f"({rows}, {d})", "not_a_kernel": True,
-                  "dx_gate": gx, "dw_gate": gw,
-                  "backward_ms": graph_ms(lambda: rmsnorm_bwd(x, w, g, eps)),
-                  "plain_autograd_ms": host_ms(lambda: torch.autograd.grad(
-                      ref.rmsnorm_ref(xr, wr, eps), (xr, wr), g))})
+            fdx, fdw = torch.autograd.grad(k2.RMSNormFn.apply(xg, wg, eps),
+                                           (xg, wg), g)
+            assert torch.equal(fdx, dx) and torch.equal(fdw, dw), \
+                f"{name}: RMSNormFn differs from the kernel"
+            rdx, rdw = ref.rmsnorm_bwd_ref(x, w, g, eps)
+            sdx, sdw = ref.rmsnorm_bwd_ref(x, w, g.roll(1, 0), eps)
+            qdw = ref.rmsnorm_bwd_ref(x[:3 * rows // 4], w,
+                                      g[:3 * rows // 4], eps)[1]
+            ndx = ref.rmsnorm_bwd_ref(x, w, g, eps, mean_term=False)[0]
+            rb = k2.block_rows(d, dtype)
+            mid = -(-rows // rb) // 2
+            bdw = ref.rmsnorm_bwd_ref(x, w, g, eps,
+                                      drop_rows=(mid * rb, mid * rb + rb))[1]
+            gx = gate(f"{name} dx", dx, rdx, {"g_rows_shifted": sdx})
+            gx["planted_fault_row_rel_err"].update(gate(
+                f"{name} dx", dx, rdx, {"no_mean_term": ndx},
+                margin=margin)["planted_fault_row_rel_err"])
+            gw = gate(f"{name} dw", dw[None], rdw[None],
+                      {"g_rows_shifted": sdw[None],
+                       "last_quarter_dropped": qdw[None]})
+            gw["planted_fault_row_rel_err"].update(gate(
+                f"{name} dw", dw[None], rdw[None],
+                {"one_row_block_dropped": bdw[None]},
+                margin=margin)["planted_fault_row_rel_err"])
+            lib = lib_fwd = None
+            if hasattr(F, "rms_norm"):
+                xl, wl = x.clone().requires_grad_(), \
+                    w.clone().requires_grad_()
+                lib_fwd = graph_ms(lambda: F.rms_norm(xl, (d,), wl, eps))
+                lib = graph_ms(lambda: torch.autograd.grad(
+                    F.rms_norm(xl, (d,), wl, eps), (xl, wl), g)) - lib_fwd
+            t_bound, by = bound(3 * rows * d * esize + 2 * d * esize,
+                                10.0 * rows * d, "float32")
+            results.append(dict(
+                name=f"rmsnorm_bwd/d{d}", dtype=dname,
+                shape=f"({rows}, {d})", path=rmsnorm_path(rows, d),
+                counter="rmsnorm_bwd",
+                max_abs_err=max(gx["max_abs_err"], gw["max_abs_err"]),
+                row_rel_err=max(gx["row_rel_err"], gw["row_rel_err"]),
+                tol=gx["tol"], dx_gate=gx, dw_gate=gw, block_rows=rb,
+                design_fault_margin=margin, bitwise_repeat=True,
+                ptxas=k2_ptxas(info, ("rmsnorm_bwd_rows_kernel",
+                                      "rmsnorm_bwd_cols_kernel"), dname),
+                kernel_ms=graph_ms(lambda: k2.rmsnorm_bwd_kernel(x, w, g,
+                                                                 eps)),
+                host_ms=host_ms(lambda: k2.rmsnorm_bwd_kernel(x, w, g, eps)),
+                plain_ms=graph_ms(lambda: ref.rmsnorm_bwd_ref(x, w, g, eps)),
+                library_ms=lib, library_fwd_ms=lib_fwd,
+                bound_ms=t_bound, bound_by=by))
+            del x, g, dx, again, fdx, rdx, sdx, ndx, xg
+        _check_rmsnorm_pair_grad(torch, results, dtype, gen, eps, info)
+    torch.cuda.empty_cache()
+
+
+def _check_rmsnorm_pair_grad(torch, results, dtype, gen, eps, info):
+    """The pair's backward at the training step's q and k norms (the train
+    path's call): each tensor's dx and dw bitwise its single call's (so the
+    single rows' gates and planted faults hold for it), against the plain
+    version; timed beside the
+    two single calls, autograd of two ``F.rms_norm`` as yardstick.  Planted
+    faults: dx with the two weights swapped, the two dw swapped."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as k2
+    dname = str(dtype).split(".")[1]
+    esize = torch.finfo(dtype).bits // 8
+    r1, r2, d = RMSNORM_PAIR_SHAPES[-1]
+    x1, g1 = (torch.randn((r1, d), generator=gen, device=DEV).to(dtype)
+              for _ in range(2))
+    x2, g2 = (torch.randn((r2, d), generator=gen, device=DEV).to(dtype)
+              for _ in range(2))
+    w1, w2 = ((1 + 0.5 * torch.randn((d,), generator=gen, device=DEV))
+              .to(dtype) for _ in range(2))
+    name = f"rmsnorm pair bwd ({r1}+{r2},{d}) {dname}"
+    got = k2.rmsnorm_pair_bwd_kernel(x1, w1, g1, x2, w2, g2, eps)
+    one = k2.rmsnorm_bwd_kernel(x1, w1, g1, eps) \
+        + k2.rmsnorm_bwd_kernel(x2, w2, g2, eps)
+    assert all(torch.equal(a, b) for a, b in zip(got, one)), \
+        f"{name}: not its single calls"
+    want = ref.rmsnorm_bwd_ref(x1, w1, g1, eps) \
+        + ref.rmsnorm_bwd_ref(x2, w2, g2, eps)
+    swapped = ref.rmsnorm_bwd_ref(x1, w2, g1, eps)[0], \
+        ref.rmsnorm_bwd_ref(x2, w1, g2, eps)[0]
+    gx = gate(f"{name} dx", torch.cat([got[0], got[2]]),
+              torch.cat([want[0], want[2]]),
+              {"weights_swapped": torch.cat(swapped)})
+    gw = gate(f"{name} dw", torch.stack([got[1], got[3]]),
+              torch.stack([want[1], want[3]]),
+              {"segments_swapped": torch.stack([want[3], want[1]])})
+
+    def singles():
+        k2.rmsnorm_bwd_kernel(x1, w1, g1, eps)
+        k2.rmsnorm_bwd_kernel(x2, w2, g2, eps)
+    lib = lib_fwd = None
+    if hasattr(F, "rms_norm"):
+        leaves = [t.clone().requires_grad_() for t in (x1, w1, x2, w2)]
+
+        def lib_f():
+            return (F.rms_norm(leaves[0], (d,), leaves[1], eps),
+                    F.rms_norm(leaves[2], (d,), leaves[3], eps))
+        lib_fwd = graph_ms(lib_f)
+        lib = graph_ms(lambda: torch.autograd.grad(
+            lib_f(), leaves, (g1, g2))) - lib_fwd
+    t_bound, by = bound(3 * (r1 + r2) * d * esize + 4 * d * esize,
+                        10.0 * (r1 + r2) * d, "float32")
+    results.append(dict(
+        name=f"rmsnorm_pair_bwd/d{d}", dtype=dname, shape=f"({r1}+{r2}, {d})",
+        path="train", counter="rmsnorm_bwd",
+        max_abs_err=max(gx["max_abs_err"], gw["max_abs_err"]),
+        row_rel_err=max(gx["row_rel_err"], gw["row_rel_err"]),
+        tol=gx["tol"], dx_gate=gx, dw_gate=gw, bitwise_single_calls=True,
+        ptxas=k2_ptxas(info, ("rmsnorm_bwd_rows_kernel",
+                              "rmsnorm_bwd_cols_kernel"), dname),
+        kernel_ms=graph_ms(lambda: k2.rmsnorm_pair_bwd_kernel(
+            x1, w1, g1, x2, w2, g2, eps)),
+        host_ms=host_ms(lambda: k2.rmsnorm_pair_bwd_kernel(
+            x1, w1, g1, x2, w2, g2, eps)),
+        singles_ms=graph_ms(singles), singles_host_ms=host_ms(singles),
+        plain_ms=graph_ms(lambda: (ref.rmsnorm_bwd_ref(x1, w1, g1, eps),
+                                   ref.rmsnorm_bwd_ref(x2, w2, g2, eps))),
+        library_ms=lib, library_fwd_ms=lib_fwd, bound_ms=t_bound,
+        bound_by=by))
 
 
 # ---------------------------------------------------------------------------
@@ -1670,18 +1886,27 @@ def host_ms_per_dispatch(tally) -> dict:
             for k, (n, sec) in sorted(tally.items())}
 
 
+def k2_per_model_call(cfg) -> int:
+    """K2 launches of one dense model call: ln1, ln2 and (with qk-norm) the
+    q/k pair each layer, and the final norm."""
+    return (3 if cfg.qk_norm else 2) * cfg.n_layers + 1
+
+
 def serve_phase(torch, cfg, params):
-    """The main path: 16 base requests, every kernel of the path launched;
-    the host time of each dispatch."""
+    """The main path: 16 base requests, every kernel of the path launched,
+    K2 exactly ``k2_per_model_call`` times a dispatch (85 for qwen3-0.6b)
+    and its backward never; the host time of each dispatch."""
     eng = serve_engine(cfg, params)
     assert eng.kernel_plan is not None
     tally, counted = dispatch_timer()
     launches, _, out = run_workload(torch, eng, workload(cfg.vocab), counted)
     out["host_ms_per_dispatch"] = host_ms_per_dispatch(tally)
-    assert launches["paged_attention"] > 0 and launches["rmsnorm"] > 0, \
-        launches
+    calls = sum(n for n, _ in tally.values())
+    out["k2_launches_per_model_call"] = launches["rmsnorm"] / calls
+    assert launches["paged_attention"] > 0 and launches["rmsnorm"] \
+        == k2_per_model_call(cfg) * calls, (launches, calls)
     assert launches["lora_shrink"] == launches["lora_expand"] \
-        == launches["lora_delta"] == 0, launches
+        == launches["lora_delta"] == launches["rmsnorm_bwd"] == 0, launches
     emit({"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype, **out,
           "pages_per_fetch": eng.pages_per_fetch,
           "kernel_plan": repr(eng.kernel_plan),
@@ -2246,8 +2471,9 @@ def train_phase(torch, cfg):
     (B 8 x S 512, AdamW as the train CLI builds it, remat on), every count
     zeroed just before and read just after.  Each step launches K3's forward
     twice a layer (the forward and the rematerialised recompute), its
-    backward once a layer and K2 eight times a layer plus the final norm
-    (ln1, ln2, q and k norms, forward and recompute); no serve kernel.  The
+    backward once a layer, K2's forward six times a layer plus the final
+    norm (ln1, ln2 and the q/k pair, forward and recompute) and its
+    backward once for each of those 3n + 1 norms; no serve kernel.  The
     loss is finite and falls.  Then three steps with int8 moments."""
     trainer = _trainer(cfg, TRAIN_STEPS)
     torch.cuda.synchronize()
@@ -2261,7 +2487,8 @@ def train_phase(torch, cfg):
     losses = _losses(res, TRAIN_STEPS)
     layers = cfg.n_layers
     want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
-            "rmsnorm": 8 * layers + 1}
+            "rmsnorm": 2 * k2_per_model_call(cfg) - 1,
+            "rmsnorm_bwd": k2_per_model_call(cfg)}
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     assert {k: per_step[k] for k in want} == want, per_step
     assert all(v == 0 for k, v in launches.items() if k not in want), \
@@ -2519,20 +2746,15 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.build("paged_attention", "matmul", "lora", "ssm_scan",
+    build.build("paged_attention", "rmsnorm", "matmul", "lora", "ssm_scan",
                 "flash_attention")
     pa_mod.load_kernel()
+    rn_mod.load_kernels()
     mm_mod.load_kernel()
     lora_mod.load_kernels()
     k7_mod.load_kernel()
     fa_mod.load_kernels()
-    nvcc_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    x = torch.ones((16, 1024), device=DEV)
-    rn_mod.rmsnorm_kernel(x, torch.ones(1024, device=DEV))
-    torch.cuda.synchronize()
-    emit({"phase": "build", "nvcc_s": nvcc_s,
-          "triton_first_launch_s": time.perf_counter() - t0,
+    emit({"phase": "build", "nvcc_s": time.perf_counter() - t0,
           "ptxas": {n: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n, log in build.BUILD_LOG.items()}})
@@ -2550,7 +2772,6 @@ def main() -> int:
     if args.only is not None:
         print(smi, flush=True)
         return 0
-    check_rmsnorm_grad(torch)
 
     cfg = get_config("qwen3-0.6b")
     # 4. the compile pipeline at full width, kernels on the card
@@ -2615,8 +2836,15 @@ def main() -> int:
         "paged_attention": (
             "cuda", "src/repro_torch/kernels/csrc/paged_attention.cu",
             "src/repro/kernels/paged_attention.py:113"),
-        "rmsnorm": ("triton", "src/repro_torch/kernels/_rmsnorm_triton.py",
+        "rmsnorm": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm.py:19"),
+        "rmsnorm_pair": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                         "src/repro/kernels/rmsnorm.py:19"),
+        "rmsnorm_bwd": ("cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                        "src/repro/kernels/rmsnorm.py:19"),
+        "rmsnorm_pair_bwd": (
+            "cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "src/repro/kernels/rmsnorm.py:19"),
         "matmul": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu",
                    "src/repro/kernels/matmul.py:33"),
         "lora_shrink": ("cuda", "src/repro_torch/kernels/csrc/lora.cu",

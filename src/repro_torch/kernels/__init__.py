@@ -1,6 +1,7 @@
-"""The port's kernels: CUDA C++ paged attention, flash attention (forward and
-backward), matrix product, segmented LoRA shrink/expand and selective scan,
-and Triton rmsnorm, each beside its plain PyTorch version (``ref``)."""
+"""The port's kernels, all CUDA C++: paged attention, rmsnorm (forward and
+backward), flash attention (forward and backward), matrix product,
+segmented LoRA shrink/expand and selective scan, each beside its plain
+PyTorch version (``ref``)."""
 import torch
 
 
@@ -20,3 +21,17 @@ def refuse_grad(name: str, *tensors) -> None:
             f"{name}: an input requires grad, and the kernel's output would "
             "carry no gradient; call it through its autograd.Function "
             "(ops.flash_attention, ops.rmsnorm) or under torch.no_grad()")
+
+
+def launch(what: str, dev, fn, *args) -> None:
+    """Call the C entry ``fn(*args, stream)`` on the current stream of the
+    CUDA device ``dev`` and raise if it returns a CUDA error, entering the
+    device's context only when it is not the current device.  The raw
+    stream handle is read as PyTorch's own kernel launchers read it (no
+    Stream object is built on this per-call path)."""
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return launch(what, dev, fn, *args)
+    err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")

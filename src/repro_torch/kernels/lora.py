@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref, refuse_grad
+from repro_torch.kernels import build, launch, ref, refuse_grad
 
 # kernel launches since the last reset (chip_smoke.py reads and zeroes them)
 shrink_launches = 0
@@ -129,19 +129,6 @@ def _on_cpu(what, t):
     return t.device.type == "cpu"
 
 
-def _launch(what, dev, fn, *args):
-    """Call ``fn(*args, stream)`` on the current stream of ``dev``, entering
-    the device's context only when it is not the current device.  The raw
-    stream handle is read as PyTorch's own kernel launchers read it (no
-    Stream object is built on this per-call path)."""
-    if dev.index != torch.cuda.current_device():
-        with torch.cuda.device(dev):
-            return _launch(what, dev, fn, *args)
-    err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
-
-
 def _rows(ids, rows_per_seq):
     """Per-sequence ids as per-row ids (the plain versions' indexing)."""
     return ids if rows_per_seq == 1 else ids.repeat_interleave(rows_per_seq)
@@ -165,9 +152,9 @@ def lora_shrink_kernel(x: torch.Tensor, a_slab: torch.Tensor,
     out = torch.empty((t, r), dtype=torch.float32, device=x.device)
     if t == 0:
         return out
-    _launch("lora_shrink", x.device, load_kernels()[0], x.data_ptr(),
-            a_slab.data_ptr(), ids.data_ptr(), out.data_ptr(), t, d, r, s,
-            rows_per_seq, _DTYPES[x.dtype])
+    launch("lora_shrink", x.device, load_kernels()[0], x.data_ptr(),
+           a_slab.data_ptr(), ids.data_ptr(), out.data_ptr(), t, d, r, s,
+           rows_per_seq, _DTYPES[x.dtype])
     shrink_launches += 1
     return out
 
@@ -203,9 +190,9 @@ def lora_expand_kernel(h: torch.Tensor, b_slab: torch.Tensor,
     out = torch.empty((t, o), dtype=b_slab.dtype, device=h.device)
     if t == 0 or o == 0:
         return out
-    _launch("lora_expand", h.device, load_kernels()[1], h.data_ptr(),
-            b_slab.data_ptr(), ids.data_ptr(), out.data_ptr(), t, r, o,
-            block_out, s, rows_per_seq, _DTYPES[b_slab.dtype])
+    launch("lora_expand", h.device, load_kernels()[1], h.data_ptr(),
+           b_slab.data_ptr(), ids.data_ptr(), out.data_ptr(), t, r, o,
+           block_out, s, rows_per_seq, _DTYPES[b_slab.dtype])
     expand_launches += 1
     return out
 
@@ -248,9 +235,9 @@ def lora_delta_kernel(x: torch.Tensor, a_slab: torch.Tensor,
     out = torch.empty((t, o), dtype=dtype, device=dev)
     if t == 0 or o == 0:
         return out
-    _launch("lora_delta", dev, load_kernels()[2], x.data_ptr(),
-            a_slab.data_ptr(), b_slab.data_ptr(), ids.data_ptr(),
-            None if base is None else base.data_ptr(), out.data_ptr(), t, d,
-            r, o, block_out, s, rows_per_seq, _DTYPES[dtype])
+    launch("lora_delta", dev, load_kernels()[2], x.data_ptr(),
+           a_slab.data_ptr(), b_slab.data_ptr(), ids.data_ptr(),
+           None if base is None else base.data_ptr(), out.data_ptr(), t, d,
+           r, o, block_out, s, rows_per_seq, _DTYPES[dtype])
     delta_launches += 1
     return out

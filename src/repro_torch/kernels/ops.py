@@ -1,21 +1,21 @@
 """Model-facing wrappers of the port's kernels (mirrors
 ``src/repro/kernels/ops.py``): the GQA grouping of the paged-attention
 callers, flash attention (the training path's, differentiable), the row
-flattening of rmsnorm (differentiable) and the matrix product that the
-compiler's codegen calls, the segmented LoRA shrink, expand and fused
-delta, and the selective scan with its chunked-prefill entry.  Each wrapper
-hands its tensors to a kernel wrapper, which launches the kernel for CUDA
-tensors and runs the plain version for CPU tensors."""
+flattening of rmsnorm and of its pair (differentiable) and the matrix
+product that the compiler's codegen calls, the segmented LoRA shrink,
+expand and fused delta, and the selective scan with its chunked-prefill
+entry.  Each wrapper hands its tensors to a kernel wrapper, which launches
+the kernel for CUDA tensors and runs the plain version for CPU tensors."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import rmsnorm as _k2
 from repro_torch.kernels.flash_attention import FlashAttentionFn
 from repro_torch.kernels.lora import (lora_delta_kernel, lora_expand_kernel,
                                      lora_shrink_kernel)
 from repro_torch.kernels.matmul import matmul_kernel
 from repro_torch.kernels.paged_attention import paged_attention_kernel
-from repro_torch.kernels.rmsnorm import RMSNormFn
 from repro_torch.kernels.ssm_scan import ssm_scan_kernel
 
 
@@ -85,13 +85,35 @@ def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     return o.reshape(b, h, sq, hd).transpose(1, 2)
 
 
+def _records(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def rmsnorm(x, w, eps: float = 1e-5):
-    """RMSNorm over the last axis of x (any leading shape), through
-    ``RMSNormFn``: the kernel forward on CUDA tensors, recording a graph
-    only when grad mode is on and an input requires it."""
+    """RMSNorm over the last axis of x (any leading shape): through
+    ``RMSNormFn`` (the forward and backward kernels) when autograd records,
+    else the forward kernel called directly, with no Function's host cost
+    (serving, and the recompute's first pass)."""
     shape = x.shape
     x2, w2 = x.reshape(-1, shape[-1]).contiguous(), w.contiguous()
-    return RMSNormFn.apply(x2, w2, eps).reshape(shape)
+    if _records(x2, w2):
+        return _k2.RMSNormFn.apply(x2, w2, eps).reshape(shape)
+    return _k2.rmsnorm_kernel(x2, w2, eps).reshape(shape)
+
+
+def rmsnorm_pair(x1, w1, x2, w2, eps: float = 1e-5):
+    """RMSNorm of x1 by w1 and of x2 by w2 over one last axis (any leading
+    shapes), in one launch a direction: a layer's q and k norms.  Each
+    output is bitwise ``rmsnorm`` of its own pair; ``RMSNormPairFn`` when
+    autograd records, else the pair kernel directly."""
+    d = x1.shape[-1]
+    a1, a2 = x1.reshape(-1, d).contiguous(), x2.reshape(-1, d).contiguous()
+    v1, v2 = w1.contiguous(), w2.contiguous()
+    if _records(a1, v1, a2, v2):
+        y1, y2 = _k2.RMSNormPairFn.apply(a1, v1, a2, v2, eps)
+    else:
+        y1, y2 = _k2.rmsnorm_pair_kernel(a1, v1, a2, v2, eps)
+    return y1.reshape(x1.shape), y2.reshape(x2.shape)
 
 
 def matmul(a, b):

@@ -246,6 +246,28 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
+def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                    eps: float = 1e-5, mean_term: bool = True,
+                    drop_rows=None):
+    """Gradients of ``rmsnorm_ref(x, w, eps)`` for the output gradient g
+    (R, D), in f32 and cast: ``dx = rstd (g w - x_hat mean(g w x_hat))`` and
+    ``dw = sum_rows g x_hat``, with ``x_hat = x rstd``.  The planted faults
+    of ``chip_smoke.py``: ``mean_term=False`` drops dx's mean term;
+    ``drop_rows=(start, stop)`` leaves those rows out of dw (one row block
+    of the kernel's column sum)."""
+    xf = x.float()
+    rstd = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * rstd
+    gw = g.float() * w.float()
+    if mean_term:
+        gw = gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True)
+    dx = rstd * gw
+    gx = g.float() * xhat
+    if drop_rows is not None:
+        gx[drop_rows[0]:drop_rows[1]] = 0
+    return dx.to(x.dtype), gx.sum(dim=0).to(w.dtype)
+
+
 def ssm_scan_ref(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                  h0: torch.Tensor):
     """Sequential selective scan with a batch axis: a, b (B,T,D,N), c

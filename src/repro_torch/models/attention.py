@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lora as lora_mod
-from repro_torch.models.layers import apply_rope, rms_norm, truncated_normal
+from repro_torch.models.layers import (apply_rope, rms_norm_pair,
+                                      truncated_normal)
 from repro_torch.perf import perf
 
 # q chunks of this size bound the live score tensor to (B,H,CHUNK,S_kv);
@@ -273,8 +274,7 @@ def qkv_project(cfg: ModelConfig, p, x: torch.Tensor,
     v = lora_mod.add_delta("v", x @ p["wv"], x, lora) \
         .reshape(b, s, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q, k = rms_norm_pair(q, p["q_norm"], k, p["k_norm"], cfg.norm_eps)
     if cfg.rope == "mrope":
         raise NotImplementedError(
             "M-RoPE is not ported yet (ROADMAP: VLM slice)")

@@ -33,11 +33,19 @@ def truncated_normal(gen: torch.Generator, shape, scale, dtype,
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
              ) -> torch.Tensor:
     """f32 reduction and scale, result in x's dtype.  CUDA tensors run the
-    Triton rmsnorm kernel, CPU tensors its plain version, both through
-    ``RMSNormFn`` (``ops.rmsnorm``), which records only when autograd
-    does."""
+    CUDA rmsnorm kernel, CPU tensors its plain version (``ops.rmsnorm``,
+    through ``RMSNormFn`` when autograd records)."""
     require_norm_f32()
     return ops.rmsnorm(x, w, eps)
+
+
+def rms_norm_pair(x1: torch.Tensor, w1: torch.Tensor, x2: torch.Tensor,
+                  w2: torch.Tensor, eps: float = 1e-5):
+    """``rms_norm(x1, w1, eps), rms_norm(x2, w2, eps)`` over one last axis,
+    bit for bit, in one kernel launch (``ops.rmsnorm_pair``): a layer's q and
+    k norms."""
+    require_norm_f32()
+    return ops.rmsnorm_pair(x1, w1, x2, w2, eps)
 
 
 def _rope_angles(positions: torch.Tensor, dim: int, theta: float

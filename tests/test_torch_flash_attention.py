@@ -271,9 +271,9 @@ def test_function_path_is_taken_only_when_grad_is_needed():
 
 @pytest.mark.parametrize("shape", [(6, 32), (2, 3, 16)])
 def test_rmsnorm_goes_through_its_function(shape):
-    """``ops.rmsnorm`` always calls ``RMSNormFn``: no graph without a
-    grad-requiring input, and with one, dx and dw equal to ``jax.grad`` of
-    the reference's ``rms_norm``."""
+    """``ops.rmsnorm`` goes through ``RMSNormFn`` whenever autograd
+    records: no graph without a grad-requiring input, and with one, dx and
+    dw equal to ``jax.grad`` of the reference's ``rms_norm``."""
     from repro.models.layers import rms_norm as jax_rms_norm
     rng = np.random.default_rng(11)
     x = rng.normal(size=shape).astype(np.float32)

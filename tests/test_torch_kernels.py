@@ -5,7 +5,7 @@ launch the kernel); JAX runs its Pallas kernels in interpret mode
 (``repro.kernels.ops``) and its jnp oracles (``repro.kernels.ref``).  The
 paged-attention grid is the one of ``tests/test_paged_attention.py``, the
 matmul sweep the one of ``tests/test_kernels.py``.  Tests marked ``gpu``
-hold the CUDA and Triton kernels against the plain versions on a card and
+hold the CUDA kernels against the plain versions on a card and
 skip without one.
 """
 import ast
@@ -229,20 +229,28 @@ def test_wrappers_raise_instead_of_falling_back():
 
 def test_launch_hygiene_in_the_sources():
     """The CUDA entry point returns the launch status, the wrapper raises
-    on a non-zero one, and no ``except`` in the kernels package or in
-    chip_smoke.py can fall back to a plain version."""
+    on a non-zero one (itself, or through the package's shared
+    ``kernels.launch``, which raises), and no ``except`` in the kernels
+    package or in chip_smoke.py can fall back to a plain version."""
     assert "sm_90a" in (KERNELS / "build.py").read_text()
-    for name in ("paged_attention", "matmul", "lora", "ssm_scan",
+
+    def raises_on_status(tree):
+        return [n for n in ast.walk(tree) if isinstance(n, ast.If)
+                and "err != 0" in ast.unparse(n.test)
+                and any(isinstance(s, ast.Raise) for s in n.body)]
+    shared = ast.parse((KERNELS / "__init__.py").read_text())
+    launch = [f for f in shared.body if isinstance(f, ast.FunctionDef)
+              and f.name == "launch"]
+    assert launch and raises_on_status(launch[0])
+    for name in ("paged_attention", "rmsnorm", "matmul", "lora", "ssm_scan",
                  "flash_attention"):
         cu = (KERNELS / "csrc" / f"{name}.cu").read_text()
         assert "return cudaGetLastError();" in cu
         wrapper = ast.parse((KERNELS / f"{name}.py").read_text())
-        raises_on_status = [
-            n for n in ast.walk(wrapper) if isinstance(n, ast.If)
-            and "err != 0" in ast.unparse(n.test)
-            and any(isinstance(s, ast.Raise) for s in n.body)]
-        assert raises_on_status, f"{name}: wrapper must raise on a non-zero " \
-                                 "launch status"
+        calls_launch = [n for n in ast.walk(wrapper) if isinstance(n, ast.Call)
+                        and ast.unparse(n.func) == "launch"]
+        assert raises_on_status(wrapper) or calls_launch, \
+            f"{name}: wrapper must raise on a non-zero launch status"
     for f in sorted(KERNELS.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         tree = ast.parse(f.read_text())
         handlers = [n for n in ast.walk(tree)
@@ -282,7 +290,6 @@ def test_kernel_modules_import_without_triton_or_nvcc():
     import sys
     from repro_torch.kernels import build, rmsnorm  # noqa: F401
     assert "triton" not in sys.modules
-    assert "repro_torch.kernels._rmsnorm_triton" not in sys.modules
     assert build._FNS == {}
 
 

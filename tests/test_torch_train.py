@@ -314,8 +314,10 @@ def test_three_train_steps_match_jax():
 
 def test_train_step_launches_through_the_functions(monkeypatch):
     """One step calls FlashAttentionFn once a layer forward and once again in
-    the rematerialised recompute, its backward once a layer, and RMSNormFn
-    for every norm (two a layer, the q/k norms and the final norm)."""
+    the rematerialised recompute, its backward once a layer, and K2 once a
+    norm launch: three a layer (ln1, ln2 and the q/k pair in one launch)
+    forward and again in the recompute, plus the final norm; its backward
+    once for each of those 3n + 1."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import rmsnorm as k2
     calls = {"fa_fwd": 0, "fa_bwd": 0, "rn_fwd": 0, "rn_bwd": 0}
@@ -329,9 +331,11 @@ def test_train_step_launches_through_the_functions(monkeypatch):
                         counting(k3.flash_attention_kernel, "fa_fwd"))
     monkeypatch.setattr(k3, "flash_attention_bwd_kernel",
                         counting(k3.flash_attention_bwd_kernel, "fa_bwd"))
-    monkeypatch.setattr(k2, "rmsnorm_kernel",
-                        counting(k2.rmsnorm_kernel, "rn_fwd"))
-    monkeypatch.setattr(k2, "rmsnorm_bwd", counting(k2.rmsnorm_bwd, "rn_bwd"))
+    for name, key in (("rmsnorm_kernel", "rn_fwd"),
+                      ("rmsnorm_pair_kernel", "rn_fwd"),
+                      ("rmsnorm_bwd_kernel", "rn_bwd"),
+                      ("rmsnorm_pair_bwd_kernel", "rn_bwd")):
+        monkeypatch.setattr(k2, name, counting(getattr(k2, name), key))
     tcfg = reduced_config(get_config("qwen3-0.6b"))
     step, opt = make_train_step(tcfg, topt.AdamWConfig(), remat=True,
                                 device="cpu")
@@ -340,8 +344,8 @@ def test_train_step_launches_through_the_functions(monkeypatch):
     step(params, opt.init(params), {k: torch.from_numpy(v)
                                     for k, v in b.items()})
     n = tcfg.n_layers
-    assert calls == {"fa_fwd": 2 * n, "fa_bwd": n, "rn_fwd": 8 * n + 1,
-                     "rn_bwd": 4 * n + 1}, calls
+    assert calls == {"fa_fwd": 2 * n, "fa_bwd": n, "rn_fwd": 6 * n + 1,
+                     "rn_bwd": 3 * n + 1}, calls
 
 
 # -- trainer -----------------------------------------------------------------------
