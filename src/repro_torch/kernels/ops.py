@@ -3,9 +3,10 @@
 callers, flash attention (the training path's, differentiable), the row
 flattening of rmsnorm and of its pair (differentiable) and the matrix
 product that the compiler's codegen calls, the segmented LoRA shrink,
-expand and fused delta, and the selective scan with its chunked-prefill
-entry.  Each wrapper hands its tensors to a kernel wrapper, which launches
-the kernel for CUDA tensors and runs the plain version for CPU tensors."""
+expand and fused delta, and the selective scan (differentiable) with its
+chunked-prefill entry.  Each wrapper hands its tensors to a kernel wrapper,
+which launches the kernel for CUDA tensors and runs the plain version for
+CPU tensors."""
 from __future__ import annotations
 
 import torch
@@ -16,7 +17,7 @@ from repro_torch.kernels.lora import (lora_delta_kernel, lora_expand_kernel,
                                      lora_shrink_kernel)
 from repro_torch.kernels.matmul import matmul_kernel
 from repro_torch.kernels.paged_attention import paged_attention_kernel
-from repro_torch.kernels.ssm_scan import ssm_scan_kernel
+from repro_torch.kernels.ssm_scan import SSMScanFn, ssm_scan_kernel
 
 
 def _int32(ids):
@@ -136,9 +137,14 @@ def lora_shrink(x, a_slab, idx, rows_per_seq: int = 1):
 def ssm_scan(a, b, c, h0):
     """Batched selective scan: a, b (B,T,D,N), c (B,T,N), h0 (B,D,N), all
     f32 -> (y (B,T,D), h_last (B,D,N)).  The batch axis is the kernel's
-    own (the JAX entry vmaps a single-sequence kernel)."""
-    return ssm_scan_kernel(a.contiguous(), b.contiguous(), c.contiguous(),
-                           h0.contiguous())
+    own (the JAX entry vmaps a single-sequence kernel).  Through
+    ``SSMScanFn`` (the forward kernel with its state checkpoints, and the
+    backward kernels) when autograd records, else the kernel called
+    directly: serving launches and bits are those of the plain scan."""
+    a, b, c, h0 = (t.contiguous() for t in (a, b, c, h0))
+    if _records(a, b, c, h0):
+        return SSMScanFn.apply(a, b, c, h0)
+    return ssm_scan_kernel(a, b, c, h0)
 
 
 def ssm_scan_chunked(a, b, c, h0, chunk: int):

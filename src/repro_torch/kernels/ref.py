@@ -296,6 +296,55 @@ def ssm_scan_chunked_ref(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return torch.cat(ys, dim=1), h
 
 
+def ssm_scan_ckpt_ref(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                      h0: torch.Tensor, window: int):
+    """``ssm_scan_ref``'s (y, h_last) and the states before steps 0,
+    ``window``, 2 ``window``, ... stacked on axis 1 (B, ceil(T/window), D,
+    N): the forward's checkpoints, from the same steps."""
+    h, ys, ckpt = h0, [], []
+    for t in range(a.shape[1]):
+        if t % window == 0:
+            ckpt.append(h)
+        h = a[:, t] * h + b[:, t]
+        ys.append((h * c[:, t, None, :]).sum(-1))
+    if not ys:
+        return a.new_zeros(a.shape[:3]), h0.clone(), a.new_zeros(
+            (a.shape[0], 0) + tuple(h0.shape[1:]))
+    return torch.stack(ys, dim=1), h, torch.stack(ckpt, dim=1)
+
+
+def ssm_scan_bwd_ref(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                     h0: torch.Tensor, dy: torch.Tensor,
+                     dh_last: torch.Tensor = None, prev_state: bool = True,
+                     drop_d=None):
+    """Gradients of ``ssm_scan_ref`` for dy (B,T,D) and dh_last (B,D,N) (None
+    for zero) -> (da, db (B,T,D,N), dc (B,T,N), dh0 (B,D,N)), walking the
+    steps backwards with ``g = dy_t c_t + a_{t+1} g_{t+1}`` (the carry starts
+    at dh_last): ``da_t = g h_{t-1}``, ``db_t = g``, ``dc_t = sum_d dy_t
+    h_t``, ``dh0 = a_0 g_0``, each product and sum rounded in the order of
+    ``csrc/ssm_scan.cu`` (dc's sum over d excepted).  The planted faults of
+    ``chip_smoke.py``: ``prev_state=False`` takes h_t in place of h_{t-1}
+    in da; ``drop_d=(start, stop)`` leaves those d out of dc (one block's
+    partial of the kernel's column sum)."""
+    hs, h = [h0], h0
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    carry = torch.zeros_like(h0) if dh_last is None else dh_last
+    da, db = torch.empty_like(a), torch.empty_like(b)
+    dc = a.new_empty(c.shape)
+    for t in reversed(range(a.shape[1])):
+        g = dy[:, t, :, None] * c[:, t, None, :] + carry
+        da[:, t] = g * hs[t if prev_state else t + 1]
+        db[:, t] = g
+        carry = a[:, t] * g
+        p = dy[:, t, :, None] * hs[t + 1]
+        if drop_d is not None:
+            p[:, drop_d[0]:drop_d[1]] = 0
+        dc[:, t] = p.sum(1)
+    return da, db, dc, carry.clone() if carry is dh_last else carry
+
+
 # Largest ``row_rel_err`` a kernel may show against its plain version, by the
 # output's dtype.  bf16: kernel and plain version each round their f32 result
 # once, and where the two f32 values straddle a rounding midpoint they land

@@ -1,7 +1,13 @@
 """zamba2-style hybrid: a Mamba2 (SSD) backbone plus one weight-shared
 attention block applied every ``attn_every`` layers (mirrors
-``src/repro/models/hybrid.py``, serving functions only; ``hybrid_loss``
-comes with the training slice).
+``src/repro/models/hybrid.py``).
+
+Training: ``hybrid_loss`` runs the shared block's attention through the
+flash-attention kernel (``impl="kernel"``, forward and backward), every
+norm, the Mamba2 gated norm among them, through ``RMSNormFn``, and the SSD
+in torch einsums under autograd (the JAX package has no kernel for it);
+with ``remat`` each segment runs again in the backward, as the reference
+checkpoints its segment body.
 
 ``params["layers"]`` is a list of ``n_layers`` per-layer dicts
 ``{"ln", "mamba"}`` in forward order (segment s holds layers
@@ -24,7 +30,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba, ssm_lm, transformer
 from repro_torch.models.layers import (
     apply_mlp, embed_tokens, init_embed, init_mlp, logits_from_hidden,
-    rms_norm,
+    rms_norm, softmax_cross_entropy,
 )
 
 
@@ -66,6 +72,44 @@ def _shared_tail(cfg: ModelConfig, shared, x: torch.Tensor, attend
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_from_hidden(cfg, params["embed"], h)
+
+
+# ---------------------------------------------------------------------------
+# Training forward and loss
+# ---------------------------------------------------------------------------
+
+def _segment_fwd(cfg: ModelConfig, shared, seg_layers, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """One segment: its Mamba2 layers, then the shared block with its
+    attention on the flash-attention kernel."""
+    for lp in seg_layers:
+        y, _ = mamba.mamba2_forward(cfg, lp["mamba"],
+                                    rms_norm(x, lp["ln"], cfg.norm_eps))
+        x = x + y
+    return _shared_tail(cfg, shared, x, lambda xn: attn.attention_block(
+        cfg, shared["attn"], xn, positions, causal=True, impl="kernel"))
+
+
+def _fwd(cfg: ModelConfig, params, embeds: torch.Tensor, remat: bool
+         ) -> torch.Tensor:
+    """embeds (B,S,d) -> final-normed hidden (B,S,d); ``remat`` recomputes
+    each segment in the backward."""
+    b, s = embeds.shape[:2]
+    positions = torch.arange(s, device=embeds.device)[None, :].expand(b, s)
+    segments = [_segment(cfg, params, i) for i in range(_n_segments(cfg))]
+    x = transformer.run_blocks(
+        lambda seg, x: _segment_fwd(cfg, params["shared"], seg, x, positions),
+        segments, embeds, remat)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def hybrid_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True
+                ) -> torch.Tensor:
+    """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,S)."""
+    h = _fwd(cfg, params, embed_tokens(params["embed"], batch["tokens"]),
+             remat)
+    logits = logits_from_hidden(cfg, params["embed"], h)
+    return softmax_cross_entropy(logits, batch["labels"])
 
 
 # ---------------------------------------------------------------------------

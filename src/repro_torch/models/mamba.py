@@ -7,7 +7,11 @@ kernel of ``kernels/csrc/ssm_scan.cu``, on CPU tensors its plain sequential
 version.  The JAX package computes the same recurrence with an associative
 scan inside each ``cfg.ssm.chunk``-step chunk; the kernel walks the steps in
 order, so its result does not depend on where the chunks fall, and it agrees
-with the JAX package to float32 reassociation.  The discretisation
+with the JAX package to float32 reassociation.  Under autograd (the ssm
+family's loss) the scan goes through ``SSMScanFn``: the same forward launch,
+also writing state checkpoints, and the K7 backward kernels; the
+discretisation and everything around the scan are torch ops that autograd
+differentiates.  The discretisation
 (``a = exp(dt * A)``, ``b = dt * B * x``) is computed here, outside the
 kernel, as the JAX package hands materialised ``a``/``b`` to its kernel.
 

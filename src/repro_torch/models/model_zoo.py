@@ -1,7 +1,7 @@
 """Model dispatch (mirrors ``src/repro/models/model_zoo.py``): one
-``ModelFns`` bundle per architecture family.  The port serves the dense,
-ssm and hybrid families; the others raise and name the ROADMAP slice that
-brings them."""
+``ModelFns`` bundle per architecture family.  The port serves and trains
+the dense, ssm and hybrid families; the others raise and name the ROADMAP
+slice that brings them."""
 from __future__ import annotations
 
 import dataclasses
@@ -42,24 +42,6 @@ class ModelFns:
     state_slot_write: Optional[Callable] = None  # (cache, idx, data) -> cache
 
 
-# why each stateful family's loss still raises, and the ROADMAP item that
-# lifts it
-_LOSS_NOT_PORTED = {
-    "ssm": "(ROADMAP A12): its training needs a backward of the selective-"
-           "scan kernel K7 (ROADMAP B), which every Mamba1 layer runs",
-    "hybrid": "(ROADMAP A12b): hybrid_loss itself is not ported; its "
-              "Mamba2 layers run no K7 (their SSD is einsums)",
-}
-
-
-def _loss_not_ported(family: str) -> Callable:
-    def loss(params, batch, **kw):
-        raise NotImplementedError(
-            f"the {family} family's loss is not ported to repro_torch yet "
-            + _LOSS_NOT_PORTED[family])
-    return loss
-
-
 def build_model(cfg: ModelConfig, device=None) -> ModelFns:
     """The family's functions, with params and caches on ``device``
     (default cuda)."""
@@ -76,7 +58,7 @@ def build_model(cfg: ModelConfig, device=None) -> ModelFns:
         # the block data plane is a no-op (the engine never grows a table)
         return ModelFns(
             init=lambda seed=0: ssm_lm.init_ssm_lm(cfg, seed, dev),
-            loss=_loss_not_ported(fam),
+            loss=lambda p, b, **kw: ssm_lm.ssm_lm_loss(cfg, p, b, **kw),
             prefill=lambda p, b: ssm_lm.ssm_lm_prefill(cfg, p, b),
             decode_step=lambda p, c, b: ssm_lm.ssm_lm_decode_step(
                 cfg, p, c, b),
@@ -100,7 +82,7 @@ def build_model(cfg: ModelConfig, device=None) -> ModelFns:
         # state slab for the Mamba2 backbone, in one cache
         return ModelFns(
             init=lambda seed=0: hybrid.init_hybrid(cfg, seed, dev),
-            loss=_loss_not_ported(fam),
+            loss=lambda p, b, **kw: hybrid.hybrid_loss(cfg, p, b, **kw),
             prefill=lambda p, b: hybrid.hybrid_prefill(cfg, p, b),
             decode_step=lambda p, c, b: hybrid.hybrid_decode_step(
                 cfg, p, c, b),

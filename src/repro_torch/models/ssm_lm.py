@@ -1,6 +1,11 @@
 """falcon-mamba-style attention-free LM: a stack of Mamba1 blocks (mirrors
-``src/repro/models/ssm_lm.py``, serving functions only; ``ssm_lm_loss``
-comes with the training slice).
+``src/repro/models/ssm_lm.py``).
+
+Training: ``ssm_lm_loss`` runs every layer's selective scan through
+``SSMScanFn`` (the K7 forward with its state checkpoints, and the K7
+backward kernels) and every norm through ``RMSNormFn``; with ``remat`` each
+layer runs again in the backward, as the reference checkpoints its scan
+body.
 
 ``params["layers"]`` is a list of per-layer dicts ``{"ln", "mamba"}``; the
 JAX package's ``lax.scan`` over stacked layers is a Python loop.  The dense
@@ -19,7 +24,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import mamba
 from repro_torch.models.layers import (
     embed_tokens, init_embed, logits_from_hidden, rms_norm,
+    softmax_cross_entropy,
 )
+from repro_torch.models.transformer import run_blocks
 
 
 def init_ssm_lm(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
@@ -41,6 +48,30 @@ def init_ssm_lm(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return logits_from_hidden(cfg, params["embed"], h)
+
+
+def _layer_fwd(cfg: ModelConfig, lp, x: torch.Tensor) -> torch.Tensor:
+    y, _ = mamba.mamba1_forward(cfg, lp["mamba"],
+                                rms_norm(x, lp["ln"], cfg.norm_eps))
+    return x + y
+
+
+def _fwd(cfg: ModelConfig, params, embeds: torch.Tensor, remat: bool
+         ) -> torch.Tensor:
+    """embeds (B,S,d) -> final-normed hidden (B,S,d); ``remat`` recomputes
+    each layer in the backward."""
+    x = run_blocks(lambda lp, x: _layer_fwd(cfg, lp, x), params["layers"],
+                   embeds, remat)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def ssm_lm_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True
+                ) -> torch.Tensor:
+    """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,S)."""
+    h = _fwd(cfg, params, embed_tokens(params["embed"], batch["tokens"]),
+             remat)
+    logits = logits_from_hidden(cfg, params["embed"], h)
+    return softmax_cross_entropy(logits, batch["labels"])
 
 
 def ssm_lm_prefill(cfg: ModelConfig, params, batch: Dict

@@ -112,6 +112,22 @@ def _remat_context_fn():
     return lambda: create_selective_checkpoint_contexts(policy)
 
 
+def run_blocks(fn, blocks, x: torch.Tensor, remat: bool, *args
+               ) -> torch.Tensor:
+    """``x = fn(block, x, *args)`` for each of ``blocks`` in order (a layer,
+    or a hybrid segment); with ``remat`` each call runs again in the
+    backward (``torch.utils.checkpoint``), keeping what REPRO_REMAT_POLICY
+    says, as the reference wraps its scan body in ``jax.checkpoint``."""
+    context_fn = _remat_context_fn() if remat else None
+    for blk in blocks:
+        if remat:
+            x = checkpoint(fn, blk, x, *args, use_reentrant=False,
+                           context_fn=context_fn)
+        else:
+            x = fn(blk, x, *args)
+    return x
+
+
 def forward_hidden(cfg: ModelConfig, params, embeds: torch.Tensor,
                    positions: torch.Tensor, remat: bool = False,
                    impl: Optional[str] = None
@@ -119,14 +135,8 @@ def forward_hidden(cfg: ModelConfig, params, embeds: torch.Tensor,
     """embeds (B,S,d) -> (final-normed hidden (B,S,d), moe_aux scalar; 0 for
     the dense family).  ``remat`` recomputes each layer in the backward."""
     _require_dense(cfg)
-    x = embeds
-    context_fn = _remat_context_fn() if remat else None
-    for lp in params["layers"]:
-        if remat:
-            x = checkpoint(_layer_fwd, cfg, lp, x, positions, impl,
-                           use_reentrant=False, context_fn=context_fn)
-        else:
-            x = _layer_fwd(cfg, lp, x, positions, impl)
+    x = run_blocks(lambda lp, x: _layer_fwd(cfg, lp, x, positions, impl),
+                   params["layers"], embeds, remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 

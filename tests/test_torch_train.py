@@ -1,8 +1,12 @@
 """The port's training slice against the JAX package: AdamW (f32 and int8
-moments), the token pipeline, checkpoints, ``lm_loss`` and its gradients
-(every attention through ``FlashAttentionFn``, every norm through
-``RMSNormFn``, on the CPU their plain versions), train steps, the trainer's
-checkpoint/restart replay, the train CLI and the train-state bridge.
+moments), the token pipeline, checkpoints, the loss of each family the port
+trains and its gradients (``lm_loss``: every attention through
+``FlashAttentionFn``; ``ssm_lm_loss``: every selective scan through
+``SSMScanFn``; ``hybrid_loss``: the shared block's attention through
+``FlashAttentionFn`` at head_dim 80's layout; every norm through
+``RMSNormFn``; on the CPU their plain versions), train steps, the trainer's
+checkpoint/restart replay for each family, the train CLI and the
+train-state bridge.
 
 The same numpy-seeded weights, batches and states go through both
 frameworks on reduced f32 configs; tolerances are ``_torch_parity``'s,
@@ -43,8 +47,11 @@ from repro_torch.train.tree import leaves, map_tree
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-# the second dense arch of the loss parity (squared-ReLU MLP, no qk-norm)
-LOSS_ARCHS = ("qwen3-0.6b", "nemotron-4-15b")
+# the second dense arch of the loss parity (squared-ReLU MLP, no qk-norm),
+# then the stateful families (Mamba1 on K7; Mamba2 and the shared block)
+LOSS_ARCHS = ("qwen3-0.6b", "nemotron-4-15b", "falcon-mamba-7b",
+              "zamba2-2.7b")
+STATEFUL_ARCHS = ("falcon-mamba-7b", "zamba2-2.7b")
 OPT_TOL = 1e-6
 
 
@@ -280,6 +287,33 @@ def test_lm_loss_and_grads_match_jax(arch, remat, monkeypatch):
         assert_close(g, w.numpy(), MODULE_TOL, f"grad leaf {i}")
 
 
+def test_hybrid_loss_over_two_segments_matches_jax(monkeypatch):
+    """Two segments of the reduced hybrid (4 Mamba2 layers, the shared
+    block called twice, its gradient summed over both calls), remat on:
+    the loss and every gradient leaf against ``jax.value_and_grad``."""
+    import dataclasses
+    monkeypatch.setenv("REPRO_REMAT_POLICY", "dots")
+    jcfg = dataclasses.replace(jax_reduced_config(
+        jax_get_config("zamba2-2.7b")), n_layers=4)
+    tcfg = dataclasses.replace(reduced_config(get_config("zamba2-2.7b")),
+                               n_layers=4)
+    jparams = jax_build_model(jcfg).init(jax.random.PRNGKey(1))
+    b = _batch(jcfg)
+    jloss, jgrads = jax.value_and_grad(lambda p: jax_build_model(jcfg).loss(
+        p, {k: jnp.asarray(v) for k, v in b.items()}, remat=True))(jparams)
+    params = map_tree(lambda t: t.requires_grad_(), bridge.params_from_numpy(
+        jax.tree.map(np.asarray, jparams)))
+    loss = build_model(tcfg, "cpu").loss(
+        params, {k: torch.from_numpy(v) for k, v in b.items()}, remat=True)
+    loss.backward()
+    assert_close(loss.detach(), np.float32(jloss), MODULE_TOL, "loss")
+    want = leaves(bridge.params_from_numpy(jax.tree.map(np.asarray, jgrads)))
+    got = leaves(map_tree(lambda p: p.grad, params))
+    assert len(got) == len(want) and len(params["layers"]) == 4
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert_close(g, w.numpy(), MODULE_TOL, f"grad leaf {i}")
+
+
 def test_three_train_steps_match_jax():
     """Loss and grad norm per step within LOGITS_TOL of the JAX step from
     the same bridged state; params within 2 lr a step.  In AdamW's first
@@ -348,6 +382,66 @@ def test_train_step_launches_through_the_functions(monkeypatch):
                      "rn_bwd": 3 * n + 1}, calls
 
 
+def _counting_launches(monkeypatch):
+    """Count the kernel wrappers that the Functions and ``ops`` look up in
+    their modules: K3 forward and backward, K2 forward (single and pair)
+    and backward, K7 forward (with and without checkpoints) and backward."""
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels import rmsnorm as k2
+    from repro_torch.kernels import ssm_scan as k7
+    calls = dict.fromkeys(("fa_fwd", "fa_bwd", "rn_fwd", "rn_bwd", "k7_fwd",
+                           "k7_bwd"), 0)
+
+    def counting(fn, key):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+    for mod, name, key in (
+            (k3, "flash_attention_kernel", "fa_fwd"),
+            (k3, "flash_attention_bwd_kernel", "fa_bwd"),
+            (k2, "rmsnorm_kernel", "rn_fwd"),
+            (k2, "rmsnorm_pair_kernel", "rn_fwd"),
+            (k2, "rmsnorm_bwd_kernel", "rn_bwd"),
+            (k2, "rmsnorm_pair_bwd_kernel", "rn_bwd"),
+            (k7, "ssm_scan_ckpt_kernel", "k7_fwd"),
+            (k7, "ssm_scan_bwd_kernel", "k7_bwd")):
+        monkeypatch.setattr(mod, name, counting(getattr(mod, name), key))
+    return calls
+
+
+@pytest.mark.parametrize("arch", STATEFUL_ARCHS)
+def test_stateful_train_step_launches_through_the_functions(arch,
+                                                             monkeypatch):
+    """One remat step of each stateful family: ssm runs SSMScanFn's
+    forward once a layer and again in the recompute, its backward once a
+    layer, K2 on each layer's norm the same way plus the final norm, and no
+    K3; the hybrid runs K3 once a segment (and again in the recompute, its
+    backward once), K2 on each Mamba2 layer's two norms (ln, the gated
+    norm) and the shared block's two a segment, and no K7."""
+    from repro_torch.kernels import ssm_scan as k7
+    calls = _counting_launches(monkeypatch)
+    monkeypatch.setattr(k7, "ssm_scan_kernel", lambda *a: pytest.fail(
+        "the loss called the scan kernel outside SSMScanFn"))
+    tcfg = reduced_config(get_config(arch))
+    step, opt = make_train_step(tcfg, topt.AdamWConfig(), remat=True,
+                                device="cpu")
+    params = build_model(tcfg, "cpu").init(0)
+    b = TokenPipeline(tcfg.vocab, 16, 2).batch_at(0)
+    step(params, opt.init(params), {k: torch.from_numpy(v)
+                                    for k, v in b.items()})
+    n = tcfg.n_layers
+    if tcfg.family == "ssm":
+        want = {"fa_fwd": 0, "fa_bwd": 0, "rn_fwd": 2 * n + 1,
+                "rn_bwd": n + 1, "k7_fwd": 2 * n, "k7_bwd": n}
+    else:
+        segs = n // tcfg.hybrid.attn_every
+        norms = 2 * n + 2 * segs
+        want = {"fa_fwd": 2 * segs, "fa_bwd": segs, "rn_fwd": 2 * norms + 1,
+                "rn_bwd": norms + 1, "k7_fwd": 0, "k7_bwd": 0}
+    assert calls == want, calls
+
+
 # -- trainer -----------------------------------------------------------------------
 
 def _tcfg(**kw):
@@ -363,11 +457,23 @@ def test_trainer_loss_decreases():
     assert all(np.isfinite(losses))
 
 
-@pytest.mark.parametrize("opt_state", ["f32", "int8"])
-def test_trainer_recovers_from_failure_bitwise(opt_state):
-    """A failure at step 9 restores step 8 and replays: the final loss is
-    the clean run's, bit for bit (the reference bounds the gap at 5e-3)."""
-    cfg = reduced_config(get_config("qwen3-0.6b"))
+@pytest.mark.parametrize("arch", STATEFUL_ARCHS)
+def test_stateful_trainer_loss_decreases(arch):
+    """15 steps under the CLI's schedule (one warm-up step, then a cosine
+    from 1e-3): the default config's 100 warm-up steps keep the rate
+    under 5e-5 for all of them."""
+    from repro_torch.launch.train import opt_config
+    cfg = reduced_config(get_config(arch))
+    res = Trainer(cfg, _tcfg(seq_len=64, global_batch=4, steps=15,
+                             log_every=1), opt_config(1e-3, 15),
+                  device="cpu").train()
+    losses = [e["loss"] for e in res["log"]]
+    assert len(losses) == 15 and losses[-1] < losses[0]
+    assert all(np.isfinite(losses))
+
+
+def _restart_replays_bitwise(arch, opt_state):
+    cfg = reduced_config(get_config(arch))
     ocfg = topt.AdamWConfig(warmup_steps=2, total_steps=12,
                             state_dtype=opt_state)
     with tempfile.TemporaryDirectory() as d:
@@ -385,41 +491,63 @@ def test_trainer_recovers_from_failure_bitwise(opt_state):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("opt_state", ["f32", "int8"])
+def test_trainer_recovers_from_failure_bitwise(opt_state):
+    """A failure at step 9 restores step 8 and replays: the final loss is
+    the clean run's, bit for bit (the reference bounds the gap at 5e-3)."""
+    _restart_replays_bitwise("qwen3-0.6b", opt_state)
+
+
+@pytest.mark.parametrize("arch", STATEFUL_ARCHS)
+def test_stateful_trainer_recovers_from_failure_bitwise(arch):
+    """The same replay for the ssm family (int8 moments, as its full width
+    trains) and the hybrid (f32 moments)."""
+    _restart_replays_bitwise(arch, "int8" if arch == "falcon-mamba-7b"
+                             else "f32")
+
+
 def test_trainer_refuses_a_mesh_and_unported_families():
     cfg = reduced_config(get_config("qwen3-0.6b"))
     with pytest.raises(NotImplementedError, match="A10"):
         Trainer(cfg, _tcfg(), mesh=object(), device="cpu")
-    for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
-        fns = build_model(reduced_config(get_config(arch)), "cpu")
-        with pytest.raises(NotImplementedError, match="A12"):
-            fns.loss(None, {})
 
 
-@pytest.mark.parametrize("arch,names,never", [
-    ("falcon-mamba-7b", ("ROADMAP A12", "K7", "ROADMAP B",
-                         "selective-scan"), ("A12b",)),
-    ("zamba2-2.7b", ("ROADMAP A12b", "hybrid_loss", "no K7"),
-     ("selective-scan", "backward"))])
-def test_unported_loss_names_its_family_reason(arch, names, never):
-    """Each stateful family's refusal names its own reason: ssm waits for
-    the K7 backward; the hybrid, whose Mamba2 runs no K7, waits for its
-    hybrid_loss port and never claims a selective-scan backward."""
-    fns = build_model(reduced_config(get_config(arch)), "cpu")
-    with pytest.raises(NotImplementedError) as info:
-        fns.loss(None, {})
-    msg = str(info.value)
-    assert all(n in msg for n in names), msg
-    assert not any(n in msg for n in never), msg
+def _train_cli(*args):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *args],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
 
 
 def test_train_cli_runs():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
-         "--smoke", "--steps", "3", "--seq-len", "32", "--batch", "2"],
-        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    out = _train_cli("--device", "cpu", "--smoke", "--steps", "3",
+                     "--seq-len", "32", "--batch", "2")
     assert out.returncode == 0, out.stderr
     assert "done at step 3" in out.stdout
+
+
+@pytest.mark.parametrize("arch", STATEFUL_ARCHS)
+def test_train_cli_runs_stateful(arch):
+    out = _train_cli("--arch", arch, "--device", "cpu", "--smoke",
+                     "--steps", "3", "--seq-len", "32", "--batch", "2")
+    assert out.returncode == 0, out.stderr
+    assert "done at step 3" in out.stdout
+
+
+def test_train_state_that_cannot_fit_raises_and_names_int8():
+    """falcon-mamba-7b's weights, gradients and f32 moments reckon 87.3 GB,
+    more than an 80 GB card holds (85.5e9 bytes): the CLI raises before
+    allocating and names --opt-state int8, whose 43.9 GB fit; it does not
+    switch on its own."""
+    from repro_torch.launch import train as cli
+    cfg = get_config("falcon-mamba-7b")
+    card = 85_520_809_984
+    assert round(cli.state_bytes(cfg, "f32") / 1e9, 1) == 87.3
+    with pytest.raises(ValueError, match="--opt-state int8") as info:
+        cli.check_state_fits(cfg, "f32", card)
+    assert "87.3 GB" in str(info.value)
+    cli.check_state_fits(cfg, "int8", card)
+    cli.check_state_fits(get_config("zamba2-2.7b"), "f32", card)
 
 
 # -- bridge ------------------------------------------------------------------------
