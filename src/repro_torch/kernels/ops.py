@@ -3,8 +3,9 @@
 callers, flash attention (the training path's, differentiable), the row
 flattening of rmsnorm and of its pair (differentiable) and the matrix
 product that the compiler's codegen calls, the segmented LoRA shrink,
-expand and fused delta, and the selective scan (differentiable) with its
-chunked-prefill entry.  Each wrapper hands its tensors to a kernel wrapper,
+expand and fused delta, the selective scan (differentiable) with its
+chunked-prefill entry, and Mamba1's fused scan (its discretisation in the
+kernel; differentiable).  Each wrapper hands its tensors to a kernel wrapper,
 which launches the kernel for CUDA tensors and runs the plain version for
 CPU tensors."""
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import rmsnorm as _k2
+from repro_torch.kernels import ssm_scan as _k7
 from repro_torch.kernels.flash_attention import FlashAttentionFn
 from repro_torch.kernels.lora import (lora_delta_kernel, lora_expand_kernel,
                                      lora_shrink_kernel)
@@ -158,6 +160,25 @@ def ssm_scan_chunked(a, b, c, h0, chunk: int):
     if chunk < 1:
         raise ValueError(f"ssm_scan_chunked: chunk must be >= 1, got {chunk}")
     return ssm_scan(a, b, c, h0)
+
+
+def ssm_scan_fused(dt, A, Bm, C, x, h0):
+    """Mamba1's selective scan with its discretisation in the kernel: dt
+    (B,T,D) f32 after softplus, A (D,N) f32, B and C (B,T,N) and x (B,T,D)
+    in the model's dtype, h0 (B,D,N) f32 -> (y (B,T,D) f32, h_last (B,D,N)
+    f32), the scan of a = exp(dt A), b = (dt B) x and c = C.  No (B,T,D,N)
+    tensor is made.  One launch over all T (a chunked prefill gives the
+    same bits: masked positions, dt = 0, are identity steps).  Through
+    ``SSMScanFusedFn`` (the forward kernel with its state checkpoints, and
+    the fused backward kernels) when autograd records, else the kernel
+    called directly.  B and C may be slices of the layer's projection;
+    they are copied only if their last axis is strided."""
+    dt, A, x, h0 = (t.contiguous() for t in (dt, A, x, h0))
+    Bm, C = (t if t.shape[-1] == 1 or t.stride(-1) == 1 else t.contiguous()
+             for t in (Bm, C))
+    if _records(dt, A, Bm, C, x, h0):
+        return _k7.SSMScanFusedFn.apply(dt, A, Bm, C, x, h0)
+    return _k7.ssm_scan_fused_kernel(dt, A, Bm, C, x, h0)
 
 
 def lora_expand(h, b_slab, idx, block_out: int = 256, rows_per_seq: int = 1):

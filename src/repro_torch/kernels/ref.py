@@ -345,6 +345,81 @@ def ssm_scan_bwd_ref(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return da, db, dc, carry.clone() if carry is dh_last else carry
 
 
+
+def ssm_discretise_ref(dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                       x: torch.Tensor):
+    """Mamba1's discretisation: dt (..., D) f32, A (D, N) f32, B (..., N) and
+    x (..., D) in the model's dtype -> a = exp(dt A), b = (dt B) x, both
+    (..., D, N) f32, each product rounded in that order.  A masked position
+    (dt = 0) gives a = 1 and b = 0 exactly."""
+    a = torch.exp(dt[..., None] * A)
+    b = dt[..., None] * Bm.float()[..., None, :] * x.float()[..., None]
+    return a, b
+
+
+def ssm_scan_fused_ref(dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                       C: torch.Tensor, x: torch.Tensor, h0: torch.Tensor):
+    """The fused scan's plain version: ``ssm_discretise_ref`` then
+    ``ssm_scan_ref`` with c = C in f32 -> (y (B,T,D), h_last (B,D,N))."""
+    a, b = ssm_discretise_ref(dt, A, Bm, x)
+    return ssm_scan_ref(a, b, C.float(), h0)
+
+
+def ssm_discretise_bwd_ref(da: torch.Tensor, db: torch.Tensor,
+                           a: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                           Bm: torch.Tensor, x: torch.Tensor, drop_n=None,
+                           drop_b=None, drop_d=None):
+    """The discretisation's chain rule: from the scan's da, db (B,T,D,N) and
+    a = exp(dt A) -> (d(dt) (B,T,D) f32, dA (D,N) f32, dB (B,T,N) and dx
+    (B,T,D) in their inputs' dtypes), each product rounded as
+    ``csrc/ssm_scan.cu`` rounds it (its sums over n, d and (b, t) in
+    another order): u = da a, v = db x, d(dt) = sum_n (u A + v B), dx =
+    sum_n db (dt B), dB = sum_d v dt, dA = sum_{b,t} u dt.  The planted
+    faults of ``chip_smoke.py``: ``drop_n`` leaves that lane (state index)
+    out of d(dt); ``drop_b`` leaves that batch row out of dA (one row of the
+    kernel's (B, D, N) partial); ``drop_d=(start, stop)`` leaves those d out
+    of dB (one block's partial)."""
+    bf, dtn = Bm.float()[..., None, :], dt[..., None]
+    u = da * a
+    v = db * x.float()[..., None]
+    pdt = u * A + v * bf
+    if drop_n is not None:
+        pdt[..., drop_n] = 0
+    ddt = pdt.sum(-1)
+    del pdt
+    dx = (db * (dtn * bf)).sum(-1)
+    pb = v * dtn
+    del v
+    if drop_d is not None:
+        pb[:, :, drop_d[0]:drop_d[1]] = 0
+    dB = pb.sum(2)
+    del pb
+    pa = u * dtn
+    del u
+    if drop_b is not None:
+        pa[drop_b] = 0
+    dA = pa.sum((0, 1))
+    return ddt, dA, dB.to(Bm.dtype), dx.to(x.dtype)
+
+
+def ssm_scan_fused_bwd_ref(dt: torch.Tensor, A: torch.Tensor,
+                           Bm: torch.Tensor, C: torch.Tensor,
+                           x: torch.Tensor, h0: torch.Tensor,
+                           dy: torch.Tensor, dh_last: torch.Tensor = None,
+                           **faults):
+    """Gradients of ``ssm_scan_fused_ref`` for dy (B,T,D) and dh_last (B,D,N)
+    (None for zero) -> (d(dt) (B,T,D) f32, dA (D,N) f32, dB and dC (B,T,N)
+    and dx (B,T,D) in their inputs' dtypes, dh0 (B,D,N) f32):
+    ``ssm_scan_bwd_ref`` for da, db, dc and dh0, then
+    ``ssm_discretise_bwd_ref`` (which takes the planted ``faults``)."""
+    a, b = ssm_discretise_ref(dt, A, Bm, x)
+    da, db, dc, dh0 = ssm_scan_bwd_ref(a, b, C.float(), h0, dy, dh_last)
+    del b
+    ddt, dA, dB, dx = ssm_discretise_bwd_ref(da, db, a, dt, A, Bm, x,
+                                             **faults)
+    return ddt, dA, dB, dc.to(C.dtype), dx, dh0
+
+
 # Largest ``row_rel_err`` a kernel may show against its plain version, by the
 # output's dtype.  bf16: kernel and plain version each round their f32 result
 # once, and where the two f32 values straddle a rounding midpoint they land

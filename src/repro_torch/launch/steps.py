@@ -20,8 +20,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                     remat: bool = True, device=None
                     ) -> Tuple[Callable, AdamW]:
     """(train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics), the optimizer).  Without ``opt_cfg`` the moments follow
-    REPRO_OPT_STATE."""
+    metrics), the optimizer).  The step returns the trees it was given,
+    updated in place (``AdamW.update``).  Without ``opt_cfg`` the moments
+    follow REPRO_OPT_STATE."""
     fns = build_model(cfg, device)
     if opt_cfg is None:
         from repro_torch.perf import perf

@@ -1,19 +1,21 @@
 """Mamba1 (selective scan) and Mamba2 (SSD) blocks (mirrors
 ``src/repro/models/mamba.py``).
 
-Mamba1's recurrence runs through the selective-scan kernel
-(``ops.ssm_scan_chunked`` / ``ops.ssm_scan``): on CUDA tensors the CUDA
-kernel of ``kernels/csrc/ssm_scan.cu``, on CPU tensors its plain sequential
-version.  The JAX package computes the same recurrence with an associative
-scan inside each ``cfg.ssm.chunk``-step chunk; the kernel walks the steps in
-order, so its result does not depend on where the chunks fall, and it agrees
-with the JAX package to float32 reassociation.  Under autograd (the ssm
-family's loss) the scan goes through ``SSMScanFn``: the same forward launch,
-also writing state checkpoints, and the K7 backward kernels; the
-discretisation and everything around the scan are torch ops that autograd
-differentiates.  The discretisation
-(``a = exp(dt * A)``, ``b = dt * B * x``) is computed here, outside the
-kernel, as the JAX package hands materialised ``a``/``b`` to its kernel.
+Mamba1's recurrence and its discretisation (``a = exp(dt * A)``,
+``b = dt * B * x``) run in one selective-scan kernel,
+``ops.ssm_scan_fused``, from dt, A, B, C and x: on CUDA tensors the CUDA
+kernel of ``kernels/csrc/ssm_scan.cu``, which makes a and b in registers
+and never writes a (B, S, d_inner, N) tensor; on CPU tensors its plain
+version, ``_discretise`` then the sequential scan.  The JAX package
+materialises ``a``/``b`` and hands them to its kernel, and computes the
+recurrence with an associative scan inside each ``cfg.ssm.chunk``-step
+chunk; the kernel walks the steps in order, so its result does not depend
+on where the chunks fall, and it agrees with the JAX package to float32
+reassociation.  Under autograd (the ssm family's loss) the scan goes
+through ``SSMScanFusedFn``: the same forward launch, also writing state
+checkpoints, and the fused K7 backward kernels, which give d(dt), dA, dB,
+dC, dx and dh0; A = -exp(A_log) and everything around the scan are torch
+ops that autograd differentiates.
 
 Mamba2's SSD runs in torch einsums, as the JAX package runs it in
 ``jnp.einsum`` (it has no kernel of its own); its gated norm over
@@ -32,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import rms_norm, truncated_normal
 
 
@@ -84,24 +86,23 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return out + b[None, None, :]
 
 
-def _chunked_selective_scan(a: torch.Tensor, b: torch.Tensor,
-                            c: torch.Tensor, h0: torch.Tensor, chunk: int):
-    """a, b (B,S,di,N) f32, c (B,S,N) f32, h0 (B,di,N) -> (y (B,S,di),
-    h_last): the selective-scan kernel, one launch over all S (``chunk``
-    is the reference's scan granule; it changes no bit of the result)."""
-    return ops.ssm_scan_chunked(a, b, c, h0, chunk=max(1, min(chunk,
-                                                              a.shape[1])))
+def _selective_scan(p, dt: torch.Tensor, b_ssm: torch.Tensor,
+                    c_ssm: torch.Tensor, xs: torch.Tensor, h0: torch.Tensor):
+    """dt (B,S,di) f32, B and C (B,S,N), x (B,S,di), h0 (B,di,N) f32 ->
+    (y (B,S,di) f32, h_last): the fused selective-scan kernel, one launch
+    over all S (the reference's ``cfg.ssm.chunk`` scan granule changes no
+    bit of the result)."""
+    return ops.ssm_scan_fused(dt, -torch.exp(p["A_log"]), b_ssm, c_ssm, xs,
+                              h0)
 
 
 def _discretise(dt: torch.Tensor, a_log: torch.Tensor, b_ssm: torch.Tensor,
                 xs: torch.Tensor):
     """dt (..., di) f32, A_log (di, N), B (..., N), x (..., di) ->
-    a = exp(dt * A), b = dt * B * x, both (..., di, N) f32.  A masked
-    position (dt = 0) gives a = exp(0) = 1 and b = 0 exactly."""
-    A = -torch.exp(a_log)
-    a = torch.exp(dt[..., None] * A)
-    b = dt[..., None] * b_ssm.float()[..., None, :] * xs.float()[..., None]
-    return a, b
+    a = exp(dt * A), b = dt * B * x, both (..., di, N) f32: the first half
+    of the fused scan's plain version (``ref.ssm_discretise_ref``).  A
+    masked position (dt = 0) gives a = exp(0) = 1 and b = 0 exactly."""
+    return ref.ssm_discretise_ref(dt, -torch.exp(a_log), b_ssm, xs)
 
 
 def _project(cfg: ModelConfig, p, xs: torch.Tensor):
@@ -139,11 +140,9 @@ def mamba1_forward(cfg: ModelConfig, p, x: torch.Tensor,
     xs, z = xz[..., :di], xz[..., di:]
     xs = _silu(causal_conv1d(xs, p["conv_w"], p["conv_b"]))
     dt, b_ssm, c_ssm = _project(cfg, p, xs)
-    a, b = _discretise(dt, p["A_log"], b_ssm, xs)
     if h0 is None:
         h0 = torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
-    y, h_last = _chunked_selective_scan(a, b, c_ssm.float(), h0,
-                                        cfg.ssm.chunk)
+    y, h_last = _selective_scan(p, dt, b_ssm, c_ssm, xs, h0)
     out = _gate_out(p, y, xs, z, x.dtype)
     return out, {"h": h_last,
                  "conv": _tail_window(xz[..., :di], cfg.ssm.d_conv - 1)}
@@ -159,9 +158,8 @@ def mamba1_decode_step(cfg: ModelConfig, p, x: torch.Tensor, state: Dict):
     conv = torch.einsum("bki,ki->bi", window, p["conv_w"]) + p["conv_b"]
     xs1 = _silu(conv)                                          # (B,di)
     dt, b_ssm, c_ssm = _project(cfg, p, xs1)
-    a, bterm = _discretise(dt, p["A_log"], b_ssm, xs1)         # (B,di,N)
-    y, h = ops.ssm_scan(a[:, None], bterm[:, None],
-                        c_ssm.float()[:, None], state["h"].float())
+    y, h = _selective_scan(p, dt[:, None], b_ssm[:, None], c_ssm[:, None],
+                           xs1[:, None], state["h"].float())
     out = _gate_out(p, y[:, 0], xs1, z[:, 0], x.dtype)[:, None, :]
     return out, {"h": h, "conv": window[:, 1:, :]}
 
@@ -206,9 +204,7 @@ def mamba1_chunk(cfg: ModelConfig, p, x: torch.Tensor, state: Dict,
     xs = _silu(conv)
     dt, b_ssm, c_ssm = _project(cfg, p, xs)
     dt = _pad_mask(dt, valid_len)
-    a, b = _discretise(dt, p["A_log"], b_ssm, xs)
-    y, h_last = _chunked_selective_scan(a, b, c_ssm.float(),
-                                        state["h"].float(), cfg.ssm.chunk)
+    y, h_last = _selective_scan(p, dt, b_ssm, c_ssm, xs, state["h"].float())
     out = _gate_out(p, y, xs, z, x.dtype)
     return out, {"h": h_last, "conv": _next_conv_carry(ext, valid_len, k)}
 

@@ -5,7 +5,8 @@ Plain tensor code over the port's parameter trees, not ``torch.optim``: the
 state keeps the reference's layout ``{"step", "m", "v"}`` with ``m``/``v``
 shaped like the parameters, so it crosses ``repro_torch.bridge`` to the JAX
 package and back.  Every update is computed in f32 and cast to the
-parameter's dtype.  int8 moments hold 1 B a value plus an f32 scale per 256
+parameter's dtype and written into the leaf's own storage (the update is
+in place).  int8 moments hold 1 B a value plus an f32 scale per 256
 (~2.03 B a parameter for both moments together instead of 8).
 """
 from __future__ import annotations
@@ -98,9 +99,14 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads, state, params) -> Tuple[Any, Dict[str, Any],
                                                    Dict]:
-        """(new params, new state, {"lr", "grad_norm"}); nothing is updated
-        in place.  The global norm is taken in f32 over every gradient leaf
-        and reported before clipping."""
+        """(params, state, {"lr", "grad_norm"}), updated in place: each
+        leaf's weight, ``m`` and ``v`` (an int8 moment's payload and scales)
+        are overwritten in their own storage once the leaf's new values are
+        computed, and ``state["step"]`` is advanced, so one train state is
+        alive at a time (the reference donates its state to the jitted
+        step).  A caller that needs the old tree afterwards clones it first.
+        The global norm is taken in f32 over every gradient leaf and
+        reported before clipping."""
         cfg = self.cfg
         step = state["step"] + 1
         lr = cosine_lr(cfg, step)
@@ -111,7 +117,8 @@ class AdamW:
         bc1 = 1 - cfg.b1 ** stepf
         bc2 = 1 - cfg.b2 ** stepf
 
-        def upd(p, g, m, v):
+        def upd(p, g, m_old, v_old):
+            m, v = m_old, v_old
             if cfg.state_dtype == "int8":
                 m, v = dequantize(m), dequantize(v)
             g = g.to(torch.float32) * scale
@@ -120,23 +127,23 @@ class AdamW:
             mh, vh = m / bc1, v / bc2
             pf = p.to(torch.float32)
             delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * pf
-            new_p = (pf - lr * delta).to(p.dtype)
+            p.copy_((pf - lr * delta).to(p.dtype))
             if cfg.state_dtype == "int8":
                 m = quantize(m, cfg.quant_block)
                 v = quantize(v, cfg.quant_block)
-            return new_p, m, v
+            _store(m_old, m)
+            _store(v_old, v)
 
-        out = map_tree(upd, params, grads, state["m"], state["v"])
-        return _pick(out, 0), {"step": step, "m": _pick(out, 1),
-                               "v": _pick(out, 2)}, \
-            {"lr": lr, "grad_norm": gnorm}
+        map_tree(upd, params, grads, state["m"], state["v"])
+        state["step"].copy_(step)
+        return params, state, {"lr": lr, "grad_norm": gnorm}
 
 
-def _pick(tree, i):
-    """Element ``i`` of every (new_p, m, v) leaf of ``tree`` (a tree of dicts
-    and lists, as parameter trees are)."""
-    if isinstance(tree, dict):
-        return {k: _pick(v, i) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_pick(v, i) for v in tree]
-    return tree[i]
+def _store(dst, src) -> None:
+    """Copy a new moment into the old one's storage (an int8 moment's
+    payload and scales)."""
+    if isinstance(dst, Quantized):
+        dst.q.copy_(src.q)
+        dst.scale.copy_(src.scale)
+    else:
+        dst.copy_(src)

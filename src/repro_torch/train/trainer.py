@@ -88,10 +88,14 @@ class Trainer:
                      for k, v in self.pipeline.batch_at(step).items()}
             if fail_at is not None and step == fail_at and not failed:
                 failed = True
-                # simulated node failure -> restore path
+                # simulated node failure -> restore path; the lost state is
+                # dropped before a fresh one is built
+                state = None
                 state, step = self.try_restore(self.init_state())
                 continue
             t0 = time.monotonic()
+            # the step updates the weights and moments in place
+            # (AdamW.update) and returns the same tensors: one state is alive
             params, opt, metrics = self._step(state["params"], state["opt"],
                                               batch)
             state = {"params": params, "opt": opt}

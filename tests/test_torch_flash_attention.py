@@ -325,6 +325,15 @@ WRAPPER_CALLS = {
     "ssm_scan_bwd": lambda g: k7.ssm_scan_bwd_kernel(
         _f(1, 3, 4, 2), _f(1, 3, 4, 2), _f(1, 3, 2), _f(1, 1, 4, 2),
         _f(1, 3, 4).requires_grad_(g)),
+    "ssm_scan_fused": lambda g: k7.ssm_scan_fused_kernel(
+        _f(1, 3, 4).requires_grad_(g), _f(4, 2), _f(1, 3, 2), _f(1, 3, 2),
+        _f(1, 3, 4), _f(1, 4, 2)),
+    "ssm_scan_fused_ckpt": lambda g: k7.ssm_scan_fused_ckpt_kernel(
+        _f(1, 3, 4), _f(4, 2).requires_grad_(g), _f(1, 3, 2), _f(1, 3, 2),
+        _f(1, 3, 4), _f(1, 4, 2)),
+    "ssm_scan_fused_bwd": lambda g: k7.ssm_scan_fused_bwd_kernel(
+        _f(1, 3, 4), _f(4, 2), _f(1, 3, 2), _f(1, 3, 2),
+        _f(1, 3, 4).requires_grad_(g), _f(1, 1, 4, 2), _f(1, 3, 4)),
     "flash_attention": lambda g: k3.flash_attention_kernel(
         _f(2, 5, 8), _f(2, 5, 8).requires_grad_(g), _f(2, 5, 8)),
     "flash_attention_bwd": lambda g: k3.flash_attention_bwd_kernel(

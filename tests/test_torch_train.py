@@ -167,6 +167,86 @@ def test_adamw_grad_clip():
     assert float(metrics["grad_norm"]) > 1.0  # reported pre-clip
 
 
+def _out_of_place_update(cfg, grads, state, params):
+    """The AdamW update written out of place (every new leaf a new tensor,
+    the op order of ``AdamW.update``): the yardstick of the in-place one."""
+    step = state["step"] + 1
+    lr = topt.cosine_lr(cfg, step)
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                           for g in leaves(grads)))
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0)
+    bc1 = 1 - cfg.b1 ** step.to(torch.float32)
+    bc2 = 1 - cfg.b2 ** step.to(torch.float32)
+    out = []
+    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
+                          leaves(state["v"])):
+        if cfg.state_dtype == "int8":
+            m, v = topt.dequantize(m), topt.dequantize(v)
+        g = g.to(torch.float32) * scale
+        m = cfg.b1 * m + (1 - cfg.b1) * g
+        v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
+        pf = p.to(torch.float32)
+        delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) \
+            + cfg.weight_decay * pf
+        new_p = (pf - lr * delta).to(p.dtype)
+        if cfg.state_dtype == "int8":
+            m = topt.quantize(m, cfg.quant_block)
+            v = topt.quantize(v, cfg.quant_block)
+        out.append((new_p, m, v))
+    return out, step
+
+
+def _storage(x):
+    """The data pointers of a weight or moment (an int8 moment's payload
+    and scales)."""
+    if isinstance(x, topt.Quantized):
+        return (x.q.data_ptr(), x.scale.data_ptr())
+    return (x.data_ptr(),)
+
+
+def _bits(x):
+    if isinstance(x, topt.Quantized):
+        return [x.q, x.scale]
+    return [x]
+
+
+@pytest.mark.parametrize("state_dtype", ["f32", "int8"])
+def test_adamw_update_is_in_place_with_the_out_of_place_bits(state_dtype):
+    """The update writes every weight, m and v into its own storage (the
+    reference donates its train state; the port holds one state at a
+    time), and its values are bit for bit those of the same update
+    computed out of place, over two updates (the second from non-zero
+    moments) with bf16 and f32 weights."""
+    rng = np.random.default_rng(3)
+    cfg = topt.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=20,
+                           state_dtype=state_dtype, grad_clip=0.5)
+    opt = topt.AdamW(cfg)
+    params = {"w": torch.from_numpy(rng.normal(size=(300,)).astype(
+                  np.float32)).to(torch.bfloat16),
+              "b": {"c": torch.from_numpy(rng.normal(size=(4, 64)).astype(
+                  np.float32))}}
+    state = opt.init(params)
+    for _ in range(2):
+        grads = map_tree(lambda p: torch.from_numpy(rng.normal(
+            size=tuple(p.shape)).astype(np.float32)).to(p.dtype), params)
+        want, want_step = _out_of_place_update(
+            cfg, grads, map_tree(lambda x: x, state), params)
+        before = [_storage(x) for tree in (params, state["m"], state["v"])
+                  for x in leaves(tree)]
+        step_ptr = state["step"].data_ptr()
+        new_params, new_state, _ = opt.update(grads, state, params)
+        assert new_params is params and new_state is state
+        after = [_storage(x) for tree in (params, state["m"], state["v"])
+                 for x in leaves(tree)]
+        assert after == before and state["step"].data_ptr() == step_ptr
+        assert int(state["step"]) == int(want_step)
+        got = zip(leaves(params), leaves(state["m"]), leaves(state["v"]))
+        for g, w in zip(got, want):
+            for gx, wx in zip(g, w):
+                assert all(torch.equal(a, b)
+                           for a, b in zip(_bits(gx), _bits(wx)))
+
+
 def test_int8_quant_roundtrip_and_state_runs():
     x = torch.from_numpy(np.random.default_rng(0).normal(size=(1000,)) * 3
                          ).to(torch.float32)
@@ -385,7 +465,8 @@ def test_train_step_launches_through_the_functions(monkeypatch):
 def _counting_launches(monkeypatch):
     """Count the kernel wrappers that the Functions and ``ops`` look up in
     their modules: K3 forward and backward, K2 forward (single and pair)
-    and backward, K7 forward (with and without checkpoints) and backward."""
+    and backward, K7's fused forward with checkpoints and its fused backward
+    (what SSMScanFusedFn launches)."""
     from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import rmsnorm as k2
     from repro_torch.kernels import ssm_scan as k7
@@ -404,8 +485,8 @@ def _counting_launches(monkeypatch):
             (k2, "rmsnorm_pair_kernel", "rn_fwd"),
             (k2, "rmsnorm_bwd_kernel", "rn_bwd"),
             (k2, "rmsnorm_pair_bwd_kernel", "rn_bwd"),
-            (k7, "ssm_scan_ckpt_kernel", "k7_fwd"),
-            (k7, "ssm_scan_bwd_kernel", "k7_bwd")):
+            (k7, "ssm_scan_fused_ckpt_kernel", "k7_fwd"),
+            (k7, "ssm_scan_fused_bwd_kernel", "k7_bwd")):
         monkeypatch.setattr(mod, name, counting(getattr(mod, name), key))
     return calls
 
@@ -413,16 +494,20 @@ def _counting_launches(monkeypatch):
 @pytest.mark.parametrize("arch", STATEFUL_ARCHS)
 def test_stateful_train_step_launches_through_the_functions(arch,
                                                              monkeypatch):
-    """One remat step of each stateful family: ssm runs SSMScanFn's
+    """One remat step of each stateful family: ssm runs SSMScanFusedFn's
     forward once a layer and again in the recompute, its backward once a
     layer, K2 on each layer's norm the same way plus the final norm, and no
-    K3; the hybrid runs K3 once a segment (and again in the recompute, its
+    K3 and no unfused K7 entry (no (B,T,D,N) a or b is made); the hybrid runs K3 once a segment (and again in the recompute, its
     backward once), K2 on each Mamba2 layer's two norms (ln, the gated
     norm) and the shared block's two a segment, and no K7."""
     from repro_torch.kernels import ssm_scan as k7
     calls = _counting_launches(monkeypatch)
-    monkeypatch.setattr(k7, "ssm_scan_kernel", lambda *a: pytest.fail(
-        "the loss called the scan kernel outside SSMScanFn"))
+    monkeypatch.setattr(k7, "ssm_scan_fused_kernel", lambda *a: pytest.fail(
+        "the loss called the fused scan kernel outside SSMScanFusedFn"))
+    for name in ("ssm_scan_kernel", "ssm_scan_ckpt_kernel",
+                 "ssm_scan_bwd_kernel"):
+        monkeypatch.setattr(k7, name, lambda *a, name=name: pytest.fail(
+            f"the loss called the unfused {name}"))
     tcfg = reduced_config(get_config(arch))
     step, opt = make_train_step(tcfg, topt.AdamWConfig(), remat=True,
                                 device="cpu")
