@@ -160,7 +160,35 @@ Phases, each printing JSON objects one per line:
               against the same path with the plain versions on the CPU;
               then the same tokens through the dense path (plain attention,
               no K1) on the card against the CPU.
-9. train    — full-width qwen3-0.6b in bf16 through ``Trainer`` (B 8 x S
+9. gateway  — the OpenAI-compatible gateway in-process on port 0 (random
+              weights from seed 0, bf16, the serve engine's settings): a
+              ``Router`` of two engines on their own stepper threads,
+              full-width qwen3-0.6b (adapters t0 and t1 declared, loaded on
+              first use) and full-width falcon-mamba-7b.  ``/health`` and
+              ``/v1/models``; 16 streamed ``/v1/completions`` of the serve
+              workload to qwen (every fourth to ``:t0`` or ``:t1``; one
+              client closes its socket after 6 tokens) and 4 to
+              falcon-mamba at once over real HTTP, and an adapter ask to
+              falcon-mamba that must be refused.  Every stream passes
+              ``tools.gateway_smoke_torch.check_sse`` and ends ``length``,
+              its tokens equal a fresh engine's ``run_until_done`` on the
+              same weights (the closed one's, a prefix), the cancel frees
+              blocks the call it lands, both pools drain to zero with the
+              invariants clean, and K1, K2, the fused delta and K7 launch
+              exactly what the dispatches imply (28 / 85 a qwen call, 196 an
+              adapter dispatch, 64 K7 and 65 K2 a falcon-mamba call);
+              TTFT, inter-token latency and host ms a dispatch.
+   gateway_open_loop — qwen3-0.6b alone: 32 requests of the serve workload
+              as Poisson arrivals at 2 a second; every stream ``length``
+              with 32 tokens, no block left; TTFT and inter-token latency
+              percentiles, delivered tokens/s, wall time.
+   gateway_chaos — ``tools.chaos_smoke_torch.run_chaos`` on full-width
+              qwen3-0.6b under alloc faults (p 0.1) and a step fault every
+              second check: every stream terminal, the faults fired, no
+              block leaked on either tier, survivors equal the fault-free
+              oracle.  Each gateway line carries the card's name and power
+              limit and the phase's seconds.
+10. train   — full-width qwen3-0.6b in bf16 through ``Trainer`` (B 8 x S
               512, 10 steps, AdamW as the train CLI builds it, remat on):
               losses finite and falling, step seconds, tokens/s without step
               0, peak memory, and exactly 56 K3 forward, 28 K3 backward,
@@ -177,7 +205,7 @@ Phases, each printing JSON objects one per line:
               peak memory.  train_profile:
               torch.profiler over 3 steps, busy time by group and the idle
               share.
-10. train_ssm, train_hybrid — full-width falcon-mamba-7b (int8 moments)
+11. train_ssm, train_hybrid — full-width falcon-mamba-7b (int8 moments)
               and zamba2-2.7b (f32 moments) in bf16 through ``Trainer`` (B 8
               x S 512, 5 steps, remat on): losses finite and falling (for
               falcon-mamba on a second run at 16 layers with f32 moments:
@@ -2279,33 +2307,44 @@ def serve_engine(cfg, params, **kw):
                        prefill_chunk_tokens=256, **kw)
 
 
-def run_workload(torch, eng, reqs, counted=None):
-    """Warm the engine up on two short requests (cuBLAS handles, Triton's
-    specialisations, the LoRA kernels for a tenant's warm-up request), zero
-    every launch count, serve ``reqs`` checking the KV invariants after
-    every step, and read the counts.  Each dispatch goes through
-    ``counted(kind, batch, call)`` ("prefill" or "decode"), which must
-    return ``call()``."""
+def warm_up(eng, adapter_ids=(None, None)):
+    """Serve one short request a given adapter id (cuBLAS handles, the LoRA
+    kernels for a tenant's request), then drop the prefixes it registered
+    and zero the engine's metrics."""
     from repro_torch.serve.engine import Request
     vocab = eng.cfg.vocab
-    for i, r in enumerate(reqs[:2]):
-        eng.submit(Request(rid=1000 + i, max_new=4, adapter_id=r.adapter_id,
+    for i, adapter_id in enumerate(adapter_ids):
+        eng.submit(Request(rid=1000 + i, max_new=4, adapter_id=adapter_id,
                            prompt=[1 + t % (vocab - 1)
                                    for t in range(300 + i)]))
     eng.run_until_done()
     eng.release_prefix_cache()
     eng.reset_metrics()
+
+
+def wrap_dispatches(eng, counted) -> None:
+    """Route each of the engine's model calls through ``counted(kind,
+    batch, call)`` ("prefill" or "decode"), which must return ``call()``."""
+    fns = eng.fns
+
+    def prefill(p, c, b, m_used=None):
+        return counted("prefill", b, lambda: fns.prefill_chunk(
+            p, c, b, m_used=m_used))
+
+    def decode(p, c, b):
+        return counted("decode", b, lambda: fns.decode_paged(p, c, b))
+    eng.fns = dataclasses.replace(fns, prefill_chunk=prefill,
+                                  decode_paged=decode)
+
+
+def run_workload(torch, eng, reqs, counted=None):
+    """Warm the engine up on two short requests (``warm_up``, with the
+    first two requests' adapters), zero every launch count, serve ``reqs``
+    checking the KV invariants after every step, and read the counts.  Each
+    dispatch goes through ``counted`` (``wrap_dispatches``)."""
+    warm_up(eng, [r.adapter_id for r in reqs[:2]])
     if counted is not None:
-        fns = eng.fns
-
-        def prefill(p, c, b, m_used=None):
-            return counted("prefill", b, lambda: fns.prefill_chunk(
-                p, c, b, m_used=m_used))
-
-        def decode(p, c, b):
-            return counted("decode", b, lambda: fns.decode_paged(p, c, b))
-        eng.fns = dataclasses.replace(fns, prefill_chunk=prefill,
-                                      decode_paged=decode)
+        wrap_dispatches(eng, counted)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -2921,7 +2960,341 @@ def _dense_oracle_gaps(torch, cfg, sides, prompt, forced_tokens):
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: training
+# Phase 9: the gateway
+# ---------------------------------------------------------------------------
+
+# qwen3-0.6b's 16 streams: every fourth names an adapter, t0 and t1 in turn
+GATEWAY_ADAPTERS = ("t0", "t1")
+GATEWAY_TENANTS = (None, None, None, "t0", None, None, None, "t1")
+GATEWAY_SSM_STREAMS = 4
+# the qwen stream whose client closes its socket, and after how many tokens
+GATEWAY_CANCEL = (4, 6)
+GATEWAY_TIMEOUT_S = 300.0
+OPEN_LOOP_REQUESTS = 32
+OPEN_LOOP_QPS = 2.0
+CHAOS_SPEC = "alloc:p=0.1,step:exc=2"
+
+
+def k2_per_ssm_call(cfg) -> int:
+    """K2 launches of one ssm model call: each Mamba1 layer's norm and the
+    final norm."""
+    return cfg.n_layers + 1
+
+
+def model_calls(tally, lora=None) -> int:
+    return sum(n for k, (n, _) in tally.items()
+               if lora is None or k.endswith("_lora") == lora)
+
+
+def gateway_model(cfg, eng, adapters=()):
+    from repro_torch.serve.async_engine import AsyncServeEngine
+    from repro_torch.serve.gateway import ByteTokenizer, GatewayModel
+    return GatewayModel(model_id=cfg.name,
+                        async_engine=AsyncServeEngine(eng, model_id=cfg.name),
+                        tokenizer=ByteTokenizer(cfg.vocab),
+                        adapters=list(adapters))
+
+
+def drained(eng) -> dict:
+    """After the steppers stopped: both tiers of the block pool (and of the
+    state slab) empty once the prefix registry is dropped, no reservation
+    left, the invariants clean now and during every crash recovery."""
+    eng.release_prefix_cache()
+    out = {"pool_used": eng.pool.num_used, "host_used": eng.store.host.num_used,
+           "reserved": eng.pool.num_reserved,
+           "invariants": eng.check_invariants() + eng.invariant_violations}
+    if eng.state_store is not None:
+        out["slab_used"] = eng.state_store.device.pool.num_used
+        out["slab_host_used"] = eng.state_store.host.num_used
+    assert out["invariants"] == [] and all(
+        v == 0 for k, v in out.items() if k != "invariants"), out
+    return out
+
+
+def oracle_outputs(cfg, params, reqs, adapters=()):
+    """A fresh engine's ``run_until_done`` over ``reqs`` (the same prompts,
+    lengths, sampling and adapters) on the same weights and card."""
+    from repro_torch.serve.engine import Request
+    eng = serve_engine(cfg, params)
+    for name in adapters:
+        eng.load_adapter(name)
+    fresh = [Request(rid=i, prompt=list(r.prompt), max_new=r.max_new,
+                     sampling=r.sampling, adapter_id=r.adapter_id)
+             for i, r in enumerate(reqs)]
+    for r in fresh:
+        eng.submit(r)
+    eng.run_until_done()
+    assert all(r.done and r.finish_reason == "length" for r in fresh), \
+        [r.finish_reason for r in fresh]
+    del eng
+    return [list(r.out) for r in fresh]
+
+
+def gateway_phase(torch, cfg, ssm_cfg, smi):
+    """One in-process ``Gateway`` on port 0 over a ``Router`` of two engines,
+    each on its own stepper thread: full-width qwen3-0.6b (adapters t0 and
+    t1 declared, loaded on first use) and full-width falcon-mamba-7b.
+    ``/health`` and ``/v1/models``; 16 streamed completions to qwen (the
+    serve workload, every fourth to ``:t0`` or ``:t1``, one client closing
+    its socket after 6 tokens) and 4 to falcon-mamba at once over real HTTP,
+    and one ``falcon-mamba-7b:t0`` that must be refused.  Every stream
+    passes ``check_sse`` and ends with the reason it must; its tokens equal
+    a fresh engine's ``run_until_done`` (the cancelled one's, a prefix);
+    the cancel frees blocks the call it lands; both pools drain to zero
+    with the invariants clean; the launches of K1, K2, the fused delta and
+    K7 over the phase equal what its dispatches imply."""
+    import asyncio
+    from repro_torch.models import build_model
+    from repro_torch.serve.adapters import adapted_projections
+    from repro_torch.serve.engine import GREEDY
+    from repro_torch.serve.gateway import Gateway, Router
+    from tools.gateway_smoke_torch import (check_sse, completion_payload,
+                                           latency_summary, sse_payloads,
+                                           sse_request)
+    t_phase = time.perf_counter()
+    qparams = build_model(cfg, DEV).init(0)
+    sparams = build_model(ssm_cfg, DEV).init(0)
+    qeng, seng = serve_engine(cfg, qparams), serve_engine(ssm_cfg, sparams)
+    warm_up(qeng)
+    warm_up(seng)
+    # one tally an engine: each engine's calls run on its own stepper thread
+    qtally, qcounted = dispatch_timer()
+    stally, scounted = dispatch_timer()
+    wrap_dispatches(qeng, qcounted)
+    wrap_dispatches(seng, scounted)
+    cancels = []
+    engine_cancel = qeng.cancel
+
+    def cancel(rid):
+        # runs on qwen's stepper thread: the pool before and after the call
+        held = next((len(a.table.blocks) for a in qeng.slots
+                     if a is not None and a.req.rid == rid), None)
+        before = qeng.pool.num_used
+        found = engine_cancel(rid)
+        cancels.append({"found": found, "table_blocks": held,
+                        "pool_used_before": before,
+                        "pool_used_after": qeng.pool.num_used})
+        return found
+    qeng.cancel = cancel
+    qmodel = gateway_model(cfg, qeng, GATEWAY_ADAPTERS)
+    smodel = gateway_model(ssm_cfg, seng)
+    qreqs = workload(cfg.vocab, tenants=GATEWAY_TENANTS)
+    sreqs = workload(ssm_cfg.vocab, n=GATEWAY_SSM_STREAMS, seed=1)
+
+    async def drive():
+        async with Gateway(Router([qmodel, smodel]), port=0) as gw:
+            host, port = gw.host, gw.port
+            health = await sse_request(host, port, None, path="/health")
+            models = await sse_request(host, port, None, path="/v1/models")
+            asks = []
+            for i, r in enumerate(qreqs):
+                mid = cfg.name + (f":{r.adapter_id}" if r.adapter_id else "")
+                asks.append(sse_request(
+                    host, port, completion_payload(mid, r.prompt, r.max_new,
+                                                   r.sampling),
+                    close_after=GATEWAY_CANCEL[1]
+                    if i == GATEWAY_CANCEL[0] else None))
+            asks += [sse_request(host, port, completion_payload(
+                ssm_cfg.name, r.prompt, r.max_new, r.sampling))
+                for r in sreqs]
+            asks.append(sse_request(host, port, completion_payload(
+                f"{ssm_cfg.name}:t0", sreqs[0].prompt, 4, GREEDY)))
+            t0 = time.perf_counter()
+            got = await asyncio.wait_for(asyncio.gather(*asks),
+                                         GATEWAY_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            # the closed stream's cancel lands on the stepper's next turn
+            for _ in range(1000):
+                if cancels:
+                    break
+                await asyncio.sleep(0.01)
+            return health, models, got, wall
+
+    torch.cuda.synchronize()
+    zero_counts()
+    health, models, got, wall = asyncio.run(drive())
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for m in (qmodel, smodel):
+        assert m.async_engine.fault is None, m.async_engine.fault
+    drain = {"qwen": drained(qeng), "ssm": drained(seng)}
+    assert all(qeng.adapters.refcount(a) == 0 for a in GATEWAY_ADAPTERS)
+
+    # /health and /v1/models
+    assert health["status"] == 200, health
+    hbody = json.loads(health["raw"])
+    assert hbody["status"] == "ok" and [m["model"] for m in hbody["models"]] \
+        == [cfg.name, ssm_cfg.name], hbody
+    assert models["status"] == 200, models
+    cards = [c["id"] for c in json.loads(models["raw"])["data"]]
+    assert cards == [cfg.name] + [f"{cfg.name}:{a}" for a in GATEWAY_ADAPTERS] \
+        + [ssm_cfg.name], cards
+
+    # every stream: framing, reason, tokens against the oracle
+    want_q = oracle_outputs(cfg, qparams, qreqs, GATEWAY_ADAPTERS)
+    want_s = oracle_outputs(ssm_cfg, sparams, sreqs)
+    streams = []
+    for i, (r, res, want) in enumerate(zip(qreqs + sreqs, got,
+                                           want_q + want_s)):
+        assert res["status"] == 200, (i, res["status"], res["raw"][:200])
+        mid = cfg.name if i < len(qreqs) else ssm_cfg.name
+        if i == GATEWAY_CANCEL[0]:
+            # cut short by its client: framed line by line, no [DONE]
+            assert res["closed_early"], i
+            payloads, errs = sse_payloads(res["raw"])
+            assert len(errs) == 1 and "[DONE]" in errs[0], errs
+            ids = [t for p in payloads
+                   for t in json.loads(p)["choices"][0]["token_ids"]]
+            assert ids == want[:len(ids)] and GATEWAY_CANCEL[1] <= len(ids) \
+                < r.max_new, (ids, want)
+            streams.append({"model": mid, "finish_reason": "client closed",
+                            "tokens": len(ids), "oracle_prefix": True})
+            continue
+        sse = check_sse(res["raw"], prompt_tokens=len(r.prompt))
+        assert sse["errors"] == [], (i, sse["errors"])
+        assert sse["finish_reason"] == "length", (i, sse["finish_reason"])
+        tag = mid + (f":{r.adapter_id}" if r.adapter_id else "")
+        assert sse["model"] == tag, (i, sse["model"], tag)
+        assert sse["token_ids"] == want, (i, sse["token_ids"], want)
+        streams.append({"model": tag, "finish_reason": "length",
+                        "tokens": len(want), "oracle_identical": True})
+    refused = got[-1]
+    refusal = (f"http {refused['status']}" if refused["status"] != 200
+               else check_sse(refused["raw"])["finish_reason"])
+    assert refused["status"] in (400, 404) \
+        or refusal.startswith("rejected"), refusal
+    assert b"token_ids" not in refused["raw"], refused["raw"][:200]
+
+    # the cancel: found in a slot, blocks freed by that call
+    cancelled = qeng.cancelled
+    assert len(cancels) == 1 and cancels[0]["found"] and \
+        cancels[0]["pool_used_after"] < cancels[0]["pool_used_before"], \
+        cancels
+    assert len(cancelled) == 1 and cancelled[0].finish_reason == "cancelled" \
+        and cancelled[0].prompt == qreqs[GATEWAY_CANCEL[0]].prompt, cancelled
+
+    # launches against the dispatches
+    q_calls, s_calls = model_calls(qtally), model_calls(stally)
+    lora_calls = model_calls(qtally, lora=True)
+    implied = {"paged_attention": cfg.n_layers * q_calls,
+               "rmsnorm": k2_per_model_call(cfg) * q_calls
+               + k2_per_ssm_call(ssm_cfg) * s_calls,
+               "lora_delta": len(adapted_projections(cfg)) * cfg.n_layers
+               * lora_calls,
+               "ssm_scan": ssm_cfg.n_layers * s_calls}
+    assert lora_calls > 0 and s_calls > 0
+    assert all(launches[k] == v for k, v in implied.items()), \
+        (launches, implied)
+    assert all(v == 0 for k, v in launches.items() if k not in implied), \
+        launches
+    emit({"phase": "gateway", "card": smi, "archs": [cfg.name, ssm_cfg.name],
+          "dtype": cfg.dtype, "streams": streams, "refused_adapter": refusal,
+          "cancel": cancels[0], "drain": drain,
+          "latency": latency_summary([g for g in got[:-1]
+                                      if not g["closed_early"]], wall),
+          "launches": {k: launches[k] for k in implied},
+          "implied_launches": implied,
+          "dispatches": {"qwen": q_calls, "qwen_lora": lora_calls,
+                         "ssm": s_calls},
+          "host_ms_per_dispatch": {
+              "qwen": host_ms_per_dispatch(qtally),
+              "ssm": host_ms_per_dispatch(stally)},
+          "seconds": time.perf_counter() - t_phase})
+    del qeng, seng, qmodel, smodel, sparams
+    torch.cuda.empty_cache()
+    return qparams
+
+
+def gateway_open_loop_phase(torch, cfg, params, smi):
+    """qwen3-0.6b alone behind the gateway: 32 requests of the serve
+    workload as Poisson arrivals at 2 a second, all streamed; each ends
+    with ``length`` after 32 tokens and passes ``check_sse``; no block is
+    left once they drained.  TTFT and inter-token latency percentiles as
+    the clients see them, delivered tokens/s and the wall time; K2 and K1
+    launches against the dispatches."""
+    import asyncio
+    from repro_torch.serve.gateway import Gateway, Router
+    from tools.gateway_smoke_torch import (check_sse, completion_payload,
+                                           latency_summary, open_loop,
+                                           poisson_arrivals)
+    t_phase = time.perf_counter()
+    eng = serve_engine(cfg, params)
+    warm_up(eng)
+    tally, counted = dispatch_timer()
+    wrap_dispatches(eng, counted)
+    model = gateway_model(cfg, eng)
+    reqs = workload(cfg.vocab, n=OPEN_LOOP_REQUESTS)
+    payloads = [completion_payload(cfg.name, r.prompt, r.max_new, r.sampling)
+                for r in reqs]
+    arrivals = poisson_arrivals(len(reqs), OPEN_LOOP_QPS, seed=1)
+
+    async def drive():
+        async with Gateway(Router([model]), port=0) as gw:
+            return await asyncio.wait_for(
+                open_loop(gw.host, gw.port, payloads, arrivals),
+                GATEWAY_TIMEOUT_S)
+
+    torch.cuda.synchronize()
+    zero_counts()
+    results, wall = asyncio.run(drive())
+    torch.cuda.synchronize()
+    launches = read_counts()
+    assert model.async_engine.fault is None, model.async_engine.fault
+    reasons = {}
+    for r, res in zip(reqs, results):
+        sse = check_sse(res["raw"], prompt_tokens=len(r.prompt))
+        assert res["status"] == 200 and sse["errors"] == [], sse["errors"]
+        reasons[sse["finish_reason"]] = reasons.get(sse["finish_reason"],
+                                                    0) + 1
+        assert len(sse["token_ids"]) == r.max_new, len(sse["token_ids"])
+    assert reasons == {"length": len(reqs)}, reasons
+    drain = drained(eng)
+    calls = model_calls(tally)
+    assert launches["rmsnorm"] == k2_per_model_call(cfg) * calls \
+        and launches["paged_attention"] == cfg.n_layers * calls, \
+        (launches, calls)
+    m = eng.metrics()
+    emit({"phase": "gateway_open_loop", "card": smi, "arch": cfg.name,
+          "dtype": cfg.dtype, "qps": OPEN_LOOP_QPS,
+          **latency_summary(results, wall), "finish_reasons": reasons,
+          "engine_ttft_mean_s": m.ttft_mean_s,
+          "engine_itl_mean_s": m.itl_mean_s,
+          "engine_steps": m.engine_steps, "preemptions": m.preemptions,
+          "peak_blocks_used": m.peak_blocks_used, "drain": drain,
+          "launches": {k: launches[k]
+                       for k in ("paged_attention", "rmsnorm")},
+          "dispatches": calls,
+          "host_ms_per_dispatch": host_ms_per_dispatch(tally),
+          "seconds": time.perf_counter() - t_phase})
+    del eng, model
+    torch.cuda.empty_cache()
+
+
+def gateway_chaos_phase(torch, cfg, params, smi):
+    """``tools.chaos_smoke_torch.run_chaos`` on full-width qwen3-0.6b with
+    the serve engine's settings: alloc faults at p 0.1 and a step fault
+    every second check, 6 requests at 4 a second.  Every stream terminal,
+    the step faults fired, no block leaked on either tier, and every
+    survivor equal to the fault-free oracle."""
+    from tools.chaos_smoke_torch import run_chaos
+    from tools.gateway_smoke_torch import Deadline
+    t_phase = time.perf_counter()
+    report, failures = run_chaos(
+        CHAOS_SPEC, seed=1, n_requests=6, qps=4.0,
+        deadline=Deadline(GATEWAY_TIMEOUT_S), cfg=cfg, params=params,
+        engine_kwargs=dict(max_batch=8, max_len=2048, block_size=16,
+                           prefill_chunk_tokens=256))
+    emit({"phase": "gateway_chaos", "card": smi, **report,
+          "seconds": time.perf_counter() - t_phase})
+    assert failures == [], failures
+    assert sum(report["outcomes"].values()) == 6, report["outcomes"]
+    assert report["step_crashes"] >= 1, "the step faults did not fire"
+    assert report["fault_counts"]["step"]["fired"] >= 1, report
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: training
 # ---------------------------------------------------------------------------
 
 TRAIN_STEPS = 10
@@ -3461,7 +3834,16 @@ def main() -> int:
     stateful_oracle_phase(torch, hy_cfg,
                           n_layers=2 * hy_cfg.hybrid.attn_every)
 
-    # 9. training: full-width qwen3-0.6b bf16 through the Trainer (K3
+    # 9. the gateway at full width, bf16: qwen3-0.6b with adapters and
+    # falcon-mamba-7b behind one router, streamed over HTTP; qwen alone
+    # under open-loop arrivals; the chaos lane on qwen
+    params = gateway_phase(torch, cfg, ssm_cfg, smi)
+    gateway_open_loop_phase(torch, cfg, params, smi)
+    gateway_chaos_phase(torch, cfg, params, smi)
+    del params
+    torch.cuda.empty_cache()
+
+    # 10. training: full-width qwen3-0.6b bf16 through the Trainer (K3
     # forward and backward, K2 through RMSNormFn), int8 moments, a restart,
     # the card's gradients against the CPU's, a profiled window
     train_launches = train_phase(torch, cfg)
@@ -3470,7 +3852,7 @@ def main() -> int:
     train_oracle_phase(torch, cfg)
     train_profile_phase(torch, cfg)
 
-    # 10. the stateful families' training at full width, bf16 (falcon-mamba
+    # 11. the stateful families' training at full width, bf16 (falcon-mamba
     # with int8 moments: f32 ones do not fit beside its weights), a
     # profiled window each, then their card-against-CPU oracles and
     # restarts at 2 layers / 2 segments

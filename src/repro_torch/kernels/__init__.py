@@ -2,7 +2,22 @@
 backward), flash attention (forward and backward), matrix product,
 segmented LoRA shrink/expand and selective scan, each beside its plain
 PyTorch version (``ref``)."""
+import threading
+
 import torch
+
+# Each wrapper counts its launches in a module global.  Two engines in one
+# process (a gateway routing two models) launch from two stepper threads,
+# so every increment holds this lock: a lost count would fail the launch
+# checks of ``chip_smoke.py``.
+_count_lock = threading.Lock()
+
+
+def count(counters: dict, name: str) -> None:
+    """Add one to the launch counter ``counters[name]`` (a wrapper module's
+    ``globals()``), atomically across threads."""
+    with _count_lock:
+        counters[name] += 1
 
 
 def refuse_grad(name: str, *tensors) -> None:

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref, refuse_grad
+from repro_torch.kernels import build, count, ref, refuse_grad
 
 # kernel launches since the last reset (chip_smoke.py reads and zeroes them):
 # forward calls, and backward calls (each runs the D, dK/dV and dQ kernels)
@@ -95,7 +95,6 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (BH,Sq,hd), k/v (BKV,Skv,hd), BKV dividing BH (query head bh
     reads KV head bh // (BH // BKV)) -> (o (BH,Sq,hd) in q's dtype,
     lse (BH,Sq) f32)."""
-    global launches
     refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, q_offset)
     if q.device.type == "cpu":
@@ -115,7 +114,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention forward launch failed: "
                            f"cudaError {err}")
-    launches += 1
+    count(globals(), "launches")
     return o, lse
 
 
@@ -124,7 +123,6 @@ def flash_attention_bwd_kernel(q, k, v, o, lse, do, causal: bool = True,
     """Gradients of ``flash_attention_kernel``'s o: q, k, v, o, do as in the
     forward, lse (BH,Sq) f32 from it -> (dq, dk, dv) in q's dtype, dk and dv
     (BKV,Skv,hd) summed over each KV head's group of query heads."""
-    global bwd_launches
     refuse_grad("flash_attention_bwd", q, k, v, o, lse, do)
     _check(q, k, v, q_offset, extra=(
         ("o", o, q.shape, q.dtype), ("do", do, q.shape, q.dtype),
@@ -150,7 +148,7 @@ def flash_attention_bwd_kernel(q, k, v, o, lse, do, causal: bool = True,
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed: "
                            f"cudaError {err}")
-    bwd_launches += 1
+    count(globals(), "bwd_launches")
     return dq, dk, dv
 
 

@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, launch, ref, refuse_grad
+from repro_torch.kernels import build, count, launch, ref, refuse_grad
 
 # kernel launches since the last reset (chip_smoke.py reads and zeroes them)
 shrink_launches = 0
@@ -140,7 +140,6 @@ def lora_shrink_kernel(x: torch.Tensor, a_slab: torch.Tensor,
     """x (T, d); a_slab (S, d, R); ids (T / rows_per_seq,) int32 slot per
     sequence, -1 = no adapter -> (T, R) float32.  x and the slab share a
     dtype."""
-    global shrink_launches
     refuse_grad("lora_shrink", x, a_slab)
     rows_per_seq = int(rows_per_seq)
     _check_common("lora_shrink", x, a_slab, ids, 2, rows_per_seq)
@@ -155,7 +154,7 @@ def lora_shrink_kernel(x: torch.Tensor, a_slab: torch.Tensor,
     launch("lora_shrink", x.device, load_kernels()[0], x.data_ptr(),
            a_slab.data_ptr(), ids.data_ptr(), out.data_ptr(), t, d, r, s,
            rows_per_seq, _DTYPES[x.dtype])
-    shrink_launches += 1
+    count(globals(), "shrink_launches")
     return out
 
 
@@ -173,7 +172,6 @@ def lora_expand_kernel(h: torch.Tensor, b_slab: torch.Tensor,
     """h (T, R) float32; b_slab (S, R, O); ids (T / rows_per_seq,) int32 ->
     (T, O) in the slab's dtype.  ``block_out`` is the output-feature tile
     one block covers; the result is bitwise the same for every value."""
-    global expand_launches
     refuse_grad("lora_expand", h, b_slab)
     rows_per_seq = int(rows_per_seq)
     _check_common("lora_expand", h, b_slab, ids, 1, rows_per_seq)
@@ -193,7 +191,7 @@ def lora_expand_kernel(h: torch.Tensor, b_slab: torch.Tensor,
     launch("lora_expand", h.device, load_kernels()[1], h.data_ptr(),
            b_slab.data_ptr(), ids.data_ptr(), out.data_ptr(), t, r, o,
            block_out, s, rows_per_seq, _DTYPES[b_slab.dtype])
-    expand_launches += 1
+    count(globals(), "expand_launches")
     return out
 
 
@@ -206,7 +204,6 @@ def lora_delta_kernel(x: torch.Tensor, a_slab: torch.Tensor,
     (T, O) in x's dtype, plus ``base`` (T, O) when given.  All share x's
     dtype.  Bitwise ``expand(shrink(x))`` (+ base, added as PyTorch adds
     two tensors of that dtype)."""
-    global delta_launches
     refuse_grad("lora_delta", x, a_slab, b_slab, base)
     rows_per_seq = int(rows_per_seq)
     _check_common("lora_delta", x, a_slab, ids, 2, rows_per_seq)
@@ -239,5 +236,5 @@ def lora_delta_kernel(x: torch.Tensor, a_slab: torch.Tensor,
            a_slab.data_ptr(), b_slab.data_ptr(), ids.data_ptr(),
            None if base is None else base.data_ptr(), out.data_ptr(), t, d,
            r, o, block_out, s, rows_per_seq, _DTYPES[dtype])
-    delta_launches += 1
+    count(globals(), "delta_launches")
     return out

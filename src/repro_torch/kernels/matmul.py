@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref, refuse_grad
+from repro_torch.kernels import build, count, ref, refuse_grad
 
 # kernel launches since the last reset (chip_smoke.py reads and zeroes it)
 launches = 0
@@ -48,7 +48,6 @@ def _workspace_size():
 
 def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (M, K) @ b (K, N) -> (M, N) in a's dtype, accumulated in f32."""
-    global launches
     refuse_grad("matmul", a, b)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul: a (M,K) and b (K,N), got {tuple(a.shape)} "
@@ -85,5 +84,5 @@ def matmul_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                  _DTYPES[a.dtype], stream)
     if err != 0:
         raise RuntimeError(f"matmul kernel launch failed: cudaError {err}")
-    launches += 1
+    count(globals(), "launches")
     return out

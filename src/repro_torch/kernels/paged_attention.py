@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref, refuse_grad
+from repro_torch.kernels import build, count, ref, refuse_grad
 
 # kernel launches since the last reset (chip_smoke.py reads and zeroes it)
 launches = 0
@@ -91,7 +91,6 @@ def paged_attention_kernel(q: torch.Tensor, k_pages: torch.Tensor,
     (``codegen.paged_pages_per_fetch``).  The CUDA kernels do not use it:
     their split length is a constant, so a row's bits do not depend on the
     plan (planning on and off give the same tokens)."""
-    global launches
     refuse_grad("paged_attention", q, k_pages, v_pages)
     _check(q, k_pages, v_pages, block_tables, q_pos, kv_lens)
     if q.device.type == "cpu":
@@ -122,5 +121,5 @@ def paged_attention_kernel(q: torch.Tensor, k_pages: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {err}")
-    launches += 1
+    count(globals(), "launches")
     return out

@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, launch, ref, refuse_grad
+from repro_torch.kernels import build, count, launch, ref, refuse_grad
 
 # forward launches (single and pair) and backward calls (each launches the
 # row pass and the column pass) since the last reset (chip_smoke.py reads
@@ -113,7 +113,6 @@ def _ptr(t):
 
 def _fwd(x1, w1, x2, w2, eps):
     """Launch the forward over x1 (and x2, when given)."""
-    global launches
     y1 = torch.empty_like(x1)
     y2 = None if x2 is None else torch.empty_like(x2)
     r2 = 0 if x2 is None else x2.shape[0]
@@ -123,7 +122,7 @@ def _fwd(x1, w1, x2, w2, eps):
            w1.data_ptr(), y1.data_ptr(), x1.shape[0], _ptr(x2), _ptr(w2),
            _ptr(y2), r2, x1.shape[1], x1.dtype == torch.bfloat16,
            w1.dtype == torch.bfloat16, eps)
-    launches += 1
+    count(globals(), "launches")
     return y1, y2
 
 
@@ -151,7 +150,6 @@ def rmsnorm_pair_kernel(x1: torch.Tensor, w1: torch.Tensor,
 
 def _bwd(x1, w1, g1, x2, w2, g2, eps):
     """Launch the backward's two passes over x1 (and x2, when given)."""
-    global bwd_launches
     d = x1.shape[1]
     dx1, dw1 = torch.empty_like(x1), torch.empty_like(w1)
     dx2 = dw2 = None
@@ -168,7 +166,7 @@ def _bwd(x1, w1, g1, x2, w2, g2, eps):
            x1.shape[0], _ptr(x2), _ptr(w2), _ptr(g2), _ptr(dx2), _ptr(dw2),
            r2, d, x1.dtype == torch.bfloat16, w1.dtype == torch.bfloat16,
            eps, part.data_ptr(), parts)
-    bwd_launches += 1
+    count(globals(), "bwd_launches")
     return dx1, dw1, dx2, dw2
 
 

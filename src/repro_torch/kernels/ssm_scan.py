@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, launch, ref, refuse_grad
+from repro_torch.kernels import build, count, launch, ref, refuse_grad
 
 # forward launches (with or without checkpoints, fused or not) and backward
 # calls (each launches the windowed backward and the ordered sums of its
@@ -131,7 +131,6 @@ def _cuda(x) -> bool:
 
 def _fwd(a, b, c, h0, ckpt):
     """Launch the scan; ``ckpt`` (B, windows(T), D, N) or None."""
-    global launches
     bsz, t, d, n = a.shape
     y = torch.empty((bsz, t, d), dtype=torch.float32, device=a.device)
     h_last = torch.empty((bsz, d, n), dtype=torch.float32, device=a.device)
@@ -139,7 +138,7 @@ def _fwd(a, b, c, h0, ckpt):
            b.data_ptr(), c.data_ptr(), h0.data_ptr(), y.data_ptr(),
            h_last.data_ptr(), None if ckpt is None else ckpt.data_ptr(),
            WINDOW, bsz, t, d, n, a.stride(0), c.stride(0), y.stride(0))
-    launches += 1
+    count(globals(), "launches")
     return y, h_last
 
 
@@ -192,7 +191,6 @@ def ssm_scan_bwd_kernel(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     """Gradients of the scan for dy (B,T,D) and dh_last (B,D,N) (None for
     zero), from the forward's inputs and ``ssm_scan_ckpt_kernel``'s ckpt
     -> (da, db (B,T,D,N), dc (B,T,N), dh0 (B,D,N)), all f32."""
-    global bwd_launches
     refuse_grad("ssm_scan_bwd", a, b, c, ckpt, dy, dh_last)
     _check(a, b, c)
     _check_bwd(a, b, c, ckpt, dy, dh_last)
@@ -210,7 +208,7 @@ def ssm_scan_bwd_kernel(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
            None if dh_last is None else dh_last.data_ptr(), da.data_ptr(),
            db.data_ptr(), dc.data_ptr(), dh0.data_ptr(), part.data_ptr(),
            WINDOW, bsz, t, d, n, a.stride(0), c.stride(0), dy.stride(0))
-    bwd_launches += 1
+    count(globals(), "bwd_launches")
     return da, db, dc, dh0
 
 
@@ -285,7 +283,6 @@ def _check_fused(dt, A, Bm, C, x, h0=None) -> None:
 
 def _fused_fwd(dt, A, Bm, C, x, h0, ckpt):
     """Launch the fused scan; ``ckpt`` (B, windows(T), D, N) or None."""
-    global launches
     bsz, t, d = dt.shape
     n = A.shape[1]
     y = torch.empty((bsz, t, d), dtype=torch.float32, device=dt.device)
@@ -296,7 +293,7 @@ def _fused_fwd(dt, A, Bm, C, x, h0, ckpt):
            None if ckpt is None else ckpt.data_ptr(), WINDOW,
            int(x.dtype == torch.bfloat16), bsz, t, d, n, Bm.stride(0),
            Bm.stride(1), C.stride(0), C.stride(1))
-    launches += 1
+    count(globals(), "launches")
     return y, h_last
 
 
@@ -339,7 +336,6 @@ def ssm_scan_fused_bwd_kernel(dt: torch.Tensor, A: torch.Tensor,
     for zero), from its inputs and ``ssm_scan_fused_ckpt_kernel``'s ckpt ->
     (d(dt) (B,T,D) f32, dA (D,N) f32, dB and dC (B,T,N) and dx (B,T,D) in
     x's dtype, dh0 (B,D,N) f32)."""
-    global bwd_launches
     refuse_grad("ssm_scan_fused_bwd", dt, A, Bm, C, x, ckpt, dy, dh_last)
     _check_fused(dt, A, Bm, C, x)
     bsz, t, d = dt.shape
@@ -374,7 +370,7 @@ def ssm_scan_fused_bwd_kernel(dt: torch.Tensor, A: torch.Tensor,
            dh0.data_ptr(), part.data_ptr(), dA_part.data_ptr(), WINDOW,
            int(x.dtype == torch.bfloat16), bsz, t, d, n, Bm.stride(0),
            Bm.stride(1), C.stride(0), C.stride(1))
-    bwd_launches += 1
+    count(globals(), "bwd_launches")
     return ddt, dA, dB, dC, dx, dh0
 
 

@@ -34,6 +34,11 @@
       the serve engine (same meaning as in ``src/repro/perf.py``)
   REPRO_FAULT, REPRO_FAULT_SEED
       fault-injection spec and seed (``repro_torch.serve.faults``)
+  REPRO_GATEWAY_IDLE_MS  int (2)
+      how long the async engine's stepper thread parks when the engine has
+      drained (a submit, cancel or stop wakes it at once)
+  REPRO_GATEWAY_MAX_NEW  int (128)
+      the gateway's ceiling on a request's ``max_tokens``
   REPRO_LORA_MAX_ADAPTERS  int (8)
       device-slot capacity of the serve engine's AdapterStore: at most this
       many LoRA adapters resident in the device slab at once.  Loading past
@@ -70,6 +75,8 @@ class PerfConfig:
     serve_max_crashes: int = 3
     fault_spec: str = ""
     fault_seed: int = 0
+    gateway_idle_ms: int = 2
+    gateway_max_new: int = 128
     lora_max_adapters: int = 8
     lora_rank: int = 8
     lora_alpha: float = 16.0
@@ -125,6 +132,8 @@ def perf() -> PerfConfig:
         serve_max_crashes=int(os.environ.get("REPRO_SERVE_MAX_CRASHES", "3")),
         fault_spec=os.environ.get("REPRO_FAULT", ""),
         fault_seed=int(os.environ.get("REPRO_FAULT_SEED", "0")),
+        gateway_idle_ms=int(os.environ.get("REPRO_GATEWAY_IDLE_MS", "2")),
+        gateway_max_new=int(os.environ.get("REPRO_GATEWAY_MAX_NEW", "128")),
         lora_max_adapters=int(
             os.environ.get("REPRO_LORA_MAX_ADAPTERS", "8")),
         lora_rank=int(os.environ.get("REPRO_LORA_RANK", "8")),

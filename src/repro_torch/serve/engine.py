@@ -54,9 +54,12 @@ prefill chunks are rounded up to the scan granule ``cfg.ssm.chunk``.
 The model functions run eagerly and update the KV slab and the state slab
 in place.  Paged attention launches the CUDA kernel for CUDA tensors and
 takes the gather path for CPU tensors (REPRO_PAGED_ATTN).  Not in this
-slice: multi-device pools and tensor parallelism (``mesh=``/``tp=``), and
-``cancel`` with the gateway's shed accounting and ``base:adapter`` routing
-(the async engine and gateway slice) — see ROADMAP.md.
+slice: multi-device pools and tensor parallelism (``mesh=``/``tp=``) — see
+ROADMAP.md A10.
+
+``cancel(rid)`` aborts a request wherever it lives and frees its blocks the
+same call; ``note_gateway_shed`` counts the gateway's refusals at the door.
+Both serve ``repro_torch.serve.async_engine`` and ``serve.gateway``.
 """
 from __future__ import annotations
 
@@ -373,11 +376,13 @@ class ServeEngine:
         self._consecutive_crashes = 0
         self._step_crashes = 0
         self._swap_failures = 0
+        self._gateway_shed = 0   # 429s the gateway refused before submit
 
         self.slots: List[Optional[_Active]] = [None] * max_batch
         self.queue: List[Request] = []
         self.finished: List[Request] = []
         self.rejected: List[Request] = []
+        self.cancelled: List[Request] = []
         self.expired: List[Request] = []
         self.errored: List[Request] = []
         self.shed: List[Request] = []
@@ -819,6 +824,34 @@ class ServeEngine:
             if parked.state is not None:
                 self.state_store.decref(parked.state)
 
+    def _finish_cancel(self, req: Request) -> None:
+        self._release_adapter(req)
+        req.cancelled = True
+        req.done = True
+        req.t_done = time.monotonic()
+        self.cancelled.append(req)
+        if req.on_finish is not None:
+            req.on_finish(req)
+
+    def cancel(self, rid: int) -> bool:
+        """Abort request ``rid`` wherever it lives — queued, in a batch
+        slot, or parked on the host tier after a swap (a parked request
+        also sits in the queue) — and return every block it held (and its
+        state-slab slot) the same call.  Tokens already sampled stay in
+        ``req.out``.  False if the id is unknown or already done."""
+        for i, req in enumerate(self.queue):
+            if req.rid == rid:
+                self.queue.pop(i)
+                self._drop_parked(rid)
+                self._finish_cancel(req)
+                return True
+        for a in self.slots:
+            if a is not None and a.req.rid == rid:
+                self._release_active(a)
+                self._finish_cancel(a.req)
+                return True
+        return False
+
     def _finish_expired(self, req: Request) -> None:
         self._release_adapter(req)
         req.expired = True
@@ -935,6 +968,10 @@ class ServeEngine:
                         f"{self.shed_pressure:g} with "
                         f"{len(self.queue)} queued")
         return ""
+
+    def note_gateway_shed(self) -> None:
+        """Count a request the gateway refused before submit (429)."""
+        self._gateway_shed += 1
 
     def check_invariants(self) -> List[str]:
         """KV-leak invariants (see ``repro_torch.serve.faults``); empty list
@@ -1152,9 +1189,11 @@ class ServeEngine:
             self.state_store.reset_counters()
         self.finished = []
         self.rejected = []
+        self.cancelled = []
         self.expired = []
         self.errored = []
         self.shed = []
+        self._gateway_shed = 0
         self._step_crashes = 0
         self._consecutive_crashes = 0
         self._swap_failures = 0
@@ -1200,7 +1239,7 @@ class ServeEngine:
             + (self.state_store.swapped_in if self.state_store else 0),
             re_prefill_avoided=self._re_prefill_avoided,
             requests_expired=len(self.expired),
-            requests_shed=len(self.shed),
+            requests_shed=len(self.shed) + self._gateway_shed,
             requests_errored=len(self.errored),
             step_crashes=self._step_crashes,
             swap_failures=self._swap_failures,

@@ -28,6 +28,8 @@ for n in names:
     importlib.import_module(n)
 assert "repro_torch.launch.serve" in names, names
 assert "repro_torch.launch.train" in names, names
+assert "repro_torch.launch.gateway" in names, names
+assert "repro_torch.serve.async_engine" in names, names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "triton")
              or m == "repro" or m.startswith("repro."))
@@ -54,13 +56,32 @@ def _imports(path):
             yield node.module
 
 
+# the port's own tools, which keep their own copy of the client code
+PORT_TOOLS = (ROOT / "tools" / "gateway_smoke_torch.py",
+              ROOT / "tools" / "chaos_smoke_torch.py")
+# the reference's tools and benchmarks, which import the JAX package
+REFERENCE_TOOLS = ("tools.gateway_smoke", "tools.chaos_smoke", "benchmarks")
+
+
 def test_no_port_source_imports_jax_or_the_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + list(PORT_TOOLS)
     assert len(files) > 20
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
             assert top not in FORBIDDEN, f"{f.relative_to(ROOT)} imports {name}"
+            assert not any(name == t or name.startswith(t + ".")
+                           for t in REFERENCE_TOOLS), \
+                f"{f.relative_to(ROOT)} imports {name}"
+
+
+def test_import_scan_sees_the_port_tools_imports():
+    """The scan reads imports inside functions too (the tools import the
+    port lazily), so a lazy ``import repro...`` cannot hide from it."""
+    names = set(_imports(PORT_TOOLS[1]))
+    assert "tools.gateway_smoke_torch" in names
+    assert "repro_torch.serve.gateway" in names
 
 
 # the reference's TPU peak rates, on-chip capacity, chip and unit names
