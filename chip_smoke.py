@@ -3066,12 +3066,17 @@ def gateway_phase(torch, cfg, ssm_cfg, smi):
     engine_cancel = qeng.cancel
 
     def cancel(rid):
-        # runs on qwen's stepper thread: the pool before and after the call
-        held = next((len(a.table.blocks) for a in qeng.slots
-                     if a is not None and a.req.rid == rid), None)
+        # runs on qwen's stepper thread: the pool before and after the
+        # call, and the table's blocks that only this request holds (not
+        # shared with the prefix registry or a neighbour), which the call
+        # must free, every one of them
+        table = next((a.table.blocks for a in qeng.slots
+                      if a is not None and a.req.rid == rid), [])
+        alone = sum(1 for b in table if b.refcount == 1)
         before = qeng.pool.num_used
         found = engine_cancel(rid)
-        cancels.append({"found": found, "table_blocks": held,
+        cancels.append({"found": found, "table_blocks": len(table),
+                        "blocks_held_alone": alone,
                         "pool_used_before": before,
                         "pool_used_after": qeng.pool.num_used})
         return found
@@ -3165,11 +3170,13 @@ def gateway_phase(torch, cfg, ssm_cfg, smi):
         or refusal.startswith("rejected"), refusal
     assert b"token_ids" not in refused["raw"], refused["raw"][:200]
 
-    # the cancel: found in a slot, blocks freed by that call
+    # the cancel: found in a slot; every block only it held freed by that
+    # call (the shared ones go back when the prefix registry drops them)
     cancelled = qeng.cancelled
     assert len(cancels) == 1 and cancels[0]["found"] and \
-        cancels[0]["pool_used_after"] < cancels[0]["pool_used_before"], \
-        cancels
+        cancels[0]["blocks_held_alone"] >= 1 and \
+        cancels[0]["pool_used_before"] - cancels[0]["pool_used_after"] \
+        == cancels[0]["blocks_held_alone"], cancels
     assert len(cancelled) == 1 and cancelled[0].finish_reason == "cancelled" \
         and cancelled[0].prompt == qreqs[GATEWAY_CANCEL[0]].prompt, cancelled
 

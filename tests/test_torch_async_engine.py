@@ -5,6 +5,7 @@ cancellation, interleaving, submit after stop, the stepper's own grad mode;
 (queued, active and parked requests); ``note_gateway_shed`` in the stats;
 the launch counters under many threads; the chaos lane in-process."""
 import asyncio
+import json
 import sys
 import threading
 
@@ -344,14 +345,41 @@ def test_chaos_lane_holds_fault_tolerance_contract():
     """tools.chaos_smoke_torch in-process: under a deterministic alloc and
     step fault mix every stream ends, no block leaks on either tier, and
     the survivors equal the fault-free oracle."""
-    from tools.chaos_smoke_torch import run_chaos
+    from tools.chaos_smoke_torch import chaos_setup, run_chaos
     from tools.gateway_smoke_torch import Deadline
 
     report, failures = run_chaos("alloc:p=0.1,step:exc=2", seed=1,
                                  n_requests=6, qps=30.0,
-                                 deadline=Deadline(120.0))
+                                 deadline=Deadline(120.0),
+                                 **chaos_setup(smoke=True, device="cpu"))
     assert failures == [], failures
     assert sum(report["outcomes"].values()) == 6
     assert report["step_crashes"] >= 1
     assert sum(c["fired"] for c in report["fault_counts"].values()) >= 1
     assert report["survivors"] >= 1
+
+
+@pytest.mark.chaos
+def test_chaos_cli_runs_where_it_is_asked(tmp_path, capsys):
+    """``python -m tools.chaos_smoke_torch --smoke --device cpu`` passes its
+    checks and writes its report; without ``--device`` it asks for the card,
+    which raises on a host without one instead of falling back."""
+    from tools import chaos_smoke_torch
+
+    out = tmp_path / "chaos_report.json"
+    assert chaos_smoke_torch.main([
+        "--smoke", "--device", "cpu", "--fault", "alloc:p=0.1,step:exc=2",
+        "--seed", "1", "--requests", "4", "--qps", "30",
+        "--deadline-s", "120", "--out", str(out)]) == 0
+    assert "all checks passed" in capsys.readouterr().out
+    report = json.loads(out.read_text())
+    assert report["arch"] == "qwen3-0.6b-smoke"
+    assert sum(report["outcomes"].values()) == 4
+
+
+def test_chaos_cli_defaults_to_the_card(monkeypatch):
+    from tools import chaos_smoke_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        chaos_smoke_torch.main(["--smoke", "--fault", "step:exc=2"])

@@ -1,8 +1,10 @@
 """Chaos lane of the PyTorch port: the open-loop gateway workload under
 injected faults.
 
-    PYTHONPATH=src python -m tools.chaos_smoke_torch \
+    PYTHONPATH=src python -m tools.chaos_smoke_torch --arch qwen3-0.6b \
         --fault "alloc:p=0.05,step:exc=2" --requests 12 --out chaos_report.json
+    # on the CPU, at the reduced size
+    PYTHONPATH=src python -m tools.chaos_smoke_torch --smoke --device cpu
 
 Boots an in-process gateway over the port's engine with a seeded
 ``FaultInjector`` (``repro_torch.serve.faults``) wired into the live
@@ -24,9 +26,11 @@ as Poisson arrivals and holds the wreckage to the fault-tolerance contract:
     weights and device, so quarantine and recovery never corrupt an
     innocent neighbour's KV.
 
-By default it runs the reduced qwen3-0.6b on the CPU at the sizes of the
-reference's chaos lane; ``run_chaos(cfg=, params=, engine_kwargs=)`` runs
-any config on the device its weights live on (``chip_smoke.py`` runs
+It runs on the card unless ``--device cpu`` is given (``cuda`` without a
+card raises; it never falls back to the CPU), at full width with the serve
+engine's settings, or with ``--smoke`` the reduced config at the sizes of
+the reference's chaos lane.  ``run_chaos`` runs any config on the device
+its weights live on (``chaos_setup`` makes them; ``chip_smoke.py`` runs
 full-width qwen3-0.6b on the card).  Writes a report with outcome tallies,
 per-site fault counts and any failures; exit status is the number of failed
 checks.  The spec is consumed from ``REPRO_FAULT`` (and cleared, so the
@@ -47,11 +51,11 @@ from tools.gateway_smoke_torch import (Deadline, check_sse,
                                        sse_request)
 
 DEFAULT_FAULT = "alloc:p=0.05,step:exc=2,swap_out:p=0.2"
-# the reduced engine of the reference's chaos lane
-MAX_BATCH = 4
-MAX_LEN = 64
-BLOCK_SIZE = 8
-
+# the reduced engine of the reference's chaos lane (--smoke)
+SMOKE_ENGINE = dict(max_batch=4, max_len=64, block_size=8)
+# the serve engine's settings at full width (PERF.md section 4)
+FULL_ENGINE = dict(max_batch=8, max_len=2048, block_size=16,
+                   prefill_chunk_tokens=256)
 
 def workload(vocab: int, n: int, seed: int = 0) -> List:
     """Mixed prompt lengths (3..20) and output lengths (4..14); every third
@@ -89,30 +93,40 @@ async def _served_model_id(host: str, port: int) -> str:
     return bases[0]
 
 
-def build_engines(fault_spec: str, seed: int, cfg=None, params=None,
-                  engine_kwargs: Optional[Dict] = None):
-    """(cfg, live engine with faults, fault-free oracle engine) sharing one
-    set of weights: the reduced qwen3-0.6b on the CPU unless given."""
+def chaos_setup(arch: str = "qwen3-0.6b", smoke: bool = False,
+                device: Optional[str] = None) -> Dict:
+    """``run_chaos``'s ``cfg``, ``params`` (random, seed 0) and
+    ``engine_kwargs``: ``arch`` at full width with the serve engine's
+    settings, or its reduced config with the reference chaos lane's.  The
+    weights go to ``device`` (``cuda`` unless ``cpu`` is asked for; no
+    card raises)."""
     from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.device import resolve_device
     from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    if smoke:
+        cfg = reduced_config(cfg)
+    return {"cfg": cfg,
+            "params": build_model(cfg, resolve_device(device)).init(0),
+            "engine_kwargs": dict(SMOKE_ENGINE if smoke else FULL_ENGINE)}
+
+
+def build_engines(fault_spec: str, seed: int, cfg, params,
+                  engine_kwargs: Dict):
+    """(live engine with faults, fault-free oracle engine) sharing one set
+    of weights, on the device they live on."""
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.faults import FaultInjector
 
-    if cfg is None:
-        cfg = reduced_config(get_config("qwen3-0.6b"))
-    if params is None:
-        params = build_model(cfg, "cpu").init(0)
-    kw = engine_kwargs or dict(max_batch=MAX_BATCH, max_len=MAX_LEN,
-                               block_size=BLOCK_SIZE)
     live = ServeEngine(cfg, params, fault_injector=FaultInjector.parse(
-        fault_spec, seed=seed), **kw)
-    oracle = ServeEngine(cfg, params, fault_injector=False, **kw)
-    return cfg, live, oracle
+        fault_spec, seed=seed), **engine_kwargs)
+    oracle = ServeEngine(cfg, params, fault_injector=False, **engine_kwargs)
+    return live, oracle
 
 
 def run_chaos(fault_spec: str, seed: int, n_requests: int, qps: float,
-              deadline: Deadline, cfg=None, params=None,
-              engine_kwargs: Optional[Dict] = None
+              deadline: Deadline, cfg, params, engine_kwargs: Dict
               ) -> Tuple[Dict, List[str]]:
     import asyncio
 
@@ -120,8 +134,8 @@ def run_chaos(fault_spec: str, seed: int, n_requests: int, qps: float,
     from repro_torch.serve.gateway import (ByteTokenizer, Gateway,
                                            GatewayModel, Router)
 
-    cfg, live, oracle_eng = build_engines(fault_spec, seed, cfg, params,
-                                          engine_kwargs)
+    live, oracle_eng = build_engines(fault_spec, seed, cfg, params,
+                                     engine_kwargs)
 
     # oracle pass first: the exact expected tokens of every request
     oracle_reqs = workload(cfg.vocab, n_requests, seed=seed)
@@ -223,8 +237,15 @@ def run_chaos(fault_spec: str, seed: int, n_requests: int, qps: float,
     return report, failures
 
 
-def main() -> int:
+def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reduced config at the reference chaos lane's "
+                         "engine sizes")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the engines run (cuda without a card "
+                         "raises)")
     ap.add_argument("--fault", default="",
                     help="fault spec (site:mode=value,...); default: the "
                          "REPRO_FAULT env var, else a stock chaos mix")
@@ -235,15 +256,16 @@ def main() -> int:
     ap.add_argument("--deadline-s", type=float, default=300.0,
                     help="whole-run wall-clock budget (0 = unlimited)")
     ap.add_argument("--out", default="chaos_report.json")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     # consume (don't inherit) the env spec: the oracle engine and any other
     # ServeEngine built in this process must stay fault-free
     spec = args.fault or os.environ.pop("REPRO_FAULT", "") or DEFAULT_FAULT
     deadline = Deadline(args.deadline_s or None)
 
-    report, failures = run_chaos(spec, args.seed, args.requests, args.qps,
-                                 deadline)
+    report, failures = run_chaos(
+        spec, args.seed, args.requests, args.qps, deadline,
+        **chaos_setup(args.arch, args.smoke, args.device))
     with open(args.out, "w") as f:
         json.dump(report, f, indent=2)
     print(f"chaos over {args.requests} requests under {spec!r} "

@@ -13,10 +13,10 @@ batch-oracle identity.
     # client with --smoke --device cpu --max-batch 2 --max-len 64
     # --block-size 8
 
-Drives a *running* gateway over real HTTP (stdlib only: http.client for
-the JSON endpoints, a raw socket for the SSE stream so framing is checked
-on the wire, not through a parser that would paper over malformed events)
-and asserts:
+Drives a *running* gateway over real HTTP (stdlib only: one raw-socket
+asyncio client, ``sse_request``, for the JSON endpoints and the SSE stream,
+so framing is checked on the wire, not through a parser that would paper
+over malformed events) and asserts:
 
   * ``/health`` and ``/v1/models`` answer with well-formed JSON;
   * a streamed ``/v1/completions`` emits only ``data: <json>`` events,
@@ -30,8 +30,8 @@ and asserts:
   * a streamed ``/v1/chat/completions`` opens with a role delta and ends
     with ``[DONE]``.
 
-Exit status is the number of failed checks (0 = ok).  The asyncio client
-below (``sse_request``, ``open_loop``, ``latency_summary``) drives a
+Exit status is the number of failed checks (0 = ok).  The same client
+(``sse_request``, with ``open_loop`` and ``latency_summary``) also drives a
 gateway that runs in the same process: ``chip_smoke.py``'s gateway phases
 and ``tools.chaos_smoke_torch`` use it.  Nothing here imports JAX or the
 JAX package.
@@ -40,9 +40,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
-import http.client
 import json
-import socket
 import sys
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -61,9 +59,8 @@ class Deadline:
     """Whole-run wall-clock budget for a smoke client.
 
     A wedged gateway (a stream that never sends its terminal event) would
-    otherwise park the SSE read loops forever.  ``check()`` raises
-    ``TimeoutError`` the moment the budget is gone; ``remaining`` doubles
-    as a per-read socket timeout.  ``tools.chaos_smoke_torch`` reuses this
+    otherwise park the SSE read loops forever.  ``remaining`` bounds each
+    request's ``asyncio.wait_for``; ``tools.chaos_smoke_torch`` reuses this
     for its no-hung-streams assertion.
     """
 
@@ -76,12 +73,6 @@ class Deadline:
         if self.seconds is None:
             return float("inf")
         return self.seconds - (time.monotonic() - self._t0)
-
-    def check(self, what: str) -> None:
-        if self.remaining <= 0:
-            raise TimeoutError(
-                f"wall-clock deadline of {self.seconds:.0f}s exhausted "
-                f"while {what}")
 
 
 # ---------------------------------------------------------------------------
@@ -174,57 +165,36 @@ def check_sse(raw: bytes, chat: bool = False,
 
 
 # ---------------------------------------------------------------------------
-# Blocking client (a gateway in another process)
+# The smoke checks (a gateway in another process)
 # ---------------------------------------------------------------------------
 
-def _get_json(host: str, port: int, path: str) -> dict:
-    conn = http.client.HTTPConnection(host, port, timeout=30)
-    try:
-        conn.request("GET", path)
-        resp = conn.getresponse()
-        body = resp.read()
-        assert resp.status == 200, f"GET {path} -> {resp.status}: {body!r}"
-        return json.loads(body)
-    finally:
-        conn.close()
+def _request(host: str, port: int, payload: Optional[dict], path: str,
+             deadline: Optional[Deadline] = None) -> Dict:
+    """One ``sse_request`` on its own event loop, cut at the deadline
+    (``TimeoutError``)."""
+    left = float("inf") if deadline is None else deadline.remaining
+    return asyncio.run(asyncio.wait_for(
+        sse_request(host, port, payload, path=path),
+        None if left == float("inf") else max(left, 0.1)))
+
+
+def _get_json(host: str, port: int, path: str,
+              deadline: Optional[Deadline] = None) -> dict:
+    got = _request(host, port, None, path, deadline)
+    assert got["status"] == 200, \
+        f"GET {path} -> {got['status']}: {got['raw'][:200]!r}"
+    return json.loads(got["raw"])
 
 
 def _stream(host: str, port: int, path: str, payload: dict,
             deadline: Optional[Deadline] = None) -> Tuple[bytes, dict]:
-    """POST a streaming request; return (raw SSE body, response headers).
-    Raw socket so the SSE bytes are inspected exactly as sent."""
-    body = json.dumps(payload).encode()
-    with socket.create_connection((host, port), timeout=60) as sk:
-        sk.sendall(f"POST {path} HTTP/1.1\r\nHost: smoke\r\n"
-                   "Content-Type: application/json\r\n"
-                   f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
-        f = sk.makefile("rb")
-        status = f.readline()
-        assert b" 200 " in status, f"POST {path} -> {status!r}"
-        headers = {}
-        while True:
-            if deadline is not None:
-                deadline.check(f"reading response headers of {path}")
-                sk.settimeout(min(60.0, max(deadline.remaining, 0.1)))
-            line = f.readline()
-            if line in (b"\r\n", b"\n", b""):
-                break
-            k, _, v = line.decode().partition(":")
-            headers[k.strip().lower()] = v.strip()
-        assert headers.get("content-type", "").startswith(
-            "text/event-stream"), f"not SSE: {headers}"
-        raw = b""
-        while True:
-            if deadline is not None:
-                deadline.check(f"reading the SSE stream of {path}")
-                sk.settimeout(min(60.0, max(deadline.remaining, 0.1)))
-            line = f.readline()
-            if not line:
-                break
-            raw += line
-            if line.rstrip(b"\r\n") == b"data: [DONE]":
-                break
-        return raw, headers
+    """POST a streaming request; return (raw SSE body, response headers)."""
+    got = _request(host, port, payload, path, deadline)
+    assert got["status"] == 200, \
+        f"POST {path} -> {got['status']}: {got['raw'][:200]!r}"
+    assert got["headers"].get("content-type", "").startswith(
+        "text/event-stream"), f"not SSE: {got['headers']}"
+    return got["raw"], got["headers"]
 
 
 def check_completions(host: str, port: int, model_id: str,
@@ -422,9 +392,9 @@ def main() -> int:
     host, port = u.hostname, u.port or 80
     deadline = Deadline(args.deadline_s or None)
 
-    health = _get_json(host, port, "/health")
+    health = _get_json(host, port, "/health", deadline)
     print(f"health: {health}")
-    models = _get_json(host, port, "/v1/models")
+    models = _get_json(host, port, "/v1/models", deadline)
     assert models["object"] == "list" and models["data"], models
     # the base card (a multi-LoRA gateway also lists `base:adapter` cards,
     # marked with a parent; the oracle replays the base model only)
@@ -439,7 +409,7 @@ def main() -> int:
         errs = check_completions(host, port, model_id, oracle,
                                  deadline=deadline)
         errs += check_chat(host, port, model_id, deadline=deadline)
-    except (TimeoutError, socket.timeout) as e:
+    except TimeoutError as e:
         errs = [f"hung stream: {e}"]
     for e in errs:
         print(f"gateway_smoke_torch: FAIL: {e}", file=sys.stderr)
