@@ -21,9 +21,11 @@ Phases, each printing JSON objects one per line:
               (a yardstick the port never calls), the kernel wrapper's
               host-inclusive time, and the least time the card could take
               (bytes moved over 3.35 TB/s or operations over the type's peak
-              rate).  Paged attention runs at both head layouts that serve
-              (qwen3-0.6b: 16 heads over 8 KV heads, head_dim 128; zamba2's
-              shared block: 32 heads over 32, head_dim 80), through the
+              rate).  Paged attention runs at the four head layouts that
+              serve (qwen3-0.6b: 16 heads over 8 KV heads, head_dim 128;
+              zamba2's shared block: 32 heads over 32, head_dim 80;
+              olmoe-1b-7b: 16 over 16, head_dim 128; llama4-maverick: 40
+              over 8, head_dim 128), through the
               model-facing ``ops`` entries.  K1 and K4 rows also hold two
               launches bitwise equal, each decode row run alone bitwise
               equal to its row of the batch, a planted fault of each
@@ -67,17 +69,20 @@ Phases, each printing JSON objects one per line:
               reductions (a lane of d(dt), a batch row of dA, a block of
               dB, dh_last ignored); the unfused backward's gates stay.  rmsnorm (K2) runs at
               qwen3-0.6b's serve rows, the ssm and hybrid widths (4,096,
-              2,560 and the gated norm's 5,120) at decode and prefill-chunk
-              rows, and at the training step's rows (4,096 x 1,024, the q
-              norms' 65,536 x 128 and the k norms' 32,768 x 128; the
-              backward also at the stateful families' 4,096 x 4,096, 2,560
-              and 5,120): each row
+              2,560 and the gated norm's 5,120), olmoe-1b-7b's (2,048)
+              and llama4-maverick's (4 x 5,120) at decode and prefill-chunk
+              rows, and at the training step's
+              rows (4,096 x 1,024, the q norms' 65,536 x 128 and the k
+              norms' 32,768 x 128; the backward also at the stateful
+              families' 4,096 x 4,096, 2,560 and 5,120 and olmoe's 4,096 x
+              2,048): each row
               bitwise across two launches, sample rows alone and the first
               8 rows bitwise their rows in the batch, a planted fault (tail
               columns zeroed); ``ops_host_ms`` beside the wrapper's
               ``host_ms`` (the no-Function path the serve engine takes) and
               RMSNormFn's.  The pair (q and k norms in one launch) at
-              qwen's decode, chunk and training q/k rows, each output
+              qwen's decode, chunk and training q/k rows and olmoe's decode
+              and chunk rows (16 + 16 heads), each output
               bitwise its single launch, timed beside two single launches.
               The backward (row pass and column pass) at the training
               rows: dx and dw against the plain backward, with planted
@@ -89,8 +94,9 @@ Phases, each printing JSON objects one per line:
               of ``F.rms_norm``, forward + backward less forward.  Flash
               attention (K3) at the training step's shape (B 8 x 16 query
               heads over 8 KV heads, read grouped by the kernel, S 512,
-              head_dim 128, causal; f32 and bf16), and at zamba2-2.7b's
-              (B 8 x 32 heads over 32, head_dim 80): o, lse, dq, dk and
+              head_dim 128, causal; f32 and bf16), at zamba2-2.7b's (B 8 x
+              32 heads over 32, head_dim 80) and at olmoe-1b-7b's (B 8 x 16
+              heads over 16, head_dim 128): o, lse, dq, dk and
               dv row by row (gradient rows floored at 1e-2 of the largest
               and held to 1e-4 in f32, ``ref.GRAD_ROW_FLOOR`` and
               ``GRAD_ROW_TOL``), two launches bitwise equal, planted
@@ -137,7 +143,9 @@ Phases, each printing JSON objects one per line:
               other's prefix.
    profile  — torch.profiler over 12 steps of a second engine: device busy
               time by kernel against the window's wall time, and each
-              kernel's device time per launch on the main path.
+              kernel's device time per launch on the main path (device
+              events only; an MoE arch's profiles also record the CPU ops,
+              to tell its expert products apart).
 6. oracle   — teacher-forced logits of the paged path (kernels) against the
               dense prefill + decode path (plain attention), f32 and bf16;
               and one tenant's request (a 256-token prompt chunk and 8 decode
@@ -221,6 +229,44 @@ Phases, each printing JSON objects one per line:
               twice the CPU's own spread between two thread counts (and
               never looser than 1e-4 / 1e-3); then a restart at that
               depth, bitwise.
+12. moe     — moe_serve: the serve workload through full-width olmoe-1b-7b
+              (16 layers, d 2048, 16/16 heads, 64 experts, top-8; 13.84 GB)
+              in bf16 at its native capacity factor 2.0: the invariants
+              after every step, K1 16 and K2 49 launches a model call
+              exactly, host ms a dispatch; moe_profile: a profiled window
+              of 3 steps, the expert products (``aten::bmm``) a group of
+              their own.
+              moe_lora: two rank-16 tenants on the attention projections,
+              64 fused-delta launches an adapter dispatch, a rank-0 tenant
+              bitwise base.  moe_oracle: paged (K1) against dense at the
+              factor where no token drops (capacity >= tokens), every
+              step's (layer, token) expert sets compared between the
+              paths: f32 within 1e-3 with no set differing; bf16, where
+              the paths' roundings move tokens across routing boundaries,
+              the paged path run again with the dense path's expert
+              choices (its own router and gates) within 5e-2 on every
+              step, the free run within it on every step whose sets all
+              agree (at least 4 such steps), and its differing sets at
+              most twice those between the dense path in bf16 and in f32
+              on the same weights and tokens (the witness of rounding).
+              moe_cpu_oracle: 2 layers, f32, native factor, card against
+              CPU, paged and dense paths, 1e-3.  llama4_layer: one
+              super-layer of llama4-maverick-400b-a17b at full width (a
+              dense layer of d_ff 16,384 and an MoE layer of 128 experts,
+              top-1, with a shared expert; d 5120, 40/8 heads, vocab
+              202,048; 37.36 GB, drawn on the card): 4 requests, 8 new
+              tokens, K1 2 and K2 5 a model call, and the paged bf16 gap
+              against the dense oracle at the no-drop factor under
+              moe_oracle's bf16 gates but the witness (its f32 weights
+              would not fit).
+              train_moe: olmoe in bf16 through ``Trainer`` (B 8 x S 512, 5
+              steps, int8 moments: f32 ones leave about 2 GB of the card):
+              finite losses, exactly 32 / 16 K3 and 97 / 49 K2 a step;
+              its loss falls at 8 layers with f32 moments;
+              train_moe_profile (1 step); train_moe_oracle: 2 layers,
+              f32, loss and every leaf (the routers' reported apart)
+              against the CPU within 1e-4 / 1e-3, then a bitwise restart
+              (6 steps, the failure at step 5).
 
 Then a ``{"kernels": [...]}`` summary line (each row's launches from the
 main path that gives its shape, named in its ``path``), nvidia-smi's line, and, last,
@@ -244,6 +290,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+START = time.perf_counter()
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 PEAK_OPS_PER_S = {"float32": 67e12,  # f32 outside the tensor cores
@@ -256,6 +303,10 @@ BF16_ORACLE_TOL = 5e-2
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line carries the seconds since the
+    script started (``elapsed_s``), so a run shows where its time went."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - START)
     print(json.dumps(obj), flush=True)
 
 
@@ -404,9 +455,12 @@ def _tables(torch, lens, m, bs, n, rng):
 
 
 # paged attention's head layouts, each with the main path that gives it:
-# qwen3-0.6b (16 query heads over 8 KV heads, head_dim 128) and zamba2-2.7b's
-# shared block (32 heads, one per KV head, head_dim 80)
-PAGED_SHAPES = (("serve", 16, 8, 128), ("hybrid_serve", 32, 32, 80))
+# qwen3-0.6b (16 query heads over 8 KV heads, head_dim 128), zamba2-2.7b's
+# shared block (32 heads, one per KV head, head_dim 80), olmoe-1b-7b (16
+# heads over 16, head_dim 128) and llama4-maverick (40 heads over 8, a group
+# of 5, head_dim 128)
+PAGED_SHAPES = (("serve", 16, 8, 128), ("hybrid_serve", 32, 32, 80),
+                ("moe_serve", 16, 16, 128), ("llama4_layer", 40, 8, 128))
 # gate-only decode rows (no main path gives them, so no times): spans at the
 # split-KV kernel's split boundaries (512 keys, ``ref.PAGED_SPLIT``) at both
 # serve layouts, a group of 8 query heads a KV head, and a block size that
@@ -662,21 +716,26 @@ def _check_paged_attention(torch, results, path, h, kv, hd):
 # (d 1,024, the q/k norms at 128), falcon-mamba-7b's layer norms (4,096),
 # zamba2-2.7b's layer and shared-block norms (2,560) and its Mamba2 gated
 # norm over d_inner (5,120); then qwen3-0.6b's training step (B 8 x S 512
-# rows at 1,024, times 16 query heads and 8 key heads at 128); and the main
-# path that gives each.  The q/k norms at 128 run as a pair on every path
-# (``RMSNORM_PAIR_SHAPES``), so their single rows are gate-only (path None)
+# rows at 1,024, times 16 query heads and 8 key heads at 128); olmoe's
+# norms (2,048); llama4-maverick's at its decode step (4 rows of 5,120; its
+# chunk rows are zamba2's); and the main path that gives each.  The q/k
+# norms at 128 run as a pair on every path (``RMSNORM_PAIR_SHAPES``), so
+# their single rows are gate-only (path None)
 RMSNORM_SHAPES = ((8, 1024), (256, 1024), (8 * 16, 128), (256 * 16, 128),
                   (8, 4096), (256, 4096), (8, 2560), (256, 2560),
                   (8, 5120), (256, 5120), (4096, 1024), (4096 * 16, 128),
-                  (4096 * 8, 128))
+                  (4096 * 8, 128), (8, 2048), (256, 2048), (4, 5120))
 RMSNORM_PATH = {1024: "serve", 128: None, 4096: "ssm_serve",
-                2560: "hybrid_serve", 5120: "hybrid_serve"}
+                2560: "hybrid_serve", 5120: "hybrid_serve",
+                2048: "moe_serve"}
 RMSNORM_TRAIN_SHAPES = ((4096, 1024), (4096 * 16, 128), (4096 * 8, 128))
 
 
 def rmsnorm_path(rows, d):
     if d == 128:
         return None
+    if (rows, d) == (4, 5120):
+        return "llama4_layer"
     return "train" if (rows, d) in RMSNORM_TRAIN_SHAPES else RMSNORM_PATH[d]
 
 
@@ -762,11 +821,16 @@ def check_rmsnorm(torch, results):
     check_rmsnorm_grad(torch, results, info)
 
 
-# the pair's rows: qwen3-0.6b's q and k norms (16 and 8 heads of 128) at a
-# decode step (B 8), a prefill chunk (256 tokens) and the training step
-# (B 8 x S 512)
-RMSNORM_PAIR_SHAPES = ((8 * 16, 8 * 8, 128), (256 * 16, 256 * 8, 128),
-                       (4096 * 16, 4096 * 8, 128))
+# the pair's rows and the main path that gives each: qwen3-0.6b's q and k
+# norms (16 and 8 heads of 128) at a decode step (B 8) and a prefill chunk
+# (256 tokens), olmoe-1b-7b's (16 and 16 heads) at the same two, and qwen's
+# at the training step (B 8 x S 512, last: the pair's backward row).
+# llama4-maverick has no q/k norms
+RMSNORM_PAIR_SHAPES = ((8 * 16, 8 * 8, 128, "serve"),
+                       (256 * 16, 256 * 8, 128, "serve"),
+                       (8 * 16, 8 * 16, 128, "moe_serve"),
+                       (256 * 16, 256 * 16, 128, "moe_serve"),
+                       (4096 * 16, 4096 * 8, 128, "train"))
 
 
 def _check_rmsnorm_pair(torch, results, dtype, gen, eps, info):
@@ -779,7 +843,7 @@ def _check_rmsnorm_pair(torch, results, dtype, gen, eps, info):
                                              rmsnorm_pair_kernel)
     dname = str(dtype).split(".")[1]
     esize = torch.finfo(dtype).bits // 8
-    for r1, r2, d in RMSNORM_PAIR_SHAPES:
+    for r1, r2, d, path in RMSNORM_PAIR_SHAPES:
         x1, x2 = (torch.randn((r, d), generator=gen, device=DEV).to(dtype)
                   for r in (r1, r2))
         w1, w2 = ((1 + 0.1 * torch.randn((d,), generator=gen, device=DEV))
@@ -805,8 +869,7 @@ def _check_rmsnorm_pair(torch, results, dtype, gen, eps, info):
                             4.0 * (r1 + r2) * d, dname)
         results.append(dict(
             name=f"rmsnorm_pair/d{d}", dtype=dname,
-            shape=f"({r1}+{r2}, {d})", counter="rmsnorm",
-            path="train" if r1 == 4096 * 16 else "serve",
+            shape=f"({r1}+{r2}, {d})", counter="rmsnorm", path=path,
             **checked, bitwise_single_launches=True,
             kernel_ms=graph_ms(lambda: rmsnorm_pair_kernel(x1, w1, x2, w2,
                                                            eps)),
@@ -1732,7 +1795,11 @@ FLASH_TRAIN = (8 * 16, 8 * 8, 512, 512, 128, True, 0)
 # zamba2-2.7b's training step through its shared block: B 8 x 32 heads over
 # 32, S 512, head_dim 80, causal (timed, the train_hybrid path)
 FLASH_HYBRID_TRAIN = (8 * 32, 8 * 32, 512, 512, 80, True, 0)
-FLASH_TIMED = (("train", FLASH_TRAIN), ("train_hybrid", FLASH_HYBRID_TRAIN))
+# olmoe-1b-7b's training step: B 8 x 16 heads over 16, S 512, head_dim 128,
+# causal (timed, the train_moe path)
+FLASH_MOE_TRAIN = (8 * 16, 8 * 16, 512, 512, 128, True, 0)
+FLASH_TIMED = (("train", FLASH_TRAIN), ("train_hybrid", FLASH_HYBRID_TRAIN),
+               ("train_moe", FLASH_MOE_TRAIN))
 FLASH_GATES = (("non_causal", 32, 16, 512, 512, 128, False, 0),
                ("q_offset", 32, 16, 128, 640, 128, True, 512),
                ("ragged", 32, 16, 300, 300, 128, True, 0),
@@ -2010,11 +2077,11 @@ def check_flash_attention(torch, results):
 # train path runs the last two as one pair (``_check_rmsnorm_pair_grad``);
 # then falcon-mamba-7b's layer norms (4,096 x 4,096, train_ssm) and
 # zamba2-2.7b's (4,096 x 2,560) and gated norms (4,096 x 5,120,
-# train_hybrid)
+# train_hybrid), and olmoe-1b-7b's layer norms (4,096 x 2,048, train_moe)
 RMSNORM_GRAD_SHAPES = RMSNORM_TRAIN_SHAPES + ((4096, 4096), (4096, 2560),
-                                              (4096, 5120))
+                                              (4096, 5120), (4096, 2048))
 RMSNORM_GRAD_PATH = {4096: "train_ssm", 2560: "train_hybrid",
-                     5120: "train_hybrid"}
+                     5120: "train_hybrid", 2048: "train_moe"}
 
 
 def check_rmsnorm_grad(torch, results, info):
@@ -2124,7 +2191,7 @@ def _check_rmsnorm_pair_grad(torch, results, dtype, gen, eps, info):
     from repro_torch.kernels import rmsnorm as k2
     dname = str(dtype).split(".")[1]
     esize = torch.finfo(dtype).bits // 8
-    r1, r2, d = RMSNORM_PAIR_SHAPES[-1]
+    r1, r2, d, _ = RMSNORM_PAIR_SHAPES[-1]
     x1, g1 = (torch.randn((r1, d), generator=gen, device=DEV).to(dtype)
               for _ in range(2))
     x2, g2 = (torch.randn((r2, d), generator=gen, device=DEV).to(dtype)
@@ -2581,12 +2648,36 @@ PROFILE_KERNELS = {"paged_attention": ("paged_split_kernel",
                    "rmsnorm": ("rmsnorm",), "ssm_scan": ("ssm_scan",)}
 
 
+def profiled(cfg) -> list:
+    """The profiler's activities: device events, and the CPU ops only on
+    an MoE arch, whose expert products are told apart by the op that
+    launched them (``bmm_kernel_us``); every other group is read from the
+    device events, and recording the CPU ops costs most of the trace's
+    processing."""
+    from torch.profiler import ProfilerActivity
+    return [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if cfg.moe is not None else [])
+
+
+def bmm_kernel_us(prof) -> dict:
+    """Device µs of the kernels that ``aten::bmm`` calls launched, by
+    kernel name: on an MoE arch, the expert products (the port's other
+    GEMMs are ``aten::mm``/``addmm``; the router is a matmul)."""
+    out = {}
+    for e in prof.events():
+        if e.name == "aten::bmm":
+            for k in e.kernels:
+                out[k.name] = out.get(k.name, 0.0) + k.duration
+    return out
+
+
 def profile_phase(torch, cfg, params=None, steps=12, phase="profile"):
     """Device busy time by kernel over a steady window of engine steps
     (torch.profiler), against the window's host wall time.  Builds the
-    arch's weights from seed 0 unless ``params`` is given."""
+    arch's weights from seed 0 unless ``params`` is given.  On an MoE arch
+    the expert products (``bmm_kernel_us``) are a group of their own."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
     from repro_torch.models import build_model
     from repro_torch.serve.engine import ServeEngine
     if params is None:
@@ -2598,8 +2689,7 @@ def profile_phase(torch, cfg, params=None, steps=12, phase="profile"):
     for _ in range(6):
         eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=profiled(cfg)) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
@@ -2617,8 +2707,15 @@ def profile_phase(torch, cfg, params=None, steps=12, phase="profile"):
     groups = {"paged_attention": 0.0, "rmsnorm": 0.0, "ssm_scan": 0.0,
               "gemm": 0.0, "other": 0.0}
     ported = {"paged_attention": 0, "rmsnorm": 0, "ssm_scan": 0}
+    bmm = bmm_kernel_us(prof) if cfg.moe is not None else {}
+    if cfg.moe is not None:
+        groups["expert_bmm"] = 0.0
     for name, us in kernels.items():
         low = name.lower()
+        if name in bmm:
+            part = min(us, bmm[name])
+            groups["expert_bmm"] += part
+            us -= part
         hit = next((k for k, frags in PROFILE_KERNELS.items()
                     if any(f in low for f in frags)), None)
         if hit is not None:
@@ -2933,7 +3030,7 @@ def stateful_oracle_phase(torch, cfg, n_layers, steps=8, chunk=256, bs=16):
 
 
 def _dense_oracle_gaps(torch, cfg, sides, prompt, forced_tokens):
-    """The stateful arch's dense path (whole-prompt prefill, then one decode
+    """The stateful (or moe) arch's dense path (whole-prompt prefill, then one decode
     step per forced token) on the card against the CPU: each step's largest
     logit gap over the CPU's largest logit."""
     caps = len(prompt) + len(forced_tokens)
@@ -2941,11 +3038,11 @@ def _dense_oracle_gaps(torch, cfg, sides, prompt, forced_tokens):
     for dev, (fns, p, _) in sides.items():
         cache, logits[dev] = fns.prefill(
             p, {"tokens": torch.tensor([prompt], device=dev)})
-        if cfg.family == "hybrid":
+        if cfg.family in ("hybrid", "moe"):
             big = fns.make_cache(1, caps)
             for k in ("k", "v"):
                 big[k][:, :, :len(prompt)] = cache[k]
-            cache = dict(big, ssm=cache["ssm"])
+            cache = dict(big, ssm=cache["ssm"]) if "ssm" in cache else big
         caches[dev] = cache
     gaps = [rel_err(logits[DEV][0].cpu(), logits["cpu"][0])[1]]
     for i, tok in enumerate(forced_tokens):
@@ -3406,32 +3503,32 @@ def train_remat_phase(torch, cfg, steps=4):
 
 
 def train_restart_phase(torch, cfg, n_layers=2, opt_state="f32",
-                        phase="train_restart"):
+                        phase="train_restart", steps=8, fail_at=6):
     """Checkpoint/restart on the card: ``n_layers`` layers at full width,
-    bf16, 8 steps checkpointed every 4 with a failure injected at step 6
-    (restore step 4, replay); the final loss equals a clean run's bit for
-    bit (the reference bounds the gap at 5e-3)."""
+    bf16, ``steps`` steps checkpointed every 4 with a failure injected at
+    step ``fail_at`` (restore step 4, replay); the final loss equals a
+    clean run's bit for bit (the reference bounds the gap at 5e-3)."""
     import tempfile
     cfg2 = dataclasses.replace(cfg, n_layers=n_layers)
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
-        res = _trainer(cfg2, 8, opt_state, workdir=d, checkpoint_every=4) \
-            .train(fail_at=6)
+        res = _trainer(cfg2, steps, opt_state, workdir=d,
+                       checkpoint_every=4).train(fail_at=fail_at)
         failed_s = time.perf_counter() - t0
-        assert res["final_step"] == 8
+        assert res["final_step"] == steps
         from repro_torch.train.checkpoint import list_checkpoints
         ckpts = [s for s, _ in list_checkpoints(d)]
-    clean = _trainer(cfg2, 8, opt_state).train()
+    clean = _trainer(cfg2, steps, opt_state).train()
     gap = abs(res["log"][-1]["loss"] - clean["log"][-1]["loss"])
     emit({"phase": phase, "arch": cfg.name, "layers": n_layers,
           "opt_state": opt_state,
-          "steps": 8, "checkpoint_every": 4, "fail_at": 6,
+          "steps": steps, "checkpoint_every": 4, "fail_at": fail_at,
           "checkpoints": ckpts, "replayed_steps": [e["step"]
                                                   for e in res["log"]],
           "final_loss": res["log"][-1]["loss"],
           "clean_final_loss": clean["log"][-1]["loss"], "gap": gap,
           "bitwise": gap == 0.0, "run_with_failure_s": failed_s})
-    assert res["log"][-1]["step"] == clean["log"][-1]["step"] == 7
+    assert res["log"][-1]["step"] == clean["log"][-1]["step"] == steps - 1
     assert gap == 0.0, f"restart replay differs from the clean run by {gap}"
     torch.cuda.empty_cache()
 
@@ -3502,9 +3599,11 @@ def train_profile_phase(torch, cfg, steps=3, opt_state="f32",
     """torch.profiler over ``steps`` full-width bf16 train steps (after one
     warm-up step): the device's idle share of the window and busy time by
     group (K3 forward, K3 backward, K7 forward, K7 backward with dc's
-    column sum, GEMMs, K2, everything else)."""
+    column sum, GEMMs, K2, everything else; on an MoE arch the expert
+    products forward and backward, ``bmm_kernel_us``, apart from the
+    GEMMs)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
     trainer = _trainer(cfg, steps + 1, opt_state)
     # one train state: the step updates it in place (AdamW.update)
     params, opt = trainer.init_state().values()
@@ -3513,8 +3612,7 @@ def train_profile_phase(torch, cfg, steps=3, opt_state="f32",
                for i in range(steps + 1)]
     params, opt, _ = trainer._step(params, opt, batches[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=profiled(cfg)) as prof:
         t0 = time.perf_counter()
         for b in batches[1:]:
             params, opt, m = trainer._step(params, opt, b)
@@ -3523,6 +3621,9 @@ def train_profile_phase(torch, cfg, steps=3, opt_state="f32",
     groups = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0,
               "ssm_scan_fwd": 0.0, "ssm_scan_bwd": 0.0, "gemm": 0.0,
               "rmsnorm": 0.0, "other": 0.0}
+    bmm = bmm_kernel_us(prof) if cfg.moe is not None else {}
+    if cfg.moe is not None:
+        groups["expert_bmm"] = 0.0
     counts = dict.fromkeys(groups, 0)
     kernels = {}
     for e in prof.key_averages():
@@ -3531,6 +3632,11 @@ def train_profile_phase(torch, cfg, steps=3, opt_state="f32",
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
+        kernels[e.key] = kernels.get(e.key, 0.0) + us
+        if e.key in bmm:
+            part = min(us, bmm[e.key])
+            groups["expert_bmm"] += part
+            us -= part
         low = e.key.lower()
         if "flash_fwd" in low:
             g = "flash_attention_fwd"
@@ -3550,7 +3656,6 @@ def train_profile_phase(torch, cfg, steps=3, opt_state="f32",
             g = "other"
         groups[g] += us
         counts[g] += e.count
-        kernels[e.key] = kernels.get(e.key, 0.0) + us
     busy = sum(groups.values())
     own = ("ssm_scan_fwd", "ssm_scan_bwd") if cfg.family == "ssm" \
         else ("flash_attention_fwd", "flash_attention_bwd")
@@ -3573,13 +3678,20 @@ TRAIN_STATEFUL_STEPS = 5
 
 def stateful_train_launches(cfg) -> dict:
     """Launches (K2 and K7 backward: calls) of one remat train step of the
-    ssm or hybrid arch, by counter.  ssm: each layer's scan through
+    ssm, hybrid or moe arch, by counter.  ssm: each layer's scan through
     SSMScanFn in the forward and again in the recompute, its backward once;
     the layer's norm likewise, plus the final norm.  hybrid: the shared
     block's attention once a segment and again in the recompute, its
     backward once; two norms a Mamba2 layer (ln and the gated norm) and two
-    a shared-block call (ln1, ln2) likewise, plus the final norm."""
+    a shared-block call (ln1, ln2) likewise, plus the final norm.  moe: as
+    the dense train phase, K3 twice a layer and its backward once, K2's
+    model call twice less the final norm and its backward once (olmoe: 32 /
+    16 and 97 / 49)."""
     n = cfg.n_layers
+    if cfg.family == "moe":
+        return {"flash_attention": 2 * n, "flash_attention_bwd": n,
+                "rmsnorm": 2 * k2_per_model_call(cfg) - 1,
+                "rmsnorm_bwd": k2_per_model_call(cfg)}
     if cfg.family == "ssm":
         return {"ssm_scan": 2 * n, "ssm_scan_bwd": n, "rmsnorm": 2 * n + 1,
                 "rmsnorm_bwd": n + 1}
@@ -3595,19 +3707,21 @@ def stateful_train_launches(cfg) -> dict:
 SSM_F32_LAYERS = 16
 
 
-def train_stateful_phase(torch, cfg, opt_state):
-    """train_ssm / train_hybrid: the full-width arch in bf16 through
+def train_stateful_phase(torch, cfg, opt_state, f32_layers=SSM_F32_LAYERS):
+    """train_ssm / train_hybrid / train_moe: the full-width arch in bf16
+    through
     ``Trainer`` (B 8 x S 512, AdamW as the train CLI builds it with the
     given moments, remat on), every count zeroed just before and read just
     after: finite losses, step seconds, tokens/s without step 0, peak
     memory, and exactly ``stateful_train_launches`` a step (no other
     kernel); the last loss below the first.  With int8 moments (falcon-
     mamba-7b, whose f32 moments do not fit) that last gate is held on a
-    second run at full width and ``SSM_F32_LAYERS`` layers with f32
-    moments: the reference's int8 scheme quantizes v in blocks against
-    their largest value, and from the second update the loss of the
-    64-layer run rises (PERF.md, Findings), so its losses are reported, not
-    gated."""
+    second run at full width and ``f32_layers`` layers with f32 moments:
+    the reference's int8 scheme quantizes v in blocks against their
+    largest value, and from the second update the loss of the 64-layer run
+    rises (PERF.md, Findings), so its losses are reported, not gated
+    (olmoe-1b-7b trains with int8 moments too: f32 ones leave about 2 GB of
+    the card for activations)."""
     from repro_torch.launch.train import state_bytes
     steps = TRAIN_STATEFUL_STEPS
     trainer = _trainer(cfg, steps, opt_state)
@@ -3633,11 +3747,11 @@ def train_stateful_phase(torch, cfg, opt_state):
     torch.cuda.empty_cache()
     f32_run = {}
     if opt_state != "f32":
-        cut = dataclasses.replace(cfg, n_layers=SSM_F32_LAYERS)
+        cut = dataclasses.replace(cfg, n_layers=f32_layers)
         torch.cuda.reset_peak_memory_stats()
         res = _trainer(cut, steps).train()
         f32_run = {"f32_moments_run": {
-            "layers": SSM_F32_LAYERS, "losses": _losses(res, steps),
+            "layers": f32_layers, "losses": _losses(res, steps),
             "step_s": [e["sec"] for e in res["log"]],
             "peak_device_bytes": torch.cuda.max_memory_allocated()}}
         del res
@@ -3664,9 +3778,11 @@ def _leaf_gaps(grads, want) -> list:
             for g, w in zip(grads, want)]
 
 
-def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state):
+def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state,
+                                witness=True, restart=(8, 6)):
     """``n_layers`` layers at full width (2 Mamba1 layers; 2 hybrid
-    segments, 12 Mamba2 layers and 2 shared-block calls), f32, B 2 x S 512:
+    segments, 12 Mamba2 layers and 2 shared-block calls; 2 MoE layers),
+    f32, B 2 x S 512:
     the loss and every gradient leaf on the card (K7 forward and backward,
     or K3 at head_dim 80, and K2, remat "dots" as the trainer runs) against
     the CPU's (the plain versions, remat off) from the same weights and
@@ -3677,8 +3793,10 @@ def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state):
     far from the CPU as that, and never held looser than 1e-4 (loss) and
     1e-3 of each leaf's largest value (the dense train_oracle's limits).
     The hybrid needs it: two CPU orders part by about 4e-3 of a leaf at
-    this depth (PERF.md, Findings).  Then a restart at that depth (bf16, the
-    family's moments) replays the clean run's final loss bit for bit."""
+    this depth (PERF.md, Findings).  Without ``witness`` (moe) the limits
+    are those two; the routers' leaves are reported apart.  Then a restart
+    at that depth (bf16, the family's moments; ``restart`` = (steps, the
+    step that fails)) replays the clean run's final loss bit for bit."""
     from repro_torch.models import build_model
     from repro_torch.train.data import TokenPipeline
     cfg2 = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
@@ -3689,15 +3807,17 @@ def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state):
     cpu_loss, cpu_grads = _loss_and_grads(torch, cfg2, params, batch, False)
     cpu_s = time.perf_counter() - t0
     threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        alt_loss, alt_grads = _loss_and_grads(torch, cfg2, params, batch,
-                                              False)
-    finally:
-        torch.set_num_threads(threads)
-    spread = max(_leaf_gaps(alt_grads, cpu_grads))
-    loss_spread = abs(alt_loss - cpu_loss) / abs(cpu_loss)
-    del alt_grads
+    spread = loss_spread = 0.0
+    if witness:
+        torch.set_num_threads(1)
+        try:
+            alt_loss, alt_grads = _loss_and_grads(torch, cfg2, params, batch,
+                                                  False)
+        finally:
+            torch.set_num_threads(threads)
+        spread = max(_leaf_gaps(alt_grads, cpu_grads))
+        loss_spread = abs(alt_loss - cpu_loss) / abs(cpu_loss)
+        del alt_grads
     zero_counts()
     loss, grads = _loss_and_grads(torch, cfg2, gpu, batch, True)
     torch.cuda.synchronize()
@@ -3708,28 +3828,474 @@ def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state):
     leaf_rel = _leaf_gaps(grads, cpu_grads)
     loss_tol, leaf_tol = max(1e-4, 2 * loss_spread), max(1e-3, 2 * spread)
     worst = max(range(len(leaf_rel)), key=leaf_rel.__getitem__)
+    names = leaf_names(params)
+    routers = {n: r for n, r in zip(names, leaf_rel) if "router" in n}
     emit({"phase": f"train_{cfg.family}_oracle", "arch": cfg.name,
           "layers": n_layers, "dtype": "float32", "batch": 2,
           "seq_len": 512, "loss": loss, "cpu_loss": cpu_loss,
           "loss_rel_err": loss_rel, "grad_leaves": len(grads),
           "grad_leaf_rel_err_max": max(leaf_rel), "worst_leaf": worst,
+          "worst_leaf_name": names[worst], "witness": witness,
           "cpu_threads": threads, "cpu_one_thread_loss_rel": loss_spread,
           "cpu_one_thread_leaf_rel_max": spread, "loss_tol": loss_tol,
-          "leaf_tol": leaf_tol, "launches": launches, "cpu_s": cpu_s})
+          "leaf_tol": leaf_tol, "launches": launches, "cpu_s": cpu_s,
+          **({"router_leaf_rel_err": routers} if routers else {})})
     assert loss_rel <= loss_tol, (loss_rel, loss_tol)
     assert max(leaf_rel) <= leaf_tol, (max(leaf_rel), leaf_tol)
     del gpu, params, grads, cpu_grads
     torch.cuda.empty_cache()
     train_restart_phase(torch, cfg, n_layers, opt_state,
-                        phase=f"train_{cfg.family}_restart")
+                        phase=f"train_{cfg.family}_restart",
+                        steps=restart[0], fail_at=restart[1])
 
 
-def _to(tree, dev):
+# ---------------------------------------------------------------------------
+# Phase 12: the moe family
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, LLAMA4_ARCH = "olmoe-1b-7b", "llama4-maverick-400b-a17b"
+# the two tenants of moe_lora, rank 16 on the attention projections
+MOE_TENANTS = TENANTS[:2]
+# olmoe's depth for the run whose loss must fall with f32 moments (its
+# full-width f32 moments reckon 83.0 GB with weights and gradients)
+MOE_F32_LAYERS = 8
+
+
+def no_drop(cfg):
+    """``cfg`` at the capacity factor where no token drops: capacity >=
+    tokens a call (factor = n_experts), as tests/test_models_smoke.py
+    raises it."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+
+
+def moe_serve_phase(torch, cfg, params):
+    """moe_serve: the serve workload through full-width olmoe-1b-7b at its
+    native capacity factor (2.0): every request finishes with the KV
+    invariants clean after every step, and every model call launches K1
+    once a layer and K2 ``k2_per_model_call`` times (16 and 49), no LoRA
+    and no backward kernel; the host time of each dispatch."""
+    eng = serve_engine(cfg, params)
+    tally, counted = dispatch_timer()
+    launches, m, out = run_workload(torch, eng, workload(cfg.vocab), counted)
+    calls = sum(n for n, _ in tally.values())
+    assert launches["paged_attention"] == cfg.n_layers * calls, \
+        (launches, calls)
+    assert launches["rmsnorm"] == k2_per_model_call(cfg) * calls, \
+        (launches, calls)
+    assert all(v == 0 for k, v in launches.items()
+               if k not in ("paged_attention", "rmsnorm")), launches
+    emit({"phase": "moe_serve", "arch": cfg.name, "dtype": cfg.dtype,
+          "capacity_factor": cfg.moe.capacity_factor, **out,
+          "host_ms_per_dispatch": host_ms_per_dispatch(tally),
+          "model_calls": calls,
+          "k1_launches_per_model_call": launches["paged_attention"] / calls,
+          "k2_launches_per_model_call": launches["rmsnorm"] / calls,
+          "param_bytes": eng.param_bytes_per_device,
+          "kv_pool_bytes": sum(t.numel() * t.element_size()
+                               for t in eng.cache.values())})
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_lora_phase(torch, cfg, params):
+    """moe_lora: olmoe with two rank-16 tenants (attention projections
+    only) serves 8 requests of the serve workload, every third base: the
+    fused delta launches 4 x 16 = 64 times a dispatch with an adapter row,
+    never otherwise, and K5 and K6 never alone.  Then greedy tokens: a
+    rank-0 tenant gives the base tokens bit for bit."""
+    from repro_torch.serve.engine import Request
+    eng = serve_engine(cfg, params)
+    for name in MOE_TENANTS:
+        eng.load_adapter(name, rank=16, alpha=32.0)
+    assert sorted(eng.adapters.projs) == ["k", "o", "q", "v"], \
+        eng.adapters.projs
+    tally, counted = dispatch_timer()
+    launches, m, out = run_workload(
+        torch, eng, workload(cfg.vocab, n=8, tenants=(None,) + MOE_TENANTS),
+        counted)
+    dispatches = {k: sum(n for key, (n, _) in tally.items()
+                         if key.endswith(k)) for k in ("lora", "base")}
+    per = 4 * cfg.n_layers
+    assert dispatches["lora"] > 0, dispatches
+    assert launches["lora_delta"] == per * dispatches["lora"], \
+        (launches, dispatches)
+    assert launches["lora_shrink"] == launches["lora_expand"] == 0, launches
+    emit({"phase": "moe_lora", "arch": cfg.name, "dtype": cfg.dtype, **out,
+          "tenants": list(MOE_TENANTS), "rank": 16,
+          "adapted_projections": sorted(eng.adapters.projs),
+          "adapter_device_bytes": m.adapter_device_bytes,
+          "dispatches": dispatches, "lora_launches_per_lora_dispatch": per,
+          "host_ms_per_dispatch": host_ms_per_dispatch(tally),
+          "per_tenant": m.per_tenant})
+    del eng
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, cfg.vocab, size=int(n)).tolist()
+               for n in (150, 300, 520)]
+
+    def serve(adapter_id):
+        eng = serve_engine(cfg, params)
+        eng.load_adapter("null-tenant", rank=0)
+        reqs = [Request(rid=i, prompt=list(p), max_new=12,
+                        adapter_id=adapter_id) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        assert all(r.done and not r.rejected for r in reqs)
+        return [r.out for r in reqs]
+    base, rank0 = serve(None), serve("null-tenant")
+    emit({"phase": "moe_lora_identity", "requests": len(prompts),
+          "tokens_each": 12, "rank0_identical": rank0 == base})
+    assert rank0 == base, "a rank-0 tenant changed olmoe's base tokens"
+    torch.cuda.empty_cache()
+    return launches
+
+
+class RouteLog:
+    """Records the experts every token ``moe._select`` picks, in call order
+    (one call a MoE layer within one model call), while active.  Given
+    ``force`` (a list of (n, k) index tensors, one a call in order) it
+    replaces the first n tokens' picks of each call with the forced ones;
+    the rest of ``moe._route`` (the router, its softmax, the gates gathered
+    from it and renormalised) is the program's own, so the path runs the
+    other path's expert choices on its own numbers."""
+
+    def __init__(self, force=None):
+        self.calls = []
+        self.force = None if force is None else list(force)
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._real = moe._select
+
+        def spy(probs, k):
+            idx = self._real(probs, k)
+            if self.force is not None:
+                forced = self.force.pop(0)
+                idx = idx.clone()
+                idx[0, :forced.shape[0]] = forced.to(idx.device)
+            self.calls.append(idx.reshape(-1, idx.shape[-1]))
+            return idx
+        moe._select = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._select = self._real
+
+    def take(self, cfg, tokens=None):
+        """The recorded calls as one (tokens, k) index tensor an MoE layer
+        (chunks of one prompt joined in order, cut to ``tokens``), and
+        clear."""
+        import torch
+        n = cfg.n_layers // cfg.moe.every
+        per = [torch.cat(self.calls[i::n]) for i in range(n)]
+        self.calls = []
+        return [o[:tokens] for o in per] if tokens else per
+
+
+def differing_sets(a, b) -> int:
+    """(layer, token) pairs whose expert sets differ between two paths."""
+    return sum(int((x.cpu().sort(-1).values != y.cpu().sort(-1).values)
+                   .any(-1).sum()) for x, y in zip(a, b))
+
+
+def _dense_run(torch, fns, params, cfg, prompt, steps, log, feed=None):
+    """The dense path: a whole-prompt prefill, then ``steps`` decode steps
+    fed its own argmax (or the tokens ``feed``): per step the logits and
+    each MoE layer's expert indices, and the tokens fed."""
+    plen = len(prompt)
+    cache1, lg = fns.prefill(params, {"tokens": torch.tensor([prompt],
+                                                             device=DEV)})
+    dense = fns.make_cache(1, plen + steps)
+    for k in dense:
+        dense[k][:, :, :plen] = cache1[k]
+    del cache1
+    logits, routes, tokens = [lg[0]], [log.take(cfg)], []
+    for i in range(steps):
+        tokens.append(int(logits[-1].float().argmax()) if feed is None
+                      else feed[i])
+        dense, lg = fns.decode_step(params, dense, {
+            "token": torch.tensor([[tokens[-1]]], device=DEV),
+            "cur_len": plen + i})
+        logits.append(lg[0])
+        routes.append(log.take(cfg))
+    return logits, routes, tokens
+
+
+def _paged_run(torch, fns, params, cfg, prompt, tokens, log, bs=16,
+               chunk=256):
+    """The paged path on the same prompt (chunks of ``chunk``) and decode
+    tokens: per step the logits and each MoE layer's expert indices."""
+    plen = len(prompt)
+    nb = -(-(plen + len(tokens)) // bs)
+    paged = fns.make_paged_cache(nb + 1, bs)
+    table = torch.arange(1, nb + 1, dtype=torch.int32, device=DEV)[None, :]
+    for start in range(0, plen, chunk):
+        end = min(plen, start + chunk)
+        ids = prompt[start:end] + [0] * (chunk - (end - start))
+        paged, lg = fns.prefill_chunk(
+            params, paged, {"tokens": torch.tensor([ids], device=DEV),
+                            "block_table": table, "start": start,
+                            "prompt_len": end}, m_used=-(-end // bs))
+    # a chunk routes its padding too: keep the prompt's tokens
+    logits, routes = [lg[0, plen - 1 - start]], [log.take(cfg, plen)]
+    for i, tok in enumerate(tokens):
+        paged, lg = fns.decode_paged(params, paged, {
+            "token": torch.tensor([[tok]], device=DEV), "block_tables": table,
+            "seq_lens": torch.tensor([plen + i], dtype=torch.int32,
+                                     device=DEV)})
+        logits.append(lg[0])
+        routes.append(log.take(cfg))
+    return logits, routes
+
+
+def _forced_plan(routes, plen, chunk=256):
+    """The dense path's indices in the paged path's call order: each
+    prompt chunk's tokens per MoE layer, then each decode step's."""
+    plan = [layer[start:min(plen, start + chunk)]
+            for start in range(0, plen, chunk) for layer in routes[0]]
+    return plan + [layer for step in routes[1:] for layer in step]
+
+
+# the bf16 MoE oracle's routing gates: the paged path's differing (layer,
+# token) expert sets, summed over all steps, at most this multiple of the
+# dense path's own between bf16 and f32 (the witness of what rounding alone
+# moves: two bf16 paths' independent roundings differ by about sqrt(2)
+# times one path's); and at least this many steps whose sets all agree, so
+# the free-run check is never empty
+ROUTE_FLIP_MULTIPLE = 2
+MIN_AGREEING_STEPS = 4
+
+
+def moe_oracle_phase(torch, cfg, params=None, prompts=(200, 700),
+                     steps=16, phase="moe_oracle", witness=True):
+    """Logits of the paged path (prompt chunks of 256 through K1, then
+    decode steps) against the dense path (whole-prompt prefill, plain
+    attention) on the same tokens, at the no-drop factor where the two
+    route alike, with each step's (layer, token) expert sets compared.
+    f32: every step within 1e-3 and no set differing.  bf16 (where the
+    paths' roundings move some tokens across a routing boundary): the
+    paged path run again with the dense path's expert choices
+    (``RouteLog(force=)``: only the pick is replaced, the gates are the
+    program's) within ``BF16_ORACLE_TOL`` on every step; the free-running
+    paged path within it on every step whose sets all agree, of which
+    there are at least ``MIN_AGREEING_STEPS``; and, with ``witness``, its
+    differing sets at most ``ROUTE_FLIP_MULTIPLE`` times those of the dense
+    path run in f32 on the same weights (cast up) and tokens."""
+    from repro_torch.models import build_model
+    cfg = no_drop(cfg)
+    fns = build_model(cfg, DEV)
+    if params is None:
+        params = fns.init(0)
+    rng = np.random.default_rng(7)
+    bf16 = cfg.dtype != "float32"
+    witness = witness and bf16
+    if witness:
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        fns32, params32 = build_model(cfg32, DEV), _to(params, torch.float32)
+    out = {"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
+           "layers": cfg.n_layers,
+           "capacity_factor": cfg.moe.capacity_factor, "prompts": []}
+    gaps_all, diffs_all, forced_all, witness_all = [], [], [], []
+    for plen in prompts:
+        prompt = rng.integers(1, cfg.vocab, size=plen).tolist()
+        with RouteLog() as log:
+            want, routes, tokens = _dense_run(torch, fns, params, cfg,
+                                              prompt, steps, log)
+            got, paged_routes = _paged_run(torch, fns, params, cfg, prompt,
+                                           tokens, log)
+            if witness:
+                _, routes32, _ = _dense_run(torch, fns32, params32, cfg32,
+                                            prompt, steps, log, feed=tokens)
+        gaps = [rel_err(g, w)[1] for g, w in zip(got, want)]
+        diffs = [differing_sets(a, b) for a, b in zip(paged_routes, routes)]
+        entry = {"prompt_len": plen, "max_rel_gap": max(gaps), "gaps": gaps,
+                 "differing_expert_sets": diffs,
+                 "sets_compared": [sum(x.shape[0] for x in r)
+                                   for r in routes]}
+        if witness:
+            entry["dense_bf16_vs_f32_differing_sets"] = [
+                differing_sets(a, b) for a, b in zip(routes32, routes)]
+            witness_all += entry["dense_bf16_vs_f32_differing_sets"]
+        if bf16:
+            with RouteLog(force=_forced_plan(routes, plen)) as log:
+                forced, _ = _paged_run(torch, fns, params, cfg, prompt,
+                                       tokens, log)
+                assert not log.force, "forced routes left over"
+            fgaps = [rel_err(g, w)[1] for g, w in zip(forced, want)]
+            entry["forced_routing_gaps"] = fgaps
+            forced_all += fgaps
+        out["prompts"].append(entry)
+        gaps_all += gaps
+        diffs_all += diffs
+    tol = BF16_ORACLE_TOL if bf16 else 1e-3
+    agreeing = [g for g, d in zip(gaps_all, diffs_all) if d == 0]
+    out.update(max_rel_gap=max(gaps_all), tol=tol, steps=len(gaps_all),
+               steps_with_differing_sets=sum(d > 0 for d in diffs_all),
+               steps_where_sets_agree=len(agreeing),
+               differing_sets=sum(diffs_all),
+               max_rel_gap_where_sets_agree=max(agreeing, default=None),
+               forced_routing_max_rel_gap=max(forced_all, default=None),
+               gate="forced routing on every step; free run where sets "
+                    f"agree (at least {MIN_AGREEING_STEPS} steps)"
+                    + (f"; differing sets at most {ROUTE_FLIP_MULTIPLE}x "
+                       "the dense path's bf16 against f32" if witness
+                       else "")
+               if bf16 else "every step, no set differing")
+    if witness:
+        out.update(witness_differing_sets=sum(witness_all),
+                   route_flip_limit=ROUTE_FLIP_MULTIPLE * sum(witness_all))
+        del params32
+    emit(out)
+    if bf16:
+        assert max(forced_all) <= tol, out
+        assert len(agreeing) >= MIN_AGREEING_STEPS, out
+        assert max(agreeing) <= tol, out
+        if witness:
+            assert sum(diffs_all) <= ROUTE_FLIP_MULTIPLE * sum(witness_all), \
+                out
+    else:
+        assert max(gaps_all) <= tol and not any(diffs_all), out
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_cpu_oracle_phase(torch, cfg, steps=8, chunk=256, bs=16):
+    """One request teacher-forced through olmoe's paged path at its native
+    factor (a 256-token prompt chunk, so the capacity drops tokens, and
+    ``steps`` decode steps), full width, 2 layers, f32: K1 and K2 on the
+    card against the plain versions on the CPU, on the same weights; then
+    the same tokens through the dense path on both.  Gate 1e-3."""
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params = build_model(cfg, DEV).init(0)
+    nb = -(-(chunk + steps) // bs)
+    sides = {}
+    for dev in (DEV, "cpu"):
+        fns = build_model(cfg, dev)
+        p = params if dev == DEV else _to(params, "cpu")
+        sides[dev] = (fns, p, fns.make_paged_cache(nb + 1, bs))
+    prompt = np.random.default_rng(11).integers(1, cfg.vocab,
+                                                size=chunk).tolist()
+    gaps, logits, forced_tokens, sets, diffs = [], {}, [], {}, []
+    zero_counts()
+    with RouteLog() as log:
+        for i in range(steps + 1):
+            for dev, (fns, p, cache) in sides.items():
+                table = torch.arange(1, nb + 1, dtype=torch.int32,
+                                     device=dev)[None, :]
+                if i == 0:
+                    batch = {"tokens": torch.tensor([prompt], device=dev),
+                             "block_table": table, "start": 0,
+                             "prompt_len": chunk}
+                    _, lg = fns.prefill_chunk(p, cache, batch, m_used=nb)
+                    logits[dev] = lg[0, chunk - 1]
+                else:
+                    batch = {"token": torch.tensor([[forced]], device=dev),
+                             "block_tables": table,
+                             "seq_lens": torch.tensor([chunk + i - 1],
+                                                      dtype=torch.int32,
+                                                      device=dev)}
+                    _, lg = fns.decode_paged(p, cache, batch)
+                    logits[dev] = lg[0]
+                sets[dev] = log.take(cfg)
+            want = logits["cpu"]
+            gaps.append(rel_err(logits[DEV].cpu(), want)[1])
+            forced = int(want.argmax())
+            forced_tokens.append(forced)
+            diffs.append(differing_sets(sets[DEV], sets["cpu"]))
+    torch.cuda.synchronize()
+    n = read_counts()
+    assert n["paged_attention"] == cfg.n_layers * (steps + 1), n
+    assert n["rmsnorm"] == k2_per_model_call(cfg) * (steps + 1), n
+    dense_gaps = _dense_oracle_gaps(torch, cfg, sides, prompt,
+                                    forced_tokens[:-1])
+    tol = 1e-3
+    emit({"phase": "moe_cpu_oracle", "arch": cfg.name, "layers": 2,
+          "dtype": cfg.dtype, "capacity_factor": cfg.moe.capacity_factor,
+          "prompt_len": chunk, "decode_steps": steps,
+          "max_rel_gap": max(gaps), "gaps": gaps, "tol": tol,
+          "differing_expert_sets": diffs, "launches": n,
+          "dense_path_max_rel_gap": max(dense_gaps),
+          "dense_path_gaps": dense_gaps})
+    assert max(gaps) <= tol, f"moe cpu oracle: rel gap {max(gaps)} > {tol}"
+    assert max(dense_gaps) <= tol, \
+        f"moe cpu dense oracle: rel gap {max(dense_gaps)} > {tol}"
+    del sides, params
+    torch.cuda.empty_cache()
+
+
+def llama4_layer_phase(torch, cfg):
+    """llama4_layer: one super-layer of llama4-maverick-400b-a17b at full
+    width (a dense layer, d_ff_dense 16,384, then an MoE layer of 128
+    experts, top-1, with a shared expert; d 5120, 40/8 heads, vocab
+    202,048), bf16, drawn on the card: 4 requests of the serve workload, 8
+    new tokens each, the KV invariants after every step, K1 twice and K2
+    five times a model call.  Then the paged path's bf16 gap against the
+    dense oracle at the no-drop factor (``moe_oracle_phase``'s gates but
+    the f32 witness, for which the card lacks the room: 74.7 GB of f32
+    weights)."""
+    from repro_torch.models import build_model
+    from repro_torch.train.tree import leaves
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    t0 = time.perf_counter()
+    params = build_model(cfg, DEV).init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in leaves(params))
+    expert_bytes = sum(params["layers"][1]["moe"][k].numel() * 2
+                       for k in ("wi_gate", "wi_up", "wo"))
+    eng = serve_engine(cfg, params)
+    reqs = workload(cfg.vocab, n=4)
+    for r in reqs:
+        r.max_new = 8
+    tally, counted = dispatch_timer()
+    launches, m, out = run_workload(torch, eng, reqs, counted)
+    calls = sum(n for n, _ in tally.values())
+    assert launches["paged_attention"] == cfg.n_layers * calls, \
+        (launches, calls)
+    assert launches["rmsnorm"] == k2_per_model_call(cfg) * calls, \
+        (launches, calls)
+    del eng
+    torch.cuda.empty_cache()
+    gap = moe_oracle_phase(torch, cfg, params, prompts=(300,), steps=8,
+                           phase="llama4_oracle", witness=False)
+    emit({"phase": "llama4_layer", "arch": cfg.name, "layers": 2,
+          "dtype": cfg.dtype, "init_s": init_s, "param_bytes": param_bytes,
+          "param_count": cfg.param_count(), "expert_bytes": expert_bytes,
+          **out, "host_ms_per_dispatch": host_ms_per_dispatch(tally),
+          "model_calls": calls,
+          "k1_launches_per_model_call": launches["paged_attention"] / calls,
+          "k2_launches_per_model_call": launches["rmsnorm"] / calls,
+          "paged_vs_dense_bf16_max_rel_gap": gap["max_rel_gap"],
+          "steps_with_differing_sets": gap["steps_with_differing_sets"]})
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def leaf_names(tree, prefix="") -> list:
+    """Each leaf's path, in ``train.tree.leaves`` order."""
     if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree)
+                for n in leaf_names(t, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def _to(tree, where):
+    """``tree`` with every tensor moved to a device or cast to a dtype."""
+    if isinstance(tree, dict):
+        return {k: _to(v, where) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to(v, dev) for v in tree]
-    return tree.to(dev)
+        return [_to(v, where) for v in tree]
+    return tree.to(where)
 
 
 # ---------------------------------------------------------------------------
@@ -3872,6 +4438,32 @@ def main() -> int:
     train_stateful_oracle_phase(torch, hy_cfg, 2 * hy_cfg.hybrid.attn_every,
                                 "f32")
 
+    # 12. the moe family at full width: olmoe-1b-7b served (bf16, native
+    # capacity factor), a profiled window, two tenants on its attention;
+    # its oracles (f32 and bf16 paged against dense at the no-drop factor,
+    # 2 layers card against CPU at the native one); one super-layer of
+    # llama4 served; olmoe trained (int8 moments), profiled, at 8 layers
+    # with f32 moments, and at 2 layers against the CPU and restarted
+    moe_cfg = get_config(MOE_ARCH)
+    params = build_model(moe_cfg, DEV).init(0)
+    moe_launches = moe_serve_phase(torch, moe_cfg, params)
+    profile_phase(torch, moe_cfg, params, steps=3, phase="moe_profile")
+    moe_lora_phase(torch, moe_cfg, params)
+    moe_oracle_phase(torch, moe_cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    moe_oracle_phase(torch, dataclasses.replace(moe_cfg, dtype="float32"))
+    moe_cpu_oracle_phase(torch, moe_cfg)
+    llama4_launches = llama4_layer_phase(torch, get_config(LLAMA4_ARCH))
+    moe_train_launches = train_stateful_phase(torch, moe_cfg, "int8",
+                                              f32_layers=MOE_F32_LAYERS)
+    train_profile_phase(torch, moe_cfg, steps=1, opt_state="int8",
+                        phase="train_moe_profile")
+    # the restart in 6 steps, failing at 5: two checkpoints (steps 4 and
+    # 6) of 6.3 GB each, not three
+    train_stateful_oracle_phase(torch, moe_cfg, 2, "int8", witness=False,
+                                restart=(6, 5))
+
     # each row's launches come from the main path that gives its shape
     # (the row's ``path``): the qwen3-0.6b serve workload (K1 at head_dim
     # 128, K2 at 1,024 and 128), the compile phase (K4), the multi-LoRA
@@ -3881,13 +4473,19 @@ def main() -> int:
     # 80, K2 at 2,560 and 5,120) and the training run (K3 forward and
     # backward, K2 at the training rows), and the stateful families'
     # training runs (K7 forward with checkpoints and backward, K2 at 4,096;
-    # K3 at head_dim 80, K2 at 2,560 and 5,120)
+    # K3 at head_dim 80, K2 at 2,560 and 5,120), and olmoe's serve workload
+    # (K1 at 16 over 16 heads, K2 at 2,048 and its q/k pair) and training
+    # run (K3 at 16 over 16 heads, K2's backward at 2,048), and llama4's
+    # super-layer (K1 at 40 over 8 heads, K2 at its 4 decode rows)
     path_launches = {"serve": launches, "compile": compile_launches,
                      "lora_serve": lora_launches, "ssm_serve": ssm_launches,
                      "hybrid_serve": hybrid_launches,
                      "train": train_launches,
                      "train_ssm": ssm_train_launches,
-                     "train_hybrid": hybrid_train_launches}
+                     "train_hybrid": hybrid_train_launches,
+                     "moe_serve": moe_launches,
+                     "train_moe": moe_train_launches,
+                     "llama4_layer": llama4_launches}
     sources = {
         "paged_attention": (
             "cuda", "src/repro_torch/kernels/csrc/paged_attention.cu",

@@ -16,10 +16,12 @@ block straddles two layers no per-layer state equals it, and the bridge
 raises rather than requantize.
 
 Parameter layout: the JAX package stacks layer weights on leading axes
-under ``params["layers"]``: ``transformer.init_lm`` as a tuple with one
-(L/every, ...) stack per layer kind of a super-layer, ``ssm_lm.init_ssm_lm``
-as one dict of (L, ...) stacks, ``hybrid.init_hybrid`` as one dict of
-(n_seg, per, ...) stacks beside its ``shared`` block.  The port keeps
+under ``params["layers"]``: ``transformer.init_lm`` (dense and moe) as a
+tuple with one (L/every, ...) stack per layer kind of a super-layer (an
+MoE layer's expert weights are (L/every, E, d, f) stacks),
+``ssm_lm.init_ssm_lm`` as one dict of (L, ...) stacks,
+``hybrid.init_hybrid`` as one dict of (n_seg, per, ...) stacks beside its
+``shared`` block.  The port keeps
 ``params["layers"]`` as a list of per-layer dicts in forward order for every
 family.
 """
@@ -56,8 +58,8 @@ def _map(tree, fn):
 
 
 def params_from_numpy(tree: Dict, device="cpu") -> Dict:
-    """JAX ``init`` pytree (numpy leaves) of a dense, ssm or hybrid model ->
-    the port's param dict."""
+    """JAX ``init`` pytree (numpy leaves) of a dense, moe, ssm or hybrid
+    model -> the port's param dict."""
     stacks = tree["layers"]
     if isinstance(stacks, dict):
         # one stack: (L, ...) for ssm, (n_seg, per, ...) for the hybrid
@@ -93,12 +95,13 @@ def _stack(trees: List):
 def params_to_numpy(params: Dict, every: int = 1, bf16_dtype=None,
                     family: str = "dense") -> Dict:
     """Inverse of ``params_from_numpy``: re-stack the per-layer dicts in the
-    family's JAX layout.  ``every`` is the super-layer size of a dense arch
-    and the segment length (``attn_every``) of a hybrid."""
+    family's JAX layout.  ``every`` is the super-layer size of a dense or
+    moe arch (``cfg.moe.every``) and the segment length (``attn_every``) of
+    a hybrid."""
     conv = lambda t: tensor_to_numpy(t, bf16_dtype)  # noqa: E731
     layers = [_map(lp, conv) for lp in params["layers"]]
     out = {k: _map(v, conv) for k, v in params.items() if k != "layers"}
-    if family == "dense":
+    if family in ("dense", "moe"):
         out["layers"] = tuple(_stack(layers[j::every]) for j in range(every))
     elif family == "ssm":
         out["layers"] = _stack(layers)

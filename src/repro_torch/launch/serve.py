@@ -9,8 +9,15 @@ Same CLI as ``repro.launch.serve`` with three differences: ``--device``
 (default: the config's, bf16 for the registered archs), and no ``--mesh`` /
 ``--tp`` (multi-device serving is a later slice).  Without ``--smoke`` it
 serves the arch at its full width with random weights from ``--seed``.
-The dense archs, ``falcon-mamba-7b`` (ssm) and ``zamba2-2.7b`` (hybrid) are
-served; a stateful arch's prefill chunk is rounded up to its scan granule.
+The dense archs, ``olmoe-1b-7b`` and ``llama4-maverick-400b-a17b`` (moe;
+llama4 at full width does not fit one 80 GB card), ``falcon-mamba-7b``
+(ssm) and ``zamba2-2.7b`` (hybrid) are served; a stateful arch's prefill
+chunk is rounded up to its scan granule.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --smoke --device cpu
 """
 from __future__ import annotations
 

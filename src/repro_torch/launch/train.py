@@ -8,17 +8,22 @@ is given.
         --batch 8
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
         --steps 5 --seq-len 512 --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
+        --opt-state int8 --steps 5 --seq-len 512 --batch 8
 
 Same CLI as ``repro.launch.train`` with ``--device`` added (default cuda;
 asking for cuda without a card is an error) and no ``--mesh`` (training on
 several devices is a later slice, ROADMAP A10).  ``--smoke`` swaps in the
 reduced same-family config (``--device cpu --smoke`` trains it here in
 seconds); without it the arch trains at full width from random weights.
-The dense, ssm (falcon-mamba-7b: K7 forward and backward) and hybrid
-(zamba2-2.7b: K3 at head_dim 80) archs train.  On a card, a run whose
+The dense, moe (olmoe-1b-7b: the loss adds 0.01 times the routers'
+load-balance loss), ssm (falcon-mamba-7b: K7 forward and backward) and
+hybrid (zamba2-2.7b: K3 at head_dim 80) archs train.  On a card, a run whose
 weights, gradients and AdamW moments alone would not fit in its memory
 raises before allocating and names ``--opt-state int8`` (falcon-mamba-7b
-with f32 moments needs 87.3 GB of them).
+with f32 moments needs 87.3 GB of them; olmoe-1b-7b's 83.0 GB pass the
+check but leave about 2 GB of an 80 GB card for activations, so train it
+with int8 moments, 41.7 GB).
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Model dispatch (mirrors ``src/repro/models/model_zoo.py``): one
 ``ModelFns`` bundle per architecture family.  The port serves and trains
-the dense, ssm and hybrid families; the others raise and name the ROADMAP
-slice that brings them."""
+the dense, moe, ssm and hybrid families (dense and moe share the
+transformer's functions); the others raise and name the ROADMAP slice that
+brings them."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,7 +13,6 @@ from repro_torch.device import resolve_device
 from repro_torch.models import hybrid, ssm_lm, transformer
 
 _LATER_SLICES = {
-    "moe": "A6 (MoE)",
     "vlm": "A11 (enc-dec and VLM)",
     "audio": "A11 (enc-dec and VLM)",
 }
@@ -46,7 +46,7 @@ def build_model(cfg: ModelConfig, device=None) -> ModelFns:
     """The family's functions, with params and caches on ``device``
     (default cuda)."""
     fam = cfg.family
-    if fam not in ("dense", "ssm", "hybrid"):
+    if fam not in ("dense", "moe", "ssm", "hybrid"):
         slice_ = _LATER_SLICES.get(fam, "a later slice")
         raise NotImplementedError(
             f"family {fam!r} is not ported to repro_torch yet: "

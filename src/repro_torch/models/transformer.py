@@ -1,12 +1,24 @@
-"""Decoder-only transformer, dense family (mirrors
+"""Decoder-only transformer, dense and moe families (mirrors
 ``src/repro/models/transformer.py``).
 
 The JAX package stacks layer weights and ``lax.scan``s over them; here
-``params["layers"]`` is a list of per-layer dicts and the scan is a Python
-loop.  Caches keep the JAX layouts so they cross the bridge unchanged: the
-dense cache is ``(L, B, Smax, KV, hd)`` and the paged cache
-``(L, N, bs, KV, hd)``, both slot-major (layer ``l`` of the forward pass
-uses cache row ``l`` for dense archs).  Every cache update is in place.
+``params["layers"]`` is a list of per-layer dicts in forward order and the
+scan is a Python loop.  An MoE arch with ``moe.every = k`` repeats
+super-layers of k layers whose last is MoE and the rest dense (width
+``moe.d_ff_dense``); ``every = 1`` makes every layer MoE.  Caches keep the
+JAX layouts so they cross the bridge unchanged: the dense cache is
+``(L, B, Smax, KV, hd)`` and the paged cache ``(L, N, bs, KV, hd)``, both
+slot-major: the layer at forward position ``l = i*every + j`` (super-layer
+i, kind j) uses cache row ``j*(L/every) + i`` (``cache_row``), which is row
+``l`` when ``every`` is 1.  Every cache update is in place.
+
+An MoE layer routes each token in f32 (``models/moe.py``): prefill, chunks
+and the loss dispatch with a capacity (``apply_moe``), a decode step runs
+what REPRO_MOE_DECODE names; ``forward_hidden`` returns the layers' summed
+load-balance loss, which ``lm_loss`` adds at 0.01.  Expert capacity is
+computed per call, so a chunked prefill can route or drop tokens
+differently from one whole-prompt prefill of the same prompt (as in the
+reference); dense archs are exact.
 
 Training: ``lm_loss`` runs every layer's attention through the
 flash-attention kernel (``impl="kernel"``), forward and backward, and every
@@ -15,9 +27,9 @@ layer in the backward (``torch.utils.checkpoint``), keeping what
 ``REPRO_REMAT_POLICY`` says.
 
 Multi-LoRA: the paged functions read ``batch.get("lora")`` (the engine's
-adapter descriptor, ``repro_torch.models.lora``) and
-``batch.get("lora_block_out")``; when the descriptor is absent no LoRA code
-runs at all.
+adapter descriptor, ``repro_torch.models.lora``, whose slab rows are in
+forward order) and ``batch.get("lora_block_out")``; when the descriptor is
+absent no LoRA code runs at all.  An MoE layer's FFN takes no LoRA.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import lora as lora_mod
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     apply_mlp, embed_tokens, init_embed, init_mlp, logits_from_hidden,
     rms_norm, softmax_cross_entropy,
@@ -37,43 +50,82 @@ from repro_torch.models.layers import (
 from repro_torch.perf import perf
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe is not None:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; this slice serves the "
-            "dense family (see ROADMAP.md)")
+def _every(cfg: ModelConfig) -> int:
+    return cfg.moe.every if cfg.moe else 1
 
 
-def init_layer(cfg: ModelConfig, gen, dtype, device) -> Dict:
+def _layer_kind(cfg: ModelConfig, layer_idx_in_super: int) -> str:
+    if cfg.moe is None:
+        return "dense"
+    # every=k: the last layer of the super-layer is MoE, the rest dense
+    return "moe" if layer_idx_in_super == cfg.moe.every - 1 else "dense"
+
+
+def cache_row(cfg: ModelConfig, layer: int) -> int:
+    """The cache row of the layer at forward position ``layer``: caches are
+    slot-major, kind j's super-layers first, as the reference's
+    ``lm_prefill`` stacks them."""
+    every = _every(cfg)
+    i, j = divmod(layer, every)
+    return j * (cfg.n_layers // every) + i
+
+
+def init_layer(cfg: ModelConfig, gen, kind: str, dtype, device) -> Dict:
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=device)  # noqa: E731
-    return {"ln1": ones(), "ln2": ones(),
-            "attn": attn.init_attention(cfg, gen, dtype, device),
-            "mlp": init_mlp(cfg, gen, cfg.d_ff, dtype, device)}
+    p = {"ln1": ones(), "ln2": ones(),
+         "attn": attn.init_attention(cfg, gen, dtype, device)}
+    if kind == "moe":
+        p["moe"] = moe_lib.init_moe(cfg, gen, dtype, device)
+    else:
+        d_ff = cfg.moe.d_ff_dense if (cfg.moe and cfg.moe.d_ff_dense) \
+            else cfg.d_ff
+        p["mlp"] = init_mlp(cfg, gen, d_ff, dtype, device)
+    return p
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
     """Random weights from a ``torch.Generator`` seeded with ``seed``,
-    drawn on ``device`` (default cuda)."""
-    _require_dense(cfg)
+    drawn on ``device`` (default cuda), layer by layer in forward order."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    every = _every(cfg)
     return {
         "embed": init_embed(cfg, gen, dtype, dev),
         "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
-        "layers": [init_layer(cfg, gen, dtype, dev)
-                   for _ in range(cfg.n_layers)],
+        "layers": [init_layer(cfg, gen, _layer_kind(cfg, i % every), dtype,
+                              dev)
+                   for i in range(cfg.n_layers)],
     }
 
 
+def _ffn(cfg: ModelConfig, lp, h: torch.Tensor, decode: bool,
+         lora: Optional[Dict] = None
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's FFN: (y, its load-balance loss, or None for a dense
+    FFN).  MoE experts are routed per token, so an MoE FFN takes no LoRA
+    (the adapter store adapts attention only for MoE archs)."""
+    if "moe" in lp:
+        if decode:
+            fn = moe_lib.apply_moe_decode_dispatch \
+                if perf().moe_decode == "dispatch" \
+                else moe_lib.apply_moe_decode
+            return fn(cfg, lp["moe"], h), None
+        return moe_lib.apply_moe(cfg, lp["moe"], h)
+    return apply_mlp(cfg, lp["mlp"], h, lora=lora), None
+
+
 def _block(cfg: ModelConfig, lp, x: torch.Tensor, attend,
-           lora: Optional[Dict] = None) -> torch.Tensor:
-    """One pre-norm layer: ``attend`` maps the normed input to the
-    attention output (it owns the cache update); ``lora`` is the layer's
-    adapter descriptor for the MLP, or None."""
+           lora: Optional[Dict] = None, decode: bool = False
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One pre-norm layer -> (output, the FFN's load-balance loss or None):
+    ``attend`` maps the normed input to the attention output (it owns the
+    cache update); ``lora`` is the layer's adapter descriptor for a dense
+    MLP, or None; ``decode`` picks an MoE layer's decode path."""
     h = x + attend(rms_norm(x, lp["ln1"], cfg.norm_eps))
-    return h + apply_mlp(cfg, lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps),
-                         lora=lora)
+    y, aux = _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps), decode,
+                  lora)
+    return h + y, aux
 
 
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -86,7 +138,8 @@ def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _layer_fwd(cfg: ModelConfig, lp, x: torch.Tensor, positions: torch.Tensor,
-               impl: Optional[str]) -> torch.Tensor:
+               impl: Optional[str]
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     return _block(cfg, lp, x, lambda xn: attn.attention_block(
         cfg, lp["attn"], xn, positions, causal=True, impl=impl))
 
@@ -112,12 +165,12 @@ def _remat_context_fn():
     return lambda: create_selective_checkpoint_contexts(policy)
 
 
-def run_blocks(fn, blocks, x: torch.Tensor, remat: bool, *args
-               ) -> torch.Tensor:
+def run_blocks(fn, blocks, x, remat: bool, *args):
     """``x = fn(block, x, *args)`` for each of ``blocks`` in order (a layer,
-    or a hybrid segment); with ``remat`` each call runs again in the
-    backward (``torch.utils.checkpoint``), keeping what REPRO_REMAT_POLICY
-    says, as the reference wraps its scan body in ``jax.checkpoint``."""
+    or a hybrid segment); ``x`` is a tensor or a tuple of them (a carry such
+    as (hidden, aux)).  With ``remat`` each call runs again in the backward
+    (``torch.utils.checkpoint``), keeping what REPRO_REMAT_POLICY says, as
+    the reference wraps its scan body in ``jax.checkpoint``."""
     context_fn = _remat_context_fn() if remat else None
     for blk in blocks:
         if remat:
@@ -132,19 +185,23 @@ def forward_hidden(cfg: ModelConfig, params, embeds: torch.Tensor,
                    positions: torch.Tensor, remat: bool = False,
                    impl: Optional[str] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """embeds (B,S,d) -> (final-normed hidden (B,S,d), moe_aux scalar; 0 for
-    the dense family).  ``remat`` recomputes each layer in the backward."""
-    _require_dense(cfg)
-    x = run_blocks(lambda lp, x: _layer_fwd(cfg, lp, x, positions, impl),
-                   params["layers"], embeds, remat)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    """embeds (B,S,d) -> (final-normed hidden (B,S,d), the MoE layers'
+    summed load-balance loss, an f32 scalar; 0 for a dense arch).
+    ``remat`` recomputes each layer in the backward."""
+    def layer(lp, carry):
+        x, aux = _layer_fwd(cfg, lp, carry[0], positions, impl)
+        return x, carry[1] if aux is None else carry[1] + aux
+
+    zero = torch.zeros((), dtype=torch.float32, device=embeds.device)
+    x, aux = run_blocks(layer, params["layers"], (embeds, zero), remat)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def lm_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True
             ) -> torch.Tensor:
-    """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,S),
-    every attention through the flash-attention kernel."""
+    """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,S)
+    plus 0.01 times the MoE load-balance loss, every attention through the
+    flash-attention kernel."""
     if "embeds" in batch:
         raise NotImplementedError(
             "the VLM stub frontend's loss is not ported yet (ROADMAP A11)")
@@ -182,9 +239,12 @@ def lm_prefill(cfg: ModelConfig, params, batch: Dict
         return f
 
     for lp in params["layers"]:
-        x = _block(cfg, lp, x, attend(lp))
+        x, _ = _block(cfg, lp, x, attend(lp))
     logits = _head(cfg, params, x[:, -1:, :])[:, 0, :]
-    return {"k": torch.stack(ks), "v": torch.stack(vs)}, logits
+    # stack in cache-row order (slot-major)
+    order = sorted(range(cfg.n_layers), key=lambda l: cache_row(cfg, l))
+    return {"k": torch.stack([ks[l] for l in order]),
+            "v": torch.stack([vs[l] for l in order])}, logits
 
 
 def make_decode_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype,
@@ -217,12 +277,14 @@ def lm_decode_step(cfg: ModelConfig, params, cache: Dict, batch: Dict
     positions = torch.full((token.shape[0], 1), cur_len, dtype=torch.int32,
                            device=x.device)
     for i, lp in enumerate(params["layers"]):
-        def attend(xn, lp=lp, i=i):
+        r = cache_row(cfg, i)
+
+        def attend(xn, lp=lp, r=r):
             o, _, _ = attn.attention_decode_block(
-                cfg, lp["attn"], xn, cache["k"][i], cache["v"][i], cur_len,
+                cfg, lp["attn"], xn, cache["k"][r], cache["v"][r], cur_len,
                 positions)
             return o
-        x = _block(cfg, lp, x, attend)
+        x, _ = _block(cfg, lp, x, attend, decode=True)
     return cache, _head(cfg, params, x)[:, 0, :]
 
 
@@ -274,13 +336,14 @@ def lm_decode_step_paged(cfg: ModelConfig, params, cache: Dict, batch: Dict):
     x = embed_tokens(params["embed"], batch["token"])
     for i, lp in enumerate(params["layers"]):
         ll = lora_mod.layer_slice(lora, i, block_out)
+        r = cache_row(cfg, i)
 
-        def attend(xn, lp=lp, i=i, ll=ll):
+        def attend(xn, lp=lp, r=r, ll=ll):
             o, _, _ = attn.attention_decode_block_paged(
-                cfg, lp["attn"], xn, cache["k"][i], cache["v"][i], tables,
+                cfg, lp["attn"], xn, cache["k"][r], cache["v"][r], tables,
                 seq_lens, pages_per_fetch=ppf, lora=ll)
             return o
-        x = _block(cfg, lp, x, attend, lora=ll)
+        x, _ = _block(cfg, lp, x, attend, lora=ll, decode=True)
     return cache, _head(cfg, params, x)[:, 0, :]
 
 
@@ -308,12 +371,13 @@ def lm_prefill_chunk(cfg: ModelConfig, params, cache: Dict, batch: Dict,
     x = embed_tokens(params["embed"], tokens)
     for i, lp in enumerate(params["layers"]):
         ll = lora_mod.layer_slice(lora, i, block_out)
+        r = cache_row(cfg, i)
 
-        def attend(xn, lp=lp, i=i, ll=ll):
+        def attend(xn, lp=lp, r=r, ll=ll):
             o, _, _ = attn.attention_prefill_chunk_block(
-                cfg, lp["attn"], xn, cache["k"][i], cache["v"][i], table,
+                cfg, lp["attn"], xn, cache["k"][r], cache["v"][r], table,
                 chunk_pos, prompt_len, m_used=m_used, pages_per_fetch=ppf,
                 lora=ll)
             return o
-        x = _block(cfg, lp, x, attend, lora=ll)
+        x, _ = _block(cfg, lp, x, attend, lora=ll)
     return cache, _head(cfg, params, x)

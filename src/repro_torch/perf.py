@@ -15,6 +15,11 @@
       caller passes the default: queries longer than twice the chunk that
       it divides go in chunks, so the score tensor never exceeds
       (B, H, chunk, S_kv).  It changes memory, not values.
+  REPRO_MOE_DECODE     gather | dispatch
+      how an MoE layer runs a decode step: gather — each token gathers
+      its selected experts' weights and runs them (the default); dispatch —
+      the batch's decode tokens are dispatched to the experts as one group
+      with a capacity, as prefill dispatches a sequence
 
   REPRO_PAGED_ATTN     auto | kernel | gather
       auto   — paged decode/prefill attention launches the CUDA paged-
@@ -83,6 +88,7 @@ class PerfConfig:
     remat_policy: str = "dots"
     opt_state: str = "f32"
     attn_chunk: int = 1024
+    moe_decode: str = "gather"
 
 
 def require_norm_f32() -> None:
@@ -122,6 +128,9 @@ def perf() -> PerfConfig:
     attn_chunk = int(os.environ.get("REPRO_ATTN_CHUNK", "1024"))
     if attn_chunk < 1:
         raise ValueError(f"bad REPRO_ATTN_CHUNK {attn_chunk}")
+    moe_decode = os.environ.get("REPRO_MOE_DECODE", "gather")
+    if moe_decode not in ("gather", "dispatch"):
+        raise ValueError(f"bad REPRO_MOE_DECODE {moe_decode!r}")
     return PerfConfig(
         paged_attn=mode,
         kv_swap=os.environ.get("REPRO_KV_SWAP", "1") == "1",
@@ -141,5 +150,6 @@ def perf() -> PerfConfig:
         remat_policy=remat,
         opt_state=opt_state,
         attn_chunk=attn_chunk,
+        moe_decode=moe_decode,
     )
 

@@ -34,7 +34,14 @@ base weights and the KV pool; their low-rank deltas live in one device slab
 ``load_adapter``), and every dispatch with an adapter row carries a
 ``lora`` descriptor through which the segmented LoRA kernels apply each
 row's own delta.  Prefixes are registered per tenant namespace, and a
-dispatch without adapter rows runs no LoRA code at all.
+dispatch without adapter rows runs no LoRA code at all.  An MoE arch's
+tenants adapt the four attention projections only (its experts are routed
+per token); the stateful families' are refused.
+
+The dense and moe families hold KV only.  An MoE layer routes each token in
+the model call itself: a prefill chunk dispatches its tokens with a
+capacity computed for that chunk, so where experts overflow, the tokens a
+chunk drops depend on the chunking (as in the reference engine).
 
 Kernel planning (``plan_kernels=True``, the default) compiles the paged
 decode and prefill-chunk attention terms through ``repro_torch.pipeline`` on
@@ -463,8 +470,8 @@ class ServeEngine:
                 # the stateful families' layers read no LoRA factors: refuse
                 # rather than serve the base model's tokens under a tenant
                 self._reject(req, f"LoRA adapters are served for the dense "
-                             f"family only, not {self.cfg.family!r} (see "
-                             f"ROADMAP)")
+                             f"family only (and moe's attention), not "
+                             f"{self.cfg.family!r} (see ROADMAP)")
                 return
             if not self.adapters.known(req.adapter_id):
                 self._reject(req, f"unknown adapter {req.adapter_id!r}")

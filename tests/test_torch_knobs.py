@@ -96,3 +96,42 @@ def test_attn_chunk_is_honoured(monkeypatch, causal, off):
                    causal=causal, q_offset=off)
     np.testing.assert_allclose(chunked.numpy(), np.asarray(want), rtol=0,
                                atol=2e-5)
+
+
+@pytest.mark.parametrize("mode", [None, "gather", "dispatch"])
+def test_moe_decode_knob_picks_the_decode_path(monkeypatch, mode):
+    """REPRO_MOE_DECODE (gather by default, as in the reference) is read
+    at each MoE layer of a decode step: the layers of reduced olmoe run
+    the path it names and never the other; prefill dispatches either way."""
+    from repro_torch.models import moe
+    cfg = reduced_config(get_config("olmoe-1b-7b"))
+    fns = build_model(cfg, "cpu")
+    params = fns.init(0)
+    if mode is None:
+        monkeypatch.delenv("REPRO_MOE_DECODE", raising=False)
+    else:
+        monkeypatch.setenv("REPRO_MOE_DECODE", mode)
+    assert perf().moe_decode == (mode or "gather")
+    calls = {"gather": 0, "dispatch": 0, "prefill": 0}
+    for name, fn in (("gather", "apply_moe_decode"),
+                     ("dispatch", "apply_moe_decode_dispatch"),
+                     ("prefill", "apply_moe")):
+        real = getattr(moe, fn)
+        monkeypatch.setattr(moe, fn, lambda *a, _n=name, _f=real: (
+            calls.__setitem__(_n, calls[_n] + 1), _f(*a))[1])
+    cache, _ = fns.prefill(params, {"tokens": torch.tensor([[3, 5, 7]])})
+    big = fns.make_cache(1, 8)
+    for k in ("k", "v"):
+        big[k][:, :, :3] = cache[k]
+    fns.decode_step(params, big, {"token": torch.tensor([[9]]),
+                                  "cur_len": 3})
+    n = cfg.n_layers
+    want = {"gather": 0, "dispatch": 0, "prefill": n}
+    want[mode or "gather"] = n
+    assert calls == want
+
+
+def test_moe_decode_bad_value_raises(monkeypatch):
+    monkeypatch.setenv("REPRO_MOE_DECODE", "all_to_all")
+    with pytest.raises(ValueError, match="REPRO_MOE_DECODE"):
+        perf()

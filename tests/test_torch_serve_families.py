@@ -2,7 +2,10 @@
 ``tests/test_serve_families.py``): the ssm (falcon-mamba-7b) and hybrid
 (zamba2-2.7b) reduced configs through the SAME ``ServeEngine``, each run
 token-identical to the family's dense ``prefill`` + ``decode_step`` oracle
-over greedy and sampled decoding, with chunked prefill on and off, and
+over greedy and sampled decoding, with chunked prefill on and off (as is
+the moe family, olmoe-1b-7b, at a capacity factor where no token drops:
+expert capacity is per call, so at its native factor chunking changes
+which tokens drop), and
 across a forced preemption-by-swap that parks the recurrent state on the
 StateSlab's host tier mid-generation; and the cross-framework gate: greedy
 tokens equal the JAX engine's on the same bridged weights."""
@@ -16,6 +19,11 @@ from repro_torch.serve.engine import Request, SamplingParams, ServeEngine
 torch.set_num_threads(1)
 
 FAMILY_ARCHS = {"ssm": "falcon-mamba-7b", "hybrid": "zamba2-2.7b"}
+# the families held to their dense oracle: the stateful ones and moe
+ORACLE_ARCHS = dict(FAMILY_ARCHS, moe="olmoe-1b-7b")
+# a capacity factor at which no token of these prompts drops (capacity >=
+# tokens: factor >= n_experts), as tests/test_models_smoke.py uses
+MOE_NO_DROP = 16.0
 MAX_LEN = 48
 BLOCK_SIZE = 8
 
@@ -23,8 +31,14 @@ BLOCK_SIZE = 8
 @pytest.fixture(scope="module")
 def zoo():
     """(JAX cfg, port cfg, JAX params, port params) per family, on the same
-    weights."""
-    return {fam: bridged_params(arch) for fam, arch in FAMILY_ARCHS.items()}
+    weights; moe's configs at the no-drop factor."""
+    import dataclasses
+    out = {fam: bridged_params(arch) for fam, arch in ORACLE_ARCHS.items()}
+    out["moe"] = tuple(
+        dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, capacity_factor=MOE_NO_DROP)) if i < 2 else c
+        for i, c in enumerate(out["moe"]))
+    return out
 
 
 def _oracle(cfg, params, req):
@@ -33,11 +47,11 @@ def _oracle(cfg, params, req):
     from repro_torch.models import build_model
     fns = build_model(cfg, "cpu")
     cache, logits = fns.prefill(params, {"tokens": torch.tensor([req.prompt])})
-    if cfg.family == "hybrid":
+    if cfg.family in ("hybrid", "moe"):
         big = fns.make_cache(1, MAX_LEN)
         for k in ("k", "v"):
             big[k][:, :, :len(req.prompt)] = cache[k]
-        cache = dict(big, ssm=cache["ssm"])
+        cache = dict(big, ssm=cache["ssm"]) if "ssm" in cache else big
     out = [ServeEngine._sample(logits[0].numpy(), req.sampling, 0)]
     cur = len(req.prompt)
     for _ in range(req.max_new - 1):
@@ -69,7 +83,7 @@ def _run_checked(eng):
     return list(eng.finished)
 
 
-@pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
+@pytest.mark.parametrize("family", sorted(ORACLE_ARCHS))
 @pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
 @pytest.mark.parametrize("chunked", [False, True],
                          ids=["whole-prompt", "chunked-prefill"])
@@ -78,13 +92,17 @@ def test_family_matches_dense_oracle(zoo, family, sampled, chunked):
     the paged engine is token-identical to the dense oracle in every cell;
     the chunk size is rounded up to the scan granule for stateful
     families.  A drained engine holds no slab slot, and the attention-free
-    family never allocates a KV block."""
+    family never allocates a KV block.  The moe family (no slab, prefix
+    sharing on) is held at its no-drop factor."""
     _, cfg, _, params = zoo[family]
     eng = ServeEngine(cfg, params, max_batch=2, max_len=MAX_LEN,
                       block_size=BLOCK_SIZE, fault_injector=False,
                       prefill_chunk_tokens=4 if chunked else MAX_LEN)
-    assert eng.prefill_chunk_tokens % cfg.ssm.chunk == 0
-    assert eng.store.prefix_cache_blocks == 0
+    if family == "moe":
+        assert eng.state_store is None
+    else:
+        assert eng.prefill_chunk_tokens % cfg.ssm.chunk == 0
+        assert eng.store.prefix_cache_blocks == 0
     reqs = _requests(cfg, sampled)
     for r in reqs:
         eng.submit(r)
@@ -92,6 +110,9 @@ def test_family_matches_dense_oracle(zoo, family, sampled, chunked):
     for r in reqs:
         assert r.out == _oracle(cfg, params, r), \
             f"{family} rid={r.rid} diverged from its dense oracle"
+    if family == "moe":
+        assert eng.pool.peak_used > 0
+        return
     assert eng.state_store.device.pool.num_used == 0
     assert eng.state_store.device.pool.peak_used >= 1
     if family == "ssm":
