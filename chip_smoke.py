@@ -267,6 +267,38 @@ Phases, each printing JSON objects one per line:
               f32, loss and every leaf (the routers' reported apart)
               against the CPU within 1e-4 / 1e-3, then a bitwise restart
               (6 steps, the failure at step 5).
+13. encdec, vlm — the families the paged engine refuses (as the
+              reference's does), through ``launch.steps``' prefill and
+              decode step builders over a dense cache.  whisper_serve:
+              whisper-small (12 + 12 layers, d 768, vocab 51,865) in bf16,
+              8 requests of 1,500 stub frames, a 4-token prompt and 64
+              greedy new tokens, the prefill cache placed into a
+              ``make_encdec_cache(8, 1500)``: K3 36 and K2 62 launches a
+              prefill call, 0 and 37 a decode step, every 8th step's
+              logits within 5e-2 of a fresh prefill's; whisper_oracle: 2 +
+              2 layers f32, card against CPU, prefill and 8 decode steps
+              within 1e-3.  train_whisper: ``Trainer`` at B 8 x S 448
+              (frames and tokens), f32 moments, 5 steps, losses falling,
+              72 / 36 K3 and 122 / 62 K2 a step; then at 2 + 2 layers the
+              loss and every leaf against the CPU (1e-4 / 1e-3) and a
+              bitwise restart.  vlm_serve: qwen2-vl-72b at full width and
+              16 of its 80 layers (33.1 GB), two batches of 8 requests, an
+              image of 16 x 16 patch embeddings with distinct (t, h, w)
+              M-RoPE streams then 256 or 768 text positions, 32 greedy
+              tokens fed back as embedding rows: K2 33 launches a model
+              call and nothing else, every 8th step against a fresh
+              prefill within 5e-2.  train_vlm: 2 layers at full width
+              (4.25 B parameters, f32 moments: 51.0 GB reckoned), B 8 x S
+              512, 5 steps at a peak rate of 3e-5, K3 4 / 2 and K2 9 / 5 a
+              step, losses falling;
+              then one remat loss and backward at distinct streams (the
+              same launches, a finite loss unlike the equal streams').
+              The kernel rows gain K3 at whisper's training shape (12
+              over 12 heads, S 448, hd 64, causal and not), its
+              encoder's serve shape (1,500 frames, forward), the
+              cross-attention's 4 and 448 queries over 1,500 frames
+              (gate-only) and qwen2-vl's (64 over 8 heads, S 512), and
+              K2 at 768 and 8,192 (forward and backward).
 
 Then a ``{"kernels": [...]}`` summary line (each row's launches from the
 main path that gives its shape, named in its ``path``), nvidia-smi's line, and, last,
@@ -718,24 +750,30 @@ def _check_paged_attention(torch, results, path, h, kv, hd):
 # norm over d_inner (5,120); then qwen3-0.6b's training step (B 8 x S 512
 # rows at 1,024, times 16 query heads and 8 key heads at 128); olmoe's
 # norms (2,048); llama4-maverick's at its decode step (4 rows of 5,120; its
-# chunk rows are zamba2's); and the main path that gives each.  The q/k
+# chunk rows are zamba2's); whisper-small's (768) at a decode step of 8
+# and over its encoder's 8 x 1,500 frames; qwen2-vl-72b's (8,192) at a
+# decode step of 8 and at its training step (B 8 x S 512); and the main
+# path that gives each.  The q/k
 # norms at 128 run as a pair on every path (``RMSNORM_PAIR_SHAPES``), so
 # their single rows are gate-only (path None)
 RMSNORM_SHAPES = ((8, 1024), (256, 1024), (8 * 16, 128), (256 * 16, 128),
                   (8, 4096), (256, 4096), (8, 2560), (256, 2560),
                   (8, 5120), (256, 5120), (4096, 1024), (4096 * 16, 128),
-                  (4096 * 8, 128), (8, 2048), (256, 2048), (4, 5120))
+                  (4096 * 8, 128), (8, 2048), (256, 2048), (4, 5120),
+                  (8, 768), (8 * 1500, 768), (8, 8192), (4096, 8192))
 RMSNORM_PATH = {1024: "serve", 128: None, 4096: "ssm_serve",
                 2560: "hybrid_serve", 5120: "hybrid_serve",
-                2048: "moe_serve"}
+                2048: "moe_serve", 768: "whisper_serve", 8192: "vlm_serve"}
 RMSNORM_TRAIN_SHAPES = ((4096, 1024), (4096 * 16, 128), (4096 * 8, 128))
+# rows whose path is not their width's
+RMSNORM_ROW_PATH = {(4, 5120): "llama4_layer", (4096, 8192): "train_vlm"}
 
 
 def rmsnorm_path(rows, d):
     if d == 128:
         return None
-    if (rows, d) == (4, 5120):
-        return "llama4_layer"
+    if (rows, d) in RMSNORM_ROW_PATH:
+        return RMSNORM_ROW_PATH[rows, d]
     return "train" if (rows, d) in RMSNORM_TRAIN_SHAPES else RMSNORM_PATH[d]
 
 
@@ -1798,9 +1836,31 @@ FLASH_HYBRID_TRAIN = (8 * 32, 8 * 32, 512, 512, 80, True, 0)
 # olmoe-1b-7b's training step: B 8 x 16 heads over 16, S 512, head_dim 128,
 # causal (timed, the train_moe path)
 FLASH_MOE_TRAIN = (8 * 16, 8 * 16, 512, 512, 128, True, 0)
-FLASH_TIMED = (("train", FLASH_TRAIN), ("train_hybrid", FLASH_HYBRID_TRAIN),
-               ("train_moe", FLASH_MOE_TRAIN))
+# whisper-small's training step (B 8 x 12 heads over 12, S 448 frames and
+# tokens, head_dim 64): the decoder's causal self-attention, and the
+# encoder's and the cross-attention's non-causal attention (Sq = Skv =
+# 448 when frames and tokens are both 448 long); its serve path's encoder
+# over 8 x 1,500 frames (forward only: serving has no backward); and
+# qwen2-vl-72b's training step (B 8 x 64 heads over 8, S 512, head_dim
+# 128, causal)
+FLASH_WHISPER_CAUSAL = (8 * 12, 8 * 12, 448, 448, 64, True, 0)
+FLASH_WHISPER = (8 * 12, 8 * 12, 448, 448, 64, False, 0)
+FLASH_WHISPER_ENCODER = (8 * 12, 8 * 12, 1500, 1500, 64, False, 0)
+FLASH_VLM_TRAIN = (8 * 64, 8 * 8, 512, 512, 128, True, 0)
+# (path, shape, whether the path runs the backward)
+FLASH_TIMED = (("train", FLASH_TRAIN, True),
+               ("train_hybrid", FLASH_HYBRID_TRAIN, True),
+               ("train_moe", FLASH_MOE_TRAIN, True),
+               ("train_whisper", FLASH_WHISPER_CAUSAL, True),
+               ("train_whisper", FLASH_WHISPER, True),
+               ("whisper_serve", FLASH_WHISPER_ENCODER, False),
+               ("train_vlm", FLASH_VLM_TRAIN, True))
+# gate-only: whisper's cross-attention at serve time, the prompt's 4 and a
+# training length's 448 queries over 1,500 frames (Sq != Skv, non-causal,
+# 1,500 not a multiple of the 64-key tile)
 FLASH_GATES = (("non_causal", 32, 16, 512, 512, 128, False, 0),
+               ("cross_4x1500", 8 * 12, 8 * 12, 4, 1500, 64, False, 0),
+               ("cross_448x1500", 8 * 12, 8 * 12, 448, 1500, 64, False, 0),
                ("q_offset", 32, 16, 128, 640, 128, True, 512),
                ("ragged", 32, 16, 300, 300, 128, True, 0),
                ("head_dim_256", 8, 8, 200, 200, 256, True, 0),
@@ -1983,17 +2043,22 @@ def grad_witness(torch, q, k, v, do, o, lse, causal, off):
 
 
 def check_flash_attention(torch, results):
-    """K3 at the training shapes (qwen3-0.6b's and zamba2-2.7b's shared
-    block, f32 and bf16, timed) and at the gate-only shapes.  Times: kernel and plain version from graph replay, the wrapper
-    eagerly; the library yardstick is SDPA (causal) on the same tensors
+    """K3 at the training shapes (qwen3-0.6b's, zamba2-2.7b's shared
+    block, olmoe-1b-7b's, whisper-small's causal and non-causal and
+    qwen2-vl-72b's, f32 and bf16, timed), at whisper's encoder over 1,500
+    frames (the serve path's forward; its backward gated, untimed) and at
+    the gate-only shapes.  Times: kernel and plain version from graph
+    replay, the wrapper eagerly; the library yardstick is SDPA (causal as
+    the row is) on the same tensors
     viewed as (B, H, S, hd) and (B, KV, S, hd) with ``enable_gqa`` (or,
     where this torch lacks it, on K/V repeated to every head before the
     timed call), its forward and its forward + backward (``autograd.grad``
     of a fresh forward) from graph replay, the backward alone their
     difference.  Bound: q and o at the query heads, k and v at the KV heads
     (and lse) moved once over 3.35 TB/s forward; q, o, dO, dQ, k, v, dK,
-    dV and lse backward; against 4 hd flops per visible (query, key) pair
-    forward, 10 hd backward (S recomputed, dP, dV, dK, dQ), at the type's
+    dV and lse backward; against 4 hd flops per (query, key) pair the mask
+    leaves visible (all Sq x Skv where the row is not causal) forward, 10
+    hd backward (S recomputed, dP, dV, dK, dQ), at the type's
     peak.  Each row carries ``sass_mma``: the tensor-core instructions in
     its dtype's kernels (bf16 must have them; f32 must not, or it would be
     TF32)."""
@@ -2007,11 +2072,14 @@ def check_flash_attention(torch, results):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         esize = torch.finfo(dtype).bits // 8
-        for path, (bh, bkv, sq, skv, hd, causal, off) in FLASH_TIMED:
+        for path, (bh, bkv, sq, skv, hd, causal, off), backward \
+                in FLASH_TIMED:
             b, h, kvh = 8, bh // 8, bkv // 8
             (q, k, v, do, o, lse), fwd, bwd = _flash_case(
                 torch, path, dtype, bh, bkv, sq, skv, hd, causal, off, gen)
-            pairs = bh * sum(min(skv, off + i + 1) for i in range(sq))
+            # (query, key) pairs the mask leaves visible
+            pairs = bh * (sum(min(skv, off + i + 1) for i in range(sq))
+                          if causal else sq * skv)
             nq, nkv = bh * sq * hd, bkv * skv * hd
             f_bound, f_by = bound((2 * nq + 2 * nkv) * esize + bh * sq * 4,
                                   4.0 * hd * pairs, dname)
@@ -2026,17 +2094,9 @@ def check_flash_attention(torch, results):
                       for x in (k, v))
             ql, kl, vl = (x.detach().clone().requires_grad_()
                           for x in (q4, k4, v4))
-            lib_fwd_grad = graph_ms(lambda: F.scaled_dot_product_attention(
-                ql, kl, vl, is_causal=True, **extra), reps=5)
-            lib_fwd_bwd = graph_ms(lambda: torch.autograd.grad(
-                F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                               **extra),
-                (ql, kl, vl), do4), reps=5)
             library = "SDPA enable_gqa" if gqa else "SDPA on K/V repeated"
             fwd_ms = graph_ms(lambda: k3.flash_attention_kernel(
                 q, k, v, causal, off))
-            bwd_ms = graph_ms(lambda: k3.flash_attention_bwd_kernel(
-                q, k, v, o, lse, do, causal, off), reps=5)
             fwd.update(
                 path=path, kernel_ms=fwd_ms,
                 host_ms=host_ms(lambda: k3.flash_attention_kernel(
@@ -2044,8 +2104,23 @@ def check_flash_attention(torch, results):
                 plain_ms=graph_ms(lambda: ref.flash_attention_ref(
                     q, k, v, causal, off), reps=2),
                 library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=True, **extra)), library=library,
-                bound_ms=f_bound, bound_by=f_by, flops=4.0 * hd * pairs)
+                    q4, k4, v4, is_causal=causal, **extra)),
+                library=library, bound_ms=f_bound, bound_by=f_by,
+                flops=4.0 * hd * pairs)
+            results.append(fwd)
+            if not backward:
+                # gated, untimed: the path runs the forward alone
+                results.append(dict(bwd, path=None))
+                del q, k, v, do, o, lse, ql, kl, vl, q4, k4, v4, do4
+                continue
+            lib_fwd_grad = graph_ms(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, is_causal=causal, **extra), reps=5)
+            lib_fwd_bwd = graph_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                               **extra),
+                (ql, kl, vl), do4), reps=5)
+            bwd_ms = graph_ms(lambda: k3.flash_attention_bwd_kernel(
+                q, k, v, o, lse, do, causal, off), reps=5)
             bwd.update(
                 path=path, kernel_ms=bwd_ms,
                 fwd_plus_bwd_ms=fwd_ms + bwd_ms,
@@ -2056,7 +2131,7 @@ def check_flash_attention(torch, results):
                 library_ms=lib_fwd_bwd - lib_fwd_grad,
                 library_fwd_bwd_ms=lib_fwd_bwd, library=library,
                 bound_ms=b_bound, bound_by=b_by, flops=10.0 * hd * pairs)
-            results.extend([fwd, bwd])
+            results.append(bwd)
             del q, k, v, do, o, lse, ql, kl, vl, q4, k4, v4, do4
         for name, *shape in FLASH_GATES:
             _, fwd, bwd = _flash_case(torch, name, dtype, *shape, gen)
@@ -2077,11 +2152,15 @@ def check_flash_attention(torch, results):
 # train path runs the last two as one pair (``_check_rmsnorm_pair_grad``);
 # then falcon-mamba-7b's layer norms (4,096 x 4,096, train_ssm) and
 # zamba2-2.7b's (4,096 x 2,560) and gated norms (4,096 x 5,120,
-# train_hybrid), and olmoe-1b-7b's layer norms (4,096 x 2,048, train_moe)
+# train_hybrid), olmoe-1b-7b's layer norms (4,096 x 2,048, train_moe),
+# whisper-small's (B 8 x S 448 rows of 768, train_whisper) and
+# qwen2-vl-72b's (4,096 x 8,192, train_vlm)
 RMSNORM_GRAD_SHAPES = RMSNORM_TRAIN_SHAPES + ((4096, 4096), (4096, 2560),
-                                              (4096, 5120), (4096, 2048))
+                                              (4096, 5120), (4096, 2048),
+                                              (8 * 448, 768), (4096, 8192))
 RMSNORM_GRAD_PATH = {4096: "train_ssm", 2560: "train_hybrid",
-                     5120: "train_hybrid", 2048: "train_moe"}
+                     5120: "train_hybrid", 2048: "train_moe",
+                     768: "train_whisper", 8192: "train_vlm"}
 
 
 def check_rmsnorm_grad(torch, results, info):
@@ -3405,12 +3484,12 @@ TRAIN_STEPS = 10
 TRAIN_LR = 3e-4
 
 
-def _trainer(cfg, steps, opt_state="f32", **kw):
+def _trainer(cfg, steps, opt_state="f32", seq_len=512, lr=TRAIN_LR, **kw):
     from repro_torch.launch.train import opt_config
     from repro_torch.train.trainer import Trainer, TrainerConfig
-    tcfg = TrainerConfig(seq_len=512, global_batch=8, steps=steps,
+    tcfg = TrainerConfig(seq_len=seq_len, global_batch=8, steps=steps,
                          log_every=1, **kw)
-    return Trainer(cfg, tcfg, opt_config(TRAIN_LR, steps, opt_state),
+    return Trainer(cfg, tcfg, opt_config(lr, steps, opt_state),
                    device=DEV)
 
 
@@ -3502,23 +3581,33 @@ def train_remat_phase(torch, cfg, steps=4):
     assert runs["dots"]["losses"] == runs["nothing"]["losses"], runs
 
 
+def at_depth(cfg, n_layers):
+    """``cfg`` cut to ``n_layers`` layers (an encoder-decoder: that many
+    encoder layers and that many decoder layers), widths kept."""
+    kw = {"n_layers": n_layers}
+    if cfg.encdec is not None:
+        kw["encdec"] = dataclasses.replace(cfg.encdec, n_enc_layers=n_layers)
+    return dataclasses.replace(cfg, **kw)
+
+
 def train_restart_phase(torch, cfg, n_layers=2, opt_state="f32",
-                        phase="train_restart", steps=8, fail_at=6):
+                        phase="train_restart", steps=8, fail_at=6,
+                        seq_len=512):
     """Checkpoint/restart on the card: ``n_layers`` layers at full width,
     bf16, ``steps`` steps checkpointed every 4 with a failure injected at
     step ``fail_at`` (restore step 4, replay); the final loss equals a
     clean run's bit for bit (the reference bounds the gap at 5e-3)."""
     import tempfile
-    cfg2 = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg2 = at_depth(cfg, n_layers)
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
-        res = _trainer(cfg2, steps, opt_state, workdir=d,
+        res = _trainer(cfg2, steps, opt_state, seq_len, workdir=d,
                        checkpoint_every=4).train(fail_at=fail_at)
         failed_s = time.perf_counter() - t0
         assert res["final_step"] == steps
         from repro_torch.train.checkpoint import list_checkpoints
         ckpts = [s for s, _ in list_checkpoints(d)]
-    clean = _trainer(cfg2, steps, opt_state).train()
+    clean = _trainer(cfg2, steps, opt_state, seq_len).train()
     gap = abs(res["log"][-1]["loss"] - clean["log"][-1]["loss"])
     emit({"phase": phase, "arch": cfg.name, "layers": n_layers,
           "opt_state": opt_state,
@@ -3542,7 +3631,9 @@ def _loss_and_grads(torch, cfg, params, batch, remat):
         ps, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
         remat=remat)
     loss.backward()
-    return float(loss), [p.grad.detach() for p in leaves(ps)]
+    # a leaf the loss does not reach (the VLM's token embedding) has zeros
+    return float(loss.detach()), [torch.zeros_like(p) if p.grad is None
+                         else p.grad.detach() for p in leaves(ps)]
 
 
 def train_oracle_phase(torch, cfg):
@@ -3686,9 +3777,11 @@ def stateful_train_launches(cfg) -> dict:
     a shared-block call (ln1, ln2) likewise, plus the final norm.  moe: as
     the dense train phase, K3 twice a layer and its backward once, K2's
     model call twice less the final norm and its backward once (olmoe: 32 /
-    16 and 97 / 49)."""
+    16 and 97 / 49); vlm likewise; audio: ``encdec_launches``."""
     n = cfg.n_layers
-    if cfg.family == "moe":
+    if cfg.family == "audio":
+        return encdec_launches(cfg)["train"]
+    if cfg.family in ("moe", "vlm"):
         return {"flash_attention": 2 * n, "flash_attention_bwd": n,
                 "rmsnorm": 2 * k2_per_model_call(cfg) - 1,
                 "rmsnorm_bwd": k2_per_model_call(cfg)}
@@ -3707,9 +3800,11 @@ def stateful_train_launches(cfg) -> dict:
 SSM_F32_LAYERS = 16
 
 
-def train_stateful_phase(torch, cfg, opt_state, f32_layers=SSM_F32_LAYERS):
-    """train_ssm / train_hybrid / train_moe: the full-width arch in bf16
-    through
+def train_stateful_phase(torch, cfg, opt_state, f32_layers=SSM_F32_LAYERS,
+                         seq_len=512, phase=None, lr=TRAIN_LR):
+    """train_ssm / train_hybrid / train_moe (and train_whisper at S 448,
+    train_vlm at 2 layers; ``phase`` names them): the full-width arch in
+    bf16 through
     ``Trainer`` (B 8 x S 512, AdamW as the train CLI builds it with the
     given moments, remat on), every count zeroed just before and read just
     after: finite losses, step seconds, tokens/s without step 0, peak
@@ -3724,7 +3819,7 @@ def train_stateful_phase(torch, cfg, opt_state, f32_layers=SSM_F32_LAYERS):
     the card for activations)."""
     from repro_torch.launch.train import state_bytes
     steps = TRAIN_STATEFUL_STEPS
-    trainer = _trainer(cfg, steps, opt_state)
+    trainer = _trainer(cfg, steps, opt_state, seq_len, lr)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -3742,24 +3837,24 @@ def train_stateful_phase(torch, cfg, opt_state, f32_layers=SSM_F32_LAYERS):
         launches
     secs = [e["sec"] for e in res["log"]]
     norms = [e["grad_norm"] for e in res["log"]]
-    toks = 8 * 512
+    toks = 8 * seq_len
     del trainer, res
     torch.cuda.empty_cache()
     f32_run = {}
     if opt_state != "f32":
-        cut = dataclasses.replace(cfg, n_layers=f32_layers)
+        cut = at_depth(cfg, f32_layers)
         torch.cuda.reset_peak_memory_stats()
-        res = _trainer(cut, steps).train()
+        res = _trainer(cut, steps, seq_len=seq_len, lr=lr).train()
         f32_run = {"f32_moments_run": {
             "layers": f32_layers, "losses": _losses(res, steps),
             "step_s": [e["sec"] for e in res["log"]],
             "peak_device_bytes": torch.cuda.max_memory_allocated()}}
         del res
         torch.cuda.empty_cache()
-    emit({"phase": f"train_{cfg.family}", "arch": cfg.name,
+    emit({"phase": phase or f"train_{cfg.family}", "arch": cfg.name,
           "dtype": cfg.dtype, "opt_state": opt_state,
-          "layers": cfg.n_layers, "batch": 8, "seq_len": 512,
-          "steps": steps, "losses": losses,
+          "layers": cfg.n_layers, "batch": 8, "seq_len": seq_len,
+          "steps": steps, "lr": lr, "losses": losses,
           "grad_norms": norms,
           "step_s": secs, "wall_s": wall,
           "tokens_per_s_after_step0": toks * (steps - 1) / sum(secs[1:]),
@@ -3779,7 +3874,8 @@ def _leaf_gaps(grads, want) -> list:
 
 
 def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state,
-                                witness=True, restart=(8, 6)):
+                                witness=True, restart=(8, 6), seq_len=512,
+                                phase=None):
     """``n_layers`` layers at full width (2 Mamba1 layers; 2 hybrid
     segments, 12 Mamba2 layers and 2 shared-block calls; 2 MoE layers),
     f32, B 2 x S 512:
@@ -3796,13 +3892,19 @@ def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state,
     this depth (PERF.md, Findings).  Without ``witness`` (moe) the limits
     are those two; the routers' leaves are reported apart.  Then a restart
     at that depth (bf16, the family's moments; ``restart`` = (steps, the
-    step that fails)) replays the clean run's final loss bit for bit."""
+    step that fails)) replays the clean run's final loss bit for bit.
+    ``phase`` names the lines (default ``train_<family>``); an
+    encoder-decoder is cut to ``n_layers`` encoder and decoder layers and
+    takes the pipeline's stub frames."""
     from repro_torch.models import build_model
     from repro_torch.train.data import TokenPipeline
-    cfg2 = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
+    phase = phase or f"train_{cfg.family}"
+    cfg2 = dataclasses.replace(at_depth(cfg, n_layers), dtype="float32")
     gpu = build_model(cfg2, DEV).init(0)
     params = _to(gpu, "cpu")
-    batch = TokenPipeline(cfg2.vocab, 512, 2, seed=5).batch_at(0)
+    batch = TokenPipeline(cfg2.vocab, seq_len, 2, seed=5,
+                          family=cfg2.family,
+                          d_model=cfg2.d_model).batch_at(0)
     t0 = time.perf_counter()
     cpu_loss, cpu_grads = _loss_and_grads(torch, cfg2, params, batch, False)
     cpu_s = time.perf_counter() - t0
@@ -3830,9 +3932,9 @@ def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state,
     worst = max(range(len(leaf_rel)), key=leaf_rel.__getitem__)
     names = leaf_names(params)
     routers = {n: r for n, r in zip(names, leaf_rel) if "router" in n}
-    emit({"phase": f"train_{cfg.family}_oracle", "arch": cfg.name,
+    emit({"phase": f"{phase}_oracle", "arch": cfg.name,
           "layers": n_layers, "dtype": "float32", "batch": 2,
-          "seq_len": 512, "loss": loss, "cpu_loss": cpu_loss,
+          "seq_len": seq_len, "loss": loss, "cpu_loss": cpu_loss,
           "loss_rel_err": loss_rel, "grad_leaves": len(grads),
           "grad_leaf_rel_err_max": max(leaf_rel), "worst_leaf": worst,
           "worst_leaf_name": names[worst], "witness": witness,
@@ -3845,8 +3947,9 @@ def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state,
     del gpu, params, grads, cpu_grads
     torch.cuda.empty_cache()
     train_restart_phase(torch, cfg, n_layers, opt_state,
-                        phase=f"train_{cfg.family}_restart",
-                        steps=restart[0], fail_at=restart[1])
+                        phase=f"{phase}_restart",
+                        steps=restart[0], fail_at=restart[1],
+                        seq_len=seq_len)
 
 
 # ---------------------------------------------------------------------------
@@ -4278,6 +4381,357 @@ def llama4_layer_phase(torch, cfg):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the encoder-decoder and the VLM stub frontend
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH, VLM_ARCH = "whisper-small", "qwen2-vl-72b"
+# whisper_serve: 8 requests of 1,500 stub frames (30 s of audio at
+# whisper's 50 frames a second), a 4-token prompt, 64 greedy new tokens
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_NEW = 8, 1500, 4, 64
+# train_whisper: B 8 x 448 frames and tokens (whisper's decoder context)
+WHISPER_TRAIN_SEQ = 448
+# vlm_serve: 16 of qwen2-vl-72b's 80 layers at full width (33.1 GB of bf16
+# weights; 80 would need 145 GB), two batches of 8 requests, each an image
+# of 16 x 16 patch embeddings then 256 or 768 text positions, 32 greedy
+# new tokens fed back as their embedding rows
+VLM_LAYERS, VLM_BATCH, VLM_GRID, VLM_TEXT, VLM_NEW = 16, 8, 16, (256, 768), 32
+# train_vlm: 2 layers at full width, f32 moments when its reckoned state
+# (weights, gradients and moments) fits under this many bytes, else int8;
+# a peak rate of 3e-5: at d 8192 an Adam step of 3e-4 on every weight (the
+# rate the narrower archs train at) sent the loss from 11.41 to 34.12 at
+# the second update on an NVIDIA H100 80GB HBM3 (PERF.md, Findings)
+VLM_TRAIN_LAYERS, VLM_STATE_LIMIT, VLM_TRAIN_LR = 2, 70e9, 3e-5
+# the decode gates: every GATE_EVERY-th step against a fresh prefill
+GATE_EVERY = 8
+
+
+def encdec_launches(cfg) -> dict:
+    """K3 and K2 launches of one encoder-decoder prefill call, decode step
+    and remat train step: K3 on each encoder layer's attention and each
+    decoder layer's self- and cross-attention (a decode step attends in
+    plain PyTorch); K2 on two norms an encoder layer, three a decoder
+    layer, and the encoder's and the decoder's final norms; the remat step
+    runs each layer's forward twice and each norm's backward once (whisper
+    at 12 + 12 layers: 36 / 62 a prefill, 0 / 37 a decode step, 72 / 36 K3
+    and 122 / 62 K2 a train step)."""
+    ne, nd = cfg.encdec.n_enc_layers, cfg.n_layers
+    attn, norms = ne + 2 * nd, 2 * ne + 3 * nd
+    return {"prefill": {"flash_attention": attn, "rmsnorm": norms + 2},
+            "decode": {"flash_attention": 0, "rmsnorm": 3 * nd + 1},
+            "train": {"flash_attention": 2 * attn,
+                      "flash_attention_bwd": attn,
+                      "rmsnorm": 2 * norms + 2, "rmsnorm_bwd": norms + 2}}
+
+
+def place_cache(small: dict, big: dict) -> dict:
+    """A prefill cache written into the front of an empty larger one, each
+    tensor along the axis where the two differ (the reference tests'
+    ``_embed_cache``); tensors of equal shape (``enc_len``) are taken from
+    the prefill."""
+    for k, s in small.items():
+        b = big[k]
+        if s.shape == b.shape:
+            big[k] = s
+            continue
+        ax = next(i for i in range(s.dim()) if s.shape[i] != b.shape[i])
+        b.narrow(ax, 0, s.shape[ax]).copy_(s)
+    return big
+
+
+def _only(launches, want) -> None:
+    """``launches`` are ``want``'s, and every other counter is 0."""
+    got = {k: launches[k] for k in want}
+    assert got == want, (got, want)
+    assert all(v == 0 for k, v in launches.items() if k not in want), \
+        launches
+
+
+def greedy_decode(torch, prefill, decode, params, first, cache, steps,
+                  step_batch, gate_batch):
+    """``steps`` greedy decode steps from a prefill's logits ``first``:
+    ``step_batch(i, tok)`` makes step i's batch from the token fed,
+    ``gate_batch(toks)`` a fresh prefill's batch of everything fed so far.
+    Each step's launches are counted (the gates' are not); every
+    ``GATE_EVERY``-th step's logits are held, after the loop, to a fresh
+    prefill's last position.  Returns (tokens (B, steps), decode seconds,
+    the decode loop's launches, each gate's relative gap, greedy agreement
+    at the gates)."""
+    tok = first.float().argmax(-1, keepdim=True)
+    toks, held, secs = [], [], 0.0
+    zero_counts()
+    for i in range(steps):
+        toks.append(tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, logits = decode(params, cache, step_batch(i, tok))
+        tok = logits.float().argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        secs += time.perf_counter() - t0
+        if (i + 1) % GATE_EVERY == 0:
+            held.append((i + 1, logits))
+    launches = read_counts()
+    gaps, agree = [], []
+    for n, logits in held:
+        _, want = prefill(params, gate_batch(torch.cat(toks[:n], dim=1)))
+        gaps.append(rel_err(logits, want)[1])
+        agree.append(float((logits.float().argmax(-1)
+                            == want.float().argmax(-1)).float().mean()))
+    return torch.cat(toks, dim=1), secs, launches, gaps, agree
+
+
+def whisper_serve_phase(torch, cfg):
+    """whisper_serve: full whisper-small (12 + 12 layers, d 768, vocab
+    51,865) in bf16 through ``make_prefill_step`` / ``make_decode_step``
+    (the reference serves its encoder-decoder so; its paged engine refuses
+    it): 8 requests of 1,500 seeded f32 stub frames (cast to bf16 at the
+    encoder's entry), a 4-token prompt and 64 greedy new tokens; the
+    prefill cache placed into a ``make_encdec_cache(8, 1500)`` cache.
+    Every count zeroed just before and read just after each part: K3 and
+    K2 exactly ``encdec_launches`` a prefill call and a decode step; every
+    8th decode step's logits within 5e-2 of max|ref| of a fresh prefill of
+    the same tokens.  Decode tokens/s, encode + prefill ms, peak memory."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.train.tree import leaves
+    fns = build_model(cfg, DEV)
+    t0 = time.perf_counter()
+    params = fns.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prefill = make_prefill_step(cfg, DEV)
+    decode = make_decode_step(cfg, DEV)
+    b = WHISPER_BATCH
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    frames = 0.1 * torch.randn((b, WHISPER_FRAMES, cfg.d_model),
+                               generator=gen, device=DEV)
+    prompt = torch.randint(1, cfg.vocab, (b, WHISPER_PROMPT), generator=gen,
+                           device=DEV)
+    want = encdec_launches(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    small, first = prefill(params, {"frames": frames, "tokens": prompt})
+    cache = place_cache(small, fns.make_cache(b, WHISPER_FRAMES))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre = read_counts()
+    _only(pre, {k: want["prefill"][k] for k in ("flash_attention",
+                                                "rmsnorm")})
+    del small
+    toks, secs, dec, gaps, agree = greedy_decode(
+        torch, prefill, decode, params, first, cache, WHISPER_NEW,
+        lambda i, tok: {"token": tok, "cur_len": WHISPER_PROMPT + i},
+        lambda fed: {"frames": frames,
+                     "tokens": torch.cat([prompt, fed], dim=1)})
+    peak = torch.cuda.max_memory_allocated()
+    _only(dec, {"rmsnorm": want["decode"]["rmsnorm"] * WHISPER_NEW})
+    emit({"phase": "whisper_serve", "arch": cfg.name, "dtype": cfg.dtype,
+          "enc_layers": cfg.encdec.n_enc_layers, "dec_layers": cfg.n_layers,
+          "requests": b, "frames": WHISPER_FRAMES,
+          "prompt_tokens": WHISPER_PROMPT, "new_tokens": WHISPER_NEW,
+          "init_s": init_s, "param_bytes": sum(
+              t.numel() * t.element_size() for t in leaves(params)),
+          "encode_prefill_ms": prefill_s * 1e3,
+          "decode_s": secs, "decode_tokens_per_s": b * WHISPER_NEW / secs,
+          "peak_device_bytes": peak,
+          "k3_launches_per_prefill": pre["flash_attention"],
+          "k2_launches_per_prefill": pre["rmsnorm"],
+          "k2_launches_per_decode_step": dec["rmsnorm"] / WHISPER_NEW,
+          "gate_steps": list(range(GATE_EVERY, WHISPER_NEW + 1, GATE_EVERY)),
+          "decode_vs_prefill_rel_gap": gaps, "greedy_agreement": agree,
+          "tol": BF16_ORACLE_TOL, "first_tokens": toks[0, :8].tolist()})
+    assert max(gaps) <= BF16_ORACLE_TOL, gaps
+    del params, cache, frames
+    torch.cuda.empty_cache()
+    return {k: pre[k] + dec[k] for k in pre}
+
+
+def whisper_oracle_phase(torch, cfg, n_layers=2, steps=8):
+    """whisper_oracle: 2 + 2 layers at full width, f32, the same weights
+    on the card and on the CPU: 2 requests of 1,500 stub frames and a
+    4-token prompt prefilled (K3 and K2 on the card, their plain versions
+    on the CPU) into a padded cache, then 8 decode steps fed the card's
+    greedy tokens: every step's logits within 1e-3 of max|ref|."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    cfg2 = dataclasses.replace(at_depth(cfg, n_layers), dtype="float32")
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    frames = 0.1 * torch.randn((2, WHISPER_FRAMES, cfg.d_model),
+                               generator=gen)
+    prompt = torch.randint(1, cfg.vocab, (2, WHISPER_PROMPT), generator=gen)
+    gpu = build_model(cfg2, DEV).init(0)
+    sides = {DEV: gpu, "cpu": _to(gpu, "cpu")}
+    logits = {}
+    fed = []
+    for dev, params in sides.items():
+        fns = build_model(cfg2, dev)
+        prefill = make_prefill_step(cfg2, dev)
+        decode = make_decode_step(cfg2, dev)
+        small, out = prefill(params, {"frames": frames.to(dev),
+                                      "tokens": prompt.to(dev)})
+        cache = place_cache(small, fns.make_cache(2, WHISPER_FRAMES))
+        logits[dev] = [out.cpu()]
+        for i in range(steps):
+            if dev == DEV:
+                fed.append(out.float().argmax(-1, keepdim=True).cpu())
+            cache, out = decode(params, cache, {
+                "token": fed[i].to(dev), "cur_len": WHISPER_PROMPT + i})
+            logits[dev].append(out.cpu())
+    gaps = [rel_err(g, c)[1] for g, c in zip(logits[DEV], logits["cpu"])]
+    emit({"phase": "whisper_oracle", "arch": cfg.name, "layers": n_layers,
+          "dtype": "float32", "requests": 2, "frames": WHISPER_FRAMES,
+          "decode_steps": steps, "max_rel_gap": max(gaps),
+          "rel_gaps": gaps, "tol": 1e-3})
+    assert max(gaps) <= 1e-3, gaps
+    del gpu, sides
+    torch.cuda.empty_cache()
+
+
+def vlm_positions(torch, b: int, grid: int, text: int, start: int = 0):
+    """(3, b, grid² + text) int32 M-RoPE streams of an image then text, as
+    qwen2-vl places them: the patches at t = start, h = start + row,
+    w = start + column; the text from start + grid on, the three streams
+    equal."""
+    n = torch.arange(grid * grid, device=DEV)
+    img = torch.stack([torch.zeros_like(n), n // grid, n % grid])
+    txt = (grid + torch.arange(text, device=DEV)).expand(3, text)
+    pos = (torch.cat([img, txt], dim=1) + start).to(torch.int32)
+    return pos[:, None].expand(3, b, pos.shape[1]).contiguous()
+
+
+def vlm_serve_phase(torch, cfg):
+    """vlm_serve: qwen2-vl-72b at full width (d 8192, 64/8 heads, d_ff
+    29,568, vocab 152,064) and 16 of its 80 layers, bf16, through
+    ``make_prefill_step`` / ``make_decode_step`` (the dense oracle's plain
+    attention: the reference's engine refuses the VLM frontend, and so does
+    the port's): two batches of 8 requests, each 256 seeded f32 patch
+    embeddings on a 16 x 16 grid with distinct (t, h, w) streams, then 256
+    (first batch) or 768 (second) text positions (the text's embedding
+    rows), then 32 greedy new tokens fed back as their embedding rows at
+    M-RoPE positions that run behind the cache index.  Gates: K2 33
+    launches a model call (two a layer and the final norm; no other
+    kernel), every 8th decode step within 5e-2 of max|ref| of a fresh
+    prefill.  Decode tokens/s, prefill ms, peak memory."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.train.tree import leaves
+    cfg = dataclasses.replace(cfg, n_layers=VLM_LAYERS)
+    fns = build_model(cfg, DEV)
+    t0 = time.perf_counter()
+    params = fns.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    emb = params["embed"]["embed"]
+    prefill = make_prefill_step(cfg, DEV)
+    decode = make_decode_step(cfg, DEV)
+    b, patches = VLM_BATCH, VLM_GRID * VLM_GRID
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    per_call = k2_per_model_call(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    batches, total = [], {}
+    for text in VLM_TEXT:
+        s = patches + text
+        image = 0.02 * torch.randn((b, patches, cfg.d_model), generator=gen,
+                                   device=DEV)
+        words = torch.randint(1, cfg.vocab, (b, text), generator=gen,
+                              device=DEV)
+        embeds = torch.cat([image, emb[words].float()], dim=1)
+        pos = vlm_positions(torch, b, VLM_GRID, text + VLM_NEW)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        small, first = prefill(params, {"embeds": embeds,
+                                        "positions": pos[:, :, :s]})
+        cache = place_cache(small, fns.make_cache(b, s + VLM_NEW))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre = read_counts()
+        _only(pre, {"rmsnorm": per_call})
+        del small
+        toks, secs, dec, gaps, agree = greedy_decode(
+            torch, prefill, decode, params, first, cache, VLM_NEW,
+            lambda i, tok, s=s: {"embeds": emb[tok], "cur_len": s + i,
+                                 "positions": pos[:, :, s + i:s + i + 1]},
+            lambda fed, s=s, e=embeds: {
+                "embeds": torch.cat([e, emb[fed].float()], dim=1),
+                "positions": pos[:, :, :s + fed.shape[1]]})
+        _only(dec, {"rmsnorm": per_call * VLM_NEW})
+        assert int(pos[0, 0, s]) == VLM_GRID + text < s
+        for k in pre:
+            total[k] = total.get(k, 0) + pre[k] + dec[k]
+        batches.append({
+            "text_positions": text, "prompt_len": s,
+            "prefill_ms": prefill_s * 1e3, "decode_s": secs,
+            "decode_tokens_per_s": b * VLM_NEW / secs,
+            "decode_vs_prefill_rel_gap": gaps, "greedy_agreement": agree,
+            "k2_launches_per_model_call": dec["rmsnorm"] / VLM_NEW})
+        del cache, embeds, image
+    peak = torch.cuda.max_memory_allocated()
+    gaps = [g for x in batches for g in x["decode_vs_prefill_rel_gap"]]
+    emit({"phase": "vlm_serve", "arch": cfg.name, "dtype": cfg.dtype,
+          "layers": VLM_LAYERS, "requests_per_batch": b,
+          "patches": patches, "new_tokens": VLM_NEW, "init_s": init_s,
+          "param_bytes": sum(t.numel() * t.element_size()
+                             for t in leaves(params)),
+          "param_count": cfg.param_count(), "peak_device_bytes": peak,
+          "batches": batches, "max_rel_gap": max(gaps),
+          "tol": BF16_ORACLE_TOL})
+    assert max(gaps) <= BF16_ORACLE_TOL, gaps
+    del params, emb
+    torch.cuda.empty_cache()
+    return total
+
+
+def train_vlm_phase(torch, cfg):
+    """train_vlm: qwen2-vl-72b at full width and 2 layers (4.25 B
+    parameters) through ``train_stateful_phase``, B 8 x S 512, 5 steps at
+    a peak rate of 3e-5, f32 moments where the reckoned state fits under
+    70 GB (51.0 GB),
+    else int8 with the loss gate at 1 layer in f32: the pipeline's VLM
+    batches (f32 stub embeds, three equal streams), K3 4 / 2 and K2 9 / 5
+    launches a step.  Then one remat loss and backward on the same
+    weights at distinct streams (256 patches on a 16 x 16 grid, then 256
+    text positions): the same launches, a finite loss, and a different
+    one from the same batch at equal streams."""
+    from repro_torch.launch.train import state_bytes
+    from repro_torch.models import build_model
+    from repro_torch.train.data import TokenPipeline
+    cfg2 = dataclasses.replace(cfg, n_layers=VLM_TRAIN_LAYERS)
+    reckoned = state_bytes(cfg2, "f32")
+    opt_state = "f32" if reckoned < VLM_STATE_LIMIT else "int8"
+    launches = train_stateful_phase(torch, cfg2, opt_state, f32_layers=1,
+                                    phase="train_vlm", lr=VLM_TRAIN_LR)
+    params = build_model(cfg2, DEV).init(0)
+    batch = TokenPipeline(cfg2.vocab, 512, 8, seed=5, family="vlm",
+                          d_model=cfg2.d_model).batch_at(0)
+    distinct = vlm_positions(torch, 8, VLM_GRID, 512 - VLM_GRID ** 2).cpu()
+    equal = torch.from_numpy(batch["positions"])
+    zero_counts()
+    loss, grads = _loss_and_grads(torch, cfg2, params, dict(
+        batch, positions=distinct.numpy()), True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    del grads
+    _only(counts, stateful_train_launches(cfg2))
+    with torch.no_grad():
+        plain = float(build_model(cfg2, DEV).loss(params, {
+            "embeds": torch.from_numpy(batch["embeds"]).to(DEV),
+            "positions": equal.to(DEV),
+            "labels": torch.from_numpy(batch["labels"]).to(DEV)},
+            remat=False))
+    emit({"phase": "train_vlm_distinct_streams", "arch": cfg.name,
+          "layers": VLM_TRAIN_LAYERS, "opt_state": opt_state,
+          "state_bytes_reckoned_f32": reckoned,
+          "loss_distinct_streams": loss, "loss_equal_streams": plain,
+          "launches": counts})
+    assert np.isfinite(loss) and loss != plain, (loss, plain)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def leaf_names(tree, prefix="") -> list:
     """Each leaf's path, in ``train.tree.leaves`` order."""
     if isinstance(tree, dict):
@@ -4464,6 +4918,25 @@ def main() -> int:
     train_stateful_oracle_phase(torch, moe_cfg, 2, "int8", witness=False,
                                 restart=(6, 5))
 
+    # 13. the encoder-decoder and the VLM stub frontend at full width, bf16,
+    # through the prefill and decode step builders (the paged engine
+    # refuses both, as the reference's does): whisper-small served and its
+    # 2 + 2 layers against the CPU; trained (f32 moments), at 2 + 2 layers
+    # against the CPU and restarted; qwen2-vl-72b served at 16 layers and
+    # trained at 2
+    whisper_cfg = get_config(WHISPER_ARCH)
+    whisper_launches = whisper_serve_phase(torch, whisper_cfg)
+    whisper_oracle_phase(torch, whisper_cfg)
+    whisper_train_launches = train_stateful_phase(
+        torch, whisper_cfg, "f32", seq_len=WHISPER_TRAIN_SEQ,
+        phase="train_whisper")
+    train_stateful_oracle_phase(torch, whisper_cfg, 2, "f32", witness=False,
+                                seq_len=WHISPER_TRAIN_SEQ,
+                                phase="train_whisper")
+    vlm_cfg = get_config(VLM_ARCH)
+    vlm_launches = vlm_serve_phase(torch, vlm_cfg)
+    vlm_train_launches = train_vlm_phase(torch, vlm_cfg)
+
     # each row's launches come from the main path that gives its shape
     # (the row's ``path``): the qwen3-0.6b serve workload (K1 at head_dim
     # 128, K2 at 1,024 and 128), the compile phase (K4), the multi-LoRA
@@ -4476,7 +4949,11 @@ def main() -> int:
     # K3 at head_dim 80, K2 at 2,560 and 5,120), and olmoe's serve workload
     # (K1 at 16 over 16 heads, K2 at 2,048 and its q/k pair) and training
     # run (K3 at 16 over 16 heads, K2's backward at 2,048), and llama4's
-    # super-layer (K1 at 40 over 8 heads, K2 at its 4 decode rows)
+    # super-layer (K1 at 40 over 8 heads, K2 at its 4 decode rows), and
+    # whisper's serve run (K3 over its encoder's 1,500 frames, K2 at 768)
+    # and training run (K3 at 448, causal and not; K2's backward at 768),
+    # and qwen2-vl's serve run (K2 at 8,192) and training run (K3 at 64
+    # over 8 heads, K2 at 4,096 x 8,192)
     path_launches = {"serve": launches, "compile": compile_launches,
                      "lora_serve": lora_launches, "ssm_serve": ssm_launches,
                      "hybrid_serve": hybrid_launches,
@@ -4485,7 +4962,11 @@ def main() -> int:
                      "train_hybrid": hybrid_train_launches,
                      "moe_serve": moe_launches,
                      "train_moe": moe_train_launches,
-                     "llama4_layer": llama4_launches}
+                     "llama4_layer": llama4_launches,
+                     "whisper_serve": whisper_launches,
+                     "train_whisper": whisper_train_launches,
+                     "vlm_serve": vlm_launches,
+                     "train_vlm": vlm_train_launches}
     sources = {
         "paged_attention": (
             "cuda", "src/repro_torch/kernels/csrc/paged_attention.cu",

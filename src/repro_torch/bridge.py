@@ -21,9 +21,10 @@ tuple with one (L/every, ...) stack per layer kind of a super-layer (an
 MoE layer's expert weights are (L/every, E, d, f) stacks),
 ``ssm_lm.init_ssm_lm`` as one dict of (L, ...) stacks,
 ``hybrid.init_hybrid`` as one dict of (n_seg, per, ...) stacks beside its
-``shared`` block.  The port keeps
-``params["layers"]`` as a list of per-layer dicts in forward order for every
-family.
+``shared`` block; ``encdec.init_encdec`` (audio) as two dicts of (L, ...)
+stacks, ``enc_layers`` and ``dec_layers``.  The port keeps each stack as a
+list of per-layer dicts in forward order for every family.  The vlm family
+has the dense layout.
 """
 from __future__ import annotations
 
@@ -57,9 +58,23 @@ def _map(tree, fn):
     return fn(tree)
 
 
+# the encoder-decoder's two layer stacks, each (L, ...)
+ENCDEC_STACKS = ("enc_layers", "dec_layers")
+
+
+def _unstack(stack, device) -> List[Dict]:
+    """One (L, ...) stack -> L per-layer dicts of tensors."""
+    return [_map(stack, lambda a, i=i: tensor_from_numpy(a[i], device))
+            for i in range(_leading(stack))]
+
+
 def params_from_numpy(tree: Dict, device="cpu") -> Dict:
-    """JAX ``init`` pytree (numpy leaves) of a dense, moe, ssm or hybrid
-    model -> the port's param dict."""
+    """JAX ``init`` pytree (numpy leaves) of a dense, moe, vlm, ssm, hybrid
+    or audio model -> the port's param dict."""
+    if "enc_layers" in tree:
+        return {k: _unstack(v, device) if k in ENCDEC_STACKS
+                else _map(v, lambda a: tensor_from_numpy(a, device))
+                for k, v in tree.items()}
     stacks = tree["layers"]
     if isinstance(stacks, dict):
         # one stack: (L, ...) for ssm, (n_seg, per, ...) for the hybrid
@@ -99,9 +114,13 @@ def params_to_numpy(params: Dict, every: int = 1, bf16_dtype=None,
     moe arch (``cfg.moe.every``) and the segment length (``attn_every``) of
     a hybrid."""
     conv = lambda t: tensor_to_numpy(t, bf16_dtype)  # noqa: E731
+    if family == "audio":
+        return {k: _stack([_map(lp, conv) for lp in v])
+                if k in ENCDEC_STACKS else _map(v, conv)
+                for k, v in params.items()}
     layers = [_map(lp, conv) for lp in params["layers"]]
     out = {k: _map(v, conv) for k, v in params.items() if k != "layers"}
-    if family in ("dense", "moe"):
+    if family in ("dense", "moe", "vlm"):
         out["layers"] = tuple(_stack(layers[j::every]) for j in range(every))
     elif family == "ssm":
         out["layers"] = _stack(layers)
@@ -164,26 +183,34 @@ def _layer_blocks(x, i: int):
 def _moments_from_numpy(tree: Dict, device) -> Dict:
     if not _any_quantized(tree):
         return params_from_numpy(tree, device)
+
+    def split(stack) -> List[Dict]:
+        return [_map(stack, lambda x, i=i: _quantized(
+            *_layer_blocks(x, i), 0, device)) for i in range(_leading(stack))]
+
+    def whole(v):
+        return _map(v, lambda x: _quantized(x.q, x.scale, x.shape, x.pad,
+                                            device))
+
+    if "enc_layers" in tree:
+        return {k: split(v) if k in ENCDEC_STACKS else whole(v)
+                for k, v in tree.items()}
     stacks = tree["layers"]
     if not isinstance(stacks, (tuple, list)):
         raise NotImplementedError("bridge: int8 moments cross for the dense "
-                                  "layout (a tuple of layer stacks) only")
-    layers: List[Dict] = []
-    for i in range(_leading(stacks[0])):
-        for stack in stacks:
-            layers.append(_map(stack, lambda x, i=i: _quantized(
-                *_layer_blocks(x, i), 0, device)))
-    out = {k: _map(v, lambda x: _quantized(x.q, x.scale, x.shape, x.pad,
-                                           device))
-           for k, v in tree.items() if k != "layers"}
-    out["layers"] = layers
+                                  "and audio layouts only")
+    per_kind = [split(stack) for stack in stacks]
+    out = {k: whole(v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [kind[i] for i in range(len(per_kind[0]))
+                     for kind in per_kind]
     return out
 
 
-def _moments_to_numpy(tree: Dict, every: int, bf16_dtype) -> Dict:
+def _moments_to_numpy(tree: Dict, every: int, bf16_dtype,
+                      family: str) -> Dict:
     from repro_torch.train.optimizer import Quantized
     if not _any_quantized(tree):
-        return params_to_numpy(tree, every, bf16_dtype)
+        return params_to_numpy(tree, every, bf16_dtype, family)
 
     def host(x):
         return Quantized(tensor_to_numpy(x.q), tensor_to_numpy(x.scale),
@@ -205,6 +232,9 @@ def _moments_to_numpy(tree: Dict, every: int, bf16_dtype) -> Dict:
             return {k: stack_tree([t[k] for t in trees]) for k in trees[0]}
         return stack(trees)
 
+    if family == "audio":
+        return {k: stack_tree(v) if k in ENCDEC_STACKS else _map(v, host)
+                for k, v in tree.items()}
     layers = tree["layers"]
     out = {k: _map(v, host) for k, v in tree.items() if k != "layers"}
     out["layers"] = tuple(stack_tree(layers[j::every]) for j in range(every))
@@ -223,11 +253,14 @@ def train_state_from_numpy(tree: Dict, device="cpu") -> Dict:
 
 
 def train_state_to_numpy(state: Dict, every: int = 1,
-                         bf16_dtype=None) -> Dict:
-    """Inverse of ``train_state_from_numpy`` for the dense layout; int8
-    moments come out as ``optimizer.Quantized`` records of numpy arrays."""
+                         bf16_dtype=None, family: str = "dense") -> Dict:
+    """Inverse of ``train_state_from_numpy`` (``every`` and ``family`` as
+    for ``params_to_numpy``; int8 moments for the dense, moe and audio
+    layouts); int8 moments come out as ``optimizer.Quantized`` records of
+    numpy arrays."""
     opt = state["opt"]
-    return {"params": params_to_numpy(state["params"], every, bf16_dtype),
+    return {"params": params_to_numpy(state["params"], every, bf16_dtype,
+                                      family),
             "opt": {"step": tensor_to_numpy(opt["step"]),
-                    "m": _moments_to_numpy(opt["m"], every, bf16_dtype),
-                    "v": _moments_to_numpy(opt["v"], every, bf16_dtype)}}
+                    **{k: _moments_to_numpy(opt[k], every, bf16_dtype,
+                                            family) for k in ("m", "v")}}}

@@ -1,14 +1,19 @@
-"""The train step the trainer runs (mirrors ``make_train_step`` of
-``src/repro/launch/steps.py``; the serve engine calls ``ModelFns``
-directly, so its prefill and decode step builders are not carried over).
+"""Step builders (mirrors ``src/repro/launch/steps.py``): the train step the
+trainer runs, and the prefill and decode steps that serve the families the
+paged engine refuses (the whisper-style encoder-decoder and the VLM stub
+frontend) over a dense cache, as the reference serves them.
 
-The train step takes its loss and gradients from ``loss.backward()``: the
-parameters are marked ``requires_grad`` for the step and released after it,
-so the tensors the caller holds never keep a graph or a ``.grad``.
+The prefill and decode steps run under ``torch.no_grad()``: serving never
+records a graph, whatever the caller's weights require.  The train step
+takes its loss and gradients from ``loss.backward()``: the parameters are
+marked ``requires_grad`` for the step and released after it, so the
+tensors the caller holds never keep a graph or a ``.grad``.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import build_model
@@ -47,4 +52,28 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
         return new_params, new_state, metrics
 
     return train_step, opt
+
+
+def make_prefill_step(cfg: ModelConfig, device=None) -> Callable:
+    """prefill_step(params, batch) -> (cache, last-position logits (B,V)):
+    the family's ``prefill`` (a dense cache of the prompt's capacity)."""
+    fns = build_model(cfg, device)
+
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            return fns.prefill(params, batch)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, device=None) -> Callable:
+    """decode_step(params, cache, batch) -> (cache, logits (B,V)): the
+    family's ``decode_step``, writing the cache in place."""
+    fns = build_model(cfg, device)
+
+    def decode_step(params, cache, batch):
+        with torch.no_grad():
+            return fns.decode_step(params, cache, batch)
+
+    return decode_step
 

@@ -10,6 +10,8 @@ is given.
         --steps 5 --seq-len 512 --batch 8
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
         --opt-state int8 --steps 5 --seq-len 512 --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \
+        --steps 5 --seq-len 448 --batch 8
 
 Same CLI as ``repro.launch.train`` with ``--device`` added (default cuda;
 asking for cuda without a card is an error) and no ``--mesh`` (training on
@@ -18,7 +20,11 @@ reduced same-family config (``--device cpu --smoke`` trains it here in
 seconds); without it the arch trains at full width from random weights.
 The dense, moe (olmoe-1b-7b: the loss adds 0.01 times the routers'
 load-balance loss), ssm (falcon-mamba-7b: K7 forward and backward) and
-hybrid (zamba2-2.7b: K3 at head_dim 80) archs train.  On a card, a run whose
+hybrid (zamba2-2.7b: K3 at head_dim 80) archs train, and so do the
+encoder-decoder (whisper-small: K3 causal, bidirectional and across, 36
+launches a forward) and the VLM stub frontend (qwen2-vl-72b: M-RoPE;
+its 80 layers reckon 872 GB of f32-moment state and are refused, as is
+any arch whose state outruns the card).  On a card, a run whose
 weights, gradients and AdamW moments alone would not fit in its memory
 raises before allocating and names ``--opt-state int8`` (falcon-mamba-7b
 with f32 moments needs 87.3 GB of them; olmoe-1b-7b's 83.0 GB pass the

@@ -18,8 +18,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lora as lora_mod
-from repro_torch.models.layers import (apply_rope, rms_norm_pair,
-                                      truncated_normal)
+from repro_torch.models.layers import (apply_rope, default_mrope_sections,
+                                      rms_norm_pair, truncated_normal)
 from repro_torch.perf import perf
 
 # q chunks of this size bound the live score tensor to (B,H,CHUNK,S_kv);
@@ -262,8 +262,9 @@ def init_attention(cfg: ModelConfig, gen, dtype, device):
 
 def qkv_project(cfg: ModelConfig, p, x: torch.Tensor,
                 positions: torch.Tensor, lora: Optional[dict] = None):
-    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd) with qk-norm and RoPE.
-    ``lora`` (serve only) adds each row's adapter delta to the q/k/v
+    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd) with qk-norm and RoPE
+    (M-RoPE at qwen2-vl's sections when ``positions`` holds three streams,
+    (3,B,S)).  ``lora`` (serve only) adds each row's adapter delta to the q/k/v
     projections before reshape, qk-norm and RoPE; None runs none of it."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -275,12 +276,11 @@ def qkv_project(cfg: ModelConfig, p, x: torch.Tensor,
         .reshape(b, s, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q, k = rms_norm_pair(q, p["q_norm"], k, p["k_norm"], cfg.norm_eps)
-    if cfg.rope == "mrope":
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP: VLM slice)")
     if cfg.rope != "none":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        sections = default_mrope_sections(hd) if cfg.rope == "mrope" \
+            else None
+        q = apply_rope(q, positions, cfg.rope_theta, sections)
+        k = apply_rope(k, positions, cfg.rope_theta, sections)
     return q, k, v
 
 

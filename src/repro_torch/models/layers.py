@@ -1,10 +1,10 @@
 """Shared layer primitives (mirrors ``src/repro/models/layers.py``): rms_norm,
-RoPE, MLPs, embeddings, the loss and the init helpers.
+RoPE and M-RoPE, sinusoidal positions, MLPs, embeddings, the loss and the
+init helpers.
 
 Functions are plain PyTorch on tensors; params are plain dicts of tensors.
-Initializers draw from an explicit ``torch.Generator``.  M-RoPE is not in
-this slice (see ROADMAP.md).  ``apply_mlp`` takes an optional per-layer LoRA
-descriptor (``repro_torch.models.lora``).
+Initializers draw from an explicit ``torch.Generator``.  ``apply_mlp``
+takes an optional per-layer LoRA descriptor (``repro_torch.models.lora``).
 """
 from __future__ import annotations
 
@@ -57,18 +57,49 @@ def _rope_angles(positions: torch.Tensor, dim: int, theta: float
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
-    """Rotate-half RoPE.  x (B,S,H,hd), positions (B,S)."""
-    if positions.dim() != 2:
-        raise NotImplementedError(
-            "M-RoPE position streams are not ported yet (ROADMAP: VLM slice)")
+               theta: float = 10000.0,
+               mrope_sections: Optional[tuple] = None) -> torch.Tensor:
+    """Rotate-half RoPE.  x (B,S,H,hd); positions (B,S), or (3,B,S) for
+    M-RoPE (qwen2-vl's temporal / height / width streams): the half head
+    dim is cut into ``mrope_sections`` and each section takes its angles
+    from its own stream.  (B,S) positions give plain RoPE whatever the
+    sections."""
     half = x.shape[-1] // 2
-    angles = _rope_angles(positions, x.shape[-1], theta)     # (B, S, half)
+    angles = _rope_angles(positions, x.shape[-1], theta)
+    if positions.dim() == 3:
+        if mrope_sections is None or len(mrope_sections) != 3 \
+                or sum(mrope_sections) != half:
+            raise ValueError(f"apply_rope: three position streams need three "
+                             f"sections summing to {half}, got "
+                             f"{mrope_sections}")
+        # angles (3, B, S, half) -> (B, S, half), section i from stream i
+        angles = torch.cat([a[..., lo:lo + n] for a, lo, n in zip(
+            angles, (0, mrope_sections[0], half - mrope_sections[2]),
+            mrope_sections)], dim=-1)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def default_mrope_sections(head_dim: int) -> tuple:
+    """qwen2-vl's (t, h, w) sections of the half head dim: (16, 24, 24) of
+    64 at head_dim 128, the same proportions at other widths."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
+    """(seq, dim) f32 table: sin of position x frequency in the first half,
+    cos in the second (the encoder-decoder's absolute positions)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    inv = torch.exp(-math.log(10000.0) * torch.arange(
+        0, dim, 2, dtype=torch.float32, device=device) / dim)
+    ang = pos * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def init_mlp(cfg: ModelConfig, gen, d_ff: int, dtype, device):

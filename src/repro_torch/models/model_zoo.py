@@ -1,8 +1,10 @@
 """Model dispatch (mirrors ``src/repro/models/model_zoo.py``): one
-``ModelFns`` bundle per architecture family.  The port serves and trains
-the dense, moe, ssm and hybrid families (dense and moe share the
-transformer's functions); the others raise and name the ROADMAP slice that
-brings them."""
+``ModelFns`` bundle per architecture family.  The dense, moe and vlm
+families share the transformer's functions (vlm takes the stub frontend's
+embeds and M-RoPE positions); ssm, hybrid and the audio encoder-decoder
+have their own.  The audio family has no paged interface (its paged
+fields are None), and the serve engine refuses vlm and audio, as the
+reference's does: they are served through ``launch.steps``."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,12 +12,7 @@ from typing import Callable, Optional
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import resolve_device
-from repro_torch.models import hybrid, ssm_lm, transformer
-
-_LATER_SLICES = {
-    "vlm": "A11 (enc-dec and VLM)",
-    "audio": "A11 (enc-dec and VLM)",
-}
+from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,14 +24,18 @@ class ModelFns:
     make_cache: Callable        # (batch_size, max_len) -> cache
     # paged serving interface (block-table-aware); caches update in place.
     # Stateful families (ssm, hybrid) take ``state_slots=`` on
-    # make_paged_cache and read "state_slot(s)" from the batch.
-    make_paged_cache: Callable  # (num_blocks, block_size[, state_slots=]) -> cache
-    decode_paged: Callable      # (params, cache, batch) -> (cache, logits)
-    prefill_chunk: Callable     # (params, cache, batch, m_used=) -> (cache, logits)
+    # make_paged_cache and read "state_slot(s)" from the batch; None for
+    # the audio family, which has none
+    # (num_blocks, block_size[, state_slots=]) -> cache
+    make_paged_cache: Optional[Callable] = None
+    # (params, cache, batch) -> (cache, logits)
+    decode_paged: Optional[Callable] = None
+    # (params, cache, batch, m_used=) -> (cache, logits)
+    prefill_chunk: Optional[Callable] = None
     # KVStore data plane: per-block device copy and device<->host movement
-    paged_block_copy: Callable  # (cache, src, dst) -> cache
-    paged_block_read: Callable  # (cache, idx) -> host tensors
-    paged_block_write: Callable  # (cache, idx, data) -> cache
+    paged_block_copy: Optional[Callable] = None  # (cache, src, dst) -> cache
+    paged_block_read: Optional[Callable] = None  # (cache, idx) -> host tensors
+    paged_block_write: Optional[Callable] = None  # (cache, idx, data) -> cache
     # StateSlab data plane: the same three operations at slot granularity
     # over the same cache; present exactly for the stateful families
     state_slot_copy: Optional[Callable] = None   # (cache, src, dst) -> cache
@@ -46,13 +47,20 @@ def build_model(cfg: ModelConfig, device=None) -> ModelFns:
     """The family's functions, with params and caches on ``device``
     (default cuda)."""
     fam = cfg.family
-    if fam not in ("dense", "moe", "ssm", "hybrid"):
-        slice_ = _LATER_SLICES.get(fam, "a later slice")
-        raise NotImplementedError(
-            f"family {fam!r} is not ported to repro_torch yet: "
-            f"ROADMAP {slice_}")
+    if fam not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
+        raise ValueError(f"unknown family {fam!r}")
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
+    if fam == "audio":
+        return ModelFns(
+            init=lambda seed=0: encdec.init_encdec(cfg, seed, dev),
+            loss=lambda p, b, **kw: encdec.encdec_loss(cfg, p, b, **kw),
+            prefill=lambda p, b: encdec.encdec_prefill(cfg, p, b),
+            decode_step=lambda p, c, b: encdec.encdec_decode_step(
+                cfg, p, c, b),
+            make_cache=lambda bs, ml: encdec.make_encdec_cache(
+                cfg, bs, ml, dtype, dev),
+        )
     if fam == "ssm":
         # attention-free: the "paged" cache is all slab, no KV pages, and
         # the block data plane is a no-op (the engine never grows a table)

@@ -1,4 +1,4 @@
-"""Decoder-only transformer, dense and moe families (mirrors
+"""Decoder-only transformer, dense, moe and vlm families (mirrors
 ``src/repro/models/transformer.py``).
 
 The JAX package stacks layer weights and ``lax.scan``s over them; here
@@ -25,6 +25,13 @@ flash-attention kernel (``impl="kernel"``), forward and backward, and every
 norm through ``RMSNormFn``; ``forward_hidden(remat=True)`` recomputes each
 layer in the backward (``torch.utils.checkpoint``), keeping what
 ``REPRO_REMAT_POLICY`` says.
+
+The vlm family is a dense transformer behind a stub frontend: ``lm_loss``,
+``lm_prefill`` and ``lm_decode_step`` take precomputed "embeds" (B,S,d)
+with M-RoPE "positions" (3,B,S) in place of tokens, the embeds cast to the
+parameters' dtype at entry (``_stub_embeds``).  The paged functions take
+tokens only, and the serve engine refuses the vlm family, as the
+reference's does.
 
 Multi-LoRA: the paged functions read ``batch.get("lora")`` (the engine's
 adapter descriptor, ``repro_torch.models.lora``, whose slab rows are in
@@ -197,18 +204,31 @@ def forward_hidden(cfg: ModelConfig, params, embeds: torch.Tensor,
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
-def lm_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True
-            ) -> torch.Tensor:
-    """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,S)
-    plus 0.01 times the MoE load-balance loss, every attention through the
-    flash-attention kernel."""
+def _stub_embeds(params, batch: Dict) -> torch.Tensor:
+    """The VLM stub frontend's "embeds", in the parameters' dtype: an f32
+    frontend feeding a bf16 model computes in bf16 (the reference would
+    promote the whole stack to f32)."""
+    return batch["embeds"].to(params["embed"]["embed"].dtype)
+
+
+def _inputs(params, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(embeds (B,S,d), positions): the stub frontend's embeds and M-RoPE
+    streams (3,B,S), or the tokens' embeddings at positions 0..S-1."""
     if "embeds" in batch:
-        raise NotImplementedError(
-            "the VLM stub frontend's loss is not ported yet (ROADMAP A11)")
+        return _stub_embeds(params, batch), batch["positions"]
     tokens = batch["tokens"]
     b, s = tokens.shape
     embeds = embed_tokens(params["embed"], tokens)
-    positions = torch.arange(s, device=embeds.device)[None, :].expand(b, s)
+    return embeds, torch.arange(s, device=embeds.device)[None, :].expand(b, s)
+
+
+def lm_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True
+            ) -> torch.Tensor:
+    """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,S)
+    (or the stub frontend's {"embeds", "positions", "labels"}) plus 0.01
+    times the MoE load-balance loss, every attention through the
+    flash-attention kernel."""
+    embeds, positions = _inputs(params, batch)
     h, aux = forward_hidden(cfg, params, embeds, positions, remat=remat,
                             impl="kernel")
     logits = logits_from_hidden(cfg, params["embed"], h)
@@ -221,12 +241,10 @@ def lm_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True
 
 def lm_prefill(cfg: ModelConfig, params, batch: Dict
                ) -> Tuple[Dict, torch.Tensor]:
-    """batch {"tokens" (B,S)} -> (cache of capacity S, last-position logits
-    (B,V))."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = embed_tokens(params["embed"], tokens)
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    """batch {"tokens" (B,S)} or {"embeds" (B,S,d), "positions" (3,B,S)}
+    -> (cache of capacity S, last-position logits (B,V))."""
+    x, positions = _inputs(params, batch)
+    b, s = x.shape[:2]
     ks, vs = [], []
 
     def attend(lp):
@@ -269,13 +287,16 @@ def make_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
 
 def lm_decode_step(cfg: ModelConfig, params, cache: Dict, batch: Dict
                    ) -> Tuple[Dict, torch.Tensor]:
-    """One decode step.  batch {"token" (B,1), "cur_len" int}: the new
-    token's K/V are written at cur_len (in place); returns its logits (B,V)."""
+    """One decode step.  batch {"token" (B,1), "cur_len" int} or {"embeds"
+    (B,1,d), "positions" (3,B,1), "cur_len"}: the new token's K/V are
+    written at cur_len (in place); returns its logits (B,V)."""
     cur_len = int(batch["cur_len"])
-    token = batch["token"]
-    x = embed_tokens(params["embed"], token)
-    positions = torch.full((token.shape[0], 1), cur_len, dtype=torch.int32,
-                           device=x.device)
+    if "embeds" in batch:
+        x, positions = _stub_embeds(params, batch), batch["positions"]
+    else:
+        x = embed_tokens(params["embed"], batch["token"])
+        positions = torch.full((x.shape[0], 1), cur_len, dtype=torch.int32,
+                               device=x.device)
     for i, lp in enumerate(params["layers"]):
         r = cache_row(cfg, i)
 

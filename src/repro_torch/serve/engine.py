@@ -38,7 +38,8 @@ dispatch without adapter rows runs no LoRA code at all.  An MoE arch's
 tenants adapt the four attention projections only (its experts are routed
 per token); the stateful families' are refused.
 
-The dense and moe families hold KV only.  An MoE layer routes each token in
+The dense and moe families hold KV only.  The vlm and audio families are
+refused (see ``__init__``).  An MoE layer routes each token in
 the model call itself: a prefill chunk dispatches its tokens with a
 capacity computed for that chunk, so where experts overflow, the tokens a
 chunk drops depend on the chunking (as in the reference engine).
@@ -252,6 +253,17 @@ class ServeEngine:
         # forces off.  The device is the one ``params`` live on.
         # REPRO_SERVE_MESH / REPRO_SERVE_TP ask for sharding the port lacks
         require_single_device_serve()
+        # vlm and audio are refused, as the reference's engine refuses
+        # them: the paged path embeds token ids at (B,S) positions, which
+        # would silently drop a stub frontend's embeds and M-RoPE streams
+        # (and the encoder-decoder has no paged path); both serve through
+        # launch.steps' prefill and decode steps over a dense cache
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+            raise ValueError(
+                f"the paged engine serves token-frontend decoder LMs "
+                f"(dense, moe, ssm, hybrid), not family {cfg.family!r}; "
+                f"serve it with launch.steps.make_prefill_step and "
+                f"make_decode_step")
         assert admission in ("conservative", "optimistic")
         self.cfg = cfg
         self.params = params

@@ -5,7 +5,10 @@ Parameters come from the arch's ``init`` on the trainer's device (cuda
 unless ``device="cpu"``), batches from the seeded token pipeline moved
 there; the loss is the family's (``lm_loss`` dense and moe, the latter with
 its load-balance term, ``ssm_lm_loss`` ssm, ``hybrid_loss`` hybrid), each
-on the same ``tokens``/``labels`` batch.  A failure injected at
+on the same ``tokens``/``labels`` batch; the vlm family's ``lm_loss`` takes
+the pipeline's stub ``embeds`` and M-RoPE ``positions``, and the audio
+family's ``encdec_loss`` its stub ``frames`` beside the tokens (both cast
+to the weights' dtype at the model's entry).  A failure injected at
 ``fail_at`` rebuilds the state, restores the
 latest checkpoint and replays from its step; every kernel on the path is
 deterministic, so the replay reproduces the clean run's losses.  Training
