@@ -25,7 +25,8 @@ Phases, each printing JSON objects one per line:
               serve (qwen3-0.6b: 16 heads over 8 KV heads, head_dim 128;
               zamba2's shared block: 32 heads over 32, head_dim 80;
               olmoe-1b-7b: 16 over 16, head_dim 128; llama4-maverick: 40
-              over 8, head_dim 128), through the
+              over 8, head_dim 128; a rank's half of qwen3-0.6b's on a
+              2-rank serve mesh: 8 over 4), through the
               model-facing ``ops`` entries.  K1 and K4 rows also hold two
               launches bitwise equal, each decode row run alone bitwise
               equal to its row of the batch, a planted fault of each
@@ -146,6 +147,24 @@ Phases, each printing JSON objects one per line:
               kernel's device time per launch on the main path (device
               events only; an MoE arch's profiles also record the CPU ops,
               to tell its expert products apart).
+   serve_mesh — right after the serve phase, the same workload through an
+              engine on a 1-rank NCCL serve mesh (``launch.mesh.
+              process_group``, ``make_serve_mesh``) with tensor-parallel
+              weights gathered at every use: the serve phase's tokens
+              exactly, K1 28 and K2 85 launches a model call.
+   serve_mesh_2 — two ranks spawned on the one card over gloo (NCCL
+              refuses two ranks on one GPU; gloo stages every collective
+              through host memory), full width at 8 of 28 layers, 8
+              requests of the serve workload cut to 256 prompt tokens, 16
+              new: the KV pool sharded on kv-heads (4 of 8 a rank) with
+              TP identity gives a plain engine's tokens on the same
+              weights, each rank's K1 and K2 launch 8 and 25 times a model
+              call, each rank's param bytes and peak memory; reduce-scatter
+              prefill logits of a 256-token chunk within 5e-2 of the
+              replicated forward's largest, with the greedy agreement; one
+              swap preemption on the sharded pool equal to each request
+              alone.  A rank that raises or outlasts its time fails the
+              phase.
 6. oracle   — teacher-forced logits of the paged path (kernels) against the
               dense prefill + decode path (plain attention), f32 and bf16;
               and one tenant's request (a 256-token prompt chunk and 8 decode
@@ -228,7 +247,9 @@ Phases, each printing JSON objects one per line:
               every gradient leaf on the card against the CPU's, within
               twice the CPU's own spread between two thread counts (and
               never looser than 1e-4 / 1e-3); then a restart at that
-              depth, bitwise.
+              depth (the hybrid's at 1 segment: its bits do not depend on
+              the shared block's second call, and with both at 2 segments
+              the script took 1,008 s), bitwise.
 12. moe     — moe_serve: the serve workload through full-width olmoe-1b-7b
               (16 layers, d 2048, 16/16 heads, 64 experts, top-8; 13.84 GB)
               in bf16 at its native capacity factor 2.0: the invariants
@@ -301,7 +322,9 @@ Phases, each printing JSON objects one per line:
               K2 at 768 and 8,192 (forward and backward).
 
 Then a ``{"kernels": [...]}`` summary line (each row's launches from the
-main path that gives its shape, named in its ``path``), nvidia-smi's line, and, last,
+main path that gives its shape, named in its ``path``), a check that no
+process the script started is still running (the ranks' fork server is
+stopped right after serve_mesh_2), nvidia-smi's line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
 non-zero before that line.  Without a CUDA device, or without the repo's
 ``src/`` beside it, the script exits non-zero and prints no result.
@@ -313,6 +336,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -489,10 +513,12 @@ def _tables(torch, lens, m, bs, n, rng):
 # paged attention's head layouts, each with the main path that gives it:
 # qwen3-0.6b (16 query heads over 8 KV heads, head_dim 128), zamba2-2.7b's
 # shared block (32 heads, one per KV head, head_dim 80), olmoe-1b-7b (16
-# heads over 16, head_dim 128) and llama4-maverick (40 heads over 8, a group
-# of 5, head_dim 128)
+# heads over 16, head_dim 128), llama4-maverick (40 heads over 8, a group
+# of 5, head_dim 128), and a rank's half of qwen3-0.6b's heads on a
+# 2-rank serve mesh (8 over 4)
 PAGED_SHAPES = (("serve", 16, 8, 128), ("hybrid_serve", 32, 32, 80),
-                ("moe_serve", 16, 16, 128), ("llama4_layer", 40, 8, 128))
+                ("moe_serve", 16, 16, 128), ("llama4_layer", 40, 8, 128),
+                ("serve_mesh_2", 8, 4, 128))
 # gate-only decode rows (no main path gives them, so no times): spans at the
 # split-KV kernel's split boundaries (512 keys, ``ref.PAGED_SPLIT``) at both
 # serve layouts, a group of 8 query heads a KV head, and a block size that
@@ -2470,15 +2496,16 @@ def warm_up(eng, adapter_ids=(None, None)):
 
 def wrap_dispatches(eng, counted) -> None:
     """Route each of the engine's model calls through ``counted(kind,
-    batch, call)`` ("prefill" or "decode"), which must return ``call()``."""
+    batch, call)`` ("prefill" or "decode"), which must return ``call()``
+    (a sharded engine's ``shard`` passes through)."""
     fns = eng.fns
 
-    def prefill(p, c, b, m_used=None):
+    def prefill(p, c, b, m_used=None, **kw):
         return counted("prefill", b, lambda: fns.prefill_chunk(
-            p, c, b, m_used=m_used))
+            p, c, b, m_used=m_used, **kw))
 
-    def decode(p, c, b):
-        return counted("decode", b, lambda: fns.decode_paged(p, c, b))
+    def decode(p, c, b, **kw):
+        return counted("decode", b, lambda: fns.decode_paged(p, c, b, **kw))
     eng.fns = dataclasses.replace(fns, prefill_chunk=prefill,
                                   decode_paged=decode)
 
@@ -2563,7 +2590,8 @@ def serve_phase(torch, cfg, params):
     eng = serve_engine(cfg, params)
     assert eng.kernel_plan is not None
     tally, counted = dispatch_timer()
-    launches, _, out = run_workload(torch, eng, workload(cfg.vocab), counted)
+    reqs = workload(cfg.vocab)
+    launches, _, out = run_workload(torch, eng, reqs, counted)
     out["host_ms_per_dispatch"] = host_ms_per_dispatch(tally)
     calls = sum(n for n, _ in tally.values())
     out["k2_launches_per_model_call"] = launches["rmsnorm"] / calls
@@ -2577,7 +2605,207 @@ def serve_phase(torch, cfg, params):
           "compile_report_decode": eng.compile_report.summary().splitlines()})
     del eng
     torch.cuda.empty_cache()
-    return launches, out
+    return launches, out, [list(r.out) for r in reqs]
+
+
+# ---------------------------------------------------------------------------
+# Multi-device serving: the engine on a serve mesh of torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+# serve_mesh_2: full width at 8 of qwen3-0.6b's 28 layers, 8 requests of
+# the serve workload cut to their first 256 prompt tokens (one chunk), 16
+# new tokens.  gloo stages every collective through host memory (a 256 MB
+# all_gather took 0.55 s on the card), and identity mode gathers a rank's
+# missing half of every weight, the 151,936 x 1,024 table twice, each model
+# call: about 0.4 GB a rank a call
+MESH_LAYERS, MESH_REQUESTS, MESH_NEW, MESH_PROMPT = 8, 8, 16, 256
+
+
+def mesh_workload(vocab):
+    return [dataclasses.replace(r, prompt=r.prompt[:MESH_PROMPT],
+                                max_new=MESH_NEW)
+            for r in workload(vocab, n=MESH_REQUESTS)]
+
+
+def serve_mesh_phase(torch, cfg, params, base_tokens):
+    """serve_mesh: the serve workload through an engine on a 1-rank NCCL
+    mesh with TP identity (the weights gathered at every use, the KV pool a
+    rank's): the serve phase's tokens exactly, K1 and K2 as many launches a
+    model call (28 and 85)."""
+    import tempfile
+    from repro_torch.launch.mesh import make_serve_mesh, process_group
+    backend = "nccl" if DEV == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp, \
+            process_group(0, 1, backend, os.path.join(tmp, "store"), DEV):
+        eng = serve_engine(cfg, params, mesh=make_serve_mesh(1), tp=True)
+        tally, counted = dispatch_timer()
+        reqs = workload(cfg.vocab)
+        launches, m, out = run_workload(torch, eng, reqs, counted)
+        eng.close()
+    calls = sum(n for n, _ in tally.values())
+    tokens = [list(r.out) for r in reqs]
+    emit({"phase": "serve_mesh", "arch": cfg.name, "dtype": cfg.dtype,
+          "backend": backend, "world": 1, "tp": True, **out,
+          "host_ms_per_dispatch": host_ms_per_dispatch(tally),
+          "mesh_devices": m.mesh_devices, "tp_devices": m.tp_devices,
+          "param_bytes_per_device": m.param_bytes_per_device,
+          "tokens_identical_to_serve": tokens == base_tokens})
+    assert tokens == base_tokens, "serve_mesh tokens differ from serve's"
+    assert launches["paged_attention"] == cfg.n_layers * calls \
+        and launches["rmsnorm"] == k2_per_model_call(cfg) * calls, \
+        (launches, calls)
+    return launches
+
+
+def _mesh_serve(eng, reqs):
+    """Rank 0 serves ``reqs`` (the other ranks follow), the invariants
+    checked after every step on every rank; tokens by rid."""
+    bad = []
+
+    def check():
+        bad.extend(eng.check_invariants())
+    if eng.is_leader:
+        for r in reqs:
+            eng.submit(r)
+        try:
+            while eng.step():
+                check()
+        finally:
+            eng.close()
+    else:
+        eng.follow(check)
+    assert bad == [], bad
+    return {r.rid: list(r.out) for r in eng.finished}
+
+
+def _mesh_rank(mesh, device, cfg):
+    """One rank of serve_mesh_2 (see ``serve_mesh_2_phase``)."""
+    import torch
+    from repro_torch.distributed.param_sharding import (ServeShard,
+                                                        shard_params,
+                                                        tp_param_specs)
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import Request
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = device.type == "cuda"     # False in a rehearsal on the CPU
+    out = {"rank": mesh.rank}
+    with torch.no_grad():
+        fns = build_model(cfg, device)
+        params = fns.init(0)
+        # the sharded engine: KV/2 heads a rank, TP identity
+        eng = serve_engine(cfg, params, mesh=mesh, tp=True)
+        tally, counted = dispatch_timer()
+        wrap_dispatches(eng, counted)
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        out["tokens"] = _mesh_serve(eng, mesh_workload(cfg.vocab))
+        if card:
+            torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        out["launches"] = read_counts()
+        out["model_calls"] = sum(n for n, _ in tally.values())
+        out["host_ms_per_dispatch"] = host_ms_per_dispatch(tally)
+        m = eng.metrics()
+        out["metrics"] = {k: getattr(m, k) for k in (
+            "tokens_per_sec", "ttft_mean_s", "engine_steps", "mesh_devices",
+            "tp_devices", "param_bytes_per_device", "param_bytes_replicated",
+            "re_prefill_avoided", "peak_blocks_used")}
+        out["slab"] = list(eng.cache["k"].shape)
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated() \
+            if card else 0
+        del eng
+        if mesh.rank == 0:
+            # the plain engine on the same weights
+            plain = serve_engine(cfg, params, mesh=False)
+            out["plain"] = _mesh_serve(plain, mesh_workload(cfg.vocab))
+            del plain
+        # reduce-scatter prefill logits against the replicated forward on
+        # a 256-token chunk (bf16: the partial sums reorder the reduction)
+        prompt = workload(cfg.vocab, n=1)[0].prompt[:256]
+        batch = {"tokens": torch.tensor([prompt], device=device),
+                 "block_table": torch.arange(1, 17, dtype=torch.int32,
+                                             device=device)[None],
+                 "start": 0, "prompt_len": 256}
+        ref = fns.prefill_chunk(params, fns.make_paged_cache(17, 16),
+                                batch)[1].float()
+        specs, _ = tp_param_specs(cfg, params, mesh.n_model)
+        local = shard_params(params, specs, mesh)
+        got = fns.prefill_chunk(local, fns.make_paged_cache(
+            17, 16, n_model=mesh.n_model), batch,
+            shard=ServeShard(mesh, True))[1].float()
+        out["rs_max_abs_err"], out["rs_rel_err"] = rel_err(got, ref)
+        out["rs_greedy_agreement"] = float(
+            (got.argmax(-1) == ref.argmax(-1)).float().mean())
+        del local, ref, got
+        # one swap preemption on the sharded pool (weights replicated: the
+        # swap moves each rank's head slice, TP adds nothing to it), against
+        # each request served alone on one device
+        swap = [Request(rid=i, prompt=[3, 5, 7, 11 + i], max_new=16)
+                for i in range(2)]
+        kw = dict(max_batch=2, max_len=32, block_size=4,
+                  prefill_chunk_tokens=4)
+        from repro_torch.serve.engine import ServeEngine
+        eng = ServeEngine(cfg, params, mesh=mesh, tp=False, num_blocks=7,
+                          admission="optimistic", **kw)
+        out["swap"] = _mesh_serve(eng, swap)
+        m = eng.metrics()
+        out["swap_counts"] = (m.preemptions, m.swap_out_blocks,
+                              m.swap_in_blocks)
+        del eng
+        if mesh.rank == 0:
+            out["solo"] = {}
+            for r in swap:
+                solo = ServeEngine(cfg, params, mesh=False,
+                                   prefix_cache_blocks=0,
+                                   **dict(kw, max_batch=1))
+                out["solo"][r.rid] = _mesh_serve(solo, [Request(
+                    rid=r.rid, prompt=list(r.prompt), max_new=16)])[r.rid]
+    return out
+
+
+def serve_mesh_2_phase(torch, cfg, smi):
+    """serve_mesh_2: two ranks on the one card over gloo (NCCL refuses two
+    ranks on one GPU), full width at ``MESH_LAYERS`` layers: the KV pool
+    sharded on kv-heads (4 of 8 a rank) with TP identity serves
+    ``mesh_workload`` with the tokens of a plain engine on the same weights; each rank's K1
+    and K2 launches are what its model calls imply (L and 3L + 1 a call);
+    each rank's param bytes and peak memory; reduce-scatter prefill logits
+    within the bf16 gate of the replicated forward, with the greedy
+    agreement; one swap preemption bitwise against each request alone."""
+    from repro_torch.launch.mesh import spawn_ranks, stop_rank_server
+    mcfg = at_depth(cfg, MESH_LAYERS)
+    t0 = time.perf_counter()
+    outs = spawn_ranks(_mesh_rank, 2, "gloo", DEV, args=(mcfg,),
+                       timeout_s=600)
+    # no later phase spawns ranks: the fork server goes now
+    stop_rank_server()
+    plain = outs[0]["plain"]
+    for o in outs:
+        assert o["tokens"] == plain, f"rank {o['rank']}: tokens differ"
+        assert o["slab"][-2] == mcfg.n_kv_heads // 2, o["slab"]
+        calls, launches = o["model_calls"], o["launches"]
+        assert launches["paged_attention"] == mcfg.n_layers * calls \
+            and launches["rmsnorm"] == k2_per_model_call(mcfg) * calls, \
+            (o["rank"], launches, calls)
+        assert o["rs_rel_err"] <= BF16_ORACLE_TOL, o["rs_rel_err"]
+        assert o["swap_counts"][0] >= 1 and o["swap_counts"][1] > 0 \
+            and o["swap_counts"][1] == o["swap_counts"][2], o["swap_counts"]
+        assert o["swap"] == outs[0]["solo"], f"rank {o['rank']}: swap"
+    emit({"phase": "serve_mesh_2", "arch": mcfg.name, "dtype": mcfg.dtype,
+          "layers": MESH_LAYERS, "backend": "gloo", "world": 2,
+          "device": "cuda:0 (both ranks)", "nvidia_smi": smi,
+          "requests": MESH_REQUESTS, "max_new": MESH_NEW,
+          "tokens_identical_to_plain": True, "phase_s":
+          time.perf_counter() - t0,
+          "ranks": [{k: o[k] for k in (
+              "rank", "wall_s", "launches", "model_calls",
+              "host_ms_per_dispatch", "metrics", "slab",
+              "peak_device_bytes", "rs_max_abs_err", "rs_rel_err",
+              "rs_greedy_agreement", "swap_counts")} for o in outs]})
+    return outs[0]["launches"]
 
 
 TENANTS = ("tenant-0", "tenant-1", "tenant-2", "tenant-3")
@@ -3555,7 +3783,6 @@ def train_remat_phase(torch, cfg, steps=4):
     "dots" and under "nothing", each with its step time (median after step
     0) and peak device memory.  The policy changes what is kept, not what
     is computed, so the losses are equal."""
-    import os
     runs = {}
     for policy in ("dots", "nothing"):
         os.environ["REPRO_REMAT_POLICY"] = policy
@@ -3642,7 +3869,6 @@ def train_oracle_phase(torch, cfg):
     versions) from the same weights and batch (B 2 x S 512): loss within
     1e-4 relative, each leaf within 1e-3 of its largest value.  On the card,
     remat off, "dots" and "nothing" give the same loss and gradients."""
-    import os
     from repro_torch.models import build_model
     from repro_torch.train.data import TokenPipeline
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
@@ -3875,7 +4101,7 @@ def _leaf_gaps(grads, want) -> list:
 
 def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state,
                                 witness=True, restart=(8, 6), seq_len=512,
-                                phase=None):
+                                phase=None, restart_layers=None):
     """``n_layers`` layers at full width (2 Mamba1 layers; 2 hybrid
     segments, 12 Mamba2 layers and 2 shared-block calls; 2 MoE layers),
     f32, B 2 x S 512:
@@ -3891,8 +4117,9 @@ def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state,
     The hybrid needs it: two CPU orders part by about 4e-3 of a leaf at
     this depth (PERF.md, Findings).  Without ``witness`` (moe) the limits
     are those two; the routers' leaves are reported apart.  Then a restart
-    at that depth (bf16, the family's moments; ``restart`` = (steps, the
-    step that fails)) replays the clean run's final loss bit for bit.
+    at that depth or at ``restart_layers`` (bf16, the family's moments;
+    ``restart`` = (steps, the step that fails)) replays the clean run's
+    final loss bit for bit.
     ``phase`` names the lines (default ``train_<family>``); an
     encoder-decoder is cut to ``n_layers`` encoder and decoder layers and
     takes the pipeline's stub frames."""
@@ -3946,7 +4173,7 @@ def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state,
     assert max(leaf_rel) <= leaf_tol, (max(leaf_rel), leaf_tol)
     del gpu, params, grads, cpu_grads
     torch.cuda.empty_cache()
-    train_restart_phase(torch, cfg, n_layers, opt_state,
+    train_restart_phase(torch, cfg, restart_layers or n_layers, opt_state,
                         phase=f"{phase}_restart",
                         steps=restart[0], fail_at=restart[1],
                         seq_len=seq_len)
@@ -4829,7 +5056,11 @@ def main() -> int:
     # 5. serve, full width, bf16: the base workload, then the same workload
     # spread over four tenants; identity runs; a profiled window
     params = build_model(cfg, DEV).init(0)
-    launches, base = serve_phase(torch, cfg, params)
+    launches, base, base_tokens = serve_phase(torch, cfg, params)
+    # multi-device serving: the same workload on a 1-rank NCCL mesh with TP
+    # weights, then two gloo ranks on this card at 8 layers
+    mesh_launches = serve_mesh_phase(torch, cfg, params, base_tokens)
+    mesh2_launches = serve_mesh_2_phase(torch, cfg, smi)
     plan_identity(torch, cfg, params)
     lora_launches = lora_serve_phase(torch, cfg, params, base)
     lora_identity_phase(torch, cfg, params)
@@ -4881,8 +5112,10 @@ def main() -> int:
 
     # 11. the stateful families' training at full width, bf16 (falcon-mamba
     # with int8 moments: f32 ones do not fit beside its weights), a
-    # profiled window each, then their card-against-CPU oracles and
-    # restarts at 2 layers / 2 segments
+    # profiled window each, then their card-against-CPU oracles at 2
+    # layers / 2 segments and restarts at 2 layers / 1 segment (with the
+    # hybrid's restart at 2 segments the script took 1,008 s; at 1 segment
+    # it took 846 s on a faster host and 1,084 s on the slowest seen)
     ssm_train_launches = train_stateful_phase(torch, ssm_cfg, "int8")
     train_profile_phase(torch, ssm_cfg, steps=2, opt_state="int8",
                         phase="train_ssm_profile")
@@ -4890,7 +5123,7 @@ def main() -> int:
     train_profile_phase(torch, hy_cfg, steps=2, phase="train_hybrid_profile")
     train_stateful_oracle_phase(torch, ssm_cfg, 2, "int8")
     train_stateful_oracle_phase(torch, hy_cfg, 2 * hy_cfg.hybrid.attn_every,
-                                "f32")
+                                "f32", restart_layers=hy_cfg.hybrid.attn_every)
 
     # 12. the moe family at full width: olmoe-1b-7b served (bf16, native
     # capacity factor), a profiled window, two tenants on its attention;
@@ -4939,7 +5172,8 @@ def main() -> int:
 
     # each row's launches come from the main path that gives its shape
     # (the row's ``path``): the qwen3-0.6b serve workload (K1 at head_dim
-    # 128, K2 at 1,024 and 128), the compile phase (K4), the multi-LoRA
+    # 128, K2 at 1,024 and 128), its rank-0 run on the 2-rank serve mesh (K1
+    # at 8 over 4 heads), the compile phase (K4), the multi-LoRA
     # workload (the fused delta, whose launches run K5's and K6's device
     # code: their rows count its launches, ``launches_of``), the ssm
     # workload (K7, K2 at 4,096) and the hybrid workload (K1 at head_dim
@@ -4955,6 +5189,8 @@ def main() -> int:
     # and qwen2-vl's serve run (K2 at 8,192) and training run (K3 at 64
     # over 8 heads, K2 at 4,096 x 8,192)
     path_launches = {"serve": launches, "compile": compile_launches,
+                     "serve_mesh": mesh_launches,
+                     "serve_mesh_2": mesh2_launches,
                      "lora_serve": lora_launches, "ssm_serve": ssm_launches,
                      "hybrid_serve": hybrid_launches,
                      "train": train_launches,
@@ -5026,6 +5262,9 @@ def main() -> int:
     assert all(k["launches"] > 0 for k in summary), \
         [k["name"] for k in summary if not k["launches"]]
     emit({"kernels": summary})
+    # the script stops every process it starts
+    from tools.session_leftovers import children
+    assert not children(os.getpid()), children(os.getpid())
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -19,9 +19,9 @@ The searched logical graphs are 2-D (tokens x features) block graphs — the
 paper's Fig. 6 granularity.  Costs read the :class:`Hardware` record passed
 as ``hw`` (default: the H100 SXM).
 
-The reference's ``ndsbp_to_pspec`` (the bridge from a chosen ND-SBP to a
-sharding spec of the framework) is left out: it belongs to multi-GPU
-serving (ROADMAP A10), which will bridge to ``torch.distributed`` instead.
+``ndsbp_to_pspec`` turns a chosen ND-SBP into the spec tuple that
+``repro_torch.distributed.sharding`` and ``param_sharding`` use (the
+reference's ``PartitionSpec`` entries).
 """
 from __future__ import annotations
 
@@ -378,6 +378,18 @@ def auto_distribute(root_term: Term, pl: Placement,
     return DistributedPlan(total, assignments, boxing, peak)
 
 
+def ndsbp_to_pspec(nd: NdSbp, pl: Placement, tensor_ndim: int) -> tuple:
+    """A placement's partition spec (the reference's ``PartitionSpec``
+    entries as a tuple): dim d gets every mesh axis whose SBP is S(d), a
+    bare name for one axis, a tuple for several, None for none."""
+    entries: List[Optional[Tuple[str, ...]]] = [None] * tensor_ndim
+    for axis_name, sbp in zip(pl.axes, nd):
+        if isinstance(sbp, S):
+            cur = entries[sbp.axis] or ()
+            entries[sbp.axis] = tuple(cur) + (axis_name,)
+    return tuple(e if e is None or len(e) > 1 else e[0] for e in entries)
+
+
 # ---------------------------------------------------------------------------
 # Tensor-parallel layout choice for serving
 # ---------------------------------------------------------------------------
@@ -439,8 +451,9 @@ def choose_tp_layout(*, d_model: int, q_dim: int, d_ff: int, vocab: int,
 
     The chosen per-weight ND-SBPs come back as :class:`WeightChoice`
     entries; blocks whose dims don't divide ``n_model`` fall back to
-    replicated and are recorded in ``TPPlan.fallback``.  Multi-GPU serving
-    (ROADMAP A10) is to take its partition rules from here.
+    replicated and are recorded in ``TPPlan.fallback``.  The sharded serve
+    engine takes its partition rules from here
+    (``repro_torch.distributed.param_sharding.choose_tp_rules``).
     """
     from repro_torch.core.tensor_ir import inp, matmul, term_shape, unary
 

@@ -1,2 +1,4 @@
-"""Fault tolerance of the training loop (mirrors ``src/repro/distributed/``;
-mesh sharding waits for ROADMAP A10)."""
+"""Multi-device runtime of the port (mirrors ``src/repro/distributed/``):
+the sharding spec functions (``sharding``), tensor-parallel weights for
+serving (``param_sharding``) and the training loop's fault tolerance
+(``fault_tolerance``).  Training on a mesh waits for ROADMAP A10b."""

@@ -7,8 +7,8 @@
   running median of the last ``window`` steps.
 
 The reference's ``elastic_remesh`` (rebuild a smaller mesh after losing
-hosts) is not ported: the port has no multi-device training yet (ROADMAP
-A10).  Batches are keyed by (seed, step), so a restored run replays exactly.
+hosts) is not ported: it waits for multi-device training (ROADMAP
+A10b).  Batches are keyed by (seed, step), so a restored run replays exactly.
 """
 from __future__ import annotations
 

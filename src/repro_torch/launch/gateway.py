@@ -14,7 +14,8 @@ cleanly`` and exits 0.  Same CLI as ``repro.launch.gateway`` with three
 differences: ``--device`` (default cuda; asking for cuda without a card is
 an error, never a move to the CPU), the weights are random from seed 0
 (``build_model(cfg, device).init(0)``), and ``--mesh N`` with N > 0 is
-refused (multi-device serving is ROADMAP A10).
+refused: the sharded engine serves from ``launch/serve.py --mesh/--tp``,
+and the async engine and gateway on a mesh are ROADMAP A10c.
 """
 from __future__ import annotations
 
@@ -79,14 +80,15 @@ def main(argv=None) -> int:
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--mesh", type=int, default=0,
-                    help="not ported: N > 0 raises (ROADMAP A10)")
+                    help="not ported: N > 0 raises (ROADMAP A10c)")
     ap.add_argument("--no-plan-kernels", action="store_true",
                     help="skip the pipeline compile of the paged attention "
                          "shapes (faster boot; smoke/test use)")
     args = ap.parse_args(argv)
     if args.mesh > 0:
-        ap.error(f"--mesh {args.mesh}: multi-device serving is not ported "
-                 "to repro_torch yet (ROADMAP A10)")
+        ap.error(f"--mesh {args.mesh}: the gateway on a serve mesh is not "
+                 "ported to repro_torch yet (ROADMAP A10c; launch.serve "
+                 "--mesh serves a sharded engine)")
     asyncio.run(serve(args))
     return 0
 

@@ -15,7 +15,7 @@ is given.
 
 Same CLI as ``repro.launch.train`` with ``--device`` added (default cuda;
 asking for cuda without a card is an error) and no ``--mesh`` (training on
-several devices is a later slice, ROADMAP A10).  ``--smoke`` swaps in the
+several devices is a later slice, ROADMAP A10b).  ``--smoke`` swaps in the
 reduced same-family config (``--device cpu --smoke`` trains it here in
 seconds); without it the arch trains at full width from random weights.
 The dense, moe (olmoe-1b-7b: the loss adds 0.01 times the routers'

@@ -8,6 +8,16 @@ The paged paths update the KV slabs **in place** (the JAX functions return
 new arrays); they still return the slabs so call sites read the same.  They
 keep the reference's null-block rule: dead decode rows and padded prefill
 positions all write block 0, which is never read unmasked.
+
+On a sharded serve engine (``shard``, the engine's ``ServeShard``; the
+reference's ``shard_map`` branches) each rank's pages hold its own
+KV/n heads: the rank scatters its kv heads' new K/V into its local pages,
+attends its H/n query heads (those grouped under its kv heads, so GQA
+never crosses a rank) with the same kernel, and the per-rank outputs are
+all-gathered on the heads axis before ``wo``, or stay local for a
+row-parallel ``wo`` under REPRO_TP_REDUCE_SCATTER=1 (one all_reduce on its
+partial sums instead).  No floating-point sum spans ranks in the
+attention, so identity mode is the single device's bit for bit.
 """
 from __future__ import annotations
 
@@ -17,6 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.param_sharding import tp_linear, tp_whole
 from repro_torch.models import lora as lora_mod
 from repro_torch.models.layers import (apply_rope, default_mrope_sections,
                                       rms_norm_pair, truncated_normal)
@@ -167,27 +178,36 @@ def _paged_decode_attend(q, k_pages, v_pages, block_tables, seq_lens,
     return decode_attention(q, kg, vg, seq_lens + 1)
 
 
+def _out_project(p, o: torch.Tensor, lora, shard) -> torch.Tensor:
+    """o (B,S,H,hd) -> (B,S,d) through ``wo``.  On a sharded engine ``o``
+    holds this rank's heads: gathered first, or consumed in place by a
+    row-parallel ``wo`` in reduce-scatter mode (``tp_linear``)."""
+    oh = o.flatten(2)
+    out, local = tp_linear(oh, p["wo"], shard, x_local=shard is not None)
+    return tp_whole(lora_mod.add_delta("o", out, oh, lora), local, shard)
+
+
 def attention_decode_block_paged(cfg: ModelConfig, p, x: torch.Tensor,
                                  k_pages: torch.Tensor, v_pages: torch.Tensor,
                                  block_tables: torch.Tensor,
                                  seq_lens: torch.Tensor,
                                  pages_per_fetch: int = 1,
-                                 lora: Optional[dict] = None):
+                                 lora: Optional[dict] = None, shard=None):
     """One-token attention against a paged cache.  x (B,1,d); pages
-    (N,bs,KV,hd) updated in place; block_tables (B,M); seq_lens (B,) KV
-    entries already written per row (the new token lands at seq_lens[b]);
-    ``pages_per_fetch`` is the kernel plan's, handed to the kernel; ``lora``
-    one layer's adapter descriptor or None.  Returns (out, k_pages,
-    v_pages)."""
+    (N,bs,KV,hd) updated in place (KV/n heads on a sharded engine's rank);
+    block_tables (B,M); seq_lens (B,) KV entries already written per row
+    (the new token lands at seq_lens[b]); ``pages_per_fetch`` is the kernel
+    plan's, handed to the kernel; ``lora`` one layer's adapter descriptor
+    or None; ``shard`` a sharded engine's ``ServeShard`` or None.  Returns
+    (out, k_pages, v_pages)."""
     seq_lens = seq_lens.to(torch.int32)
-    q, k, v = qkv_project(cfg, p, x, seq_lens[:, None], lora=lora)
+    q, k, v = qkv_project(cfg, p, x, seq_lens[:, None], lora=lora,
+                          shard=shard)
     paged_scatter_token(k_pages, block_tables, seq_lens, k[:, 0])
     paged_scatter_token(v_pages, block_tables, seq_lens, v[:, 0])
     o = _paged_decode_attend(q, k_pages, v_pages, block_tables, seq_lens,
                              pages_per_fetch)
-    oh = o.reshape(x.shape[0], 1, cfg.q_dim)
-    out = lora_mod.add_delta("o", oh @ p["wo"], oh, lora)
-    return out, k_pages, v_pages
+    return _out_project(p, o, lora, shard), k_pages, v_pages
 
 
 def attention_prefill_chunk_block(cfg: ModelConfig, p, x: torch.Tensor,
@@ -197,14 +217,16 @@ def attention_prefill_chunk_block(cfg: ModelConfig, p, x: torch.Tensor,
                                   prompt_len: torch.Tensor,
                                   m_used: Optional[int] = None,
                                   pages_per_fetch: int = 1,
-                                  lora: Optional[dict] = None):
+                                  lora: Optional[dict] = None, shard=None):
     """One prompt chunk's attention against the paged cache (batch of 1).
     x (1,C,d); block_table (1,M); chunk_pos (C,) absolute positions;
     positions >= prompt_len are padding whose KV goes to the null block.
     ``m_used`` bounds the attended span to the table's first blocks; ``lora``
-    is one layer's adapter descriptor or None.  Pages are updated in place.
-    Returns (out, k_pages, v_pages)."""
-    q, k, v = qkv_project(cfg, p, x, chunk_pos[None, :], lora=lora)
+    is one layer's adapter descriptor or None; ``shard`` a sharded engine's
+    ``ServeShard`` (its rank's KV/n heads in the pages) or None.  Pages are
+    updated in place.  Returns (out, k_pages, v_pages)."""
+    q, k, v = qkv_project(cfg, p, x, chunk_pos[None, :], lora=lora,
+                          shard=shard)
     bs = k_pages.shape[1]
     if m_used is not None:
         block_table = block_table[:, :min(m_used, block_table.shape[1])]
@@ -218,9 +240,7 @@ def attention_prefill_chunk_block(cfg: ModelConfig, p, x: torch.Tensor,
     v_pages[blk, off] = v[0].to(v_pages.dtype)
     o = _paged_prefill_attend(cfg, q, k_pages, v_pages, block_table,
                               chunk_pos, pages_per_fetch)
-    oh = o.reshape(1, x.shape[1], cfg.q_dim)
-    out = lora_mod.add_delta("o", oh @ p["wo"], oh, lora)
-    return out, k_pages, v_pages
+    return _out_project(p, o, lora, shard), k_pages, v_pages
 
 
 def _paged_prefill_attend(cfg: ModelConfig, q, k_pages, v_pages, block_table,
@@ -261,19 +281,24 @@ def init_attention(cfg: ModelConfig, gen, dtype, device):
 
 
 def qkv_project(cfg: ModelConfig, p, x: torch.Tensor,
-                positions: torch.Tensor, lora: Optional[dict] = None):
+                positions: torch.Tensor, lora: Optional[dict] = None,
+                shard=None):
     """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd) with qk-norm and RoPE
     (M-RoPE at qwen2-vl's sections when ``positions`` holds three streams,
     (3,B,S)).  ``lora`` (serve only) adds each row's adapter delta to the q/k/v
-    projections before reshape, qk-norm and RoPE; None runs none of it."""
-    b, s, _ = x.shape
+    projections before reshape, qk-norm and RoPE; None runs none of it.
+    ``shard`` (a sharded serve engine's) gives this rank's H/n and KV/n
+    heads: computed on them where the weights are column-parallel in
+    reduce-scatter mode, else computed whole and cut, so they are the
+    single device's heads bit for bit."""
     hd = cfg.resolved_head_dim
-    q = lora_mod.add_delta("q", x @ p["wq"], x, lora) \
-        .reshape(b, s, cfg.n_heads, hd)
-    k = lora_mod.add_delta("k", x @ p["wk"], x, lora) \
-        .reshape(b, s, cfg.n_kv_heads, hd)
-    v = lora_mod.add_delta("v", x @ p["wv"], x, lora) \
-        .reshape(b, s, cfg.n_kv_heads, hd)
+    heads, local = [], []
+    for proj in ("q", "k", "v"):
+        y, loc = tp_linear(x, p["w" + proj], shard)
+        y = lora_mod.add_delta(proj, y, x, lora)
+        heads.append(y.unflatten(-1, (-1, hd)))
+        local.append(loc)
+    q, k, v = heads
     if cfg.qk_norm:
         q, k = rms_norm_pair(q, p["q_norm"], k, p["k_norm"], cfg.norm_eps)
     if cfg.rope != "none":
@@ -281,6 +306,9 @@ def qkv_project(cfg: ModelConfig, p, x: torch.Tensor,
             else None
         q = apply_rope(q, positions, cfg.rope_theta, sections)
         k = apply_rope(k, positions, cfg.rope_theta, sections)
+    if shard is not None:
+        q, k, v = (t if loc else t[:, :, shard.part(t.shape[2])]
+                   .contiguous() for t, loc in zip((q, k, v), local))
     return q, k, v
 
 

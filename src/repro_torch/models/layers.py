@@ -5,6 +5,10 @@ init helpers.
 Functions are plain PyTorch on tensors; params are plain dicts of tensors.
 Initializers draw from an explicit ``torch.Generator``.  ``apply_mlp``
 takes an optional per-layer LoRA descriptor (``repro_torch.models.lora``).
+Every weight use goes through ``tp_linear`` / ``tp_embed``
+(``repro_torch.distributed.param_sharding``), which take the sharded serve
+engine's ``shard`` (its ``ServeShard``); without one they are the plain
+``x @ w`` and ``table[ids]``.
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.param_sharding import (tp_embed, tp_linear,
+                                                    tp_whole)
 from repro_torch.kernels import ops
 from repro_torch.models.lora import add_delta
 from repro_torch.perf import require_norm_f32
@@ -113,15 +119,22 @@ def init_mlp(cfg: ModelConfig, gen, d_ff: int, dtype, device):
 
 
 def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor,
-              lora: Optional[dict] = None) -> torch.Tensor:
+              lora: Optional[dict] = None, shard=None) -> torch.Tensor:
     """The dense FFN; ``lora`` (serve only) adds each row's adapter delta to
-    the gate/up (or wi) and down projections."""
+    the gate/up (or wi) and down projections; ``shard`` (a sharded serve
+    engine's, never with ``lora``) runs it over tensor-parallel weights:
+    the in-projections' outputs stay this rank's ff slice where their
+    weights are column-parallel, and the down projection's row-parallel
+    partial sums meet in one all_reduce (``tp_linear``)."""
     if cfg.act == "swiglu":
-        g = add_delta("gate", x @ p["wi_gate"], x, lora)
-        u = add_delta("up", x @ p["wi_up"], x, lora)
+        # one rule (mlp_in) lays out both, so both are local or neither
+        g, local = tp_linear(x, p["wi_gate"], shard)
+        g = add_delta("gate", g, x, lora)
+        u = add_delta("up", tp_linear(x, p["wi_up"], shard)[0], x, lora)
         h = F.silu(g.float()).to(x.dtype) * u
     else:
-        h = add_delta("wi", x @ p["wi"], x, lora)
+        h, local = tp_linear(x, p["wi"], shard)
+        h = add_delta("wi", h, x, lora)
         if cfg.act == "squared_relu":
             h = torch.square(F.relu(h.float())).to(x.dtype)
         elif cfg.act == "gelu":
@@ -129,7 +142,8 @@ def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor,
             h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
         else:
             raise ValueError(f"unknown activation {cfg.act!r}")
-    return add_delta("down", h @ p["wo"], h, lora)
+    y, y_local = tp_linear(h, p["wo"], shard, x_local=local)
+    return tp_whole(add_delta("down", y, h, lora), y_local, shard)
 
 
 def init_embed(cfg: ModelConfig, gen, dtype, device):
@@ -142,14 +156,15 @@ def init_embed(cfg: ModelConfig, gen, dtype, device):
     return p
 
 
-def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens.long()]
+def embed_tokens(p, tokens: torch.Tensor, shard=None) -> torch.Tensor:
+    return tp_embed(p["embed"], tokens, shard)
 
 
-def logits_from_hidden(cfg: ModelConfig, p, h: torch.Tensor) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return h @ p["embed"].T
-    return h @ p["unembed"]
+def logits_from_hidden(cfg: ModelConfig, p, h: torch.Tensor,
+                       shard=None) -> torch.Tensor:
+    w = p["embed"] if cfg.tie_embeddings else p["unembed"]
+    return tp_whole(*tp_linear(h, w, shard, transpose=cfg.tie_embeddings),
+                    shard)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor

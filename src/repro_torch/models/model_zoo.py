@@ -26,6 +26,8 @@ class ModelFns:
     # Stateful families (ssm, hybrid) take ``state_slots=`` on
     # make_paged_cache and read "state_slot(s)" from the batch; None for
     # the audio family, which has none
+    # the transformer's take a sharded serve engine's ``n_model=`` and
+    # ``shard=`` (the ranks' head split; see models/transformer.py)
     # (num_blocks, block_size[, state_slots=]) -> cache
     make_paged_cache: Optional[Callable] = None
     # (params, cache, batch) -> (cache, logits)
@@ -117,12 +119,14 @@ def build_model(cfg: ModelConfig, device=None) -> ModelFns:
         decode_step=lambda p, c, b: transformer.lm_decode_step(cfg, p, c, b),
         make_cache=lambda bs, ml: transformer.make_decode_cache(
             cfg, bs, ml, dtype, dev),
-        make_paged_cache=lambda nb, bsz: transformer.make_paged_cache(
-            cfg, nb, bsz, dtype, dev),
-        decode_paged=lambda p, c, b: transformer.lm_decode_step_paged(
-            cfg, p, c, b),
-        prefill_chunk=lambda p, c, b, m_used=None: transformer.lm_prefill_chunk(
-            cfg, p, c, b, m_used=m_used),
+        make_paged_cache=lambda nb, bsz, n_model=1:
+            transformer.make_paged_cache(cfg, nb, bsz, dtype, dev,
+                                         n_model=n_model),
+        decode_paged=lambda p, c, b, shard=None:
+            transformer.lm_decode_step_paged(cfg, p, c, b, shard=shard),
+        prefill_chunk=lambda p, c, b, m_used=None, shard=None:
+            transformer.lm_prefill_chunk(cfg, p, c, b, m_used=m_used,
+                                         shard=shard),
         paged_block_copy=transformer.paged_block_copy,
         paged_block_read=transformer.paged_block_read,
         paged_block_write=transformer.paged_block_write,

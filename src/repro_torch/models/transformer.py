@@ -37,6 +37,13 @@ Multi-LoRA: the paged functions read ``batch.get("lora")`` (the engine's
 adapter descriptor, ``repro_torch.models.lora``, whose slab rows are in
 forward order) and ``batch.get("lora_block_out")``; when the descriptor is
 absent no LoRA code runs at all.  An MoE layer's FFN takes no LoRA.
+
+Multi-device serving: ``make_paged_cache(n_model=n)`` gives a rank of an
+n-rank serve mesh its own pool of KV/n heads, and the paged functions take
+the engine's ``shard`` (``repro_torch.distributed.param_sharding.
+ServeShard``), an explicit argument and never module state, which reaches
+every weight use and the attention's head split.  A dense arch only: the
+engine refuses the other families on a mesh.
 """
 from __future__ import annotations
 
@@ -107,11 +114,12 @@ def init_lm(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
 
 
 def _ffn(cfg: ModelConfig, lp, h: torch.Tensor, decode: bool,
-         lora: Optional[Dict] = None
+         lora: Optional[Dict] = None, shard=None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer's FFN: (y, its load-balance loss, or None for a dense
     FFN).  MoE experts are routed per token, so an MoE FFN takes no LoRA
-    (the adapter store adapts attention only for MoE archs)."""
+    (the adapter store adapts attention only for MoE archs) and no
+    ``shard`` (the engine serves no MoE arch on a mesh)."""
     if "moe" in lp:
         if decode:
             fn = moe_lib.apply_moe_decode_dispatch \
@@ -119,25 +127,27 @@ def _ffn(cfg: ModelConfig, lp, h: torch.Tensor, decode: bool,
                 else moe_lib.apply_moe_decode
             return fn(cfg, lp["moe"], h), None
         return moe_lib.apply_moe(cfg, lp["moe"], h)
-    return apply_mlp(cfg, lp["mlp"], h, lora=lora), None
+    return apply_mlp(cfg, lp["mlp"], h, lora=lora, shard=shard), None
 
 
 def _block(cfg: ModelConfig, lp, x: torch.Tensor, attend,
-           lora: Optional[Dict] = None, decode: bool = False
+           lora: Optional[Dict] = None, decode: bool = False, shard=None
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One pre-norm layer -> (output, the FFN's load-balance loss or None):
     ``attend`` maps the normed input to the attention output (it owns the
     cache update); ``lora`` is the layer's adapter descriptor for a dense
-    MLP, or None; ``decode`` picks an MoE layer's decode path."""
+    MLP, or None; ``decode`` picks an MoE layer's decode path; ``shard`` is
+    a sharded serve engine's."""
     h = x + attend(rms_norm(x, lp["ln1"], cfg.norm_eps))
     y, aux = _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps), decode,
-                  lora)
+                  lora, shard)
     return h + y, aux
 
 
-def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+def _head(cfg: ModelConfig, params, x: torch.Tensor,
+          shard=None) -> torch.Tensor:
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return logits_from_hidden(cfg, params["embed"], h)
+    return logits_from_hidden(cfg, params["embed"], h, shard)
 
 
 # ---------------------------------------------------------------------------
@@ -275,11 +285,14 @@ def make_decode_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype,
 
 
 def make_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
-                     dtype, device=None) -> Dict:
+                     dtype, device=None, n_model: int = 1) -> Dict:
     """Block-pool KV cache shared by all in-flight requests; block 0 is the
-    null block (see ``repro_torch.serve.paged_cache``)."""
-    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
+    null block (see ``repro_torch.serve.paged_cache``).  A rank of an
+    ``n_model``-rank serve mesh holds KV/n_model heads of every block, in
+    tensors of its own (contiguous, as the paged kernel requires); the
+    engine has checked that n_model divides the kv heads."""
+    shape = (cfg.n_layers, num_blocks, block_size,
+             cfg.n_kv_heads // n_model, cfg.resolved_head_dim)
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
@@ -341,20 +354,22 @@ def paged_block_write(cache: Dict, idx, data: Dict) -> Dict:
     return cache
 
 
-def lm_decode_step_paged(cfg: ModelConfig, params, cache: Dict, batch: Dict):
+def lm_decode_step_paged(cfg: ModelConfig, params, cache: Dict, batch: Dict,
+                         shard=None):
     """One decode step over a paged cache.  batch {"token" (B,1),
     "block_tables" (B,M) int32, "seq_lens" (B,) int32, optionally
     "pages_per_fetch" (the kernel plan's, default 1), "lora" (per-row
     adapter slots, -1 for base rows, and the slabs) and "lora_block_out"
     (the plan's expand tile, default 256)}: every row sits at its own
-    position.  Returns (cache, logits (B,V)); the cache is updated in
+    position.  ``shard``: a sharded serve engine's (this rank's heads in
+    ``cache``).  Returns (cache, logits (B,V)); the cache is updated in
     place."""
     seq_lens = batch["seq_lens"].to(torch.int32)
     ppf = int(batch.get("pages_per_fetch", 1))
     tables = batch["block_tables"].to(torch.int32)
     lora = batch.get("lora")
     block_out = int(batch.get("lora_block_out", 256))
-    x = embed_tokens(params["embed"], batch["token"])
+    x = embed_tokens(params["embed"], batch["token"], shard)
     for i, lp in enumerate(params["layers"]):
         ll = lora_mod.layer_slice(lora, i, block_out)
         r = cache_row(cfg, i)
@@ -362,14 +377,14 @@ def lm_decode_step_paged(cfg: ModelConfig, params, cache: Dict, batch: Dict):
         def attend(xn, lp=lp, r=r, ll=ll):
             o, _, _ = attn.attention_decode_block_paged(
                 cfg, lp["attn"], xn, cache["k"][r], cache["v"][r], tables,
-                seq_lens, pages_per_fetch=ppf, lora=ll)
+                seq_lens, pages_per_fetch=ppf, lora=ll, shard=shard)
             return o
-        x, _ = _block(cfg, lp, x, attend, lora=ll, decode=True)
-    return cache, _head(cfg, params, x)[:, 0, :]
+        x, _ = _block(cfg, lp, x, attend, lora=ll, decode=True, shard=shard)
+    return cache, _head(cfg, params, x, shard)[:, 0, :]
 
 
 def lm_prefill_chunk(cfg: ModelConfig, params, cache: Dict, batch: Dict,
-                     m_used: Optional[int] = None):
+                     m_used: Optional[int] = None, shard=None):
     """One prompt chunk of a single request into the paged cache.
 
     batch {"tokens" (1,C) (null-padded past the prompt), "block_table"
@@ -377,8 +392,8 @@ def lm_prefill_chunk(cfg: ModelConfig, params, cache: Dict, batch: Dict,
     "prompt_len" — the chunk's write limit, optionally "pages_per_fetch",
     "lora" (a one-element ids row, broadcast over the chunk) and
     "lora_block_out"}.  ``m_used`` restricts attention to the table's first
-    blocks.  Returns (cache, logits (1,C,V)); the cache is updated in
-    place."""
+    blocks; ``shard`` is a sharded serve engine's.  Returns (cache, logits
+    (1,C,V)); the cache is updated in place."""
     start = int(batch["start"])
     table = batch["block_table"].to(torch.int32)
     tokens = batch["tokens"]
@@ -389,7 +404,7 @@ def lm_prefill_chunk(cfg: ModelConfig, params, cache: Dict, batch: Dict,
     ppf = int(batch.get("pages_per_fetch", 1))
     lora = batch.get("lora")
     block_out = int(batch.get("lora_block_out", 256))
-    x = embed_tokens(params["embed"], tokens)
+    x = embed_tokens(params["embed"], tokens, shard)
     for i, lp in enumerate(params["layers"]):
         ll = lora_mod.layer_slice(lora, i, block_out)
         r = cache_row(cfg, i)
@@ -398,7 +413,7 @@ def lm_prefill_chunk(cfg: ModelConfig, params, cache: Dict, batch: Dict,
             o, _, _ = attn.attention_prefill_chunk_block(
                 cfg, lp["attn"], xn, cache["k"][r], cache["v"][r], table,
                 chunk_pos, prompt_len, m_used=m_used, pages_per_fetch=ppf,
-                lora=ll)
+                lora=ll, shard=shard)
             return o
-        x, _ = _block(cfg, lp, x, attend, lora=ll)
-    return cache, _head(cfg, params, x)
+        x, _ = _block(cfg, lp, x, attend, lora=ll, shard=shard)
+    return cache, _head(cfg, params, x, shard)

@@ -58,11 +58,35 @@
       LoRA alpha of synthesized adapters; the alpha/rank scale is folded
       into the B slab at load time so the kernels stay scale-free.
 
+  REPRO_SERVE_MESH     0 | auto | N
+      a ``ServeEngine`` built with ``mesh=None`` shards its KV block pool
+      on the kv-heads axis over the ranks of the initialized
+      ``torch.distributed`` process group: "auto" over all of them, N over
+      a group of exactly N ranks ("0", "" or "off": one device).  Without
+      an initialized group of that size the engine raises
+      (``repro_torch.launch.mesh.make_serve_mesh``)
+  REPRO_SERVE_TP       0 | 1
+      1 — a mesh engine built with ``tp=None`` also stores the weights
+          tensor-parallel, each rank its 1/n shard, with the partition
+          rules Auto Distribution's SBP cost model emits
+          (``repro_torch.distributed.param_sharding``).  Unlike the
+          reference, which ignores it without a mesh, the port raises when
+          no mesh is set (a TP request never serves on one device quietly)
+  REPRO_TP_REDUCE_SCATTER  0 | 1
+      0 — each TP weight is all-gathered at its use, so the arithmetic is
+          the single device's, bit for bit
+      1 — compute follows the stored layout: column-parallel q/k/v and
+          MLP in-projections on the rank's heads and features, row-parallel
+          output projections as partial sums with one all_reduce each, the
+          vocab-sharded embedding as a masked lookup plus an all_reduce and
+          the logits all-gathered over vocab; fp32-close, not bitwise
+  REPRO_TRAIN_SHARDING  fsdp_tp | dp
+      the layout ``repro_torch.distributed.sharding``'s spec functions
+      give a training mesh: FSDP over the data axes and TP over "model",
+      or pure data parallelism (weights replicated, moments ZeRO-sharded)
+
 ``REPRO_NORM_F32=0`` (rms_norm in the activation dtype) is not ported: the
 port's rms_norm always reduces in f32, and setting the knob raises.
-``REPRO_SERVE_MESH`` (anything but "0", "" or "off") and
-``REPRO_SERVE_TP=1`` (a sharded serve engine) are not ported either: the
-port's ``ServeEngine`` raises when either is set (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -89,6 +113,10 @@ class PerfConfig:
     opt_state: str = "f32"
     attn_chunk: int = 1024
     moe_decode: str = "gather"
+    serve_mesh: str = "0"
+    serve_tp: bool = False
+    tp_reduce_scatter: bool = False
+    train_sharding: str = "fsdp_tp"
 
 
 def require_norm_f32() -> None:
@@ -97,21 +125,6 @@ def require_norm_f32() -> None:
         raise NotImplementedError(
             "REPRO_NORM_F32=0 (rms_norm in the activation dtype) is not "
             "ported to repro_torch yet; see ROADMAP.md")
-
-
-def require_single_device_serve() -> None:
-    """Raise if ``REPRO_SERVE_MESH`` or ``REPRO_SERVE_TP`` asks for a
-    sharded serve engine, which the port lacks (the reference builds one
-    from them when no mesh is passed)."""
-    mesh = os.environ.get("REPRO_SERVE_MESH", "0")
-    if mesh not in ("0", "", "off"):
-        raise NotImplementedError(
-            f"REPRO_SERVE_MESH={mesh!r} (a serve engine sharded over a "
-            "mesh) is not ported to repro_torch yet; see ROADMAP.md A10")
-    if os.environ.get("REPRO_SERVE_TP", "0") == "1":
-        raise NotImplementedError(
-            "REPRO_SERVE_TP=1 (tensor-parallel serving) is not ported to "
-            "repro_torch yet; see ROADMAP.md A10")
 
 
 def perf() -> PerfConfig:
@@ -131,6 +144,13 @@ def perf() -> PerfConfig:
     moe_decode = os.environ.get("REPRO_MOE_DECODE", "gather")
     if moe_decode not in ("gather", "dispatch"):
         raise ValueError(f"bad REPRO_MOE_DECODE {moe_decode!r}")
+    serve_mesh = os.environ.get("REPRO_SERVE_MESH", "0")
+    if serve_mesh not in ("0", "", "off", "auto") and not (
+            serve_mesh.isdigit() and int(serve_mesh) >= 1):
+        raise ValueError(f"bad REPRO_SERVE_MESH {serve_mesh!r}")
+    train_sharding = os.environ.get("REPRO_TRAIN_SHARDING", "fsdp_tp")
+    if train_sharding not in ("fsdp_tp", "dp"):
+        raise ValueError(f"bad REPRO_TRAIN_SHARDING {train_sharding!r}")
     return PerfConfig(
         paged_attn=mode,
         kv_swap=os.environ.get("REPRO_KV_SWAP", "1") == "1",
@@ -151,5 +171,10 @@ def perf() -> PerfConfig:
         opt_state=opt_state,
         attn_chunk=attn_chunk,
         moe_decode=moe_decode,
+        serve_mesh=serve_mesh,
+        serve_tp=os.environ.get("REPRO_SERVE_TP", "0") == "1",
+        tp_reduce_scatter=os.environ.get("REPRO_TP_REDUCE_SCATTER",
+                                         "0") == "1",
+        train_sharding=train_sharding,
     )
 

@@ -61,9 +61,23 @@ prefill chunks are rounded up to the scan granule ``cfg.ssm.chunk``.
 
 The model functions run eagerly and update the KV slab and the state slab
 in place.  Paged attention launches the CUDA kernel for CUDA tensors and
-takes the gather path for CPU tensors (REPRO_PAGED_ATTN).  Not in this
-slice: multi-device pools and tensor parallelism (``mesh=``/``tp=``) — see
-ROADMAP.md A10.
+takes the gather path for CPU tensors (REPRO_PAGED_ATTN).
+
+Multi-device serving (``mesh=``, REPRO_SERVE_MESH): one process per
+device, each rank a replicated state machine over its own shard.  Every
+rank builds the same engine; its pool holds KV/n heads of every block
+(the block ids, refcounts and tables are the same on every rank), its host
+tier parks that slice, and with ``tp=True`` (REPRO_SERVE_TP) it stores its
+1/n of the weights (``repro_torch.distributed.param_sharding``).  Rank 0
+owns the inputs: ``submit`` and ``cancel`` there are carried to every rank
+by the one ``broadcast_object_list`` that opens each ``step()``, with rank
+0's clock, which is the clock the deadline reaper reads on every rank; the
+other ranks run ``follow()`` until rank 0's ``close()``.  Each step ends
+with an ``all_gather`` of a digest of its plan (admissions, chunks, decode
+rows, sampled tokens), and a mismatch raises ``MeshDivergence`` on every
+rank rather than letting the ranks' collectives drift apart.  Adapters,
+the ssm and hybrid families (as in the reference) and the moe family
+(ROADMAP A10c) are refused on a mesh.
 
 ``cancel(rid)`` aborts a request wherever it lives and frees its blocks the
 same call; ``note_gateway_shed`` counts the gateway's refusals at the door.
@@ -73,6 +87,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import sys
 import time
 from typing import Callable, Dict, List, Optional
@@ -84,8 +99,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.codegen import lora_tiles, paged_pages_per_fetch
 from repro_torch.core.hardware import H100, Hardware
 from repro_torch.core.tensor_ir import inp, matmul, unary
+from repro_torch.distributed import param_sharding
+from repro_torch.distributed.param_sharding import ServeShard
 from repro_torch.models import build_model
-from repro_torch.perf import perf, require_single_device_serve
+from repro_torch.perf import perf
 from repro_torch.pipeline import (CompileOptions, CompileTarget, Compiler,
                                   default_compiler)
 from repro_torch.serve.adapters import AdapterStore, AdapterStoreFull
@@ -98,6 +115,20 @@ from repro_torch.serve.paged_cache import (BlockPool, PoolExhausted,
                                            ServeMetrics, blocks_for_tokens,
                                            dense_equiv_blocks,
                                            worst_case_blocks)
+
+
+class MeshDivergence(RuntimeError):
+    """The ranks of a sharded engine planned different steps."""
+
+
+def _mesh_from_knob():
+    """REPRO_SERVE_MESH: "0"/""/"off" = one device (None), "auto" = every
+    rank of the process group, an int = a group of exactly that many."""
+    knob = perf().serve_mesh
+    if knob in ("", "0", "off"):
+        return None
+    from repro_torch.launch.mesh import make_serve_mesh
+    return make_serve_mesh(None if knob == "auto" else int(knob))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,16 +274,21 @@ class ServeEngine:
                  compiler: Optional[Compiler] = None,
                  plan_kernels: bool = True,
                  hardware: Hardware = H100,
+                 mesh=None,
+                 tp: Optional[bool] = None,
                  max_queue: Optional[int] = None,
                  fault_injector=None):
         # compiler: the Compiler that plans the attention shapes (None = the
         # process-wide default, whose cache a second engine hits).
-        # hardware: the record the plan is made for.  max_queue: bound on
+        # hardware: the record the plan is made for.  mesh: this rank's
+        # ``launch.mesh.ServeMesh`` to shard the KV pool over (kv-heads),
+        # None to consult REPRO_SERVE_MESH, False to force one device.  tp:
+        # also store the weights tensor-parallel (None consults
+        # REPRO_SERVE_TP; it needs a mesh).  max_queue: bound on
         # the admission queue (None consults REPRO_SERVE_MAX_QUEUE, 0 =
         # unbounded).  fault_injector: None consults REPRO_FAULT, False
-        # forces off.  The device is the one ``params`` live on.
-        # REPRO_SERVE_MESH / REPRO_SERVE_TP ask for sharding the port lacks
-        require_single_device_serve()
+        # forces off.  The device is the one ``params`` live on; every rank
+        # of a mesh passes the full weights.
         # vlm and audio are refused, as the reference's engine refuses
         # them: the paged path embeds token ids at (B,S) positions, which
         # would silently drop a stub frontend's embeds and M-RoPE streams
@@ -292,6 +328,7 @@ class ServeEngine:
             g = cfg.ssm.chunk
             self.prefill_chunk_tokens = max(
                 g * ((self.prefill_chunk_tokens + g - 1) // g), g)
+        self._init_mesh(cfg, mesh, tp, hardware)
 
         # unified pipeline: compile the paged attention shapes once (cached,
         # so a second engine on the same shapes skips the search passes)
@@ -343,14 +380,21 @@ class ServeEngine:
             # prefix sharing is off for stateful families: budget 0 makes
             # match_prefix miss and register_prefix a no-op
             prefix_budget = 0
-        self.param_bytes_replicated = self.param_bytes_per_device = sum(
-            t.numel() * t.element_size() for t in _leaves(params))
+        self.param_bytes_replicated = param_sharding.param_bytes_total(
+            self.params)
+        self.param_bytes_per_device = param_sharding.param_bytes_per_device(
+            self.params)
         # slot 0 of the state slab is the null slot (padded decode rows)
         self.state_slots = max_batch + 1 if self.has_state else 0
-        cache0 = (self.fns.make_paged_cache(num_blocks, block_size,
-                                            state_slots=self.state_slots)
-                  if self.has_state
-                  else self.fns.make_paged_cache(num_blocks, block_size))
+        if self.has_state:
+            cache0 = self.fns.make_paged_cache(num_blocks, block_size,
+                                               state_slots=self.state_slots)
+        elif self.mesh is not None:
+            # this rank's KV/n heads of every block
+            cache0 = self.fns.make_paged_cache(num_blocks, block_size,
+                                               n_model=self.mesh.n_model)
+        else:
+            cache0 = self.fns.make_paged_cache(num_blocks, block_size)
         device = DeviceTier(cache0, self.pool,
                             copy_block=self.fns.paged_block_copy,
                             read_block=self.fns.paged_block_read,
@@ -418,6 +462,61 @@ class ServeEngine:
         # per-tenant delivery tallies (key: adapter_id, "base" for None)
         self._tenant_tokens: Dict[str, int] = {}
         self._tenant_finished: Dict[str, int] = {}
+        # mesh: rank 0's submissions and cancellations since the last step;
+        # the current step's clock (rank 0's); this step's plan record
+        self._outbox: List[tuple] = []
+        self._step_clock = 0.0
+        self._plan: List[int] = []
+        self._closed = False
+        self._released = 0
+
+    def _init_mesh(self, cfg: ModelConfig, mesh, tp, hardware) -> None:
+        """Resolve ``mesh``/``tp`` and, on a mesh, check the split and keep
+        this rank's slice of the weights (``self.params``, ``self.shard``)."""
+        self.mesh = None if mesh is False else (
+            mesh if mesh is not None else _mesh_from_knob())
+        self.tp = bool(tp) if tp is not None else perf().serve_tp
+        if self.mesh is None and self.tp and mesh is not False:
+            raise ValueError(
+                "tensor-parallel serving (tp=True or REPRO_SERVE_TP=1) needs "
+                "a serve mesh (mesh= or REPRO_SERVE_MESH), and none is set")
+        self.tp = self.tp and self.mesh is not None
+        self.tp_rules = None
+        self.tp_report = None
+        self.shard: Optional[ServeShard] = None
+        self._model_kw: Dict[str, object] = {}
+        if self.mesh is None:
+            return
+        if self.has_state:
+            raise NotImplementedError(
+                "sharded serving of the ssm/hybrid families is not supported: "
+                "the state slab has no mesh partition; serve them on one "
+                "device")
+        if cfg.family == "moe":
+            raise NotImplementedError(
+                "sharded serving of the moe family waits for ROADMAP A10c; "
+                "serve it on one device")
+        n = self.mesh.n_model
+        # the pool is sharded per KV head (GQA groups stay on one rank);
+        # TP weights also split d_ff
+        param_sharding.validate_tp_divisibility(cfg, n, heads_only=not self.tp)
+        if self.tp:
+            # rules chosen by Auto Distribution's SBP cost model, matched
+            # against the param paths; each rank keeps its slices
+            self.tp_rules = param_sharding.choose_tp_rules(cfg, n, hardware)
+            specs, self.tp_report = param_sharding.tp_param_specs(
+                cfg, self.params, n, rules=self.tp_rules)
+            self.params = param_sharding.shard_params(self.params, specs,
+                                                      self.mesh)
+        self.shard = ServeShard(self.mesh, reduce_scatter=self.tp
+                                and perf().tp_reduce_scatter)
+        self._model_kw = {"shard": self.shard}
+
+    @property
+    def is_leader(self) -> bool:
+        """Rank 0 of a mesh, or a single-device engine: the rank that takes
+        submissions."""
+        return self.mesh is None or self.mesh.rank == 0
 
     @property
     def cache(self):
@@ -436,7 +535,12 @@ class ServeEngine:
                      alpha: Optional[float] = None) -> int:
         """Make tenant ``name``'s adapter device-resident (synthesizing
         deterministic factors from the name when ``weights`` is None) and
-        return its slot."""
+        return its slot.  A mesh engine refuses adapters (its ranks hold
+        1/n of the heads; the LoRA delta has no sharded path)."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "multi-LoRA serving is not supported on a sharded serve "
+                "mesh; run adapters on a single-device engine")
         return self.adapters.load(name, weights=weights, rank=rank,
                                   alpha=alpha)
 
@@ -466,8 +570,23 @@ class ServeEngine:
     def submit(self, req: Request) -> None:
         """Enqueue ``req`` (FIFO); admission control runs inside ``step``.
         A bounded queue sheds instead of enqueueing; the deadline cutoff is
-        stamped here and enforced by the step loop's reaper."""
+        stamped here and enforced by the step loop's reaper.  On a mesh only
+        rank 0 submits, and the request reaches every rank's queue at the
+        next ``step()``."""
         req.t_submit = time.monotonic()
+        if self.mesh is not None:
+            if not self.is_leader:
+                raise RuntimeError("submit on rank 0: the other ranks of a "
+                                   "serve mesh replay rank 0's submissions")
+            if req.adapter_id is not None:
+                raise NotImplementedError(
+                    "multi-LoRA serving is not supported on a sharded serve "
+                    "mesh yet")
+            self._outbox.append(("submit", req))
+            return
+        self._enqueue(req)
+
+    def _enqueue(self, req: Request) -> None:
         self._submitted += 1
         if self.max_queue and len(self.queue) >= self.max_queue:
             req.shed = True
@@ -607,6 +726,7 @@ class ServeEngine:
             self._admit_seq += 1
             self.queue.pop(0)
             admitted += 1
+            self._plan += [-1, req.rid, slot, need]
         return admitted
 
     def _restore(self, a: _Active, parked: _Parked) -> None:
@@ -857,7 +977,26 @@ class ServeEngine:
         slot, or parked on the host tier after a swap (a parked request
         also sits in the queue) — and return every block it held (and its
         state-slab slot) the same call.  Tokens already sampled stay in
-        ``req.out``.  False if the id is unknown or already done."""
+        ``req.out``.  False if the id is unknown or already done.  On a
+        mesh (rank 0 only) a submitted request is cancelled at once and a
+        live one at the start of the next ``step()`` on every rank, before
+        anything else runs."""
+        if self.mesh is not None:
+            if not self.is_leader:
+                raise RuntimeError("cancel on rank 0 of a serve mesh")
+            for i, (op, req) in enumerate(self._outbox):
+                if op == "submit" and req.rid == rid:
+                    self._outbox.pop(i)
+                    self._finish_cancel(req)
+                    return True
+            if any(r.rid == rid for r in self.queue) or any(
+                    a is not None and a.req.rid == rid for a in self.slots):
+                self._outbox.append(("cancel", rid))
+                return True
+            return False
+        return self._cancel_now(rid)
+
+    def _cancel_now(self, rid: int) -> bool:
         for i, req in enumerate(self.queue):
             if req.rid == rid:
                 self.queue.pop(i)
@@ -898,8 +1037,9 @@ class ServeEngine:
                       file=sys.stderr)
 
     def _reap_deadlines(self) -> int:
-        """Expire queued, parked and active requests past their deadline."""
-        now = time.monotonic()
+        """Expire queued, parked and active requests past their deadline
+        (on a mesh, by rank 0's clock of this step on every rank)."""
+        now = self._step_clock if self.mesh is not None else time.monotonic()
         n = 0
         for req in [r for r in self.queue
                     if r._deadline_at and now > r._deadline_at]:
@@ -907,12 +1047,14 @@ class ServeEngine:
             self._drop_parked(req.rid)
             self._finish_expired(req)
             n += 1
+            self._plan += [-3, req.rid]
         for a in [s for s in self.slots
                   if s is not None and s.req._deadline_at
                   and now > s.req._deadline_at]:
             self._release_active(a)
             self._finish_expired(a.req)
             n += 1
+            self._plan += [-3, a.req.rid]
         return n
 
     def _quarantine(self, rid: int, msg: str) -> bool:
@@ -962,7 +1104,11 @@ class ServeEngine:
 
     def step_guarded(self) -> bool:
         """``step()`` with crash isolation: an exception quarantines the
-        request that poisoned the batch and the loop keeps going."""
+        request that poisoned the batch and the loop keeps going.  On a
+        mesh a crash raises on every rank instead: isolating it would need
+        every rank to fail alike, which a rank cannot know (A10c)."""
+        if self.mesh is not None:
+            return self.step()
         self._crash_rid = None
         try:
             worked = self.step()
@@ -1081,7 +1227,9 @@ class ServeEngine:
         if self.faults is not None:
             self.faults.check("step")
         self.cache, logits = self.fns.prefill_chunk(self.params, self.cache,
-                                                    batch, m_used=m_used)
+                                                    batch, m_used=m_used,
+                                                    **self._model_kw)
+        self._plan += [-2, req.rid, start, end]
         a.next_prefill = end
         self._prefill_tokens += end - start
         if a.prefill_done:
@@ -1093,6 +1241,7 @@ class ServeEngine:
             # one logit row to the host, not the whole (1, C, V) chunk
             row = logits[0, plen - 1 - start].float().cpu().numpy()
             first = self._sample(row, req.sampling, 0)
+            self._plan.append(first)
             req.out.append(first)
             self._tenant_count(req)
             req.t_first = time.monotonic()
@@ -1144,7 +1293,7 @@ class ServeEngine:
         if self.faults is not None:
             self.faults.check("step")
         self.cache, logits = self.fns.decode_paged(self.params, self.cache,
-                                                   batch)
+                                                   batch, **self._model_kw)
         idx = [i for i, _ in rows]
         logits_np = logits[idx].float().cpu().numpy()
         now = time.monotonic()
@@ -1152,6 +1301,7 @@ class ServeEngine:
             req = a.req
             with self._blame(req.rid):
                 nxt = self._sample(logits_np[j], req.sampling, len(req.out))
+                self._plan += [i, req.rid, a.pos, nxt]
                 req.out.append(nxt)
                 a.pos += 1
                 self._decode_tokens += 1
@@ -1165,9 +1315,21 @@ class ServeEngine:
     # -- engine loop -------------------------------------------------------
     def step(self) -> bool:
         """One engine iteration: reap deadlines, admit, one prefill chunk,
-        one batched decode step.  False when there is nothing left to do."""
+        one batched decode step.  False when there is nothing left to do.
+        On a mesh, rank 0's step first broadcasts what was submitted and
+        cancelled since its last step, with its clock; the other ranks run
+        the same step from ``follow()``."""
+        if self.mesh is not None:
+            if not self.is_leader:
+                raise RuntimeError("step on rank 0 of a serve mesh; the "
+                                   "other ranks run follow()")
+            self._lead({"now": time.monotonic(), "step": True})
+        return self._step()
+
+    def _step(self) -> bool:
         if self._t0 is None:
             self._t0 = time.monotonic()
+        self._plan = []
         worked = self._reap_deadlines() > 0
         worked = self._admit() > 0 or worked
         worked = self._prefill_step() or worked
@@ -1175,7 +1337,85 @@ class ServeEngine:
         if worked:
             self.steps += 1
             self._t_last = time.monotonic()
+        if self.mesh is not None:
+            self._check_in_step(worked)
         return worked
+
+    # -- the replicated state machine (mesh) --------------------------------
+    def _lead(self, msg: dict) -> None:
+        """Rank 0: send ``msg`` with the ops since the last message to
+        every rank, and apply them here."""
+        ops = [(op, _request_record(x, self.default_deadline_ms)
+                if op == "submit" else x) for op, x in self._outbox]
+        mine = self._outbox
+        self._outbox = []
+        self.mesh.broadcast(dict(msg, ops=ops))
+        self._apply(dict(msg, ops=ops), mine)
+
+    def _apply(self, msg: dict, mine=None) -> None:
+        """Apply one message's ops in order (rank 0 passes its own Request
+        objects as ``mine``; the other ranks build theirs)."""
+        self._step_clock = msg["now"]
+        for k, (op, x) in enumerate(msg["ops"]):
+            if op == "submit":
+                self._enqueue(mine[k][1] if mine is not None
+                              else _request_from(x))
+            elif op == "cancel":
+                self._cancel_now(x)
+            elif op == "release_prefix_cache":
+                self._released = self.store.drop_prefixes()
+            elif op == "reset_metrics":
+                self._reset_metrics()
+            else:
+                raise ValueError(f"unknown mesh op {op!r}")
+
+    def _check_in_step(self, worked: bool) -> None:
+        """All-gather a digest of this step's plan and raise
+        ``MeshDivergence`` on every rank if any rank planned otherwise."""
+        plan = [self.steps, int(worked), len(self.queue)] + self._plan
+        h = hashlib.blake2b(np.asarray(plan, np.int64).tobytes(),
+                            digest_size=8).digest()
+        mine = int.from_bytes(h, "little", signed=True)
+        digests = [d[0] for d in self.mesh.gather_ints([mine])]
+        if len(set(digests)) > 1:
+            self._closed = True     # every rank stops here; nothing to release
+            raise MeshDivergence(
+                f"rank {self.mesh.rank}: step {self.steps} plan digests "
+                f"differ across the serve mesh ({digests}): the ranks "
+                "diverged")
+
+    def follow(self, on_step: Optional[Callable[[], None]] = None) -> int:
+        """Ranks other than 0: replay rank 0's steps and ops until rank 0
+        calls ``close()``, calling ``on_step()`` after each step; returns
+        the steps run."""
+        if self.mesh is None or self.is_leader:
+            raise RuntimeError("follow() runs on ranks other than 0 of a "
+                               "serve mesh")
+        n = 0
+        while True:
+            msg = self.mesh.broadcast(None)
+            if msg.get("stop"):
+                self._closed = True
+                return n
+            self._apply(msg)
+            if msg["step"]:
+                self._step()
+                n += 1
+                if on_step is not None:
+                    on_step()
+
+    def close(self) -> None:
+        """Rank 0: release the other ranks from ``follow()`` (once; a
+        no-op without a mesh)."""
+        if self.mesh is not None and self.is_leader and not self._closed:
+            self._closed = True
+            self.mesh.broadcast({"stop": True})
+
+    def _control(self, op: str) -> None:
+        """Rank 0 of a mesh: run a state-changing op on every rank now,
+        outside a step."""
+        self._outbox.append((op, None))
+        self._lead({"now": time.monotonic(), "step": False})
 
     def run_until_done(self, max_steps: int = 100_000) -> List[Request]:
         """Drive ``step`` until queue and slots drain; returns the finished
@@ -1186,11 +1426,20 @@ class ServeEngine:
         return list(self.finished)
 
     def release_prefix_cache(self) -> int:
+        if self.mesh is not None:
+            self._control("release_prefix_cache")
+            return self._released
         return self.store.drop_prefixes()
 
     def reset_metrics(self) -> None:
         """Zero the run counters (a warm-up workload first, then a clean
         measured window)."""
+        if self.mesh is not None:
+            self._control("reset_metrics")
+        else:
+            self._reset_metrics()
+
+    def _reset_metrics(self) -> None:
         assert all(s is None for s in self.slots) and not self.queue, \
             "reset_metrics with requests in flight"
         self.steps = 0
@@ -1263,6 +1512,8 @@ class ServeEngine:
             step_crashes=self._step_crashes,
             swap_failures=self._swap_failures,
             degraded=self.degraded,
+            mesh_devices=self.mesh.n_model if self.mesh is not None else 1,
+            tp_devices=self.mesh.n_model if self.tp else 1,
             param_bytes_per_device=self.param_bytes_per_device,
             param_bytes_replicated=self.param_bytes_replicated,
             adapters_loaded=am["adapters_loaded"],
@@ -1278,12 +1529,18 @@ class ServeEngine:
         )
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+def _request_record(req: Request, default_deadline_ms) -> tuple:
+    """What the other ranks of a mesh need of a submitted request: its
+    scheduling inputs, rank 0's submit time and its deadline as rank 0
+    resolves it (no hooks: they run on rank 0 only)."""
+    dl = req.deadline_ms if req.deadline_ms is not None \
+        else default_deadline_ms
+    return (req.rid, list(req.prompt), req.max_new, req.sampling, dl,
+            req.t_submit)
+
+
+def _request_from(record: tuple) -> Request:
+    rid, prompt, max_new, sampling, deadline_ms, t_submit = record
+    return Request(rid=rid, prompt=prompt, max_new=max_new,
+                   sampling=sampling, deadline_ms=deadline_ms,
+                   t_submit=t_submit)

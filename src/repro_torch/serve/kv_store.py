@@ -24,10 +24,13 @@ from the model family (``ModelFns.paged_block_*``), so the store itself stays
 family-agnostic and the bookkeeping is plain Python — unit-testable in
 milliseconds with stub tiers.
 
-A copy of ``src/repro/serve/kv_store.py`` for the single-device port: the
-recurrent-state slab (``SlabDeviceView`` / ``StateSlab``) of the ssm and
-hybrid families is here; the mesh-sharded slab (``shardings`` / ``_pin``)
-is not ported.
+A copy of ``src/repro/serve/kv_store.py``: the recurrent-state slab
+(``SlabDeviceView`` / ``StateSlab``) of the ssm and hybrid families is
+here.  On a serve mesh every rank runs its own store over its own slab of
+KV/n heads (``ServeEngine(mesh=)``): the handles, refcounts and decisions
+are the same on every rank, and each rank's device and host tiers hold and
+move that rank's head slice.  The reference instead gathers whole blocks
+to one host tier (its ``shardings`` / ``_pin``); the tokens are the same.
 """
 from __future__ import annotations
 

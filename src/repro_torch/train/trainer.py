@@ -12,7 +12,7 @@ to the weights' dtype at the model's entry).  A failure injected at
 ``fail_at`` rebuilds the state, restores the
 latest checkpoint and replays from its step; every kernel on the path is
 deterministic, so the replay reproduces the clean run's losses.  Training
-on a mesh waits for ROADMAP A10.
+on a mesh waits for ROADMAP A10b.
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "training on a mesh is not ported to repro_torch yet "
-                "(ROADMAP A10)")
+                "(ROADMAP A10b)")
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)

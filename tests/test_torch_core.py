@@ -316,9 +316,20 @@ def test_choose_tp_layout_matches(n_model):
 
 
 def test_ndsbp_to_pspec_is_left_out():
-    assert hasattr(r_dist, "ndsbp_to_pspec")
-    assert not hasattr(t_dist, "ndsbp_to_pspec")
-    assert "ROADMAP A10" in t_dist.__doc__
+    """Ported since multi-device serving (the name is the test's first
+    contract, that it was left out): the spec tuple equals the reference's
+    ``PartitionSpec`` for every ND-SBP of a 2- and a 3-axis placement."""
+    for axes, sizes in ((("data", "model"), (2, 4)),
+                        (("pod", "data", "model"), (2, 16, 16))):
+        rp = r_sbp.Placement(axes, sizes)
+        tp = t_sbp.Placement(axes, sizes)
+        for ndim in (1, 2, 3):
+            for nd in r_sbp.valid_ndsbps((16,) * ndim, rp):
+                tnd = tuple(t_sbp.S(x.axis) if isinstance(x, r_sbp.S)
+                            else (t_sbp.B if x is r_sbp.B else t_sbp.P)
+                            for x in nd)
+                assert t_dist.ndsbp_to_pspec(tnd, tp, ndim) == \
+                    tuple(r_dist.ndsbp_to_pspec(nd, rp, ndim)), nd
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """Reference knobs that change what runs, in the port: those it honours and
 those it refuses.  ``REPRO_SERVE_MESH`` and ``REPRO_SERVE_TP`` ask for a
-sharded serve engine, which the port lacks, so ``ServeEngine`` raises on
-them instead of serving on one device; ``REPRO_ATTN_CHUNK`` sets the q
-chunk of the plain attention path, as in the reference."""
+sharded serve engine: in a process without the ``torch.distributed`` group
+such an engine needs, ``ServeEngine`` raises instead of serving on one
+device (``tests/test_torch_serve_sharded.py`` serves on ranks);
+``REPRO_ATTN_CHUNK`` sets the q chunk of the plain attention path, as in
+the reference."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,8 +35,11 @@ def _engine(small):
                                         ("REPRO_SERVE_MESH", "auto"),
                                         ("REPRO_SERVE_TP", "1")])
 def test_sharded_serve_knobs_raise(small, monkeypatch, name, value):
+    """A mesh knob with no process group, or TP with no mesh, raises."""
+    monkeypatch.delenv("REPRO_SERVE_MESH", raising=False)
     monkeypatch.setenv(name, value)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises((RuntimeError, ValueError),
+                       match="process group|needs a serve mesh"):
         _engine(small)
 
 

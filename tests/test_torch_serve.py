@@ -285,7 +285,8 @@ def test_step_guarded_quarantines_and_adapters_are_refused(setup):
 
 def test_serve_cli_on_cpu_and_refusals(monkeypatch, capsys):
     """The CLI serves the reduced config on the CPU; unported knobs, a
-    mesh, and (on a host without a card) the cuda device are refused."""
+    mesh of a family the sharded engine does not serve, and (on a host
+    without a card) the cuda device are refused."""
     from repro_torch.device import resolve_device
     from repro_torch.launch import serve
     eng = serve.main(["--smoke", "--device", "cpu", "--requests", "3",
@@ -294,7 +295,8 @@ def test_serve_cli_on_cpu_and_refusals(monkeypatch, capsys):
     assert eng.metrics().requests_finished == 3
     assert "device cpu" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        serve.main(["--smoke", "--device", "cpu", "--mesh", "2"])
+        serve.main(["--smoke", "--device", "cpu", "--arch",
+                    "falcon-mamba-7b", "--mesh", "2"])
     monkeypatch.setenv("REPRO_NORM_F32", "0")
     with pytest.raises(NotImplementedError, match="REPRO_NORM_F32"):
         serve.main(["--smoke", "--device", "cpu", "--requests", "1"])
