@@ -26,7 +26,8 @@ Phases, each printing JSON objects one per line:
               zamba2's shared block: 32 heads over 32, head_dim 80;
               olmoe-1b-7b: 16 over 16, head_dim 128; llama4-maverick: 40
               over 8, head_dim 128; a rank's half of qwen3-0.6b's on a
-              2-rank serve mesh: 8 over 4), through the
+              2-rank serve mesh: 8 over 4; a rank's half of olmoe-1b-7b's
+              on it: 8 over 8), through the
               model-facing ``ops`` entries.  K1 and K4 rows also hold two
               launches bitwise equal, each decode row run alone bitwise
               equal to its row of the batch, a planted fault of each
@@ -92,7 +93,15 @@ Phases, each printing JSON objects one per line:
               term; the last two in f32 only at the stateful widths, whose
               4-row blocks move dw by too little for the bf16 limit), two
               launches bitwise equal; its yardstick is autograd
-              of ``F.rms_norm``, forward + backward less forward.  Flash
+              of ``F.rms_norm``, forward + backward less forward.  K2's
+              narrow mode (REPRO_NORM_F32=0: the mean, rstd and each
+              product rounded to bf16, the sums in f32, as the reference
+              computes rms_norm in the activation dtype) at bf16: the
+              forward at qwen's and olmoe's serve rows and qwen's training
+              row, the pair at qwen's decode q/k rows and the backward at
+              the training rows, each against the narrow plain version
+              with planted faults, timed; gate rows (no path runs the
+              mode: the knob's default is 1).  Flash
               attention (K3) at the training step's shape (B 8 x 16 query
               heads over 8 KV heads, read grouped by the kernel, S 512,
               head_dim 128, causal; f32 and bf16), at zamba2-2.7b's (B 8 x
@@ -165,6 +174,25 @@ Phases, each printing JSON objects one per line:
               swap preemption on the sharded pool equal to each request
               alone.  A rank that raises or outlasts its time fails the
               phase.
+   moe_mesh_2 — in the same group of two ranks: olmoe-1b-7b at full
+              width, 4 of 16 layers, through a KV-only mesh engine (8 of
+              16 heads a rank, the weights replicated) on the same
+              workload: a plain engine's tokens, K1 4 and K2 13 launches a
+              model call a rank; the TP layout (the expert stacks split
+              inside each expert) on one 256-token chunk, identity mode
+              bitwise the replicated forward, reduce-scatter on the
+              replicated forward's expert picks within 5e-2 on the chunk
+              and one decode step of 8 rows after it, and on its own
+              picks with the greedy agreement and the flipped expert sets
+              counted; each rank's param bytes and peak memory.
+   gateway_mesh_2 — in the same group: rank 0 runs the gateway over a
+              router of both models (qwen at 8 layers, olmoe at 4) on the
+              2-rank mesh, one stepper thread each under the engine's mesh
+              lock, rank 1 follows both; 8 streams over HTTP, 4 a model,
+              one closed by its client; a ``step`` fault seeded alike on
+              both ranks' olmoe engines quarantines the same request on
+              both; every finished stream equals a plain engine's tokens;
+              stopping the gateway releases rank 1.
 6. oracle   — teacher-forced logits of the paged path (kernels) against the
               dense prefill + decode path (plain attention), f32 and bf16;
               and one tenant's request (a 256-token prompt chunk and 8 decode
@@ -514,11 +542,12 @@ def _tables(torch, lens, m, bs, n, rng):
 # qwen3-0.6b (16 query heads over 8 KV heads, head_dim 128), zamba2-2.7b's
 # shared block (32 heads, one per KV head, head_dim 80), olmoe-1b-7b (16
 # heads over 16, head_dim 128), llama4-maverick (40 heads over 8, a group
-# of 5, head_dim 128), and a rank's half of qwen3-0.6b's heads on a
-# 2-rank serve mesh (8 over 4)
+# of 5, head_dim 128), a rank's half of qwen3-0.6b's heads on a 2-rank
+# serve mesh (8 over 4), and a rank's half of olmoe-1b-7b's 16/16 on the
+# same mesh (8 over 8)
 PAGED_SHAPES = (("serve", 16, 8, 128), ("hybrid_serve", 32, 32, 80),
                 ("moe_serve", 16, 16, 128), ("llama4_layer", 40, 8, 128),
-                ("serve_mesh_2", 8, 4, 128))
+                ("serve_mesh_2", 8, 4, 128), ("moe_mesh_2", 8, 8, 128))
 # gate-only decode rows (no main path gives them, so no times): spans at the
 # split-KV kernel's split boundaries (512 keys, ``ref.PAGED_SPLIT``) at both
 # serve layouts, a group of 8 query heads a KV head, and a block size that
@@ -883,6 +912,143 @@ def check_rmsnorm(torch, results):
         del x, w, got, want, tail
         _check_rmsnorm_pair(torch, results, dtype, gen, eps, info)
     check_rmsnorm_grad(torch, results, info)
+    check_rmsnorm_narrow(torch, results, info)
+
+
+# REPRO_NORM_F32=0's mode (``f32=False``: the mean, rstd and every product
+# rounded to bf16, the sums in f32) at bf16, the only dtype it changes: the
+# forward at qwen's and olmoe's serve rows and qwen's training row, the
+# pair at qwen's decode q/k rows, the backward at the training rows of
+# qwen and olmoe.  No main path runs it (the knob's default is 1): gate
+# rows, timed, with path None
+RMSNORM_NARROW_SHAPES = ((8, 1024), (256, 1024), (8, 2048), (256, 2048),
+                         (4096, 1024))
+RMSNORM_NARROW_PAIR = (8 * 16, 8 * 8, 128)
+RMSNORM_NARROW_GRAD_SHAPES = ((4096, 1024), (4096, 2048))
+
+
+def check_rmsnorm_narrow(torch, results, info):
+    """K2 in narrow mode (bf16) against its plain version
+    (``ref.rmsnorm_ref(..., f32=False)``, which equals the reference's
+    ``rms_norm`` under REPRO_NORM_F32=0 on the CPU): the forward row by row
+    with the tail-columns fault, two launches bitwise, the first 8 rows
+    bitwise their rows in the batch, and other bits than the f32 mode's;
+    the pair bitwise its two single launches; the backward's dx and dw
+    against the narrow plain backward with g's rows shifted and dx without
+    its mean term as planted faults, two launches bitwise.  The f32 mode's
+    rows above stay as they were (its code path has no narrow step)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as k2
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    eps, dtype, dname = 1e-6, torch.bfloat16, "bfloat16"
+    for rows, d in RMSNORM_NARROW_SHAPES:
+        x = torch.randn((rows, d), generator=gen, device=DEV).to(dtype)
+        w = (1 + 0.1 * torch.randn((d,), generator=gen, device=DEV)) \
+            .to(dtype)
+        name = f"rmsnorm narrow ({rows},{d}) {dname}"
+        got = k2.rmsnorm_kernel(x, w, eps, f32=False)
+        tail = got.clone()
+        tail[:, -d // 8:] = 0
+        checked = gate(name, got, ref.rmsnorm_ref(x, w, eps, False),
+                       {"zero_tail_columns": tail})
+        assert torch.equal(got, k2.rmsnorm_kernel(x, w, eps, f32=False)), \
+            f"{name}: two launches differ"
+        assert torch.equal(k2.rmsnorm_kernel(x[:8], w, eps, f32=False),
+                           got[:8]), f"{name}: the first 8 rows alone differ"
+        f32_mode = k2.rmsnorm_kernel(x, w, eps)
+        assert not torch.equal(got, f32_mode), f"{name}: the f32 mode's bits"
+        t_bound, by = bound((2 * rows * d + d) * 2, 4.0 * rows * d, dname)
+        results.append(dict(
+            name=f"rmsnorm_narrow/d{d}", dtype=dname, shape=f"({rows}, {d})",
+            path=None, **checked, bitwise_repeat=True,
+            differs_from_f32_mode=float((got.float() - f32_mode.float())
+                                        .abs().max()),
+            ptxas=k2_ptxas(info, ("rmsnorm_fwd_kernel",), dname),
+            kernel_ms=graph_ms(lambda: k2.rmsnorm_kernel(x, w, eps,
+                                                         f32=False)),
+            host_ms=host_ms(lambda: k2.rmsnorm_kernel(x, w, eps, f32=False)),
+            plain_ms=graph_ms(lambda: ref.rmsnorm_ref(x, w, eps, False)),
+            library_ms=graph_ms(lambda: F.rms_norm(x, (d,), w, eps))
+            if hasattr(F, "rms_norm") else None,
+            bound_ms=t_bound, bound_by=by))
+    r1, r2, d = RMSNORM_NARROW_PAIR
+    x1, x2 = (torch.randn((r, d), generator=gen, device=DEV).to(dtype)
+              for r in (r1, r2))
+    w1, w2 = ((1 + 0.1 * torch.randn((d,), generator=gen, device=DEV))
+              .to(dtype) for _ in range(2))
+    y1, y2 = k2.rmsnorm_pair_kernel(x1, w1, x2, w2, eps, f32=False)
+    name = f"rmsnorm narrow pair ({r1}+{r2},{d}) {dname}"
+    assert torch.equal(y1, k2.rmsnorm_kernel(x1, w1, eps, f32=False)) \
+        and torch.equal(y2, k2.rmsnorm_kernel(x2, w2, eps, f32=False)), \
+        f"{name}: not its single launches"
+    checked = gate(name, torch.cat([y1, y2]), torch.cat(
+        [ref.rmsnorm_ref(x1, w1, eps, False),
+         ref.rmsnorm_ref(x2, w2, eps, False)]), {"weights_swapped": torch.cat(
+             [ref.rmsnorm_ref(x1, w2, eps, False),
+              ref.rmsnorm_ref(x2, w1, eps, False)])})
+    t_bound, by = bound((2 * (r1 + r2) * d + 2 * d) * 2,
+                        4.0 * (r1 + r2) * d, dname)
+    results.append(dict(
+        name=f"rmsnorm_narrow_pair/d{d}", dtype=dname,
+        shape=f"({r1}+{r2}, {d})", path=None, **checked,
+        bitwise_single_launches=True,
+        kernel_ms=graph_ms(lambda: k2.rmsnorm_pair_kernel(
+            x1, w1, x2, w2, eps, f32=False)),
+        host_ms=host_ms(lambda: k2.rmsnorm_pair_kernel(
+            x1, w1, x2, w2, eps, f32=False)),
+        plain_ms=graph_ms(lambda: (ref.rmsnorm_ref(x1, w1, eps, False),
+                                   ref.rmsnorm_ref(x2, w2, eps, False))),
+        library_ms=graph_ms(lambda: (F.rms_norm(x1, (d,), w1, eps),
+                                     F.rms_norm(x2, (d,), w2, eps)))
+        if hasattr(F, "rms_norm") else None,
+        bound_ms=t_bound, bound_by=by))
+    for rows, d in RMSNORM_NARROW_GRAD_SHAPES:
+        x, g = (torch.randn((rows, d), generator=gen, device=DEV).to(dtype)
+                for _ in range(2))
+        w = (1 + 0.5 * torch.randn((d,), generator=gen, device=DEV)) \
+            .to(dtype)
+        name = f"rmsnorm narrow bwd ({rows},{d}) {dname}"
+        dx, dw = k2.rmsnorm_bwd_kernel(x, w, g, eps, f32=False)
+        again = k2.rmsnorm_bwd_kernel(x, w, g, eps, f32=False)
+        assert torch.equal(again[0], dx) and torch.equal(again[1], dw), \
+            f"{name}: two launches differ"
+        rdx, rdw = ref.rmsnorm_bwd_ref(x, w, g, eps, f32=False)
+        sdx, sdw = ref.rmsnorm_bwd_ref(x, w, g.roll(1, 0), eps, f32=False)
+        ndx = ref.rmsnorm_bwd_ref(x, w, g, eps, mean_term=False,
+                                  f32=False)[0]
+        # the mean term moves dx by several bf16 limits at d 1,024 (held at
+        # a margin of 1.5, as the f32 mode's training rows), less at 2,048
+        faults = {"g_rows_shifted": sdx}
+        if d == 1024:
+            faults["no_mean_term"] = ndx
+        gx = gate(f"{name} dx", dx, rdx, faults, margin=1.5)
+        gw = gate(f"{name} dw", dw[None], rdw[None],
+                  {"g_rows_shifted": sdw[None]})
+        lib = lib_fwd = None
+        if hasattr(F, "rms_norm"):
+            xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+            lib_fwd = graph_ms(lambda: F.rms_norm(xl, (d,), wl, eps))
+            lib = graph_ms(lambda: torch.autograd.grad(
+                F.rms_norm(xl, (d,), wl, eps), (xl, wl), g)) - lib_fwd
+        t_bound, by = bound(3 * rows * d * 2 + 2 * d * 2, 10.0 * rows * d,
+                            "float32")
+        results.append(dict(
+            name=f"rmsnorm_narrow_bwd/d{d}", dtype=dname,
+            shape=f"({rows}, {d})", path=None,
+            max_abs_err=max(gx["max_abs_err"], gw["max_abs_err"]),
+            row_rel_err=max(gx["row_rel_err"], gw["row_rel_err"]),
+            tol=gx["tol"], dx_gate=gx, dw_gate=gw, bitwise_repeat=True,
+            ptxas=k2_ptxas(info, ("rmsnorm_bwd_rows_kernel",), dname),
+            kernel_ms=graph_ms(lambda: k2.rmsnorm_bwd_kernel(
+                x, w, g, eps, f32=False)),
+            host_ms=host_ms(lambda: k2.rmsnorm_bwd_kernel(x, w, g, eps,
+                                                          f32=False)),
+            plain_ms=graph_ms(lambda: ref.rmsnorm_bwd_ref(x, w, g, eps,
+                                                          f32=False)),
+            library_ms=lib, library_fwd_ms=lib_fwd,
+            bound_ms=t_bound, bound_by=by))
+    torch.cuda.empty_cache()
 
 
 # the pair's rows and the main path that gives each: qwen3-0.6b's q and k
@@ -2678,110 +2844,374 @@ def _mesh_serve(eng, reqs):
     return {r.rid: list(r.out) for r in eng.finished}
 
 
-def _mesh_rank(mesh, device, cfg):
+def _mesh_rank(mesh, device, cfg, moe_cfg):
+    """One rank of serve_mesh_2, moe_mesh_2 and gateway_mesh_2, in that
+    order, in one group of ranks (see ``serve_mesh_2_phase``): each part's
+    results under its phase's name; the gateway serves the first two
+    parts' weights."""
+    import torch
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rank": mesh.rank}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fns = build_model(cfg, device)
+        params = fns.init(0)
+        out["serve_mesh_2"] = _serve_mesh_rank(mesh, device, cfg, fns,
+                                               params)
+        t1 = time.perf_counter()
+        mfns = build_model(moe_cfg, device)
+        mparams = mfns.init(0)
+        out["moe_mesh_2"] = _moe_mesh_rank(mesh, device, moe_cfg, mfns,
+                                           mparams)
+    t2 = time.perf_counter()
+    out["gateway_mesh_2"] = _gateway_mesh_rank(mesh, device, cfg, params,
+                                               moe_cfg, mparams)
+    out["part_s"] = {"serve_mesh_2": t1 - t0, "moe_mesh_2": t2 - t1,
+                     "gateway_mesh_2": time.perf_counter() - t2}
+    return out
+
+
+def _serve_mesh_rank(mesh, device, cfg, fns, params):
     """One rank of serve_mesh_2 (see ``serve_mesh_2_phase``)."""
     import torch
     from repro_torch.distributed.param_sharding import (ServeShard,
                                                         shard_params,
                                                         tp_param_specs)
-    from repro_torch.models import build_model
     from repro_torch.serve.engine import Request
-    torch.backends.cuda.matmul.allow_tf32 = False
     card = device.type == "cuda"     # False in a rehearsal on the CPU
     out = {"rank": mesh.rank}
-    with torch.no_grad():
-        fns = build_model(cfg, device)
-        params = fns.init(0)
-        # the sharded engine: KV/2 heads a rank, TP identity
-        eng = serve_engine(cfg, params, mesh=mesh, tp=True)
-        tally, counted = dispatch_timer()
-        wrap_dispatches(eng, counted)
-        if card:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        t0 = time.perf_counter()
-        out["tokens"] = _mesh_serve(eng, mesh_workload(cfg.vocab))
-        if card:
-            torch.cuda.synchronize()
-        out["wall_s"] = time.perf_counter() - t0
-        out["launches"] = read_counts()
-        out["model_calls"] = sum(n for n, _ in tally.values())
-        out["host_ms_per_dispatch"] = host_ms_per_dispatch(tally)
-        m = eng.metrics()
-        out["metrics"] = {k: getattr(m, k) for k in (
-            "tokens_per_sec", "ttft_mean_s", "engine_steps", "mesh_devices",
-            "tp_devices", "param_bytes_per_device", "param_bytes_replicated",
-            "re_prefill_avoided", "peak_blocks_used")}
-        out["slab"] = list(eng.cache["k"].shape)
-        out["peak_device_bytes"] = torch.cuda.max_memory_allocated() \
-            if card else 0
-        del eng
-        if mesh.rank == 0:
-            # the plain engine on the same weights
-            plain = serve_engine(cfg, params, mesh=False)
-            out["plain"] = _mesh_serve(plain, mesh_workload(cfg.vocab))
-            del plain
-        # reduce-scatter prefill logits against the replicated forward on
-        # a 256-token chunk (bf16: the partial sums reorder the reduction)
-        prompt = workload(cfg.vocab, n=1)[0].prompt[:256]
-        batch = {"tokens": torch.tensor([prompt], device=device),
-                 "block_table": torch.arange(1, 17, dtype=torch.int32,
-                                             device=device)[None],
-                 "start": 0, "prompt_len": 256}
-        ref = fns.prefill_chunk(params, fns.make_paged_cache(17, 16),
-                                batch)[1].float()
-        specs, _ = tp_param_specs(cfg, params, mesh.n_model)
-        local = shard_params(params, specs, mesh)
-        got = fns.prefill_chunk(local, fns.make_paged_cache(
-            17, 16, n_model=mesh.n_model), batch,
-            shard=ServeShard(mesh, True))[1].float()
-        out["rs_max_abs_err"], out["rs_rel_err"] = rel_err(got, ref)
-        out["rs_greedy_agreement"] = float(
-            (got.argmax(-1) == ref.argmax(-1)).float().mean())
-        del local, ref, got
-        # one swap preemption on the sharded pool (weights replicated: the
-        # swap moves each rank's head slice, TP adds nothing to it), against
-        # each request served alone on one device
-        swap = [Request(rid=i, prompt=[3, 5, 7, 11 + i], max_new=16)
-                for i in range(2)]
-        kw = dict(max_batch=2, max_len=32, block_size=4,
-                  prefill_chunk_tokens=4)
-        from repro_torch.serve.engine import ServeEngine
-        eng = ServeEngine(cfg, params, mesh=mesh, tp=False, num_blocks=7,
-                          admission="optimistic", **kw)
-        out["swap"] = _mesh_serve(eng, swap)
-        m = eng.metrics()
-        out["swap_counts"] = (m.preemptions, m.swap_out_blocks,
-                              m.swap_in_blocks)
-        del eng
-        if mesh.rank == 0:
-            out["solo"] = {}
-            for r in swap:
-                solo = ServeEngine(cfg, params, mesh=False,
-                                   prefix_cache_blocks=0,
-                                   **dict(kw, max_batch=1))
-                out["solo"][r.rid] = _mesh_serve(solo, [Request(
-                    rid=r.rid, prompt=list(r.prompt), max_new=16)])[r.rid]
+    # the sharded engine: KV/2 heads a rank, TP identity
+    eng = serve_engine(cfg, params, mesh=mesh, tp=True)
+    tally, counted = dispatch_timer()
+    wrap_dispatches(eng, counted)
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    out["tokens"] = _mesh_serve(eng, mesh_workload(cfg.vocab))
+    if card:
+        torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = read_counts()
+    out["model_calls"] = sum(n for n, _ in tally.values())
+    out["host_ms_per_dispatch"] = host_ms_per_dispatch(tally)
+    m = eng.metrics()
+    out["metrics"] = {k: getattr(m, k) for k in (
+        "tokens_per_sec", "ttft_mean_s", "engine_steps", "mesh_devices",
+        "tp_devices", "param_bytes_per_device", "param_bytes_replicated",
+        "re_prefill_avoided", "peak_blocks_used")}
+    out["slab"] = list(eng.cache["k"].shape)
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated() \
+        if card else 0
+    del eng
+    if mesh.rank == 0:
+        # the plain engine on the same weights
+        plain = serve_engine(cfg, params, mesh=False)
+        out["plain"] = _mesh_serve(plain, mesh_workload(cfg.vocab))
+        del plain
+    # reduce-scatter prefill logits against the replicated forward on
+    # a 256-token chunk (bf16: the partial sums reorder the reduction)
+    prompt = workload(cfg.vocab, n=1)[0].prompt[:256]
+    batch = {"tokens": torch.tensor([prompt], device=device),
+             "block_table": torch.arange(1, 17, dtype=torch.int32,
+                                         device=device)[None],
+             "start": 0, "prompt_len": 256}
+    ref = fns.prefill_chunk(params, fns.make_paged_cache(17, 16),
+                            batch)[1].float()
+    specs, _ = tp_param_specs(cfg, params, mesh.n_model)
+    local = shard_params(params, specs, mesh)
+    got = fns.prefill_chunk(local, fns.make_paged_cache(
+        17, 16, n_model=mesh.n_model), batch,
+        shard=ServeShard(mesh, True))[1].float()
+    out["rs_max_abs_err"], out["rs_rel_err"] = rel_err(got, ref)
+    out["rs_greedy_agreement"] = float(
+        (got.argmax(-1) == ref.argmax(-1)).float().mean())
+    del local, ref, got
+    # one swap preemption on the sharded pool (weights replicated: the
+    # swap moves each rank's head slice, TP adds nothing to it), against
+    # each request served alone on one device
+    swap = [Request(rid=i, prompt=[3, 5, 7, 11 + i], max_new=16)
+            for i in range(2)]
+    kw = dict(max_batch=2, max_len=32, block_size=4,
+              prefill_chunk_tokens=4)
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(cfg, params, mesh=mesh, tp=False, num_blocks=7,
+                      admission="optimistic", **kw)
+    out["swap"] = _mesh_serve(eng, swap)
+    m = eng.metrics()
+    out["swap_counts"] = (m.preemptions, m.swap_out_blocks,
+                          m.swap_in_blocks)
+    del eng
+    if mesh.rank == 0:
+        out["solo"] = {}
+        for r in swap:
+            solo = ServeEngine(cfg, params, mesh=False,
+                               prefix_cache_blocks=0,
+                               **dict(kw, max_batch=1))
+            out["solo"][r.rid] = _mesh_serve(solo, [Request(
+                rid=r.rid, prompt=list(r.prompt), max_new=16)])[r.rid]
     return out
 
 
-def serve_mesh_2_phase(torch, cfg, smi):
-    """serve_mesh_2: two ranks on the one card over gloo (NCCL refuses two
-    ranks on one GPU), full width at ``MESH_LAYERS`` layers: the KV pool
-    sharded on kv-heads (4 of 8 a rank) with TP identity serves
-    ``mesh_workload`` with the tokens of a plain engine on the same weights; each rank's K1
-    and K2 launches are what its model calls imply (L and 3L + 1 a call);
-    each rank's param bytes and peak memory; reduce-scatter prefill logits
-    within the bf16 gate of the replicated forward, with the greedy
-    agreement; one swap preemption bitwise against each request alone."""
+
+def _moe_mesh_rank(mesh, device, cfg, fns, params):
+    """One rank of moe_mesh_2 (see ``moe_mesh_2_phase``)."""
+    import torch
+    from repro_torch.distributed.param_sharding import (ServeShard,
+                                                        param_bytes_per_device,
+                                                        shard_params,
+                                                        tp_param_specs)
+    card = device.type == "cuda"
+    out = {"rank": mesh.rank}
+    # the KV pool on kv-heads (8 of 16 a rank), the weights replicated
+    eng = serve_engine(cfg, params, mesh=mesh, tp=False)
+    tally, counted = dispatch_timer()
+    wrap_dispatches(eng, counted)
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    out["tokens"] = _mesh_serve(eng, mesh_workload(cfg.vocab))
+    if card:
+        torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = read_counts()
+    out["model_calls"] = sum(n for n, _ in tally.values())
+    out["host_ms_per_dispatch"] = host_ms_per_dispatch(tally)
+    m = eng.metrics()
+    out["metrics"] = {k: getattr(m, k) for k in (
+        "tokens_per_sec", "ttft_mean_s", "engine_steps", "mesh_devices",
+        "tp_devices", "param_bytes_per_device", "param_bytes_replicated",
+        "re_prefill_avoided", "peak_blocks_used")}
+    out["slab"] = list(eng.cache["k"].shape)
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated() \
+        if card else 0
+    del eng
+    if mesh.rank == 0:
+        plain = serve_engine(cfg, params, mesh=False)
+        out["plain"] = _mesh_serve(plain, mesh_workload(cfg.vocab))
+        del plain
+    # the stored TP layout against the replicated forward: one 256-token
+    # chunk in identity mode (every expert stack gathered whole through
+    # the host) and in reduce-scatter mode, then one decode step of 8 rows
+    # after it (each row's own last page, the chunk's 16 pages shared)
+    specs, _ = tp_param_specs(cfg, params, mesh.n_model)
+    local = shard_params(params, specs, mesh)
+    out["tp_param_bytes"] = param_bytes_per_device(local)
+    prompt = workload(cfg.vocab, n=1)[0].prompt[:256]
+    pre = {"tokens": torch.tensor([prompt], device=device),
+           "block_table": torch.arange(1, 17, dtype=torch.int32,
+                                       device=device)[None],
+           "start": 0, "prompt_len": 256}
+    dec = {"token": torch.tensor(prompt[:8], dtype=torch.int32,
+                                 device=device)[:, None],
+           "block_tables": torch.cat([
+               torch.arange(1, 17, dtype=torch.int32,
+                            device=device).expand(8, 16),
+               torch.arange(17, 25, dtype=torch.int32, device=device)[:, None]],
+               dim=1),
+           "seq_lens": torch.full((8,), 256, dtype=torch.int32,
+                                  device=device),
+           "pages_per_fetch": 1, "lora_block_out": 256}
+    # reduce-scatter runs twice: free (its own routing; a flipped expert
+    # set moves its token's logits by far more than the arithmetic, so the
+    # flips are counted, not gated) and on the replicated forward's picks
+    # (``RouteLog(force=)``: the arithmetic alone, gated)
+    got, ref_calls = {}, []
+    for mode, p, shard in (("ref", params, None),
+                           ("id", local, ServeShard(mesh, False)),
+                           ("rs", local, ServeShard(mesh, True)),
+                           ("rs_forced", local, ServeShard(mesh, True))):
+        kw = {} if shard is None else {"shard": shard}
+        cache = fns.make_paged_cache(26, 16, n_model=1 if shard is None
+                                     else mesh.n_model)
+        force = list(ref_calls) if mode == "rs_forced" else None
+        with RouteLog(force=force) as log:
+            cache, lg = fns.prefill_chunk(p, cache, pre, **kw)
+            calls = list(log.calls)
+            routes = log.take(cfg)
+            if mode == "id":
+                got[mode] = (lg.float(), None, routes, None)
+                continue
+            _, dl = fns.decode_paged(p, cache, dec, **kw)
+            calls += log.calls
+            got[mode] = (lg.float(), dl.float(), routes, log.take(cfg))
+        if mode == "ref":
+            ref_calls = calls
+        del cache
+    ref_pre, ref_dec, ref_routes, ref_droutes = got["ref"]
+    out["identity_bitwise"] = bool(torch.equal(got["id"][0], ref_pre))
+    out["identity_route_flips"] = differing_sets(got["id"][2], ref_routes)
+    rs_pre, rs_dec, rs_routes, rs_droutes = got["rs"]
+    out["rs_free_prefill_rel_err"] = rel_err(rs_pre, ref_pre)[1]
+    out["rs_free_decode_rel_err"] = rel_err(rs_dec, ref_dec)[1]
+    out["rs_prefill_greedy_agreement"] = float(
+        (rs_pre.argmax(-1) == ref_pre.argmax(-1)).float().mean())
+    out["rs_decode_greedy_agreement"] = float(
+        (rs_dec.argmax(-1) == ref_dec.argmax(-1)).float().mean())
+    out["rs_route_flips"] = {"prefill": differing_sets(rs_routes, ref_routes),
+                             "decode": differing_sets(rs_droutes,
+                                                      ref_droutes),
+                             "of": [cfg.n_layers * 256, cfg.n_layers * 8]}
+    f_pre, f_dec, f_routes, f_droutes = got["rs_forced"]
+    out["rs_forced_flips"] = differing_sets(f_routes, ref_routes) \
+        + differing_sets(f_droutes, ref_droutes)
+    out["rs_prefill_rel_err"] = rel_err(f_pre, ref_pre)[1]
+    out["rs_decode_rel_err"] = rel_err(f_dec, ref_dec)[1]
+    if card:
+        out["peak_device_bytes_tp"] = torch.cuda.max_memory_allocated()
+    del local, got
+    return out
+
+
+def _gateway_mesh_rank(mesh, device, cfg, qparams, moe_cfg, mparams):
+    """One rank of gateway_mesh_2 (see ``gateway_mesh_2_phase``)."""
+    import asyncio
+
+    import torch
+    from repro_torch.serve.engine import follow_all
+    from repro_torch.serve.faults import FaultInjector
+    from repro_torch.serve.gateway import Gateway, Router
+    from tools.gateway_smoke_torch import (check_sse, completion_payload,
+                                           sse_payloads, sse_request)
+    engines = [serve_engine(cfg, qparams, mesh=mesh, tp=False,
+                            fault_injector=False),
+               serve_engine(moe_cfg, mparams, mesh=mesh, tp=False,
+                            fault_injector=FaultInjector.parse(
+                                GATEWAY_MESH_FAULT))]
+    out = {"rank": mesh.rank}
+    if mesh.rank == 0:
+        models = [gateway_model(cfg, engines[0]),
+                  gateway_model(moe_cfg, engines[1])]
+        reqs = gateway_mesh_requests(cfg, moe_cfg)
+
+        async def drive():
+            async with Gateway(Router(models), port=0) as gw:
+                health = await sse_request(gw.host, gw.port, None,
+                                           path="/health")
+                asks = [sse_request(gw.host, gw.port, completion_payload(
+                    models[m].model_id, r.prompt, r.max_new, r.sampling),
+                    close_after=GATEWAY_MESH_CANCEL[1]
+                    if i == GATEWAY_MESH_CANCEL[0] else None)
+                    for i, (m, r) in enumerate(reqs)]
+                t0 = time.perf_counter()
+                got = await asyncio.wait_for(asyncio.gather(*asks),
+                                             GATEWAY_TIMEOUT_S)
+                wall = time.perf_counter() - t0
+                for _ in range(1000):
+                    if engines[0].cancelled:
+                        break
+                    await asyncio.sleep(0.01)
+                return health, got, wall
+        t0 = time.perf_counter()
+        health, got, wall = asyncio.run(drive())
+        out["serve_s"] = time.perf_counter() - t0
+        out["streams_wall_s"] = wall
+        out["health"] = health["status"]
+        out["faults"] = [m.async_engine.fault for m in models]
+        out["streams"] = []
+        for i, ((m, r), g) in enumerate(zip(reqs, got)):
+            if g["closed_early"]:
+                ids = [t for p in sse_payloads(g["raw"])[0] if p != b"[DONE]"
+                       for t in json.loads(p)["choices"][0]["token_ids"]]
+                out["streams"].append({"model": m, "status": g["status"],
+                                       "finish_reason": "client closed",
+                                       "token_ids": ids, "errors": []})
+                continue
+            sse = check_sse(g["raw"], prompt_tokens=len(r.prompt))
+            out["streams"].append({"model": m, "status": g["status"],
+                                   "finish_reason": sse["finish_reason"],
+                                   "token_ids": sse["token_ids"],
+                                   "errors": sse["errors"],
+                                   "ttft_s": g["ttft_s"]})
+        # a plain engine a model on the same weights, and olmoe's plain
+        # engine once more under the same fault
+        with torch.no_grad():
+            plain = {}
+            for m, (c, p, spec) in enumerate(((cfg, qparams, ""),
+                                              (moe_cfg, mparams, ""),
+                                              (moe_cfg, mparams,
+                                               GATEWAY_MESH_FAULT))):
+                eng = serve_engine(c, p, mesh=False, fault_injector=(
+                    FaultInjector.parse(spec) if spec else False))
+                mine = [dataclasses.replace(r, out=[]) for mm, r in reqs
+                        if mm == min(m, 1)]
+                for r in mine:
+                    eng.submit(r)
+                while eng.step_guarded():
+                    pass
+                plain[m] = ({r.rid: list(r.out) for r in eng.finished},
+                            sorted(r.rid for r in eng.errored))
+                del eng
+        out["plain"] = plain
+    else:
+        with torch.no_grad():
+            out["follower_steps"] = follow_all(engines)
+    out["engines"] = [{
+        "finished": {r.rid: list(r.out) for r in e.finished},
+        "cancelled": sorted(r.rid for r in e.cancelled),
+        "errored": sorted(r.rid for r in e.errored),
+        "step_crashes": e.metrics().step_crashes, "closed": e._closed,
+        "invariants": e.check_invariants() + e.invariant_violations}
+        for e in engines]
+    del engines
+    return out
+
+
+# moe_mesh_2: olmoe-1b-7b at full width and 4 of its 16 layers (3.8 GB of
+# bf16 weights a rank, replicated) on the same 2-rank mesh and workload
+MOE_MESH_LAYERS = 4
+# gateway_mesh_2: 4 streams a model of the mesh workload (qwen: requests 0
+# to 3, olmoe: 4 to 7); qwen's stream 1 closed by its client after 6
+# tokens; olmoe's engine on both ranks crashes at its 7th dispatch
+GATEWAY_MESH_CANCEL = (1, 6)
+GATEWAY_MESH_FAULT = "step:after=6"
+
+
+def gateway_mesh_requests(cfg, moe_cfg):
+    """(model index, request) of the 8 gateway_mesh_2 streams."""
+    return [(0, r) for r in mesh_workload(cfg.vocab)[:4]] \
+        + [(1, r) for r in mesh_workload(moe_cfg.vocab)[4:]]
+
+
+def serve_mesh_2_phase(torch, cfg, smi, moe_cfg=None):
+    """serve_mesh_2, moe_mesh_2 and gateway_mesh_2: one group of two ranks
+    on the one card over gloo (NCCL refuses two ranks on one GPU), one fork
+    server, stopped at once after (``_mesh_rank``); ``moe_cfg`` defaults to
+    olmoe-1b-7b.  Returns the launches of serve_mesh_2's and moe_mesh_2's
+    rank 0."""
+    from repro_torch.configs.base import get_config
     from repro_torch.launch.mesh import spawn_ranks, stop_rank_server
     mcfg = at_depth(cfg, MESH_LAYERS)
+    moe_cfg = at_depth(moe_cfg or get_config(MOE_ARCH), MOE_MESH_LAYERS)
     t0 = time.perf_counter()
-    outs = spawn_ranks(_mesh_rank, 2, "gloo", DEV, args=(mcfg,),
-                       timeout_s=600)
+    outs = spawn_ranks(_mesh_rank, 2, "gloo", DEV, args=(mcfg, moe_cfg),
+                       timeout_s=900)
     # no later phase spawns ranks: the fork server goes now
     stop_rank_server()
+    wall = time.perf_counter() - t0
+    parts = [o["part_s"] for o in outs]
+    launches = serve_mesh_2_report(
+        mcfg, [o["serve_mesh_2"] for o in outs], smi, parts)
+    moe_launches = moe_mesh_2_report(
+        moe_cfg, [o["moe_mesh_2"] for o in outs], smi, parts)
+    gateway_mesh_2_report(mcfg, moe_cfg, [o["gateway_mesh_2"] for o in outs],
+                          smi, parts, wall)
+    return launches, moe_launches
+
+
+def serve_mesh_2_report(mcfg, outs, smi, parts):
+    """serve_mesh_2: two ranks on the one card, full width at
+    ``MESH_LAYERS`` layers: the KV pool sharded on kv-heads (4 of 8 a rank)
+    with TP identity serves ``mesh_workload`` with the tokens of a plain
+    engine on the same weights; each rank's K1 and K2 launches are what its
+    model calls imply (L and 3L + 1 a call); each rank's param bytes and
+    peak memory; reduce-scatter prefill logits within the bf16 gate of the
+    replicated forward, with the greedy agreement; one swap preemption
+    bitwise against each request alone."""
     plain = outs[0]["plain"]
     for o in outs:
         assert o["tokens"] == plain, f"rank {o['rank']}: tokens differ"
@@ -2798,14 +3228,126 @@ def serve_mesh_2_phase(torch, cfg, smi):
           "layers": MESH_LAYERS, "backend": "gloo", "world": 2,
           "device": "cuda:0 (both ranks)", "nvidia_smi": smi,
           "requests": MESH_REQUESTS, "max_new": MESH_NEW,
-          "tokens_identical_to_plain": True, "phase_s":
-          time.perf_counter() - t0,
+          "tokens_identical_to_plain": True,
+          "phase_s": [p["serve_mesh_2"] for p in parts],
           "ranks": [{k: o[k] for k in (
               "rank", "wall_s", "launches", "model_calls",
               "host_ms_per_dispatch", "metrics", "slab",
               "peak_device_bytes", "rs_max_abs_err", "rs_rel_err",
               "rs_greedy_agreement", "swap_counts")} for o in outs]})
     return outs[0]["launches"]
+
+
+def moe_mesh_2_report(cfg, outs, smi, parts):
+    """moe_mesh_2: olmoe-1b-7b at full width, ``MOE_MESH_LAYERS`` layers,
+    on the two ranks.  The KV-only mesh engine (8 of 16 heads a rank, the
+    weights replicated) serves ``mesh_workload`` with rank 0's plain
+    engine's tokens on every rank; each rank's K1 launches are a layer a
+    model call (at its 8 over 8 heads) and K2's ``k2_per_model_call``,
+    nothing else.  The TP layout (expert stacks split inside each expert)
+    on one 256-token chunk: identity mode bitwise the replicated forward;
+    reduce-scatter, run on the replicated forward's expert picks, within
+    ``BF16_ORACLE_TOL`` on the chunk and on one decode step of 8 rows after
+    it; run on its own picks, its greedy agreement, logits' distance and
+    (layer, token) expert sets that flipped, reported apart (routing is
+    discontinuous).  Each rank's
+    param bytes (replicated and TP) and peak memory."""
+    plain = outs[0]["plain"]
+    for o in outs:
+        assert o["tokens"] == plain, f"rank {o['rank']}: moe tokens differ"
+        assert o["slab"][-2] == cfg.n_kv_heads // 2, o["slab"]
+        calls, launches = o["model_calls"], o["launches"]
+        assert launches["paged_attention"] == cfg.n_layers * calls \
+            and launches["rmsnorm"] == k2_per_model_call(cfg) * calls, \
+            (o["rank"], launches, calls)
+        assert all(v == 0 for k, v in launches.items()
+                   if k not in ("paged_attention", "rmsnorm")), launches
+        assert o["identity_bitwise"] and o["identity_route_flips"] == 0, \
+            (o["identity_bitwise"], o["identity_route_flips"])
+        assert o["rs_forced_flips"] == 0, o["rs_forced_flips"]
+        assert o["rs_prefill_rel_err"] <= BF16_ORACLE_TOL \
+            and o["rs_decode_rel_err"] <= BF16_ORACLE_TOL, \
+            (o["rs_prefill_rel_err"], o["rs_decode_rel_err"])
+        assert o["tp_param_bytes"] < o["metrics"]["param_bytes_replicated"]
+    emit({"phase": "moe_mesh_2", "arch": cfg.name, "dtype": cfg.dtype,
+          "layers": cfg.n_layers, "backend": "gloo", "world": 2,
+          "device": "cuda:0 (both ranks)", "nvidia_smi": smi,
+          "requests": MESH_REQUESTS, "max_new": MESH_NEW,
+          "tokens_identical_to_plain": True,
+          "phase_s": [p["moe_mesh_2"] for p in parts],
+          "ranks": [{k: o.get(k) for k in (
+              "rank", "wall_s", "launches", "model_calls",
+              "host_ms_per_dispatch", "metrics", "slab", "tp_param_bytes",
+              "peak_device_bytes", "peak_device_bytes_tp",
+              "identity_bitwise", "rs_prefill_rel_err", "rs_decode_rel_err",
+              "rs_free_prefill_rel_err", "rs_free_decode_rel_err",
+              "rs_prefill_greedy_agreement", "rs_decode_greedy_agreement",
+              "rs_route_flips")} for o in outs]})
+    return outs[0]["launches"]
+
+
+def gateway_mesh_2_report(cfg, moe_cfg, outs, smi, parts, group_s):
+    """gateway_mesh_2: rank 0 runs one in-process ``Gateway`` over a
+    router of qwen3-0.6b (``MESH_LAYERS``) and olmoe-1b-7b
+    (``MOE_MESH_LAYERS``), both engines on the 2-rank mesh with the KV pool
+    on kv-heads, each stepped by its own thread; rank 1 follows both.  8
+    streams over HTTP, 4 a model, one closed by its client mid-stream;
+    olmoe's engine on both ranks under one ``step`` fault seeded alike.
+    Every stream passes ``check_sse``; each that ended ``length`` equals a
+    plain engine's tokens on the same weights, the closed one and the
+    quarantined one a prefix of them; both ranks cancel and quarantine the
+    same request and finish the same tokens; a plain olmoe engine under the
+    same fault also quarantines one request and finishes the others with
+    the same tokens; after the gateway stops both engines are closed on
+    both ranks (rank 1 left ``follow_all``)."""
+    rank0 = outs[0]
+    assert rank0["health"] == 200 and rank0["faults"] == [None, None], \
+        (rank0["health"], rank0["faults"])
+    want = rank0["plain"]
+    reqs = gateway_mesh_requests(cfg, moe_cfg)
+    reasons = []
+    for i, ((m, r), s) in enumerate(zip(reqs, rank0["streams"])):
+        assert s["status"] == 200 and s["errors"] == [], (i, s)
+        full = want[m][0][r.rid]
+        reasons.append(s["finish_reason"])
+        if s["finish_reason"] == "length":
+            assert s["token_ids"] == full, (i, s["token_ids"], full)
+        else:
+            assert s["finish_reason"] in ("client closed", "error"), s
+            assert s["token_ids"] == full[:len(s["token_ids"])], (i, s)
+    assert reasons.count("client closed") == 1 \
+        and reasons[GATEWAY_MESH_CANCEL[0]] == "client closed", reasons
+    assert reasons.count("error") == 1 and reqs[reasons.index(
+        "error")][0] == 1, reasons
+    for k in range(2):
+        a, b = (o["engines"][k] for o in outs)
+        assert a["finished"] == b["finished"] and a["cancelled"] == \
+            b["cancelled"] and a["errored"] == b["errored"], k
+        assert a["invariants"] == [] and b["invariants"] == [], k
+        assert a["closed"] and b["closed"], k
+    assert len(rank0["engines"][0]["cancelled"]) == 1
+    assert len(rank0["engines"][1]["errored"]) == 1 \
+        and rank0["engines"][1]["step_crashes"] == 1
+    assert rank0["engines"][0]["errored"] == []
+    fin, err = want[2]
+    assert len(err) == 1 and all(want[1][0][rid] == t
+                                 for rid, t in fin.items()), (err, fin)
+    emit({"phase": "gateway_mesh_2", "archs": [cfg.name, moe_cfg.name],
+          "layers": [cfg.n_layers, moe_cfg.n_layers], "dtype": cfg.dtype,
+          "backend": "gloo", "world": 2, "device": "cuda:0 (both ranks)",
+          "nvidia_smi": smi, "fault": GATEWAY_MESH_FAULT,
+          "streams": [{k: s.get(k) for k in ("model", "finish_reason",
+                                             "ttft_s")}
+                      | {"tokens": len(s["token_ids"])}
+                      for s in rank0["streams"]],
+          "quarantined": rank0["engines"][1]["errored"],
+          "cancelled": rank0["engines"][0]["cancelled"],
+          "plain_under_fault_quarantined": err,
+          "serve_s": rank0["serve_s"],
+          "streams_wall_s": rank0["streams_wall_s"],
+          "follower_steps": outs[1]["follower_steps"],
+          "phase_s": [p["gateway_mesh_2"] for p in parts],
+          "mesh_group_s": group_s})
 
 
 TENANTS = ("tenant-0", "tenant-1", "tenant-2", "tenant-3")
@@ -4289,7 +4831,9 @@ class RouteLog:
     replaces the first n tokens' picks of each call with the forced ones;
     the rest of ``moe._route`` (the router, its softmax, the gates gathered
     from it and renormalised) is the program's own, so the path runs the
-    other path's expert choices on its own numbers."""
+    other path's expert choices on its own numbers.  A call's tokens are
+    its rows in order, batch-major (a decode step's B rows, a chunk's S
+    tokens)."""
 
     def __init__(self, force=None):
         self.calls = []
@@ -4304,7 +4848,8 @@ class RouteLog:
             if self.force is not None:
                 forced = self.force.pop(0)
                 idx = idx.clone()
-                idx[0, :forced.shape[0]] = forced.to(idx.device)
+                idx.view(-1, idx.shape[-1])[:forced.shape[0]] = \
+                    forced.to(idx.device)
             self.calls.append(idx.reshape(-1, idx.shape[-1]))
             return idx
         moe._select = spy
@@ -5058,9 +5603,10 @@ def main() -> int:
     params = build_model(cfg, DEV).init(0)
     launches, base, base_tokens = serve_phase(torch, cfg, params)
     # multi-device serving: the same workload on a 1-rank NCCL mesh with TP
-    # weights, then two gloo ranks on this card at 8 layers
+    # weights, then two gloo ranks on this card: qwen at 8 layers, olmoe at
+    # 4, and the gateway over both on that mesh
     mesh_launches = serve_mesh_phase(torch, cfg, params, base_tokens)
-    mesh2_launches = serve_mesh_2_phase(torch, cfg, smi)
+    mesh2_launches, moe_mesh_launches = serve_mesh_2_phase(torch, cfg, smi)
     plan_identity(torch, cfg, params)
     lora_launches = lora_serve_phase(torch, cfg, params, base)
     lora_identity_phase(torch, cfg, params)
@@ -5173,7 +5719,8 @@ def main() -> int:
     # each row's launches come from the main path that gives its shape
     # (the row's ``path``): the qwen3-0.6b serve workload (K1 at head_dim
     # 128, K2 at 1,024 and 128), its rank-0 run on the 2-rank serve mesh (K1
-    # at 8 over 4 heads), the compile phase (K4), the multi-LoRA
+    # at 8 over 4 heads), olmoe's rank-0 run on that mesh (K1 at 8 over 8),
+    # the compile phase (K4), the multi-LoRA
     # workload (the fused delta, whose launches run K5's and K6's device
     # code: their rows count its launches, ``launches_of``), the ssm
     # workload (K7, K2 at 4,096) and the hybrid workload (K1 at head_dim
@@ -5191,6 +5738,7 @@ def main() -> int:
     path_launches = {"serve": launches, "compile": compile_launches,
                      "serve_mesh": mesh_launches,
                      "serve_mesh_2": mesh2_launches,
+                     "moe_mesh_2": moe_mesh_launches,
                      "lora_serve": lora_launches, "ssm_serve": ssm_launches,
                      "hybrid_serve": hybrid_launches,
                      "train": train_launches,

@@ -14,7 +14,16 @@
 //
 // x, g, y and dx are (R, D) contiguous row-major in one dtype (float32 or
 // bfloat16); w and dw are (D,) in float32 or bfloat16.  Every sum, rstd and
-// product is f32; y and dx are rounded once to x's dtype, dw to w's.  R >= 0
+// product is f32; y and dx are rounded once to x's dtype, dw to w's.
+//
+// Narrow mode (f32acc = 0, REPRO_NORM_F32=0, bf16 x only: for an f32 x the
+// two modes are one computation) follows the reference's rms_norm computed
+// in x's dtype, as XLA compiles it and `ref.rmsnorm_ref(f32=False)` spells
+// it out: the sums stay f32 (the square of a bf16 is exact in f32), but the
+// mean, mean + eps, rstd, w, x * rstd and (x * rstd) * w are each rounded
+// to bf16; the backward rounds x_hat, g * w, their mean term, the
+// difference, g * x_hat and dx likewise, and takes mean(g w x_hat) in a
+// second sum over the row once rstd is known (the NF template argument).  R >= 0
 // and D >= 0 are any values.  A launch covers one or two segments, each with
 // its own x, w and outputs and its own R, over one grid (the pair: q and k,
 // with their own weights); D, the dtypes and eps are shared.
@@ -98,6 +107,22 @@ constexpr int COL_SLICES = 8;     // column pass: warps a block
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// v rounded to T (to nearest even) and widened back: the identity for float
+template <typename T>
+__device__ __forceinline__ float rnd(float v) {
+  if constexpr (sizeof(T) == 4) return v;
+  else return __bfloat162float(__float2bfloat16(v));
+}
+
+// Narrow mode's rstd from a row's f32 sum of squares: the mean (the sum
+// times the f32 reciprocal of D), mean + eps and the rsqrt, each rounded to
+// T (IEEE sqrt and division: nvcc's defaults without fast math).
+template <typename T>
+__device__ __forceinline__ float narrow_rstd(float sumsq, int D, float eps) {
+  const float var = rnd<T>(sumsq * (1.0f / (float)D));
+  return rnd<T>(1.0f / sqrtf(rnd<T>(var + rnd<T>(eps))));
+}
 
 // element bits of T: one 32-bit word a float, half a word a bf16
 template <typename T>
@@ -226,7 +251,7 @@ struct Seg {
   long long blocks;
 };
 
-template <typename TX, typename TW, bool VEC>
+template <typename TX, typename TW, bool VEC, bool NF>
 __global__ void __launch_bounds__(THREADS, 2)
 rmsnorm_fwd_kernel(Seg<TX, TW> s0, Seg<TX, TW> s1, int D, int G, float eps) {
   constexpr int V = 16 / sizeof(TX);
@@ -252,6 +277,10 @@ rmsnorm_fwd_kernel(Seg<TX, TW> s0, Seg<TX, TW> s1, int D, int G, float eps) {
     if (live && c < nchunks) {
       cache[k] = load_chunk<TX, VEC>(x, c, D);
       load_w<TX, TW, VEC>(s.w, c, D, wc[k]);
+      if constexpr (NF) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) wc[k][j] = rnd<TX>(wc[k][j]);
+      }
     }
   }
   // a sum a chunk, then the chunks' sums in order: CPT short chains that
@@ -276,7 +305,8 @@ rmsnorm_fwd_kernel(Seg<TX, TW> s0, Seg<TX, TW> s1, int D, int G, float eps) {
   }
   acc = row_sum(make_float2(acc, 0.0f), G, red).x;
   if (!live) return;
-  const float rstd = rsqrtf(acc / (float)D + eps);
+  const float rstd = NF ? narrow_rstd<TX>(acc, D, eps)
+                        : rsqrtf(acc / (float)D + eps);
   TX* y = s.y + row * D;
 #pragma unroll
   for (int k = 0; k < CPT; ++k) {
@@ -285,7 +315,8 @@ rmsnorm_fwd_kernel(Seg<TX, TW> s0, Seg<TX, TW> s1, int D, int G, float eps) {
       float f[V];
       unpack<TX>(cache[k], f);
 #pragma unroll
-      for (int j = 0; j < V; ++j) f[j] = f[j] * rstd * wc[k][j];
+      for (int j = 0; j < V; ++j)
+        f[j] = NF ? rnd<TX>(f[j] * rstd) * wc[k][j] : f[j] * rstd * wc[k][j];
       store_chunk<TX, VEC>(y, c, D, pack<TX>(f));
     }
   }
@@ -294,7 +325,9 @@ rmsnorm_fwd_kernel(Seg<TX, TW> s0, Seg<TX, TW> s1, int D, int G, float eps) {
     unpack<TX>(load_chunk<TX, VEC>(x, c, D), f);
     load_w<TX, TW, VEC>(s.w, c, D, wf);
 #pragma unroll
-    for (int j = 0; j < V; ++j) f[j] = f[j] * rstd * wf[j];
+    for (int j = 0; j < V; ++j)
+      f[j] = NF ? rnd<TX>(f[j] * rstd) * rnd<TX>(wf[j])
+                : f[j] * rstd * wf[j];
     store_chunk<TX, VEC>(y, c, D, pack<TX>(f));
   }
 }
@@ -302,7 +335,7 @@ rmsnorm_fwd_kernel(Seg<TX, TW> s0, Seg<TX, TW> s1, int D, int G, float eps) {
 // Row pass of the backward.  Dynamic shared memory: NG * D floats (the
 // groups' column sums) when a block holds several rows at a time (NG > 1),
 // then 64 floats for row_sum.
-template <typename TX, typename TW, bool VEC>
+template <typename TX, typename TW, bool VEC, bool NF>
 __global__ void __launch_bounds__(THREADS, 2)
 rmsnorm_bwd_rows_kernel(Seg<TX, TW> s0, Seg<TX, TW> s1, int D, int G, int RG,
                         float eps, float* __restrict__ part) {
@@ -353,7 +386,7 @@ rmsnorm_bwd_rows_kernel(Seg<TX, TW> s0, Seg<TX, TW> s1, int D, int G, int RG,
 #pragma unroll
         for (int j = 0; j < V; ++j) {
           part.x = fmaf(xf[j], xf[j], part.x);
-          part.y = fmaf(gf[j] * wf[j], xf[j], part.y);
+          if constexpr (!NF) part.y = fmaf(gf[j] * wf[j], xf[j], part.y);
         }
         acc.x += part.x;
         acc.y += part.y;
@@ -368,15 +401,51 @@ rmsnorm_bwd_rows_kernel(Seg<TX, TW> s0, Seg<TX, TW> s1, int D, int G, int RG,
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         part.x = fmaf(xf[j], xf[j], part.x);
-        part.y = fmaf(gf[j] * wf[j], xf[j], part.y);
+        if constexpr (!NF) part.y = fmaf(gf[j] * wf[j], xf[j], part.y);
       }
       acc.x += part.x;
       acc.y += part.y;
     }
     acc = row_sum(acc, G, red);
+    float rstd, mean;                               // mean(g w x_hat)
+    if constexpr (NF) {
+      // the rounded x_hat needs rstd: a second sum over the row (every
+      // thread of the row takes part in its row_sum, live or not)
+      rstd = narrow_rstd<TX>(acc.x, D, eps);
+      float s2 = 0.0f;
+#pragma unroll
+      for (int k = 0; k < CPT; ++k) {
+        const int c = lane + k * G;
+        if (live && c < nchunks) {
+          float xf[V], gf[V], wf[V], part = 0.0f;
+          unpack<TX>(xc[k], xf);
+          unpack<TX>(gc[k], gf);
+          load_w<TX, TW, VEC>(s.w, c, D, wf);
+#pragma unroll
+          for (int j = 0; j < V; ++j)
+            part = fmaf(rnd<TX>(gf[j] * rnd<TX>(wf[j])),
+                        rnd<TX>(xf[j] * rstd), part);
+          s2 += part;
+        }
+      }
+      for (int c = lane + CPT * G; live && c < nchunks; c += G) {
+        float xf[V], gf[V], wf[V], part = 0.0f;
+        unpack<TX>(load_chunk<TX, VEC>(x, c, D), xf);
+        unpack<TX>(load_chunk<TX, VEC>(g, c, D), gf);
+        load_w<TX, TW, VEC>(s.w, c, D, wf);
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          part = fmaf(rnd<TX>(gf[j] * rnd<TX>(wf[j])),
+                      rnd<TX>(xf[j] * rstd), part);
+        s2 += part;
+      }
+      s2 = row_sum(make_float2(s2, 0.0f), G, red).x;
+      mean = rnd<TX>(s2 * (1.0f / (float)D));
+    } else {
+      rstd = rsqrtf(acc.x / (float)D + eps);
+      mean = acc.y * rstd / (float)D;
+    }
     if (!live) continue;
-    const float rstd = rsqrtf(acc.x / (float)D + eps);
-    const float mean = acc.y * rstd / (float)D;    // mean(g w x_hat)
     TX* dx = s.y + row * D;
 #pragma unroll
     for (int k = 0; k < CPT; ++k) {
@@ -388,9 +457,16 @@ rmsnorm_bwd_rows_kernel(Seg<TX, TW> s0, Seg<TX, TW> s1, int D, int G, int RG,
         load_w<TX, TW, VEC>(s.w, c, D, wf);
 #pragma unroll
         for (int j = 0; j < V; ++j) {
-          const float xh = xf[j] * rstd;
-          col[k][j] += gf[j] * xh;
-          xf[j] = rstd * (gf[j] * wf[j] - xh * mean);
+          if constexpr (NF) {
+            const float xh = rnd<TX>(xf[j] * rstd);
+            const float gw = rnd<TX>(gf[j] * rnd<TX>(wf[j]));
+            col[k][j] += rnd<TX>(gf[j] * xh);
+            xf[j] = rstd * rnd<TX>(gw - rnd<TX>(xh * mean));
+          } else {
+            const float xh = xf[j] * rstd;
+            col[k][j] += gf[j] * xh;
+            xf[j] = rstd * (gf[j] * wf[j] - xh * mean);
+          }
         }
         store_chunk<TX, VEC>(dx, c, D, pack<TX>(xf));
       }
@@ -404,10 +480,18 @@ rmsnorm_bwd_rows_kernel(Seg<TX, TW> s0, Seg<TX, TW> s1, int D, int G, int RG,
       load_w<TX, TW, VEC>(s.w, c, D, wf);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        const float xh = xf[j] * rstd;
         const int e = c * V + j;
-        if (e < D) prow[e] = (i == 0 ? 0.0f : prow[e]) + gf[j] * xh;
-        xf[j] = rstd * (gf[j] * wf[j] - xh * mean);
+        if constexpr (NF) {
+          const float xh = rnd<TX>(xf[j] * rstd);
+          const float gw = rnd<TX>(gf[j] * rnd<TX>(wf[j]));
+          if (e < D)
+            prow[e] = (i == 0 ? 0.0f : prow[e]) + rnd<TX>(gf[j] * xh);
+          xf[j] = rstd * rnd<TX>(gw - rnd<TX>(xh * mean));
+        } else {
+          const float xh = xf[j] * rstd;
+          if (e < D) prow[e] = (i == 0 ? 0.0f : prow[e]) + gf[j] * xh;
+          xf[j] = rstd * (gf[j] * wf[j] - xh * mean);
+        }
       }
       store_chunk<TX, VEC>(dx, c, D, pack<TX>(xf));
     }
@@ -501,7 +585,7 @@ bool vectors(int D, const Seg<TX, TW>& a, const Seg<TX, TW>& b) {
   return D % (16 / (int)sizeof(TX)) == 0 && vectors(a) && vectors(b);
 }
 
-template <typename TX, typename TW>
+template <typename TX, typename TW, bool NF>
 cudaError_t fwd(const void* x0, const void* w0, void* y0, long long r0,
                 const void* x1, const void* w1, void* y1, long long r1,
                 int D, float eps, cudaStream_t stream) {
@@ -512,15 +596,15 @@ cudaError_t fwd(const void* x0, const void* w0, void* y0, long long r0,
   const long long grid = s0.blocks + s1.blocks;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (vectors(D, s0, s1))
-    rmsnorm_fwd_kernel<TX, TW, true><<<(unsigned)grid, p.threads, 0, stream>>>(
-        s0, s1, D, p.G, eps);
+    rmsnorm_fwd_kernel<TX, TW, true, NF>
+        <<<(unsigned)grid, p.threads, 0, stream>>>(s0, s1, D, p.G, eps);
   else
-    rmsnorm_fwd_kernel<TX, TW, false>
+    rmsnorm_fwd_kernel<TX, TW, false, NF>
         <<<(unsigned)grid, p.threads, 0, stream>>>(s0, s1, D, p.G, eps);
   return cudaGetLastError();
 }
 
-template <typename TX, typename TW>
+template <typename TX, typename TW, bool NF>
 cudaError_t bwd(const void* x0, const void* w0, const void* g0, void* dx0,
                 void* dw0, long long r0, const void* x1, const void* w1,
                 const void* g1, void* dx1, void* dw1, long long r1, int D,
@@ -537,11 +621,11 @@ cudaError_t bwd(const void* x0, const void* w0, const void* g0, void* dx0,
     const size_t smem = ((ng > 1 ? (size_t)ng * D : 0) + 64) * sizeof(float);
     const int rg = p.G <= 32 ? GROUP_ROWS : BLOCK_ROWS;
     if (vectors(D, s0, s1))
-      rmsnorm_bwd_rows_kernel<TX, TW, true>
+      rmsnorm_bwd_rows_kernel<TX, TW, true, NF>
           <<<(unsigned)parts, p.threads, smem, stream>>>(s0, s1, D, p.G, rg,
                                                          eps, part);
     else
-      rmsnorm_bwd_rows_kernel<TX, TW, false>
+      rmsnorm_bwd_rows_kernel<TX, TW, false, NF>
           <<<(unsigned)parts, p.threads, smem, stream>>>(s0, s1, D, p.G, rg,
                                                          eps, part);
     const cudaError_t err = cudaGetLastError();
@@ -557,28 +641,35 @@ cudaError_t bwd(const void* x0, const void* w0, const void* g0, void* dx0,
 }  // namespace
 
 // The C entry points.  x_bf16 / w_bf16: 0 = float32, 1 = bfloat16 (of x,
-// g, y and dx / of w and dw).  The second segment (x1, ...) is optional:
-// null pointers and r1 = 0 for one tensor.  Each returns the launch's
-// cudaError_t (0 = success); the kernels run asynchronously on `stream`.
+// g, y and dx / of w and dw).  f32acc: 1 = the sums and scale in f32, 0 =
+// narrow mode (see the header; it changes nothing for a float32 x).  The
+// second segment (x1, ...) is optional: null pointers and r1 = 0 for one
+// tensor.  Each returns the launch's cudaError_t (0 = success); the
+// kernels run asynchronously on `stream`.
 
 extern "C" int repro_rmsnorm_fwd(const void* x0, const void* w0, void* y0,
                                  long long r0, const void* x1,
                                  const void* w1, void* y1, long long r1,
-                                 int D, int x_bf16, int w_bf16, float eps,
-                                 void* stream) {
-  if (r0 < 0 || r1 < 0 || D < 0 || ((x_bf16 | w_bf16) & ~1))
+                                 int D, int x_bf16, int w_bf16, int f32acc,
+                                 float eps, void* stream) {
+  if (r0 < 0 || r1 < 0 || D < 0 || ((x_bf16 | w_bf16 | f32acc) & ~1))
     return (int)cudaErrorInvalidValue;
   if (D == 0 || r0 + r1 == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16 && !f32acc)
+    return (int)(w_bf16 ? fwd<bf16, bf16, true>(x0, w0, y0, r0, x1, w1, y1,
+                                                r1, D, eps, s)
+                        : fwd<bf16, float, true>(x0, w0, y0, r0, x1, w1, y1,
+                                                 r1, D, eps, s));
   if (x_bf16)
-    return (int)(w_bf16 ? fwd<bf16, bf16>(x0, w0, y0, r0, x1, w1, y1, r1, D,
-                                          eps, s)
-                        : fwd<bf16, float>(x0, w0, y0, r0, x1, w1, y1, r1, D,
-                                           eps, s));
-  return (int)(w_bf16 ? fwd<float, bf16>(x0, w0, y0, r0, x1, w1, y1, r1, D,
-                                         eps, s)
-                      : fwd<float, float>(x0, w0, y0, r0, x1, w1, y1, r1, D,
-                                          eps, s));
+    return (int)(w_bf16 ? fwd<bf16, bf16, false>(x0, w0, y0, r0, x1, w1, y1,
+                                                 r1, D, eps, s)
+                        : fwd<bf16, float, false>(x0, w0, y0, r0, x1, w1, y1,
+                                                  r1, D, eps, s));
+  return (int)(w_bf16 ? fwd<float, bf16, false>(x0, w0, y0, r0, x1, w1, y1,
+                                                r1, D, eps, s)
+                      : fwd<float, float, false>(x0, w0, y0, r0, x1, w1, y1,
+                                                 r1, D, eps, s));
 }
 
 // Rows of one block of the backward's row pass, whose column sums make one
@@ -595,24 +686,31 @@ extern "C" int repro_rmsnorm_bwd(const void* x0, const void* w0,
                                  long long r0, const void* x1,
                                  const void* w1, const void* g1, void* dx1,
                                  void* dw1, long long r1, int D, int x_bf16,
-                                 int w_bf16, float eps, void* part,
-                                 long long parts, void* stream) {
-  if (r0 < 0 || r1 < 0 || D < 0 || ((x_bf16 | w_bf16) & ~1))
+                                 int w_bf16, int f32acc, float eps,
+                                 void* part, long long parts, void* stream) {
+  if (r0 < 0 || r1 < 0 || D < 0 || ((x_bf16 | w_bf16 | f32acc) & ~1))
     return (int)cudaErrorInvalidValue;
   if (D == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pf = static_cast<float*>(part);
+  if (x_bf16 && !f32acc)
+    return (int)(w_bf16 ? bwd<bf16, bf16, true>(x0, w0, g0, dx0, dw0, r0, x1,
+                                                w1, g1, dx1, dw1, r1, D, eps,
+                                                pf, parts, s)
+                        : bwd<bf16, float, true>(x0, w0, g0, dx0, dw0, r0,
+                                                 x1, w1, g1, dx1, dw1, r1, D,
+                                                 eps, pf, parts, s));
   if (x_bf16)
-    return (int)(w_bf16 ? bwd<bf16, bf16>(x0, w0, g0, dx0, dw0, r0, x1, w1,
-                                          g1, dx1, dw1, r1, D, eps, pf,
-                                          parts, s)
-                        : bwd<bf16, float>(x0, w0, g0, dx0, dw0, r0, x1, w1,
-                                           g1, dx1, dw1, r1, D, eps, pf,
-                                           parts, s));
-  return (int)(w_bf16 ? bwd<float, bf16>(x0, w0, g0, dx0, dw0, r0, x1, w1,
-                                         g1, dx1, dw1, r1, D, eps, pf, parts,
-                                         s)
-                      : bwd<float, float>(x0, w0, g0, dx0, dw0, r0, x1, w1,
-                                          g1, dx1, dw1, r1, D, eps, pf, parts,
-                                          s));
+    return (int)(w_bf16 ? bwd<bf16, bf16, false>(x0, w0, g0, dx0, dw0, r0,
+                                                 x1, w1, g1, dx1, dw1, r1, D,
+                                                 eps, pf, parts, s)
+                        : bwd<bf16, float, false>(x0, w0, g0, dx0, dw0, r0,
+                                                  x1, w1, g1, dx1, dw1, r1,
+                                                  D, eps, pf, parts, s));
+  return (int)(w_bf16 ? bwd<float, bf16, false>(x0, w0, g0, dx0, dw0, r0, x1,
+                                                w1, g1, dx1, dw1, r1, D, eps,
+                                                pf, parts, s)
+                      : bwd<float, float, false>(x0, w0, g0, dx0, dw0, r0, x1,
+                                                 w1, g1, dx1, dw1, r1, D, eps,
+                                                 pf, parts, s));
 }

@@ -92,19 +92,20 @@ def _records(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def rmsnorm(x, w, eps: float = 1e-5):
+def rmsnorm(x, w, eps: float = 1e-5, f32: bool = True):
     """RMSNorm over the last axis of x (any leading shape): through
     ``RMSNormFn`` (the forward and backward kernels) when autograd records,
     else the forward kernel called directly, with no Function's host cost
-    (serving, and the recompute's first pass)."""
+    (serving, and the recompute's first pass).  ``f32``: reduce and scale
+    in f32, else in x's dtype (REPRO_NORM_F32)."""
     shape = x.shape
     x2, w2 = x.reshape(-1, shape[-1]).contiguous(), w.contiguous()
     if _records(x2, w2):
-        return _k2.RMSNormFn.apply(x2, w2, eps).reshape(shape)
-    return _k2.rmsnorm_kernel(x2, w2, eps).reshape(shape)
+        return _k2.RMSNormFn.apply(x2, w2, eps, f32).reshape(shape)
+    return _k2.rmsnorm_kernel(x2, w2, eps, f32=f32).reshape(shape)
 
 
-def rmsnorm_pair(x1, w1, x2, w2, eps: float = 1e-5):
+def rmsnorm_pair(x1, w1, x2, w2, eps: float = 1e-5, f32: bool = True):
     """RMSNorm of x1 by w1 and of x2 by w2 over one last axis (any leading
     shapes), in one launch a direction: a layer's q and k norms.  Each
     output is bitwise ``rmsnorm`` of its own pair; ``RMSNormPairFn`` when
@@ -113,9 +114,9 @@ def rmsnorm_pair(x1, w1, x2, w2, eps: float = 1e-5):
     a1, a2 = x1.reshape(-1, d).contiguous(), x2.reshape(-1, d).contiguous()
     v1, v2 = w1.contiguous(), w2.contiguous()
     if _records(a1, v1, a2, v2):
-        y1, y2 = _k2.RMSNormPairFn.apply(a1, v1, a2, v2, eps)
+        y1, y2 = _k2.RMSNormPairFn.apply(a1, v1, a2, v2, eps, f32)
     else:
-        y1, y2 = _k2.rmsnorm_pair_kernel(a1, v1, a2, v2, eps)
+        y1, y2 = _k2.rmsnorm_pair_kernel(a1, v1, a2, v2, eps, f32=f32)
     return y1.reshape(x1.shape), y2.reshape(x2.shape)
 
 

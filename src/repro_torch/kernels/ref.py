@@ -239,30 +239,84 @@ def lora_delta_ref(x: torch.Tensor, a_slab: torch.Tensor,
     return y if base is None else base + y
 
 
-def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
-                ) -> torch.Tensor:
+def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
+                f32: bool = True) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * w`` over the last axis, in x's dtype.
+    ``f32``: the reduction and the scale in f32 (REPRO_NORM_F32=1, the
+    default).  Off, they run in x's dtype (``_rmsnorm_narrow``); for an f32
+    x the two are one computation."""
+    if not f32 and x.dtype != torch.float32:
+        return _rmsnorm_narrow(x, w, eps)
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
+def _narrow_rstd(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """rsqrt(mean(x^2) + eps) of each row as the reference computes it in
+    x's dtype, returned in f32 (its values are x's dtype's).
+
+    What XLA makes of the reference's ``rms_norm`` under REPRO_NORM_F32=0
+    on the CPU (its compiled HLO): the square stays an f32 product (exact
+    for bf16 operands; XLA drops the round trip through bf16 before the
+    f32 sum), the sum is f32, the mean is that sum times the f32 reciprocal
+    of D rounded once to x's dtype, then ``+ eps`` (eps in x's dtype) and
+    the rsqrt are each computed in f32 and rounded.  Every op here is an
+    f32 op and a rounding, never a bf16 op of PyTorch's: its CPU rsqrt of a
+    small bf16 tensor rounds the square root before the division."""
+    dt = x.dtype
+    var = (x.float().square().sum(dim=-1, keepdim=True)
+           * (1.0 / x.shape[-1])).to(dt).float()
+    eps_dt = torch.tensor(eps, dtype=dt).item()
+    return torch.rsqrt((var + eps_dt).to(dt).float()).to(dt).float()
+
+
+def _rmsnorm_narrow(x: torch.Tensor, w: torch.Tensor, eps: float
+                    ) -> torch.Tensor:
+    """``rmsnorm_ref`` with the reduction and the scale in x's dtype: the
+    reference's ``rms_norm`` under REPRO_NORM_F32=0 (bitwise at bf16 on the
+    CPU, ``tests/test_torch_serve.py``).  Each product is rounded to x's
+    dtype, and w is cast to it first."""
+    dt = x.dtype
+    xh = (x.float() * _narrow_rstd(x, eps)).to(dt).float()
+    return (xh * w.to(dt).float()).to(dt)
+
+
 def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                     eps: float = 1e-5, mean_term: bool = True,
-                    drop_rows=None):
-    """Gradients of ``rmsnorm_ref(x, w, eps)`` for the output gradient g
-    (R, D), in f32 and cast: ``dx = rstd (g w - x_hat mean(g w x_hat))`` and
-    ``dw = sum_rows g x_hat``, with ``x_hat = x rstd``.  The planted faults
-    of ``chip_smoke.py``: ``mean_term=False`` drops dx's mean term;
-    ``drop_rows=(start, stop)`` leaves those rows out of dw (one row block
-    of the kernel's column sum)."""
-    xf = x.float()
-    rstd = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
-    xhat = xf * rstd
-    gw = g.float() * w.float()
-    if mean_term:
-        gw = gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True)
-    dx = rstd * gw
-    gx = g.float() * xhat
+                    drop_rows=None, f32: bool = True):
+    """Gradients of ``rmsnorm_ref(x, w, eps, f32)`` for the output gradient
+    g (R, D): ``dx = rstd (g w - x_hat mean(g w x_hat))`` and ``dw =
+    sum_rows g x_hat``, with ``x_hat = x rstd``; in f32 and cast, or (``f32``
+    off, x not f32) each product and difference rounded to x's dtype, the
+    sums in f32.  The planted faults of ``chip_smoke.py``:
+    ``mean_term=False`` drops dx's mean term; ``drop_rows=(start, stop)``
+    leaves those rows out of dw (one row block of the kernel's column
+    sum)."""
+    if f32 or x.dtype == torch.float32:
+        xf = x.float()
+        rstd = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+        xhat = xf * rstd
+        gw = g.float() * w.float()
+        if mean_term:
+            gw = gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True)
+        dx = rstd * gw
+        gx = g.float() * xhat
+    else:
+        dt = x.dtype
+
+        def rd(t):
+            return t.to(dt).float()
+        rstd = _narrow_rstd(x, eps)
+        gf = g.float()
+        xhat = rd(x.float() * rstd)
+        gw = rd(gf * w.to(dt).float())
+        if mean_term:
+            mean = rd((gw * xhat).sum(dim=-1, keepdim=True)
+                      * (1.0 / x.shape[-1]))
+            gw = rd(gw - rd(xhat * mean))
+        dx = rstd * gw
+        gx = rd(gf * xhat)
     if drop_rows is not None:
         gx[drop_rows[0]:drop_rows[1]] = 0
     return dx.to(x.dtype), gx.sum(dim=0).to(w.dtype)

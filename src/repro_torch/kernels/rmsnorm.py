@@ -1,8 +1,10 @@
 """Wrapper of the CUDA C++ rmsnorm kernels (``csrc/rmsnorm.cu``), K2.
 
 Replaces the Pallas TPU kernel ``rmsnorm_kernel`` of
-``src/repro/kernels/rmsnorm.py``: ``x * rsqrt(mean(x^2) + eps) * w`` with
-the reduction and scale in f32, written in x's dtype.  The source file's
+``src/repro/kernels/rmsnorm.py``: ``x * rsqrt(mean(x^2) + eps) * w``,
+written in x's dtype, with the reduction and scale in f32 or (``f32=False``,
+REPRO_NORM_F32=0) in x's dtype as the reference's ``rms_norm`` then
+computes them.  The source file's
 header says how the kernels are laid out and what bounds them.  Entry
 points:
 
@@ -37,14 +39,14 @@ launches = 0
 bwd_launches = 0
 
 _P = ctypes.c_void_p
-# repro_rmsnorm_fwd(x0, w0, y0, r0, x1, w1, y1, r1, D, x_bf16, w_bf16, eps,
-#                   stream)
+# repro_rmsnorm_fwd(x0, w0, y0, r0, x1, w1, y1, r1, D, x_bf16, w_bf16,
+#                   f32acc, eps, stream)
 _FWD_ARGS = [_P] * 3 + [ctypes.c_longlong] + [_P] * 3 + [ctypes.c_longlong] \
-    + [ctypes.c_int] * 3 + [ctypes.c_float, _P]
+    + [ctypes.c_int] * 4 + [ctypes.c_float, _P]
 # repro_rmsnorm_bwd(x0, w0, g0, dx0, dw0, r0, x1, w1, g1, dx1, dw1, r1, D,
-#                   x_bf16, w_bf16, eps, part, parts, stream)
+#                   x_bf16, w_bf16, f32acc, eps, part, parts, stream)
 _BWD_ARGS = [_P] * 5 + [ctypes.c_longlong] + [_P] * 5 + [ctypes.c_longlong] \
-    + [ctypes.c_int] * 3 + [ctypes.c_float, _P, ctypes.c_longlong, _P]
+    + [ctypes.c_int] * 4 + [ctypes.c_float, _P, ctypes.c_longlong, _P]
 _DTYPES = (torch.float32, torch.bfloat16)
 # (D, x is bf16) -> rows of one row block of the backward (one scratch row)
 _BLOCK_ROWS: dict = {}
@@ -111,7 +113,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _fwd(x1, w1, x2, w2, eps):
+def _fwd(x1, w1, x2, w2, eps, f32):
     """Launch the forward over x1 (and x2, when given)."""
     y1 = torch.empty_like(x1)
     y2 = None if x2 is None else torch.empty_like(x2)
@@ -121,34 +123,36 @@ def _fwd(x1, w1, x2, w2, eps):
     launch("rmsnorm", x1.device, load_kernels()[0], x1.data_ptr(),
            w1.data_ptr(), y1.data_ptr(), x1.shape[0], _ptr(x2), _ptr(w2),
            _ptr(y2), r2, x1.shape[1], x1.dtype == torch.bfloat16,
-           w1.dtype == torch.bfloat16, eps)
+           w1.dtype == torch.bfloat16, bool(f32), eps)
     count(globals(), "launches")
     return y1, y2
 
 
-def rmsnorm_kernel(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
-                   ) -> torch.Tensor:
-    """x (R, D), w (D,) -> (R, D) in x's dtype."""
+def rmsnorm_kernel(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
+                   f32: bool = True) -> torch.Tensor:
+    """x (R, D), w (D,) -> (R, D) in x's dtype; ``f32``: reduce and scale
+    in f32, else in x's dtype."""
     refuse_grad("rmsnorm", x, w)
     _check("rmsnorm", x, w)
     if not _cuda("rmsnorm", x):
-        return ref.rmsnorm_ref(x, w, eps)
-    return _fwd(x, w, None, None, eps)[0]
+        return ref.rmsnorm_ref(x, w, eps, f32)
+    return _fwd(x, w, None, None, eps, f32)[0]
 
 
 def rmsnorm_pair_kernel(x1: torch.Tensor, w1: torch.Tensor,
                         x2: torch.Tensor, w2: torch.Tensor,
-                        eps: float = 1e-5):
+                        eps: float = 1e-5, f32: bool = True):
     """x1 (R1, D) by w1 (D,) and x2 (R2, D) by w2 (D,) in one launch ->
     (y1, y2), each bitwise ``rmsnorm_kernel`` of its own pair."""
     refuse_grad("rmsnorm_pair", x1, w1, x2, w2)
     _check_pair("rmsnorm_pair", x1, w1, x2, w2)
     if not _cuda("rmsnorm_pair", x1):
-        return ref.rmsnorm_ref(x1, w1, eps), ref.rmsnorm_ref(x2, w2, eps)
-    return _fwd(x1, w1, x2, w2, eps)
+        return ref.rmsnorm_ref(x1, w1, eps, f32), \
+            ref.rmsnorm_ref(x2, w2, eps, f32)
+    return _fwd(x1, w1, x2, w2, eps, f32)
 
 
-def _bwd(x1, w1, g1, x2, w2, g2, eps):
+def _bwd(x1, w1, g1, x2, w2, g2, eps, f32):
     """Launch the backward's two passes over x1 (and x2, when given)."""
     d = x1.shape[1]
     dx1, dw1 = torch.empty_like(x1), torch.empty_like(w1)
@@ -165,31 +169,32 @@ def _bwd(x1, w1, g1, x2, w2, g2, eps):
            w1.data_ptr(), g1.data_ptr(), dx1.data_ptr(), dw1.data_ptr(),
            x1.shape[0], _ptr(x2), _ptr(w2), _ptr(g2), _ptr(dx2), _ptr(dw2),
            r2, d, x1.dtype == torch.bfloat16, w1.dtype == torch.bfloat16,
-           eps, part.data_ptr(), parts)
+           bool(f32), eps, part.data_ptr(), parts)
     count(globals(), "bwd_launches")
     return dx1, dw1, dx2, dw2
 
 
 def rmsnorm_bwd_kernel(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-                       eps: float = 1e-5):
-    """Gradients of ``rmsnorm_kernel(x, w, eps)`` for the output gradient g
-    (R, D) in x's dtype -> (dx in x's dtype, dw in w's)."""
+                       eps: float = 1e-5, f32: bool = True):
+    """Gradients of ``rmsnorm_kernel(x, w, eps, f32)`` for the output
+    gradient g (R, D) in x's dtype -> (dx in x's dtype, dw in w's)."""
     refuse_grad("rmsnorm_bwd", x, w, g)
     _check("rmsnorm_bwd", x, w, g)
     if not _cuda("rmsnorm_bwd", x):
-        return ref.rmsnorm_bwd_ref(x, w, g, eps)
-    return _bwd(x, w, g, None, None, None, eps)[:2]
+        return ref.rmsnorm_bwd_ref(x, w, g, eps, f32=f32)
+    return _bwd(x, w, g, None, None, None, eps, f32)[:2]
 
 
-def rmsnorm_pair_bwd_kernel(x1, w1, g1, x2, w2, g2, eps: float = 1e-5):
+def rmsnorm_pair_bwd_kernel(x1, w1, g1, x2, w2, g2, eps: float = 1e-5,
+                            f32: bool = True):
     """Gradients of ``rmsnorm_pair_kernel`` -> (dx1, dw1, dx2, dw2), in the
     same two launches as one tensor's; each bitwise its single call's."""
     refuse_grad("rmsnorm_pair_bwd", x1, w1, g1, x2, w2, g2)
     _check_pair("rmsnorm_pair_bwd", x1, w1, x2, w2, g1, g2)
     if not _cuda("rmsnorm_pair_bwd", x1):
-        return ref.rmsnorm_bwd_ref(x1, w1, g1, eps) \
-            + ref.rmsnorm_bwd_ref(x2, w2, g2, eps)
-    return _bwd(x1, w1, g1, x2, w2, g2, eps)
+        return ref.rmsnorm_bwd_ref(x1, w1, g1, eps, f32=f32) \
+            + ref.rmsnorm_bwd_ref(x2, w2, g2, eps, f32=f32)
+    return _bwd(x1, w1, g1, x2, w2, g2, eps, f32)
 
 
 class RMSNormFn(torch.autograd.Function):
@@ -197,18 +202,18 @@ class RMSNormFn(torch.autograd.Function):
     with rstd recomputed from the saved x."""
 
     @staticmethod
-    def forward(ctx, x, w, eps: float):
-        out = rmsnorm_kernel(x, w, eps)
+    def forward(ctx, x, w, eps: float, f32: bool = True):
+        out = rmsnorm_kernel(x, w, eps, f32)
         ctx.save_for_backward(x, w)
-        ctx.eps = eps
+        ctx.eps, ctx.f32 = eps, f32
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        dx, dw = rmsnorm_bwd_kernel(x, w, g.contiguous(), ctx.eps)
+        dx, dw = rmsnorm_bwd_kernel(x, w, g.contiguous(), ctx.eps, ctx.f32)
         return (dx if ctx.needs_input_grad[0] else None,
-                dw if ctx.needs_input_grad[1] else None, None)
+                dw if ctx.needs_input_grad[1] else None, None, None)
 
 
 class RMSNormPairFn(torch.autograd.Function):
@@ -216,16 +221,16 @@ class RMSNormPairFn(torch.autograd.Function):
     direction (a layer's q and k norms)."""
 
     @staticmethod
-    def forward(ctx, x1, w1, x2, w2, eps: float):
-        y1, y2 = rmsnorm_pair_kernel(x1, w1, x2, w2, eps)
+    def forward(ctx, x1, w1, x2, w2, eps: float, f32: bool = True):
+        y1, y2 = rmsnorm_pair_kernel(x1, w1, x2, w2, eps, f32)
         ctx.save_for_backward(x1, w1, x2, w2)
-        ctx.eps = eps
+        ctx.eps, ctx.f32 = eps, f32
         return y1, y2
 
     @staticmethod
     def backward(ctx, g1, g2):
         x1, w1, x2, w2 = ctx.saved_tensors
         grads = rmsnorm_pair_bwd_kernel(x1, w1, g1.contiguous(), x2, w2,
-                                         g2.contiguous(), ctx.eps)
+                                         g2.contiguous(), ctx.eps, ctx.f32)
         return tuple(d if need else None for d, need in
-                     zip(grads, ctx.needs_input_grad)) + (None,)
+                     zip(grads, ctx.needs_input_grad)) + (None, None)

@@ -15,7 +15,13 @@ touches no process group and no device.
 
 The collectives are the list forms ``all_gather``, ``all_reduce`` and
 ``broadcast_object_list``: ``gloo``, which serves two ranks on one card
-(NCCL refuses two ranks on one GPU), lacks the rest for CUDA tensors.
+(NCCL refuses two ranks on one GPU), lacks the rest for CUDA tensors.  The
+engine's control traffic (a step's broadcast and its closing gather) runs
+on a gloo group of its own beside the model's collectives: a rank that
+crashed and went on to its step's closing gather then waits there, to the
+collective timeout at worst, while the others wait in the model's
+collective, where on one group the two would be paired and gloo would
+abort on their sizes.
 """
 from __future__ import annotations
 
@@ -49,22 +55,31 @@ class MeshShape:
 class ServeMesh:
     """The serve engine's mesh: this rank of an initialized process group
     whose ranks form the "model" axis (``shape`` is ``{"data": 1,
-    "model": world}``).  ``object_device`` is where object and digest
-    collectives stage their tensors: the rank's card under NCCL, the CPU
-    under gloo."""
+    "model": world}``).  The model's collectives (``gather``, ``reduce``)
+    run on the default group, and ``issued`` counts them; the engine's
+    control collectives (``broadcast``, ``gather_ints``) run on
+    ``control``, a gloo group of the same ranks, staged on the CPU."""
     rank: int
     world: int
-    object_device: torch.device
     shape: Dict[str, int]
+    control: object = None
+    _issued: list = dataclasses.field(default_factory=lambda: [0],
+                                      compare=False, repr=False)
 
     @property
     def n_model(self) -> int:
         return self.shape["model"]
 
+    @property
+    def issued(self) -> int:
+        """Model collectives this rank has entered on this mesh."""
+        return self._issued[0]
+
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's ``x`` concatenated along ``dim`` in rank order."""
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.world)]
+        self._issued[0] += 1
         dist.all_gather(parts, x)
         return torch.cat(parts, dim=dim)
 
@@ -72,21 +87,35 @@ class ServeMesh:
         """The sum of every rank's ``x``, added in f32 and returned in
         ``x``'s dtype (a bf16 partial sum is not rounded twice)."""
         y = x.float().contiguous()
+        self._issued[0] += 1
         dist.all_reduce(y)
         return y.to(x.dtype)
 
     def broadcast(self, obj=None):
-        """Rank 0's ``obj`` on every rank (picklable)."""
+        """Rank 0's ``obj`` on every rank (picklable), on ``control``."""
         box = [obj]
-        dist.broadcast_object_list(box, src=0, device=self.object_device)
+        dist.broadcast_object_list(box, src=0, group=self.control,
+                                   device=torch.device("cpu"))
         return box[0]
 
     def gather_ints(self, values: List[int]) -> List[List[int]]:
-        """Every rank's int64 ``values`` (one length on every rank)."""
-        t = torch.tensor(values, dtype=torch.int64, device=self.object_device)
+        """Every rank's int64 ``values`` (one length on every rank), on
+        ``control``."""
+        t = torch.tensor(values, dtype=torch.int64)
         parts = [torch.empty_like(t) for _ in range(self.world)]
-        dist.all_gather(parts, t)
+        dist.all_gather(parts, t, group=self.control)
         return [p.tolist() for p in parts]
+
+
+# the control group of the initialized process group (made once: every rank
+# must make a group together; dropped when ``process_group`` leaves it)
+_CONTROL: Dict[str, object] = {}
+
+
+def _control_group():
+    if "group" not in _CONTROL:
+        _CONTROL["group"] = dist.new_group(backend="gloo")
+    return _CONTROL["group"]
 
 
 def make_serve_mesh(n_model: Optional[int] = None) -> ServeMesh:
@@ -104,10 +133,9 @@ def make_serve_mesh(n_model: Optional[int] = None) -> ServeMesh:
     if n != world:
         raise ValueError(f"serve mesh wants {n} ranks, the process group "
                          f"holds {world}")
-    dev = torch.device("cuda", torch.cuda.current_device()) \
-        if str(dist.get_backend()) == "nccl" else torch.device("cpu")
-    return ServeMesh(rank=dist.get_rank(), world=world, object_device=dev,
-                     shape={"data": 1, "model": n})
+    return ServeMesh(rank=dist.get_rank(), world=world,
+                     shape={"data": 1, "model": n},
+                     control=_control_group())
 
 
 def make_local_mesh() -> MeshShape:
@@ -152,29 +180,33 @@ def rank_device(rank: int, backend: str, device: str) -> torch.device:
 
 @contextlib.contextmanager
 def process_group(rank: int, world: int, backend: str, store_path: str,
-                  device: str = "cpu"):
+                  device: str = "cpu",
+                  timeout_s: float = COLLECTIVE_TIMEOUT_S):
     """Join (and on exit leave) the ``world``-rank group that meets in the
     ``FileStore`` at ``store_path``; a collective that waits longer than
-    ``COLLECTIVE_TIMEOUT_S`` raises."""
+    ``timeout_s`` raises."""
     dev = rank_device(rank, backend, device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group(
         backend, store=dist.FileStore(store_path, world), rank=rank,
         world_size=world,
-        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+        timeout=datetime.timedelta(seconds=timeout_s))
     try:
         yield dev
     finally:
+        _CONTROL.clear()
         dist.destroy_process_group()
 
 
-def _rank_main(fn, rank, world, backend, device, store_path, args, conn):
+def _rank_main(fn, rank, world, backend, device, store_path, args, conn,
+               collective_timeout_s):
     try:
         # one CPU thread a rank: several ranks' OpenMP pools on one host
         # stall every collective (a CPU step took 2.4x as long at 4 threads)
         torch.set_num_threads(1)
-        with process_group(rank, world, backend, store_path, device) as dev:
+        with process_group(rank, world, backend, store_path, device,
+                           collective_timeout_s) as dev:
             out = fn(make_serve_mesh(world), dev, *args)
         # by value: torch's pickler would hand tensors over as shared
         # memory that dies with this process
@@ -201,7 +233,9 @@ def stop_rank_server() -> None:
 
 def spawn_ranks(fn: Callable, world: int, backend: str = "gloo",
                 device: str = "cpu", args: tuple = (),
-                timeout_s: float = 900.0) -> List:
+                timeout_s: float = 900.0,
+                collective_timeout_s: float = COLLECTIVE_TIMEOUT_S,
+                started: Optional[Callable[[List], None]] = None) -> List:
     """Run ``fn(mesh, device, *args)`` in ``world`` new processes, one a
     rank, forked from a ``forkserver`` that has imported torch and the
     engine (it touches no device), and return the ranks' results in rank
@@ -211,7 +245,9 @@ def spawn_ranks(fn: Callable, world: int, backend: str = "gloo",
     arguments and result picklable.  The ranks meet in a ``FileStore`` in
     a fresh temporary directory (never a fixed port: several groups may run
     at once), and a collective that waits longer than
-    ``COLLECTIVE_TIMEOUT_S`` raises.  Each rank runs one CPU thread and
+    ``collective_timeout_s`` raises.  ``started``, if given, is called with
+    the rank processes once they run (the gateway launcher forwards its
+    signals to rank 0's).  Each rank runs one CPU thread and
     sends its result back over a pipe of its own.  If any rank raises or
     ends without a result, or the ranks outlast ``timeout_s``, the other
     ranks are killed and this raises with the failing rank's traceback.
@@ -235,7 +271,7 @@ def spawn_ranks(fn: Callable, world: int, backend: str = "gloo",
     procs = [ctx.Process(
         target=_rank_main,
         args=(fn, r, world, backend, device, os.path.join(tmp, "store"),
-              args, pipes[r][1]), daemon=True)
+              args, pipes[r][1], collective_timeout_s), daemon=True)
         for r in range(world)]
     out: Dict[int, object] = {}
     try:
@@ -244,6 +280,8 @@ def spawn_ranks(fn: Callable, world: int, backend: str = "gloo",
             # the rank holds the only write end now: its pipe reads EOF
             # if it dies without a result
             w.close()
+        if started is not None:
+            started(procs)
         pending = {r_conn: r for r, (r_conn, _) in enumerate(pipes)}
         deadline = time.monotonic() + timeout_s
         while pending:

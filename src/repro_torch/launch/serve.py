@@ -16,8 +16,10 @@ and ``--tp N`` also stores the weights tensor-parallel over them
 (``launch.mesh.spawn_ranks``), gloo on ``--device cpu``; on cuda, NCCL with
 one rank a card when N cards are visible, else gloo with every rank on
 ``cuda:0`` (printed).  Rank 0 submits the workload and prints; the ranks'
-tokens must be equal.  A dense arch only (the engine refuses the others
-on a mesh).
+tokens must be equal.  The dense and moe archs serve on a mesh (an MoE
+arch's experts split inside each expert under ``--tp``); the ssm and
+hybrid archs, whose state slab has no mesh partition, are refused, as
+the reference refuses them.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
         --mesh 2 --tp 2
@@ -106,9 +108,10 @@ def _serve_rank(mesh, device, args) -> dict:
 def _serve_mesh(args, n: int) -> list:
     resolve_device(args.device)
     cfg = _config(args)
-    if cfg.family != "dense":
+    if cfg.family in ("ssm", "hybrid"):
         raise SystemExit(f"--mesh/--tp: the {cfg.family} family is served "
-                         "on one device (see ROADMAP A10c)")
+                         "on one device (its state slab has no mesh "
+                         "partition)")
     backend = serve_backend(n, args.device)
     if args.device == "cuda" and backend == "gloo" and n > 1:
         print(f"{n} ranks share cuda:0 over gloo (fewer than {n} cards "
@@ -159,7 +162,8 @@ def main(argv=None):
                          "(-1 = pool/4, 0 = sharing off)")
     ap.add_argument("--mesh", type=int, default=0,
                     help="shard the KV pool over this many ranks on the "
-                         "kv-heads axis (0 = one device)")
+                         "kv-heads axis (0 = one device); the dense and moe "
+                         "archs (ssm and hybrid serve on one device)")
     ap.add_argument("--tp", type=int, default=0,
                     help="tensor-parallel: shard the weights AND the KV pool "
                          "over this many ranks (implies --mesh N)")

@@ -23,7 +23,7 @@ from repro_torch.distributed.param_sharding import (tp_embed, tp_linear,
                                                     tp_whole)
 from repro_torch.kernels import ops
 from repro_torch.models.lora import add_delta
-from repro_torch.perf import require_norm_f32
+from repro_torch.perf import norm_f32
 
 
 def truncated_normal(gen: torch.Generator, shape, scale, dtype,
@@ -38,11 +38,11 @@ def truncated_normal(gen: torch.Generator, shape, scale, dtype,
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
              ) -> torch.Tensor:
-    """f32 reduction and scale, result in x's dtype.  CUDA tensors run the
-    CUDA rmsnorm kernel, CPU tensors its plain version (``ops.rmsnorm``,
-    through ``RMSNormFn`` when autograd records)."""
-    require_norm_f32()
-    return ops.rmsnorm(x, w, eps)
+    """Result in x's dtype; the reduction and scale in f32, or in x's dtype
+    under REPRO_NORM_F32=0, as the reference's.  CUDA tensors run the CUDA
+    rmsnorm kernel, CPU tensors its plain version (``ops.rmsnorm``, through
+    ``RMSNormFn`` when autograd records)."""
+    return ops.rmsnorm(x, w, eps, norm_f32())
 
 
 def rms_norm_pair(x1: torch.Tensor, w1: torch.Tensor, x2: torch.Tensor,
@@ -50,8 +50,7 @@ def rms_norm_pair(x1: torch.Tensor, w1: torch.Tensor, x2: torch.Tensor,
     """``rms_norm(x1, w1, eps), rms_norm(x2, w2, eps)`` over one last axis,
     bit for bit, in one kernel launch (``ops.rmsnorm_pair``): a layer's q and
     k norms."""
-    require_norm_f32()
-    return ops.rmsnorm_pair(x1, w1, x2, w2, eps)
+    return ops.rmsnorm_pair(x1, w1, x2, w2, eps, norm_f32())
 
 
 def _rope_angles(positions: torch.Tensor, dim: int, theta: float

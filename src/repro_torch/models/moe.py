@@ -18,6 +18,19 @@ Decode (S = 1) gathers each token's selected experts' weights
 (``apply_moe_decode``, REPRO_MOE_DECODE=gather) or dispatches all decode
 tokens of the batch as one group with a capacity
 (``apply_moe_decode_dispatch``, =dispatch).
+
+On a sharded serve engine each entry point takes its ``shard``
+(``param_sharding.ServeShard``).  The router is replicated, so every rank
+routes every token alike; the expert stacks are sharded inside each expert
+as the reference's ``moe_expert_in`` / ``_out`` rules say: ``wi_gate`` and
+``wi_up`` column-parallel on ``d_ff_expert``, ``wo`` row-parallel.  In
+identity mode a rank gathers what it uses (a whole stack for a dispatch,
+only the selected experts' rows at a gather decode: the same bits as
+indexing the gathered stack), so the arithmetic is one device's; in
+reduce-scatter mode each rank computes its ``d_ff_expert`` slice and the
+down projection's partial sums meet in one ``ServeMesh.reduce``, where
+``tp_linear`` puts it for a dense MLP.  The shared expert goes through
+``apply_mlp``.  There is no expert parallelism.
 """
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.param_sharding import TPWeight, tp_use
 from repro_torch.models.layers import apply_mlp, init_mlp, truncated_normal
 
 
@@ -103,21 +117,58 @@ def _dispatch_one(x: torch.Tensor, idx: torch.Tensor, n_experts: int,
     return buf.reshape(b, n_experts, capacity, d), dest, keep
 
 
-def _expert_ffn(cfg: ModelConfig, p, buf: torch.Tensor) -> torch.Tensor:
+def _stack(w, shard):
+    """An expert stack at its use: (the tensor to multiply, whether it is
+    this rank's slice).  A plain stack as it is; a tensor-parallel one
+    gathered whole (identity mode) or its local slice (reduce-scatter)."""
+    w = tp_use(w, shard)
+    return (w.local, True) if isinstance(w, TPWeight) else (w, False)
+
+
+def _rows(w, sel: torch.Tensor, shard):
+    """Experts ``sel`` of a stack (T experts, one a token): indexed; a
+    tensor-parallel stack's local slice indexed, then gathered over the
+    ranks in identity mode (the bits of indexing the gathered stack, with
+    T/E of its bytes moved) or kept in reduce-scatter mode.  Returns (rows,
+    whether they are this rank's slice)."""
+    if not isinstance(w, TPWeight):
+        return w[sel], False
+    if shard is None:
+        raise ValueError("a tensor-parallel expert stack used outside a "
+                         "sharded call (pass the engine's ServeShard)")
+    local = w.local[sel]
+    if shard.reduce_scatter:
+        return local, True
+    return shard.mesh.gather(local, w.dim), False
+
+
+def _down(h: torch.Tensor, wo: torch.Tensor, local: bool, shard
+          ) -> torch.Tensor:
+    """The down projection ``bmm(h, wo)``; a row-parallel slice's partial
+    sums added over the ranks (one ``ServeMesh.reduce``, in f32)."""
+    out = torch.bmm(h, wo)
+    return shard.mesh.reduce(out) if local else out
+
+
+def _expert_ffn(cfg: ModelConfig, p, buf: torch.Tensor, shard=None
+                ) -> torch.Tensor:
     """buf (B,E,C,d) -> (B,E,C,d) through the expert-stacked SwiGLU: one
     batched product per weight over all experts, each expert's rows of
     every sequence together."""
     b, e, c, d = buf.shape
     xe = buf.transpose(0, 1).reshape(e, b * c, d)
-    g = torch.bmm(xe, p["wi_gate"])
-    u = torch.bmm(xe, p["wi_up"])
+    wg, _ = _stack(p["wi_gate"], shard)
+    wu, _ = _stack(p["wi_up"], shard)
+    wo, local = _stack(p["wo"], shard)
+    g = torch.bmm(xe, wg)
+    u = torch.bmm(xe, wu)
     h = F.silu(g.float()).to(buf.dtype) * u
-    out = torch.bmm(h, p["wo"])
+    out = _down(h, wo, local, shard)
     return out.reshape(e, b, c, d).transpose(0, 1)
 
 
-def _combine(cfg: ModelConfig, p, x: torch.Tensor, gates, idx, capacity
-             ) -> torch.Tensor:
+def _combine(cfg: ModelConfig, p, x: torch.Tensor, gates, idx, capacity,
+             shard=None) -> torch.Tensor:
     """The routed output of x (B,S,d): each top-k slot dispatched on its
     own at ``capacity`` and its expert rows gathered back, scaled by the
     gate (0 for a dropped token), summed in slot order in x's dtype."""
@@ -127,7 +178,8 @@ def _combine(cfg: ModelConfig, p, x: torch.Tensor, gates, idx, capacity
     for k in range(m.top_k):
         buf, dest, keep = _dispatch_one(x, idx[..., k], m.n_experts,
                                         capacity)
-        out = _expert_ffn(cfg, p, buf).reshape(b, m.n_experts * capacity, d)
+        out = _expert_ffn(cfg, p, buf, shard).reshape(
+            b, m.n_experts * capacity, d)
         out = torch.cat([out, out.new_zeros((b, 1, d))], dim=1)
         gathered = torch.gather(out, 1, dest[..., None].expand(b, s, d))
         w = (gates[..., k] * keep.to(gates.dtype))[..., None]
@@ -135,21 +187,21 @@ def _combine(cfg: ModelConfig, p, x: torch.Tensor, gates, idx, capacity
     return y
 
 
-def apply_moe(cfg: ModelConfig, p, x: torch.Tensor
+def apply_moe(cfg: ModelConfig, p, x: torch.Tensor, shard=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Train/prefill MoE: x (B,S,d) -> (y (B,S,d), aux_loss)."""
     m = cfg.moe
     s = x.shape[1]
     gates, idx, aux = _route(cfg, p, x)
     capacity = max(1, int(math.ceil(s / m.n_experts * m.capacity_factor)))
-    y = _combine(cfg, p, x, gates, idx, capacity)
+    y = _combine(cfg, p, x, gates, idx, capacity, shard)
     if "shared" in p:
-        y = y + apply_mlp(cfg, p["shared"], x)
+        y = y + apply_mlp(cfg, p["shared"], x, shard=shard)
     return y, aux
 
 
-def apply_moe_decode_dispatch(cfg: ModelConfig, p, x: torch.Tensor
-                              ) -> torch.Tensor:
+def apply_moe_decode_dispatch(cfg: ModelConfig, p, x: torch.Tensor,
+                              shard=None) -> torch.Tensor:
     """Decode MoE by capacity-based dispatch: all B*S decode tokens form
     one dispatch group."""
     m = cfg.moe
@@ -159,13 +211,15 @@ def apply_moe_decode_dispatch(cfg: ModelConfig, p, x: torch.Tensor
                                     / m.n_experts)))
     y = _combine(cfg, p, x.reshape(1, b * s, d),
                  gates.reshape(1, b * s, m.top_k),
-                 idx.reshape(1, b * s, m.top_k), capacity).reshape(b, s, d)
+                 idx.reshape(1, b * s, m.top_k), capacity,
+                 shard).reshape(b, s, d)
     if "shared" in p:
-        y = y + apply_mlp(cfg, p["shared"], x)
+        y = y + apply_mlp(cfg, p["shared"], x, shard=shard)
     return y
 
 
-def apply_moe_decode(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+def apply_moe_decode(cfg: ModelConfig, p, x: torch.Tensor, shard=None
+                     ) -> torch.Tensor:
     """Decode MoE (S=1): gather each token's expert weights and run them
     locally."""
     m = cfg.moe
@@ -177,12 +231,12 @@ def apply_moe_decode(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     y = torch.zeros((b * s, d), dtype=x.dtype, device=x.device)
     for k in range(m.top_k):
         sel = idx[:, k]
-        g = torch.bmm(xt, p["wi_gate"][sel])                # (T,1,f)
-        u = torch.bmm(xt, p["wi_up"][sel])
+        g = torch.bmm(xt, _rows(p["wi_gate"], sel, shard)[0])   # (T,1,f)
+        u = torch.bmm(xt, _rows(p["wi_up"], sel, shard)[0])
         h = F.silu(g.float()).to(x.dtype) * u
-        out = torch.bmm(h, p["wo"][sel])[:, 0]              # (T,d)
+        out = _down(h, *_rows(p["wo"], sel, shard), shard)[:, 0]  # (T,d)
         y = y + out * gates[:, k, None].to(x.dtype)
     y = y.reshape(b, s, d)
     if "shared" in p:
-        y = y + apply_mlp(cfg, p["shared"], x)
+        y = y + apply_mlp(cfg, p["shared"], x, shard=shard)
     return y

@@ -118,15 +118,15 @@ def _ffn(cfg: ModelConfig, lp, h: torch.Tensor, decode: bool,
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer's FFN: (y, its load-balance loss, or None for a dense
     FFN).  MoE experts are routed per token, so an MoE FFN takes no LoRA
-    (the adapter store adapts attention only for MoE archs) and no
-    ``shard`` (the engine serves no MoE arch on a mesh)."""
+    (the adapter store adapts attention only for MoE archs); both kinds
+    take a sharded engine's ``shard``."""
     if "moe" in lp:
         if decode:
             fn = moe_lib.apply_moe_decode_dispatch \
                 if perf().moe_decode == "dispatch" \
                 else moe_lib.apply_moe_decode
-            return fn(cfg, lp["moe"], h), None
-        return moe_lib.apply_moe(cfg, lp["moe"], h)
+            return fn(cfg, lp["moe"], h, shard), None
+        return moe_lib.apply_moe(cfg, lp["moe"], h, shard)
     return apply_mlp(cfg, lp["mlp"], h, lora=lora, shard=shard), None
 
 

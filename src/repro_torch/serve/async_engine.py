@@ -33,6 +33,13 @@ PyTorch keeps grad mode and the current CUDA device per thread, so the
 stepper sets its own: it runs the engine under ``torch.no_grad()`` (the
 kernel wrappers refuse grad-requiring inputs when grad mode is on) with the
 engine's device current, whatever the thread that built the engine had set.
+
+On a serve mesh this runs on rank 0 only, over rank 0's engine: its
+``step_guarded`` carries every submit and cancel to the other ranks, which
+replay the steps in ``serve.engine.follow_all`` and run no stepper and no
+HTTP.  The engines of several async engines on one mesh take their steps
+one at a time (``serve.engine.MESH_LOCK``), and ``stop()`` closes the
+engine, which releases the other ranks from following it.
 """
 from __future__ import annotations
 
@@ -272,9 +279,15 @@ class AsyncServeEngine:
                     if not worked:
                         # drained: park until a submit/cancel/stop wakes us
                         # (the timeout covers a race where work arrived
-                        # after step())
+                        # after step()).  On a mesh each idle poll is one
+                        # broadcast and one digest gather, so the other
+                        # ranks, waiting in the next broadcast, hear from
+                        # rank 0 every idle_s, well inside the collective
+                        # timeout
                         self._wake.wait(self.idle_s)
                         self._wake.clear()
+                # on a mesh: release the other ranks from this engine
+                self.engine.close()
         except BaseException as e:
             self.fault = f"{type(e).__name__}: {e}"
             print(f"async-engine {self.model_id}: stepper thread died: "

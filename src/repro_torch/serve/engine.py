@@ -68,16 +68,22 @@ device, each rank a replicated state machine over its own shard.  Every
 rank builds the same engine; its pool holds KV/n heads of every block
 (the block ids, refcounts and tables are the same on every rank), its host
 tier parks that slice, and with ``tp=True`` (REPRO_SERVE_TP) it stores its
-1/n of the weights (``repro_torch.distributed.param_sharding``).  Rank 0
-owns the inputs: ``submit`` and ``cancel`` there are carried to every rank
-by the one ``broadcast_object_list`` that opens each ``step()``, with rank
-0's clock, which is the clock the deadline reaper reads on every rank; the
-other ranks run ``follow()`` until rank 0's ``close()``.  Each step ends
-with an ``all_gather`` of a digest of its plan (admissions, chunks, decode
-rows, sampled tokens), and a mismatch raises ``MeshDivergence`` on every
-rank rather than letting the ranks' collectives drift apart.  Adapters,
-the ssm and hybrid families (as in the reference) and the moe family
-(ROADMAP A10c) are refused on a mesh.
+1/n of the weights (``repro_torch.distributed.param_sharding``; an MoE
+arch's expert stacks are split inside each expert, ``models/moe.py``).
+Rank 0 owns the inputs: ``submit`` and ``cancel`` there are carried to
+every rank by the one ``broadcast_object_list`` that opens each ``step()``,
+with rank 0's clock, which is the clock the deadline reaper reads on every
+rank; the other ranks run ``follow()`` (or ``follow_all`` over several
+engines on one mesh, whose steps rank 0 takes one at a time under
+``MESH_LOCK``) until rank 0's ``close()``.  Each step ends with one
+``all_gather``, on the mesh's control group, of a triple from every rank: a
+digest of its plan (admissions, chunks, decode rows, sampled tokens) or
+the request its crash blames, and the model collectives it entered.  Ranks
+that all planned alike go on; ranks that all crashed blaming the same
+request after the same collectives quarantine it alike under
+``step_guarded``; any other outcome raises ``MeshDivergence`` on every
+rank rather than letting the ranks' collectives drift apart.  Adapters and the ssm and hybrid
+families are refused on a mesh, as in the reference.
 
 ``cancel(rid)`` aborts a request wherever it lives and frees its blocks the
 same call; ``note_gateway_shed`` counts the gateway's refusals at the door.
@@ -88,7 +94,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import itertools
 import sys
+import threading
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -118,7 +126,20 @@ from repro_torch.serve.paged_cache import (BlockPool, PoolExhausted,
 
 
 class MeshDivergence(RuntimeError):
-    """The ranks of a sharded engine planned different steps."""
+    """The ranks of a sharded engine planned different steps, or did not
+    crash alike."""
+
+
+# Every collective of a mesh engine in this process runs under this lock:
+# two engines on one mesh (the gateway's models, each stepped by a thread
+# of its own on rank 0) must not interleave collectives on one process
+# group, and concurrent NCCL communicators on one card can deadlock.  Rank
+# 0 holds it from a step's broadcast to its digest gather.
+MESH_LOCK = threading.RLock()
+# the id each mesh engine's broadcasts carry, so a follower of several
+# engines (``follow_all``) knows which one steps; ranks build their engines
+# in one order, so the ids agree
+_MESH_IDS = itertools.count()
 
 
 def _mesh_from_knob():
@@ -483,6 +504,7 @@ class ServeEngine:
         self.tp = self.tp and self.mesh is not None
         self.tp_rules = None
         self.tp_report = None
+        self.mesh_id: Optional[int] = None
         self.shard: Optional[ServeShard] = None
         self._model_kw: Dict[str, object] = {}
         if self.mesh is None:
@@ -492,10 +514,7 @@ class ServeEngine:
                 "sharded serving of the ssm/hybrid families is not supported: "
                 "the state slab has no mesh partition; serve them on one "
                 "device")
-        if cfg.family == "moe":
-            raise NotImplementedError(
-                "sharded serving of the moe family waits for ROADMAP A10c; "
-                "serve it on one device")
+        self.mesh_id = next(_MESH_IDS)
         n = self.mesh.n_model
         # the pool is sharded per KV head (GQA groups stay on one rank);
         # TP weights also split d_ff
@@ -1074,18 +1093,24 @@ class ServeEngine:
             return True
         return False
 
-    def _on_step_crash(self, exc: BaseException) -> None:
-        """Quarantine the blamed request (or the youngest live one), count
-        consecutive crashes toward ``degraded``, check the KV invariants."""
+    def _crash_blame(self) -> Optional[int]:
+        """The request a step crash blames: the innermost ``_blame`` scope
+        at raise time, else the youngest live request, else None."""
+        if self._crash_rid is not None:
+            return self._crash_rid
+        live = [s for s in self.slots if s is not None]
+        if live:
+            return max(live, key=lambda s: s.admit_seq).req.rid
+        return None
+
+    def _on_step_crash(self, exc: BaseException,
+                       rid: Optional[int]) -> None:
+        """Quarantine request ``rid`` (the blamed one), count consecutive
+        crashes toward ``degraded``, check the KV invariants."""
         self._step_crashes += 1
         self._consecutive_crashes += 1
         if self._consecutive_crashes >= self.max_consecutive_crashes:
             self.degraded = True
-        rid = self._crash_rid
-        if rid is None:
-            live = [s for s in self.slots if s is not None]
-            if live:
-                rid = max(live, key=lambda s: s.admit_seq).req.rid
         msg = f"engine step crashed: {type(exc).__name__}: {exc}"
         print(f"serve-engine: {msg} (crash {self._step_crashes}, "
               f"{self._consecutive_crashes} consecutive"
@@ -1105,20 +1130,36 @@ class ServeEngine:
     def step_guarded(self) -> bool:
         """``step()`` with crash isolation: an exception quarantines the
         request that poisoned the batch and the loop keeps going.  On a
-        mesh a crash raises on every rank instead: isolating it would need
-        every rank to fail alike, which a rank cannot know (A10c)."""
+        mesh (rank 0; the others follow) every rank catches its own step's
+        exception and the ranks agree in the step's closing gather: if every
+        rank crashed blaming the same request after the same model
+        collectives, every rank quarantines it and counts the crash alike;
+        any other crash raises ``MeshDivergence`` on every rank.  (The
+        injector's ``step`` site fires before the model call's first
+        collective, so a fault seeded alike on every rank is isolated; a
+        rank that crashes inside a collective leaves the others to the
+        collective timeout.)"""
         if self.mesh is not None:
-            return self.step()
+            self._require_leader("step_guarded")
+            with MESH_LOCK:
+                self._lead({"now": time.monotonic(), "step": True,
+                            "guarded": True})
+                return self._step(guarded=True)
         self._crash_rid = None
         try:
             worked = self.step()
         except Exception as e:  # noqa: BLE001 — isolate, quarantine, go on
-            self._on_step_crash(e)
+            self._on_step_crash(e, self._crash_blame())
             return True
+        self._guarded_ok(worked)
+        return worked
+
+    def _guarded_ok(self, worked: bool) -> None:
+        """A guarded step that did not crash: a working one ends the run of
+        consecutive crashes."""
         if worked:
             self._consecutive_crashes = 0
             self.degraded = False
-        return worked
 
     def overload_reason(self) -> str:
         """Why a new submit should be shed right now ("" = accept)."""
@@ -1320,13 +1361,31 @@ class ServeEngine:
         cancelled since its last step, with its clock; the other ranks run
         the same step from ``follow()``."""
         if self.mesh is not None:
-            if not self.is_leader:
-                raise RuntimeError("step on rank 0 of a serve mesh; the "
-                                   "other ranks run follow()")
-            self._lead({"now": time.monotonic(), "step": True})
+            self._require_leader("step")
+            with MESH_LOCK:
+                self._lead({"now": time.monotonic(), "step": True})
+                return self._step()
         return self._step()
 
-    def _step(self) -> bool:
+    def _require_leader(self, what: str) -> None:
+        if not self.is_leader:
+            raise RuntimeError(f"{what} on rank 0 of a serve mesh; the "
+                               "other ranks run follow()")
+
+    def _step(self, guarded: bool = False) -> bool:
+        if self.mesh is None:
+            return self._run_step()
+        self._crash_rid = None
+        issued = self.mesh.issued
+        try:
+            worked, crash = self._run_step(), None
+        except Exception as e:  # noqa: BLE001 — the ranks agree below
+            worked, crash = True, e
+        self._check_in_step(worked, crash, guarded,
+                            self.mesh.issued - issued)
+        return worked
+
+    def _run_step(self) -> bool:
         if self._t0 is None:
             self._t0 = time.monotonic()
         self._plan = []
@@ -1337,20 +1396,19 @@ class ServeEngine:
         if worked:
             self.steps += 1
             self._t_last = time.monotonic()
-        if self.mesh is not None:
-            self._check_in_step(worked)
         return worked
 
     # -- the replicated state machine (mesh) --------------------------------
     def _lead(self, msg: dict) -> None:
         """Rank 0: send ``msg`` with the ops since the last message to
-        every rank, and apply them here."""
+        every rank, and apply them here (under ``MESH_LOCK``)."""
         ops = [(op, _request_record(x, self.default_deadline_ms)
                 if op == "submit" else x) for op, x in self._outbox]
         mine = self._outbox
         self._outbox = []
-        self.mesh.broadcast(dict(msg, ops=ops))
-        self._apply(dict(msg, ops=ops), mine)
+        msg = dict(msg, ops=ops, engine=self.mesh_id)
+        self.mesh.broadcast(msg)
+        self._apply(msg, mine)
 
     def _apply(self, msg: dict, mine=None) -> None:
         """Apply one message's ops in order (rank 0 passes its own Request
@@ -1369,53 +1427,65 @@ class ServeEngine:
             else:
                 raise ValueError(f"unknown mesh op {op!r}")
 
-    def _check_in_step(self, worked: bool) -> None:
-        """All-gather a digest of this step's plan and raise
-        ``MeshDivergence`` on every rank if any rank planned otherwise."""
-        plan = [self.steps, int(worked), len(self.queue)] + self._plan
-        h = hashlib.blake2b(np.asarray(plan, np.int64).tobytes(),
-                            digest_size=8).digest()
-        mine = int.from_bytes(h, "little", signed=True)
-        digests = [d[0] for d in self.mesh.gather_ints([mine])]
-        if len(set(digests)) > 1:
+    def _check_in_step(self, worked: bool, crash: Optional[Exception],
+                       guarded: bool, issued: int) -> None:
+        """All-gather one triple a rank: (0, a digest of this step's plan),
+        or (1, the request its crash blames, -1 for none), and the model
+        collectives it entered this step.  Every rank planned alike: go on.
+        Every rank crashed blaming one request after the same collectives
+        (so none is left waiting in one): quarantine it here as on every
+        rank (``guarded``), or raise the crash on every rank.  Anything else
+        raises ``MeshDivergence`` on every rank."""
+        if crash is None:
+            plan = [self.steps, int(worked), len(self.queue)] + self._plan
+            h = hashlib.blake2b(np.asarray(plan, np.int64).tobytes(),
+                                digest_size=8).digest()
+            mine = [0, int.from_bytes(h, "little", signed=True), issued]
+        else:
+            rid = self._crash_blame()
+            mine = [1, -1 if rid is None else rid, issued]
+        try:
+            triples = [tuple(p) for p in self.mesh.gather_ints(mine)]
+        except BaseException:
+            self._closed = True     # the other ranks are gone or stuck
+            raise
+        if len(set(triples)) > 1:
             self._closed = True     # every rank stops here; nothing to release
+            what = "plan digests" if all(c == 0 for c, _, _ in triples) \
+                else "crashes (crashed, blamed request, collectives)"
             raise MeshDivergence(
-                f"rank {self.mesh.rank}: step {self.steps} plan digests "
-                f"differ across the serve mesh ({digests}): the ranks "
-                "diverged")
+                f"rank {self.mesh.rank}: step {self.steps} {what} differ "
+                f"across the serve mesh ({triples}): the ranks diverged") \
+                from crash
+        if crash is None:
+            if guarded:
+                self._guarded_ok(worked)
+            return
+        if not guarded:
+            self._closed = True     # every rank raises this step's crash
+            raise crash
+        self._on_step_crash(crash, None if mine[1] < 0 else mine[1])
 
     def follow(self, on_step: Optional[Callable[[], None]] = None) -> int:
         """Ranks other than 0: replay rank 0's steps and ops until rank 0
         calls ``close()``, calling ``on_step()`` after each step; returns
         the steps run."""
-        if self.mesh is None or self.is_leader:
-            raise RuntimeError("follow() runs on ranks other than 0 of a "
-                               "serve mesh")
-        n = 0
-        while True:
-            msg = self.mesh.broadcast(None)
-            if msg.get("stop"):
-                self._closed = True
-                return n
-            self._apply(msg)
-            if msg["step"]:
-                self._step()
-                n += 1
-                if on_step is not None:
-                    on_step()
+        return follow_all([self], on_step)
 
     def close(self) -> None:
-        """Rank 0: release the other ranks from ``follow()`` (once; a
-        no-op without a mesh)."""
+        """Rank 0: release the other ranks from following this engine
+        (once; a no-op without a mesh)."""
         if self.mesh is not None and self.is_leader and not self._closed:
-            self._closed = True
-            self.mesh.broadcast({"stop": True})
+            with MESH_LOCK:
+                self._closed = True
+                self.mesh.broadcast({"stop": True, "engine": self.mesh_id})
 
     def _control(self, op: str) -> None:
         """Rank 0 of a mesh: run a state-changing op on every rank now,
         outside a step."""
         self._outbox.append((op, None))
-        self._lead({"now": time.monotonic(), "step": False})
+        with MESH_LOCK:
+            self._lead({"now": time.monotonic(), "step": False})
 
     def run_until_done(self, max_steps: int = 100_000) -> List[Request]:
         """Drive ``step`` until queue and slots drain; returns the finished
@@ -1527,6 +1597,45 @@ class ServeEngine:
                     "requests_finished": self._tenant_finished.get(t, 0)}
                 for t in tenants},
         )
+
+
+def follow_all(engines: List[ServeEngine],
+               on_step: Optional[Callable[[], None]] = None) -> int:
+    """Ranks other than 0 of one mesh: replay rank 0's steps and ops on
+    ``engines`` (built in rank 0's order: each broadcast names the engine
+    it is for) until rank 0 has closed every one of them, calling
+    ``on_step()`` after each step; returns the steps run.  A rank 0 that
+    steps several engines (the gateway's models, each from a thread of its
+    own) takes their steps one at a time under ``MESH_LOCK``, and these
+    ranks take them in the order it broadcasts them."""
+    by_id = {}
+    for eng in engines:
+        if eng.mesh is None or eng.is_leader:
+            raise RuntimeError("follow() runs on ranks other than 0 of a "
+                               "serve mesh")
+        by_id[eng.mesh_id] = eng
+    mesh = engines[0].mesh
+    open_ids = set(by_id)
+    n = 0
+    while open_ids:
+        msg = mesh.broadcast(None)
+        eng = by_id.get(msg.get("engine"))
+        if eng is None or eng.mesh_id not in open_ids:
+            raise MeshDivergence(
+                f"rank {mesh.rank}: a message for engine "
+                f"{msg.get('engine')!r}, which this rank does not follow "
+                f"(it follows {sorted(open_ids)})")
+        if msg.get("stop"):
+            eng._closed = True
+            open_ids.discard(eng.mesh_id)
+            continue
+        eng._apply(msg)
+        if msg["step"]:
+            eng._step(guarded=msg.get("guarded", False))
+            n += 1
+            if on_step is not None:
+                on_step()
+    return n
 
 
 def _request_record(req: Request, default_deadline_ms) -> tuple:

@@ -707,9 +707,16 @@ def build_model(cfg, params, model_id: Optional[str] = None,
     tenants clients may address as ``model="{id}:{adapter}"`` — loaded
     lazily on first use."""
     from repro_torch.serve.engine import ServeEngine
-    eng = ServeEngine(cfg, params, **engine_kwargs)
-    mid = model_id or cfg.name
+    return wrap_engine(ServeEngine(cfg, params, **engine_kwargs), model_id,
+                       adapters)
+
+
+def wrap_engine(eng, model_id: Optional[str] = None,
+                adapters: Sequence[str] = ()) -> GatewayModel:
+    """A built ``ServeEngine`` as a ``GatewayModel`` (rank 0 of a serve
+    mesh wraps its engines; the other ranks follow them unwrapped)."""
+    mid = model_id or eng.cfg.name
     return GatewayModel(model_id=mid,
                         async_engine=AsyncServeEngine(eng, model_id=mid),
-                        tokenizer=ByteTokenizer(cfg.vocab),
+                        tokenizer=ByteTokenizer(eng.cfg.vocab),
                         adapters=list(adapters))

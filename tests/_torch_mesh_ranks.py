@@ -29,8 +29,8 @@ def _engine(cfg, params, mesh, **kw):
     kw.setdefault("max_batch", 4)
     kw.setdefault("max_len", 64)
     kw.setdefault("block_size", 8)
-    return ServeEngine(cfg, params, plan_kernels=False, mesh=mesh,
-                       fault_injector=False, **kw)
+    kw.setdefault("fault_injector", False)
+    return ServeEngine(cfg, params, plan_kernels=False, mesh=mesh, **kw)
 
 
 def serve(eng, records, between=None):
@@ -300,3 +300,260 @@ def dies(mesh, device):
     if mesh.rank == 1:
         os._exit(3)
     return mesh.rank
+
+
+# ---------------------------------------------------------------------------
+# MoE on a serve mesh (tests/test_torch_serve_sharded_moe.py)
+# ---------------------------------------------------------------------------
+
+def serve_guarded(eng, records):
+    """``serve`` with rank 0 stepping through ``step_guarded`` (crash
+    isolation); the other ranks follow.  Returns (tokens by rid of the
+    finished requests, errored rids, invariant violations)."""
+    bad = []
+
+    def check():
+        bad.extend(eng.check_invariants())
+
+    if eng.mesh is None or eng.is_leader:
+        for r in _requests(records):
+            eng.submit(r)
+        try:
+            while eng.step_guarded():
+                check()
+        finally:
+            eng.close()
+    else:
+        eng.follow(check)
+    return ({r.rid: list(r.out) for r in eng.finished},
+            sorted(r.rid for r in eng.errored), bad + eng.invariant_violations)
+
+
+def _route_log():
+    """Record every ``moe._select`` pick (the routing) while installed:
+    (install, uninstall, picks)."""
+    from repro_torch.models import moe as moe_lib
+    picks, orig = [], moe_lib._select
+
+    def rec(probs, k):
+        idx = orig(probs, k)
+        picks.append(idx.clone())
+        return idx
+
+    def install():
+        picks.clear()
+        moe_lib._select = rec
+
+    def uninstall():
+        moe_lib._select = orig
+    return install, uninstall, picks
+
+
+def _flips(a, b):
+    """(token positions whose expert set differs in any layer, count of
+    differing (layer, token) sets) between two logs of one forward."""
+    pos, n = set(), 0
+    for x, y in zip(a, b):
+        x, y = x.sort(-1).values, y.sort(-1).values
+        diff = (x != y).any(-1).reshape(-1)
+        n += int(diff.sum())
+        pos.update(int(i) for i in diff.nonzero().reshape(-1))
+    return sorted(pos), n
+
+
+def sharded_moe_world(mesh, device, arch, np_params, records, toks,
+                      fault_spec):
+    """Every MoE-on-a-mesh check of one reduced arch at this world size
+    (see ``tests/test_torch_serve_sharded_moe.py``)."""
+    from repro_torch import bridge
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.distributed.param_sharding import (ServeShard, TPWeight,
+                                                        shard_params,
+                                                        tp_param_specs)
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import MeshDivergence
+    from repro_torch.serve.faults import FaultInjector
+    cfg = reduced_config(get_config(arch))
+    params = bridge.params_from_numpy(np_params, "cpu")
+    n, rank = mesh.n_model, mesh.rank
+    out = {"rank": rank}
+    with torch.no_grad():
+        # KV-only and TP identity, under both decode paths
+        for decode in ("gather", "dispatch"):
+            os.environ["REPRO_MOE_DECODE"] = decode
+            if rank == 0:
+                out[f"plain_{decode}"] = serve(_engine(cfg, params, False),
+                                               records)[0]
+            for name, tp in (("kv", False), ("tp", True)):
+                eng = _engine(cfg, params, mesh, tp=tp)
+                tokens, _, bad = serve(eng, records)
+                m = eng.metrics()
+                moe = next(lp["moe"] for lp in eng.params["layers"]
+                           if "moe" in lp)
+                out[f"{name}_{decode}"] = dict(
+                    tokens=tokens, invariants=bad,
+                    slab=tuple(eng.cache["k"].shape),
+                    bytes=(m.param_bytes_per_device,
+                           m.param_bytes_replicated),
+                    experts={k: (w.dim, tuple(w.local.shape))
+                             if isinstance(w, TPWeight) else None
+                             for k, w in moe.items() if k != "shared"})
+        os.environ["REPRO_MOE_DECODE"] = "gather"
+
+        # reduce-scatter prefill logits against the replicated forward, two
+        # chunks, with each forward's routing logged
+        fns = build_model(cfg, "cpu")
+        specs, _ = tp_param_specs(cfg, params, n)
+        local = shard_params(params, specs, mesh)
+        install, uninstall, picks = _route_log()
+        logs, logits = {}, {}
+        for k, p, shard in (("ref", params, None),
+                            ("rs", local, ServeShard(mesh, True)),
+                            ("id", local, ServeShard(mesh, False))):
+            cache = fns.make_paged_cache(8, 8, n_model=1 if shard is None
+                                         else n)
+            table = torch.tensor([[1, 2, 3, 0]], dtype=torch.int32)
+            install()
+            try:
+                got = []
+                for start in (0, 8):
+                    batch = {"tokens": torch.tensor([toks[start:start + 8]]),
+                             "block_table": table, "start": start,
+                             "prompt_len": start + 8}
+                    kw = {} if shard is None else {"shard": shard}
+                    got.append(fns.prefill_chunk(p, cache, batch,
+                                                 **kw)[1].numpy())
+            finally:
+                uninstall()
+            logs[k], logits[k] = list(picks), np.stack(got)
+        out["logits"] = logits
+        out["flips_rs"] = _flips(logs["ref"], logs["rs"])
+        out["flips_id"] = _flips(logs["ref"], logs["id"])
+
+        # a step fault seeded alike on every rank, on a KV-only and a TP
+        # engine, against one device under the same fault
+        for name, tp in (("fault_kv", False), ("fault_tp", True)):
+            eng = _engine(cfg, params, mesh, tp=tp,
+                          fault_injector=FaultInjector.parse(fault_spec))
+            tokens, errored, bad = serve_guarded(eng, records)
+            m = eng.metrics()
+            out[name] = dict(tokens=tokens, errored=errored, invariants=bad,
+                             crashes=m.step_crashes, degraded=m.degraded)
+        if rank == 0:
+            solo = _engine(cfg, params, False,
+                           fault_injector=FaultInjector.parse(fault_spec))
+            tokens, errored, bad = serve_guarded(solo, records)
+            out["fault_plain"] = dict(tokens=tokens, errored=errored,
+                                      invariants=bad)
+
+    return out
+
+
+def one_rank_fault(mesh, device, arch, np_params, records, fault_spec):
+    """A ``step`` fault on the last rank only, on a KV-only engine: that
+    rank crashes before the model call and waits in the step's closing
+    gather while the others wait in the model's first collective; each
+    side's collective times out, and no rank may quarantine.  Returns what
+    this rank raised and what it quarantined."""
+    from repro_torch import bridge
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.serve.faults import FaultInjector
+    cfg = reduced_config(get_config(arch))
+    params = bridge.params_from_numpy(np_params, "cpu")
+    inj = FaultInjector.parse(fault_spec) if mesh.rank == mesh.n_model - 1 \
+        else False
+    t0 = time.monotonic()
+    with torch.no_grad():
+        eng = _engine(cfg, params, mesh, fault_injector=inj)
+        try:
+            serve_guarded(eng, records)
+            raised = None
+        except Exception as e:  # noqa: BLE001 — reported to the test
+            raised = f"{type(e).__name__}: {e}"
+    return {"rank": mesh.rank, "raised": raised,
+            "errored": sorted(r.rid for r in eng.errored),
+            "seconds": time.monotonic() - t0}
+
+
+# ---------------------------------------------------------------------------
+# The gateway over a serve mesh (tests/test_torch_gateway_mesh.py)
+# ---------------------------------------------------------------------------
+
+GATEWAY_ARCHS = ("qwen3-0.6b", "olmoe-1b-7b")
+
+
+def _gateway_engines(mesh, fault_spec):
+    """Reduced qwen3-0.6b and olmoe-1b-7b (weights ``init(0)``) over
+    ``mesh`` (False: one device); the olmoe engine under ``fault_spec``."""
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.faults import FaultInjector
+    engines = []
+    for arch in GATEWAY_ARCHS:
+        cfg = reduced_config(get_config(arch))
+        inj = FaultInjector.parse(fault_spec) \
+            if arch == "olmoe-1b-7b" and fault_spec else False
+        engines.append(_engine(cfg, build_model(cfg, "cpu").init(0), mesh,
+                               max_batch=2, fault_injector=inj))
+    return engines
+
+
+def gateway_mesh(mesh, device, specs, cancel, fault_spec):
+    """Rank 0: one in-process ``Gateway`` over a router of both engines on
+    this mesh, ``specs`` (model index, prompt, max_new, temperature, top_k,
+    seed) streamed over HTTP at once, stream ``cancel[0]`` closed by its
+    client after ``cancel[1]`` tokens; then the gateway stops, which closes
+    both engines.  The other ranks follow both engines until then.  Every
+    rank returns its engines' finished tokens, cancelled and errored rids;
+    rank 0 also the streams and a plain engine's tokens a spec."""
+    import asyncio
+
+    from repro_torch.serve.engine import (Request, SamplingParams,
+                                          follow_all)
+    from repro_torch.serve.gateway import Gateway, Router, wrap_engine
+    from tools.gateway_smoke_torch import completion_payload, sse_request
+    with torch.no_grad():
+        engines = _gateway_engines(mesh, fault_spec)
+    out = {"rank": mesh.rank}
+    if mesh.rank == 0:
+        models = [wrap_engine(e) for e in engines]
+
+        async def drive():
+            async with Gateway(Router(models), port=0) as gw:
+                asks = [sse_request(gw.host, gw.port, completion_payload(
+                    models[m].model_id, prompt, max_new,
+                    SamplingParams(temperature=t, top_k=k, seed=s)),
+                    close_after=cancel[1] if i == cancel[0] else None)
+                    for i, (m, prompt, max_new, t, k, s) in enumerate(specs)]
+                got = await asyncio.wait_for(asyncio.gather(*asks), 120)
+                # the closed stream's cancel lands on the stepper's next turn
+                for _ in range(500):
+                    if engines[specs[cancel[0]][0]].cancelled:
+                        break
+                    await asyncio.sleep(0.01)
+                return got
+        got = asyncio.run(drive())
+        out["streams"] = [{k: g[k] for k in ("status", "raw",
+                                             "closed_early")} for g in got]
+        out["faults"] = [m.async_engine.fault for m in models]
+        with torch.no_grad():
+            plain = _gateway_engines(False, "")
+            reqs = []
+            for i, (m, prompt, max_new, t, k, s) in enumerate(specs):
+                reqs.append(Request(rid=i, prompt=list(prompt),
+                                    max_new=max_new,
+                                    sampling=SamplingParams(t, k, s)))
+                plain[m].submit(reqs[-1])
+            for e in plain:
+                e.run_until_done()
+        out["plain"] = [list(r.out) for r in reqs]
+    else:
+        with torch.no_grad():
+            out["steps"] = follow_all(engines)
+    out["engines"] = [{
+        "finished": {r.rid: list(r.out) for r in e.finished},
+        "cancelled": sorted(r.rid for r in e.cancelled),
+        "errored": sorted(r.rid for r in e.errored),
+        "closed": e._closed, "invariants": e.check_invariants()
+        + e.invariant_violations} for e in engines]
+    return out

@@ -1,8 +1,10 @@
 """The port's gateway launcher: ``python -m repro_torch.launch.gateway
 --smoke --device cpu --port 0`` boots, answers ``/health``, passes
 ``tools.gateway_smoke_torch`` (strict SSE framing, tokens equal to a fresh
-engine's) and shuts down cleanly on SIGTERM; ``--mesh 2`` is refused naming
-ROADMAP A10, and ``--device cuda`` without a card raises."""
+engine's) and shuts down cleanly on SIGTERM; ``--mesh 2`` serves two models
+over a 2-rank gloo mesh and leaves no process; ``--device cuda`` without a
+card raises."""
+import asyncio
 import http.client
 import json
 import os
@@ -28,6 +30,17 @@ def _env():
                 OMP_NUM_THREADS="1")
 
 
+def _listening(proc) -> str:
+    """The launcher's ``gateway listening on`` line, read within BOOT_S."""
+    t0 = time.monotonic()
+    line = ""
+    while "gateway listening on" not in line:
+        assert time.monotonic() - t0 < BOOT_S, "gateway did not boot"
+        line = proc.stdout.readline()
+        assert line or proc.poll() is None, proc.stderr.read()
+    return line
+
+
 def test_gateway_boots_serves_and_shuts_down_cleanly(monkeypatch, capsys):
     proc = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.gateway", "--smoke",
@@ -35,12 +48,7 @@ def test_gateway_boots_serves_and_shuts_down_cleanly(monkeypatch, capsys):
         cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     try:
-        t0 = time.monotonic()
-        line = ""
-        while "gateway listening on" not in line:
-            assert time.monotonic() - t0 < BOOT_S, "gateway did not boot"
-            line = proc.stdout.readline()
-            assert line or proc.poll() is None, proc.stderr.read()
+        line = _listening(proc)
         url = re.search(r"http://\S+", line).group(0)
         host, port = url[len("http://"):].rsplit(":", 1)
         conn = http.client.HTTPConnection(host, int(port), timeout=30)
@@ -68,12 +76,54 @@ def test_gateway_boots_serves_and_shuts_down_cleanly(monkeypatch, capsys):
     assert "gateway shut down cleanly" in out
 
 
-def test_mesh_is_refused_naming_a10(capsys):
-    from repro_torch.launch.gateway import main
-    with pytest.raises(SystemExit) as e:
-        main(["--smoke", "--device", "cpu", "--mesh", "2"])
-    assert e.value.code != 0
-    assert "A10" in capsys.readouterr().err
+def test_mesh_is_refused_naming_a10():
+    """(Named for the refusal it pinned until ``--mesh`` was ported.)
+    ``--mesh 2 --smoke --device cpu`` with qwen3-0.6b and olmoe-1b-7b behind
+    one router over one 2-rank gloo mesh: it listens, ``/health`` lists both
+    models, a streamed completion of each comes back whole, SIGTERM to the
+    launcher stops rank 0's gateway and releases the other rank, the
+    launcher exits 0 with the shutdown line, and no process of its session
+    is left running (``tools.session_leftovers``)."""
+    from tools.gateway_smoke_torch import check_sse, sse_request
+    from tools.session_leftovers import live_processes
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.gateway", "--mesh", "2",
+         "--smoke", "--device", "cpu", "--port", "0", "--no-plan-kernels",
+         "--arch", "qwen3-0.6b", "--arch", "olmoe-1b-7b", *ENGINE],
+        cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        line = _listening(proc)
+        assert "over a 2-rank mesh" in line, line
+        url = re.search(r"http://\S+", line).group(0)
+        host, port = url[len("http://"):].rsplit(":", 1)
+        conn = http.client.HTTPConnection(host, int(port), timeout=30)
+        conn.request("GET", "/health")
+        resp = conn.getresponse()
+        health = json.loads(resp.read())
+        conn.close()
+        assert resp.status == 200 and health["status"] == "ok"
+        assert [m["model"] for m in health["models"]] == [
+            "qwen3-0.6b-smoke", "olmoe-1b-7b-smoke"]
+        for model in ("qwen3-0.6b-smoke", "olmoe-1b-7b-smoke"):
+            got = asyncio.run(asyncio.wait_for(sse_request(
+                host, int(port), {"model": model, "prompt": [3, 5, 7],
+                                  "max_tokens": 4, "stream": True}), 60))
+            sse = check_sse(got["raw"], prompt_tokens=3)
+            assert got["status"] == 200 and sse["errors"] == [], sse
+            assert len(sse["token_ids"]) == 4 \
+                and sse["finish_reason"] == "length"
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    assert proc.returncode == 0, err
+    assert "gateway shut down cleanly" in out
+    assert "2 ranks over gloo on cpu" in out
+    left = [cmd for _, _, sid, cmd in live_processes() if sid == proc.pid]
+    assert left == [], left
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

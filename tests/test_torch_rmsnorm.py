@@ -309,3 +309,34 @@ def test_backward_kernel_matches_plain_version_on_cuda(cuda, dtype):
         for a, b in zip(pair, one):
             assert torch.equal(a, b)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_narrow_mode_kernels_match_plain_versions_on_cuda(cuda):
+    """REPRO_NORM_F32=0's mode (``f32=False``, bf16): the forward, the pair
+    and the backward against the narrow plain versions row by row at the
+    ragged widths; the pair bitwise two single launches; a bf16 x gives
+    other bits than the f32 mode, an f32 x the same."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    tol = ref.ROW_TOL[torch.bfloat16]
+    for d in CUDA_WIDTHS[1:]:
+        w = (1 + 0.3 * torch.randn(d, generator=gen, device=cuda)).to(
+            torch.bfloat16)
+        x, g = (torch.randn((37, d), generator=gen, device=cuda).to(
+            torch.bfloat16) for _ in range(2))
+        y = k2.rmsnorm_kernel(x, w, EPS, f32=False)
+        assert ref.row_rel_err(y, ref.rmsnorm_ref(x, w, EPS, False))[1] <= tol
+        y1, y2 = k2.rmsnorm_pair_kernel(x, w, x[:5], w.flip(0), EPS,
+                                        f32=False)
+        assert torch.equal(y1, y) and torch.equal(
+            y2, k2.rmsnorm_kernel(x[:5], w.flip(0), EPS, f32=False))
+        dx, dw = k2.rmsnorm_bwd_kernel(x, w, g, EPS, f32=False)
+        rdx, rdw = ref.rmsnorm_bwd_ref(x, w, g, EPS, f32=False)
+        assert ref.row_rel_err(dx, rdx)[1] <= tol
+        assert ref.row_rel_err(dw[None], rdw[None])[1] <= tol
+        if d >= 128:
+            assert not torch.equal(y, k2.rmsnorm_kernel(x, w, EPS))
+        xf, wf = x.float(), w.float()
+        assert torch.equal(k2.rmsnorm_kernel(xf, wf, EPS, f32=False),
+                           k2.rmsnorm_kernel(xf, wf, EPS))
+    torch.cuda.synchronize()

@@ -284,9 +284,10 @@ def test_step_guarded_quarantines_and_adapters_are_refused(setup):
 
 
 def test_serve_cli_on_cpu_and_refusals(monkeypatch, capsys):
-    """The CLI serves the reduced config on the CPU; unported knobs, a
-    mesh of a family the sharded engine does not serve, and (on a host
-    without a card) the cuda device are refused."""
+    """The CLI serves the reduced config on the CPU, also in bf16 under
+    REPRO_NORM_F32=0 (rms_norm in the activation dtype); a mesh of a family
+    the sharded engine does not serve, and (on a host without a card) the
+    cuda device are refused."""
     from repro_torch.device import resolve_device
     from repro_torch.launch import serve
     eng = serve.main(["--smoke", "--device", "cpu", "--requests", "3",
@@ -298,11 +299,135 @@ def test_serve_cli_on_cpu_and_refusals(monkeypatch, capsys):
         serve.main(["--smoke", "--device", "cpu", "--arch",
                     "falcon-mamba-7b", "--mesh", "2"])
     monkeypatch.setenv("REPRO_NORM_F32", "0")
-    with pytest.raises(NotImplementedError, match="REPRO_NORM_F32"):
-        serve.main(["--smoke", "--device", "cpu", "--requests", "1"])
+    eng = serve.main(["--smoke", "--device", "cpu", "--requests", "1",
+                      "--dtype", "bfloat16", "--max-new", "3"])
+    assert eng.metrics().requests_finished == 1
     monkeypatch.delenv("REPRO_NORM_F32")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             resolve_device("cuda")
         with pytest.raises(RuntimeError, match="cuda"):
             serve.main(["--smoke"])
+
+
+# REPRO_NORM_F32=0: rms_norm in the activation dtype, against the reference
+# under the same knob.  The forward follows what XLA compiles the
+# reference's bf16 rms_norm to (``ref._narrow_rstd``) and is bitwise equal
+# to it at these shapes; the gradients are held row by row within 2e-2 of
+# the largest value (``ref.GRAD_ROW_TOL``'s bf16 limit): jax.vjp of the
+# reference sums its bf16 cotangents in bf16, rounding every add, where the
+# port sums in f32 (at these shapes the gap measured 4.6e-3 to 1.5e-2).
+NARROW_SHAPES = ((8, 64), (64, 256), (8, 1024), (256, 128))
+
+
+def _narrow_inputs(rows, d, dtype, seed):
+    import jax.numpy as jnp
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((rows, d)) * rng.uniform(0.1, 4)).astype(
+        np.float32)
+    w = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    g = rng.standard_normal((rows, d)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jx, jw, jg = (jnp.asarray(a, jdt) for a in (x, w, g))
+    tx, tw, tg = (torch.from_numpy(a).to(dtype) for a in (x, w, g))
+    return (jx, jw, jg), (tx, tw, tg)
+
+
+def _rows_within(got, want, tol):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    got, want = got.reshape(-1, got.shape[-1]), want.reshape(-1,
+                                                             want.shape[-1])
+    scale = np.maximum(np.abs(want).max(-1), 1e-30)
+    return float((np.abs(got - want).max(-1) / scale).max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,d", NARROW_SHAPES)
+def test_norm_f32_off_matches_reference(monkeypatch, rows, d, dtype):
+    """Under REPRO_NORM_F32=0: ``layers.rms_norm`` and ``rms_norm_pair``
+    equal the reference's ``rms_norm`` bitwise at bf16 (within 1e-5 a row at
+    f32, where the knob changes nothing and the two packages' f32 sums
+    differ by reassociation), and ``RMSNormFn``'s gradients (through
+    ``ops.rmsnorm``) are within 2e-2 a row of jax.vjp's at bf16, 1e-5 at
+    f32."""
+    import jax
+    monkeypatch.setenv("REPRO_NORM_F32", "0")
+    from repro.models.layers import rms_norm as jrms
+    from repro_torch.models.layers import rms_norm, rms_norm_pair
+    (jx, jw, jg), (tx, tw, tg) = _narrow_inputs(rows, d, dtype, rows + d)
+    bf16 = dtype == torch.bfloat16
+    tol = 2e-2 if bf16 else 1e-5
+
+    def same(got, want):
+        want = np.asarray(want.astype(np.float32))
+        if bf16:
+            return np.array_equal(got.float().numpy(), want)
+        return _rows_within(got.numpy(), want, tol)
+    got = rms_norm(tx, tw)
+    assert same(got, jax.jit(jrms)(jx, jw))
+    y1, y2 = rms_norm_pair(tx, tw, tx[:1].clone(), tw.flip(0))
+    assert torch.equal(y1, got)
+    assert same(y2, jax.jit(jrms)(jx[:1], jw[::-1]))
+    jdx, jdw = jax.vjp(jrms, jx, jw)[1](jg)
+    xg, wg = tx.clone().requires_grad_(), tw.clone().requires_grad_()
+    out = rms_norm(xg, wg)
+    assert out.grad_fn is not None and torch.equal(out.detach(), got)
+    dx, dw = torch.autograd.grad(out, (xg, wg), tg)
+    assert _rows_within(dx.float().numpy(), jdx.astype(np.float32), tol)
+    assert _rows_within(dw.float().numpy()[None],
+                        np.asarray(jdw.astype(np.float32))[None], tol)
+
+
+def test_norm_f32_off_changes_bf16_and_keeps_the_default(monkeypatch):
+    """The knob is read at every call: off, a bf16 rms_norm differs from
+    the f32 mode's (its mean, rstd and products round to bf16) and its
+    plain backward rounds likewise; back on, the default's bits return."""
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import rms_norm
+    _, (tx, tw, tg) = _narrow_inputs(64, 256, torch.bfloat16, 3)
+    default = rms_norm(tx, tw)
+    assert torch.equal(default, ref.rmsnorm_ref(tx, tw))
+    monkeypatch.setenv("REPRO_NORM_F32", "0")
+    narrow = rms_norm(tx, tw)
+    assert not torch.equal(narrow, default)
+    assert torch.equal(narrow, ref.rmsnorm_ref(tx, tw, f32=False))
+    assert not torch.equal(ref.rmsnorm_bwd_ref(tx, tw, tg, f32=False)[0],
+                           ref.rmsnorm_bwd_ref(tx, tw, tg)[0])
+    from repro_torch.perf import perf
+    assert perf().norm_f32 is False
+    monkeypatch.setenv("REPRO_NORM_F32", "1")
+    assert torch.equal(rms_norm(tx, tw), default) and perf().norm_f32
+
+
+def test_norm_f32_off_bf16_serve_matches_jax_engine(monkeypatch):
+    """Reduced qwen3-0.6b in bf16 under REPRO_NORM_F32=0: the port's engine
+    and the JAX engine, on the same bridged bf16 weights, emit the same
+    greedy tokens for the 12-request workload."""
+    import dataclasses
+
+    import jax
+    from repro.models import build_model as jax_build_model
+    from repro.serve.engine import Request as JRequest
+    from repro.serve.engine import ServeEngine as JServeEngine
+    from _torch_parity import reduced
+    from repro_torch import bridge
+    monkeypatch.setenv("REPRO_NORM_F32", "0")
+    jcfg, cfg = reduced("qwen3-0.6b")
+    jcfg = dataclasses.replace(jcfg, dtype="bfloat16")
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    jparams = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
+    params = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                      "cpu")
+    eng = _engine(cfg, params, max_batch=4, max_len=64, block_size=8)
+    reqs = _workload(cfg.vocab)
+    for r in reqs:
+        eng.submit(r)
+    _run_checked(eng)
+    jeng = JServeEngine(jcfg, jparams, max_batch=4, max_len=64, block_size=8,
+                        plan_kernels=False, mesh=False, fault_injector=False)
+    jreqs = [JRequest(rid=r.rid, prompt=list(r.prompt), max_new=r.max_new)
+             for r in _workload(cfg.vocab)]
+    for r in jreqs:
+        jeng.submit(r)
+    jeng.run_until_done()
+    assert [r.out for r in reqs] == [r.out for r in jreqs]

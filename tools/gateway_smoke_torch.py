@@ -188,12 +188,15 @@ def _get_json(host: str, port: int, path: str,
 
 def _stream(host: str, port: int, path: str, payload: dict,
             deadline: Optional[Deadline] = None) -> Tuple[bytes, dict]:
-    """POST a streaming request; return (raw SSE body, response headers)."""
+    """POST a streaming request; return (raw SSE body, response headers),
+    and print its time to the first token."""
     got = _request(host, port, payload, path, deadline)
     assert got["status"] == 200, \
         f"POST {path} -> {got['status']}: {got['raw'][:200]!r}"
     assert got["headers"].get("content-type", "").startswith(
         "text/event-stream"), f"not SSE: {got['headers']}"
+    if got["ttft_s"] is not None:
+        print(f"{path} ttft_ms: {got['ttft_s'] * 1e3:.2f}")
     return got["raw"], got["headers"]
 
 
@@ -377,6 +380,10 @@ def main() -> int:
     ap.add_argument("--url", default="http://127.0.0.1:8011")
     ap.add_argument("--arch", default="qwen3-0.6b",
                     help="arch the gateway serves")
+    ap.add_argument("--model", default=None,
+                    help="the model card to ask (default: the first base "
+                         "card; a router of several archs names the one "
+                         "--arch builds the oracle of)")
     ap.add_argument("--smoke", action="store_true",
                     help="the gateway serves the reduced config")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -400,7 +407,8 @@ def main() -> int:
     # marked with a parent; the oracle replays the base model only)
     bases = [m["id"] for m in models["data"] if not m.get("parent")]
     assert bases, f"no base model card in {models}"
-    model_id = bases[0]
+    model_id = args.model or bases[0]
+    assert model_id in bases, f"no base card {model_id!r} in {bases}"
     print(f"models: {[m['id'] for m in models['data']]}")
 
     oracle = build_oracle(args.arch, args.smoke, args.device, args.max_batch,
