@@ -163,11 +163,11 @@ Phases, each printing JSON objects one per line:
               exactly, K1 28 and K2 85 launches a model call.
    serve_mesh_2 — two ranks spawned on the one card over gloo (NCCL
               refuses two ranks on one GPU; gloo stages every collective
-              through host memory), full width at 8 of 28 layers, 8
+              through host memory), full width at 4 of 28 layers, 8
               requests of the serve workload cut to 256 prompt tokens, 16
               new: the KV pool sharded on kv-heads (4 of 8 a rank) with
               TP identity gives a plain engine's tokens on the same
-              weights, each rank's K1 and K2 launch 8 and 25 times a model
+              weights, each rank's K1 and K2 launch 4 and 13 times a model
               call, each rank's param bytes and peak memory; reduce-scatter
               prefill logits of a 256-token chunk within 5e-2 of the
               replicated forward's largest, with the greedy agreement; one
@@ -175,9 +175,9 @@ Phases, each printing JSON objects one per line:
               alone.  A rank that raises or outlasts its time fails the
               phase.
    moe_mesh_2 — in the same group of two ranks: olmoe-1b-7b at full
-              width, 4 of 16 layers, through a KV-only mesh engine (8 of
+              width, 2 of 16 layers, through a KV-only mesh engine (8 of
               16 heads a rank, the weights replicated) on the same
-              workload: a plain engine's tokens, K1 4 and K2 13 launches a
+              workload: a plain engine's tokens, K1 2 and K2 7 launches a
               model call a rank; the TP layout (the expert stacks split
               inside each expert) on one 256-token chunk, identity mode
               bitwise the replicated forward, reduce-scatter on the
@@ -186,13 +186,29 @@ Phases, each printing JSON objects one per line:
               picks with the greedy agreement and the flipped expert sets
               counted; each rank's param bytes and peak memory.
    gateway_mesh_2 — in the same group: rank 0 runs the gateway over a
-              router of both models (qwen at 8 layers, olmoe at 4) on the
+              router of both models (qwen at 4 layers, olmoe at 2) on the
               2-rank mesh, one stepper thread each under the engine's mesh
               lock, rank 1 follows both; 8 streams over HTTP, 4 a model,
               one closed by its client; a ``step`` fault seeded alike on
               both ranks' olmoe engines quarantines the same request on
               both; every finished stream equals a plain engine's tokens;
               stopping the gateway releases rank 1.
+   train_mesh_2 — in the same group: qwen3-0.6b at full width, 2 of 28
+              layers, f32, B 8 x S 512, trained through ``Trainer(mesh=)``
+              on ``TrainMesh``es of the two ranks: 2x1 under fsdp_tp (2
+              steps), again under REPRO_WEIGHT_AG=1 and with a failure at
+              step 1 (both the first run's bits); 1x2 (K3 at 8 heads over 4
+              a rank) under fsdp_tp (2 steps) and REPRO_SEQ_PARALLEL=1 (1
+              step); 2x1 under dp (1 step, ZeRO-1 moments).  Each run's
+              losses and gradient norms within 1e-4 and leaves within 1e-3
+              of one device's Trainer (the ranks train those oracles
+              between them); a rank's param and moment bytes half of the
+              whole apart from the leaves no axis splits; K3 and K2 launches a step a
+              rank; collectives, peak memory and seconds a rank.  The
+              kernel rows gain K3 at 8 heads over 4 and K2 at a rank's
+              rows (2,048 x 1,024; the q/k pair at 32,768 + 16,384 rows,
+              2,048 x 16 + 8 heads at 2x1 and 4,096 x 8 + 4 at 1x2),
+              forward and backward.
 6. oracle   — teacher-forced logits of the paged path (kernels) against the
               dense prefill + decode path (plain attention), f32 and bf16;
               and one tenant's request (a 256-token prompt chunk and 8 decode
@@ -248,7 +264,13 @@ Phases, each printing JSON objects one per line:
               losses finite and falling, step seconds, tokens/s without step
               0, peak memory, and exactly 56 K3 forward, 28 K3 backward,
               169 K2 forward launches and 85 K2 backward calls a step (no
-              serve kernel); train_int8: three
+              serve kernel).  train_mesh: its first 3 steps through
+              ``Trainer(mesh=make_train_mesh(1, 1))`` on a 1-rank NCCL
+              group, the "world" collectives over one NCCL rank (the
+              one-rank axes run none): the same losses and gradient
+              norms bit for bit and launches a step, with the
+              collectives a step by kind and bytes, tokens/s and peak
+              memory.  train_int8: three
               steps with int8 moments, finite and falling.  train_restart:
               2 layers at full width, 8 steps checkpointed every 4, a failure
               at step 6; the final loss equals a clean run's bit for bit.
@@ -273,11 +295,15 @@ Phases, each printing JSON objects one per line:
               train_ssm_oracle, train_hybrid_oracle: 2 Mamba1 layers / 2
               hybrid segments at full width, f32, B 2 x S 512, the loss and
               every gradient leaf on the card against the CPU's, within
-              twice the CPU's own spread between two thread counts (and
-              never looser than 1e-4 / 1e-3); then a restart at that
-              depth (the hybrid's at 1 segment: its bits do not depend on
-              the shared block's second call, and with both at 2 segments
-              the script took 1,008 s), bitwise.
+              1e-4 / 1e-3, or for the hybrid twice the CPU's own spread
+              between two thread counts where that is wider (falcon-mamba
+              runs no witness: its spread, under 1e-6 of a leaf, lies far
+              below 1e-3, so the witness could only loosen its limit, and
+              the script needed the time); then a restart, bitwise, at
+              1 layer / 1 segment (its bits do not depend on a second
+              layer or the shared block's second call, and the script
+              needed the time: with both hybrid runs at 2 segments it took
+              1,008 s).
 12. moe     — moe_serve: the serve workload through full-width olmoe-1b-7b
               (16 layers, d 2048, 16/16 heads, 64 experts, top-8; 13.84 GB)
               in bf16 at its native capacity factor 2.0: the invariants
@@ -315,7 +341,7 @@ Phases, each printing JSON objects one per line:
               train_moe_profile (1 step); train_moe_oracle: 2 layers,
               f32, loss and every leaf (the routers' reported apart)
               against the CPU within 1e-4 / 1e-3, then a bitwise restart
-              (6 steps, the failure at step 5).
+              at 1 layer (6 steps, the failure at step 5).
 13. encdec, vlm — the families the paged engine refuses (as the
               reference's does), through ``launch.steps``' prefill and
               decode step builders over a dense cache.  whisper_serve:
@@ -352,7 +378,7 @@ Phases, each printing JSON objects one per line:
 Then a ``{"kernels": [...]}`` summary line (each row's launches from the
 main path that gives its shape, named in its ``path``), a check that no
 process the script started is still running (the ranks' fork server is
-stopped right after serve_mesh_2), nvidia-smi's line, and, last,
+stopped right after train_mesh_2), nvidia-smi's line, and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises and exits
 non-zero before that line.  Without a CUDA device, or without the repo's
 ``src/`` beside it, the script exits non-zero and prints no result.
@@ -815,13 +841,17 @@ RMSNORM_SHAPES = ((8, 1024), (256, 1024), (8 * 16, 128), (256 * 16, 128),
                   (8, 4096), (256, 4096), (8, 2560), (256, 2560),
                   (8, 5120), (256, 5120), (4096, 1024), (4096 * 16, 128),
                   (4096 * 8, 128), (8, 2048), (256, 2048), (4, 5120),
-                  (8, 768), (8 * 1500, 768), (8, 8192), (4096, 8192))
+                  (8, 768), (8 * 1500, 768), (8, 8192), (4096, 8192),
+                  (2048, 1024))
 RMSNORM_PATH = {1024: "serve", 128: None, 4096: "ssm_serve",
                 2560: "hybrid_serve", 5120: "hybrid_serve",
                 2048: "moe_serve", 768: "whisper_serve", 8192: "vlm_serve"}
 RMSNORM_TRAIN_SHAPES = ((4096, 1024), (4096 * 16, 128), (4096 * 8, 128))
 # rows whose path is not their width's
-RMSNORM_ROW_PATH = {(4, 5120): "llama4_layer", (4096, 8192): "train_vlm"}
+# (2048, 1024): a rank's layer norms on the 2-rank training mesh (half the
+# batch at 2x1, half the sequence under sequence parallelism at 1x2)
+RMSNORM_ROW_PATH = {(4, 5120): "llama4_layer", (4096, 8192): "train_vlm",
+                    (2048, 1024): "train_mesh_2"}
 
 
 def rmsnorm_path(rows, d):
@@ -1060,7 +1090,13 @@ RMSNORM_PAIR_SHAPES = ((8 * 16, 8 * 8, 128, "serve"),
                        (256 * 16, 256 * 8, 128, "serve"),
                        (8 * 16, 8 * 16, 128, "moe_serve"),
                        (256 * 16, 256 * 16, 128, "moe_serve"),
-                       (4096 * 16, 4096 * 8, 128, "train"))
+                       (4096 * 16, 4096 * 8, 128, "train"),
+                       (2048 * 16, 2048 * 8, 128, "train_mesh_2"))
+# the pairs a training step runs backward through: the train path's, and a
+# rank's on the 2-rank training mesh (2x1: half the batch; 1x2, half the
+# heads, gives the same rows, 4,096 x 8 + 4,096 x 4)
+RMSNORM_PAIR_GRAD_SHAPES = tuple(s for s in RMSNORM_PAIR_SHAPES
+                                 if s[3].startswith("train"))
 
 
 def _check_rmsnorm_pair(torch, results, dtype, gen, eps, info):
@@ -2039,6 +2075,9 @@ FLASH_WHISPER_CAUSAL = (8 * 12, 8 * 12, 448, 448, 64, True, 0)
 FLASH_WHISPER = (8 * 12, 8 * 12, 448, 448, 64, False, 0)
 FLASH_WHISPER_ENCODER = (8 * 12, 8 * 12, 1500, 1500, 64, False, 0)
 FLASH_VLM_TRAIN = (8 * 64, 8 * 8, 512, 512, 128, True, 0)
+# a rank's half of qwen3-0.6b's heads on the 1x2 training mesh (B 8 x 8
+# heads over 4, S 512, head_dim 128, causal; the train_mesh_2 path)
+FLASH_MESH_TRAIN = (8 * 8, 8 * 4, 512, 512, 128, True, 0)
 # (path, shape, whether the path runs the backward)
 FLASH_TIMED = (("train", FLASH_TRAIN, True),
                ("train_hybrid", FLASH_HYBRID_TRAIN, True),
@@ -2046,7 +2085,8 @@ FLASH_TIMED = (("train", FLASH_TRAIN, True),
                ("train_whisper", FLASH_WHISPER_CAUSAL, True),
                ("train_whisper", FLASH_WHISPER, True),
                ("whisper_serve", FLASH_WHISPER_ENCODER, False),
-               ("train_vlm", FLASH_VLM_TRAIN, True))
+               ("train_vlm", FLASH_VLM_TRAIN, True),
+               ("train_mesh_2", FLASH_MESH_TRAIN, True))
 # gate-only: whisper's cross-attention at serve time, the prompt's 4 and a
 # training length's 448 queries over 1,500 frames (Sq != Skv, non-causal,
 # 1,500 not a multiple of the 64-key tile)
@@ -2349,7 +2389,8 @@ def check_flash_attention(torch, results):
 # qwen2-vl-72b's (4,096 x 8,192, train_vlm)
 RMSNORM_GRAD_SHAPES = RMSNORM_TRAIN_SHAPES + ((4096, 4096), (4096, 2560),
                                               (4096, 5120), (4096, 2048),
-                                              (8 * 448, 768), (4096, 8192))
+                                              (8 * 448, 768), (4096, 8192),
+                                              (2048, 1024))
 RMSNORM_GRAD_PATH = {4096: "train_ssm", 2560: "train_hybrid",
                      5120: "train_hybrid", 2048: "train_moe",
                      768: "train_whisper", 8192: "train_vlm"}
@@ -2446,13 +2487,17 @@ def check_rmsnorm_grad(torch, results, info):
                 library_ms=lib, library_fwd_ms=lib_fwd,
                 bound_ms=t_bound, bound_by=by))
             del x, g, dx, again, fdx, rdx, sdx, ndx, xg
-        _check_rmsnorm_pair_grad(torch, results, dtype, gen, eps, info)
+        for shape in RMSNORM_PAIR_GRAD_SHAPES:
+            _check_rmsnorm_pair_grad(torch, results, dtype, gen, eps, info,
+                                     shape)
     torch.cuda.empty_cache()
 
 
-def _check_rmsnorm_pair_grad(torch, results, dtype, gen, eps, info):
-    """The pair's backward at the training step's q and k norms (the train
-    path's call): each tensor's dx and dw bitwise its single call's (so the
+def _check_rmsnorm_pair_grad(torch, results, dtype, gen, eps, info,
+                             shape):
+    """The pair's backward at a training step's q and k norms (``shape``:
+    rows of q, rows of k, width and the path that gives them): each
+    tensor's dx and dw bitwise its single call's (so the
     single rows' gates and planted faults hold for it), against the plain
     version; timed beside the
     two single calls, autograd of two ``F.rms_norm`` as yardstick.  Planted
@@ -2462,7 +2507,7 @@ def _check_rmsnorm_pair_grad(torch, results, dtype, gen, eps, info):
     from repro_torch.kernels import rmsnorm as k2
     dname = str(dtype).split(".")[1]
     esize = torch.finfo(dtype).bits // 8
-    r1, r2, d, _ = RMSNORM_PAIR_SHAPES[-1]
+    r1, r2, d, path = shape
     x1, g1 = (torch.randn((r1, d), generator=gen, device=DEV).to(dtype)
               for _ in range(2))
     x2, g2 = (torch.randn((r2, d), generator=gen, device=DEV).to(dtype)
@@ -2503,7 +2548,7 @@ def _check_rmsnorm_pair_grad(torch, results, dtype, gen, eps, info):
                         10.0 * (r1 + r2) * d, "float32")
     results.append(dict(
         name=f"rmsnorm_pair_bwd/d{d}", dtype=dname, shape=f"({r1}+{r2}, {d})",
-        path="train", counter="rmsnorm_bwd",
+        path=path, counter="rmsnorm_bwd",
         max_abs_err=max(gx["max_abs_err"], gw["max_abs_err"]),
         row_rel_err=max(gx["row_rel_err"], gw["row_rel_err"]),
         tol=gx["tol"], dx_gate=gx, dw_gate=gw, bitwise_single_calls=True,
@@ -2778,13 +2823,13 @@ def serve_phase(torch, cfg, params):
 # Multi-device serving: the engine on a serve mesh of torch.distributed ranks
 # ---------------------------------------------------------------------------
 
-# serve_mesh_2: full width at 8 of qwen3-0.6b's 28 layers, 8 requests of
-# the serve workload cut to their first 256 prompt tokens (one chunk), 16
-# new tokens.  gloo stages every collective through host memory (a 256 MB
+# serve_mesh_2: full width at 4 of qwen3-0.6b's 28 layers (8 until the
+# training mesh's phase needed the time), 8 requests of the serve workload
+# cut to their first 256 prompt tokens (one chunk), 16 new tokens.  gloo stages every collective through host memory (a 256 MB
 # all_gather took 0.55 s on the card), and identity mode gathers a rank's
 # missing half of every weight, the 151,936 x 1,024 table twice, each model
 # call: about 0.4 GB a rank a call
-MESH_LAYERS, MESH_REQUESTS, MESH_NEW, MESH_PROMPT = 8, 8, 16, 256
+MESH_LAYERS, MESH_REQUESTS, MESH_NEW, MESH_PROMPT = 4, 8, 16, 256
 
 
 def mesh_workload(vocab):
@@ -2844,11 +2889,11 @@ def _mesh_serve(eng, reqs):
     return {r.rid: list(r.out) for r in eng.finished}
 
 
-def _mesh_rank(mesh, device, cfg, moe_cfg):
-    """One rank of serve_mesh_2, moe_mesh_2 and gateway_mesh_2, in that
-    order, in one group of ranks (see ``serve_mesh_2_phase``): each part's
-    results under its phase's name; the gateway serves the first two
-    parts' weights."""
+def _mesh_rank(mesh, device, cfg, moe_cfg, train_cfg, workdir):
+    """One rank of serve_mesh_2, moe_mesh_2, gateway_mesh_2 and
+    train_mesh_2, in that order, in one group of ranks (see
+    ``serve_mesh_2_phase``): each part's results under its phase's name;
+    the gateway serves the first two parts' weights."""
     import torch
     from repro_torch.models import build_model
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2867,8 +2912,162 @@ def _mesh_rank(mesh, device, cfg, moe_cfg):
     t2 = time.perf_counter()
     out["gateway_mesh_2"] = _gateway_mesh_rank(mesh, device, cfg, params,
                                                moe_cfg, mparams)
+    del params, mparams
+    t3 = time.perf_counter()
+    out["train_mesh_2"] = _train_mesh_rank(mesh, device, train_cfg, workdir)
     out["part_s"] = {"serve_mesh_2": t1 - t0, "moe_mesh_2": t2 - t1,
-                     "gateway_mesh_2": time.perf_counter() - t2}
+                     "gateway_mesh_2": t3 - t2,
+                     "train_mesh_2": time.perf_counter() - t3}
+    return out
+
+
+# train_mesh_2: qwen3-0.6b at full width and 2 of 28 layers in f32 (B 8 x S
+# 512) on the 2-rank group: (run, (data, model), knobs, steps); the restart
+# fails at step TRAIN_MESH_FAIL_AT (checkpoints every step) and is held
+# bitwise to the first run.  SP and dp take 1 step for the script's time
+# (PERF.md section 4): a 1-step run still holds the gradient's scale
+# through its gated norm, while AdamW's first update shows only its sign
+TRAIN_MESH_LAYERS = 2
+TRAIN_MESH_RUNS = (
+    ("fsdp_tp_2x1", (2, 1), {}, 2),
+    ("weight_ag_2x1", (2, 1), {"REPRO_WEIGHT_AG": "1"}, 2),
+    ("restart_2x1", (2, 1), {}, 2),
+    ("fsdp_tp_1x2", (1, 2), {}, 2),
+    ("seq_parallel_1x2", (1, 2), {"REPRO_SEQ_PARALLEL": "1"}, 1),
+    ("dp_2x1", (2, 1), {"REPRO_TRAIN_SHARDING": "dp"}, 1))
+TRAIN_MESH_FAIL_AT = 1
+# a mesh run against one device's (the train_oracle gates: AdamW divides by
+# sqrt(v), so a gradient near zero amplifies a reordered sum); each step's
+# gradient norm is held to the loss tolerance
+TRAIN_MESH_LOSS_TOL, TRAIN_MESH_LEAF_TOL = 1e-4, 1e-3
+
+
+def _mesh_trainer(cfg, steps, device, mesh=None, workdir=None):
+    """The train phase's Trainer settings (B 8 x S 512, its optimizer)
+    for ``steps`` steps, on ``mesh`` if given, checkpointed every step
+    into ``workdir`` if given."""
+    from repro_torch.launch.train import opt_config
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    return Trainer(cfg, TrainerConfig(seq_len=512, global_batch=8,
+                                      steps=steps, log_every=1,
+                                      workdir=workdir, checkpoint_every=1),
+                   opt_config(TRAIN_LR, TRAIN_STEPS), mesh=mesh,
+                   device=device)
+
+
+def _share(local, specs, mesh):
+    """(this rank's bytes of a tree of shards, the whole tree's bytes, the
+    bytes of the leaves no axis splits, which every rank holds whole)."""
+    import types
+    from repro_torch.distributed import sharding
+    from repro_torch.train.tree import leaves
+    mine = whole = kept = 0
+    specs = [x.spec for x in leaves(sharding._tree_map2(
+        lambda sp, _: types.SimpleNamespace(spec=sp), specs, local))]
+    for spec, t in zip(specs, leaves(local)):
+        n = t.numel() * t.element_size()
+        full = n * sharding.mesh_axis_size(
+            mesh, tuple(a for e in spec if e is not None
+                        for a in (e if isinstance(e, tuple) else (e,)))
+            or None)
+        mine, whole = mine + n, whole + full
+        kept += full if all(e is None for e in spec) else 0
+    return mine, whole, kept
+
+
+def _train_mesh_rank(mesh, device, cfg, workdir):
+    """One rank of train_mesh_2 (see ``train_mesh_2_report``): the ranks
+    first train one device's oracle runs between them (rank r those of the
+    r-th step counts, so both ranks warm up at once), then every rank runs
+    ``TRAIN_MESH_RUNS``, each on a ``TrainMesh`` of its shape over the
+    group with its knobs set, its launches counted from zero, and holds
+    each run's whole weights to the oracle it trained and to the first
+    run's."""
+    import torch
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.train.tree import leaves
+    card = device.type == "cuda"
+    out = {"rank": mesh.rank, "runs": {}, "launches": {}}
+    plain = {}
+    counts = sorted({r[3] for r in TRAIN_MESH_RUNS})
+    for steps in counts[mesh.rank::mesh.world]:
+        t0 = time.perf_counter()
+        res = _mesh_trainer(cfg, steps, device).train()
+        plain[steps] = ([e["loss"] for e in res["log"]],
+                        [e["grad_norm"] for e in res["log"]],
+                        leaves(res["state"]["params"]))
+        out[f"plain_{steps}_steps_s"] = time.perf_counter() - t0
+        del res
+    torch.distributed.barrier()
+    first = None
+    for name, shape, env, steps in TRAIN_MESH_RUNS:
+        old = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            tmesh = make_train_mesh(*shape)
+            restart = name.startswith("restart")
+            tr = _mesh_trainer(cfg, steps, device, tmesh,
+                               workdir if restart else None)
+            if card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            tmesh.reset_issued()
+            t0 = time.perf_counter()
+            res = tr.train(fail_at=TRAIN_MESH_FAIL_AT if restart else None)
+            if card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            for k, v in launches.items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+            state = res["state"]
+            p_mine, p_whole, p_kept = _share(state["params"],
+                                             tr.layout.params, tmesh)
+            m_mine, m_whole, m_kept = _share(
+                [state["opt"]["m"], state["opt"]["v"]],
+                [tr.layout.moments, tr.layout.moments], tmesh)
+            r = {"mesh": f"{shape[0]}x{shape[1]}", "knobs": env,
+                 "steps": steps, "losses": [e["loss"] for e in res["log"]],
+                 "grad_norms": [e["grad_norm"] for e in res["log"]],
+                 "step_s": [e["sec"] for e in res["log"]], "wall_s": wall,
+                 "launches": launches, "steps_run": len(res["log"]),
+                 "collectives": tmesh.issued,
+                 "peak_device_bytes": torch.cuda.max_memory_allocated()
+                 if card else 0,
+                 "param_bytes": p_mine, "whole_param_bytes": p_whole,
+                 "unsplit_param_bytes": p_kept, "moment_bytes": m_mine,
+                 "whole_moment_bytes": m_whole, "unsplit_moment_bytes": m_kept}
+            whole = leaves(sharding.unshard_tree(state["params"],
+                                                 tr.layout.params, tmesh))
+            del tr, res, state
+            if steps in plain:
+                ploss, pnorm, pparams = plain[steps]
+                r["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in
+                                        zip(r["losses"][-steps:], ploss))
+                r["grad_norm_rel_err"] = max(
+                    abs(a - b) / abs(b)
+                    for a, b in zip(r["grad_norms"][-steps:], pnorm))
+                r["leaf_rel_err"] = max(
+                    float((a - b).abs().max() / b.abs().max().clamp_min(
+                        1e-30)) for a, b in zip(whole, pparams))
+            if first is None:
+                first = (r["losses"], whole)
+            else:
+                r["bitwise_first_run"] = \
+                    r["losses"][-1] == first[0][-1] and all(
+                        torch.equal(a, b) for a, b in zip(whole, first[1]))
+            del whole
+            out["runs"][name] = r
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        if card:
+            torch.cuda.empty_cache()
     return out
 
 
@@ -3161,9 +3360,9 @@ def _gateway_mesh_rank(mesh, device, cfg, qparams, moe_cfg, mparams):
     return out
 
 
-# moe_mesh_2: olmoe-1b-7b at full width and 4 of its 16 layers (3.8 GB of
-# bf16 weights a rank, replicated) on the same 2-rank mesh and workload
-MOE_MESH_LAYERS = 4
+# moe_mesh_2: olmoe-1b-7b at full width and 2 of its 16 layers (bf16
+# weights replicated a rank) on the same 2-rank mesh and workload
+MOE_MESH_LAYERS = 2
 # gateway_mesh_2: 4 streams a model of the mesh workload (qwen: requests 0
 # to 3, olmoe: 4 to 7); qwen's stream 1 closed by its client after 6
 # tokens; olmoe's engine on both ranks crashes at its 7th dispatch
@@ -3178,20 +3377,30 @@ def gateway_mesh_requests(cfg, moe_cfg):
 
 
 def serve_mesh_2_phase(torch, cfg, smi, moe_cfg=None):
-    """serve_mesh_2, moe_mesh_2 and gateway_mesh_2: one group of two ranks
-    on the one card over gloo (NCCL refuses two ranks on one GPU), one fork
-    server, stopped at once after (``_mesh_rank``); ``moe_cfg`` defaults to
-    olmoe-1b-7b.  Returns the launches of serve_mesh_2's and moe_mesh_2's
-    rank 0."""
+    """serve_mesh_2, moe_mesh_2, gateway_mesh_2 and train_mesh_2: one group
+    of two ranks on the one card over gloo (NCCL refuses two ranks on one
+    GPU), one fork server, stopped at once after (``_mesh_rank``);
+    ``moe_cfg`` defaults to olmoe-1b-7b; train_mesh_2 trains ``cfg`` in f32
+    at ``TRAIN_MESH_LAYERS`` layers.  Returns the launches of
+    serve_mesh_2's, moe_mesh_2's and train_mesh_2's rank 0."""
+    import shutil
+    import tempfile
     from repro_torch.configs.base import get_config
     from repro_torch.launch.mesh import spawn_ranks, stop_rank_server
     mcfg = at_depth(cfg, MESH_LAYERS)
     moe_cfg = at_depth(moe_cfg or get_config(MOE_ARCH), MOE_MESH_LAYERS)
+    train_cfg = at_depth(dataclasses.replace(cfg, dtype="float32"),
+                         TRAIN_MESH_LAYERS)
+    workdir = tempfile.mkdtemp(prefix="train_mesh_2_")
     t0 = time.perf_counter()
-    outs = spawn_ranks(_mesh_rank, 2, "gloo", DEV, args=(mcfg, moe_cfg),
-                       timeout_s=900)
-    # no later phase spawns ranks: the fork server goes now
-    stop_rank_server()
+    try:
+        outs = spawn_ranks(_mesh_rank, 2, "gloo", DEV,
+                           args=(mcfg, moe_cfg, train_cfg, workdir),
+                           timeout_s=1000)
+    finally:
+        # no later phase spawns ranks: the fork server goes now
+        stop_rank_server()
+        shutil.rmtree(workdir, ignore_errors=True)
     wall = time.perf_counter() - t0
     parts = [o["part_s"] for o in outs]
     launches = serve_mesh_2_report(
@@ -3200,7 +3409,73 @@ def serve_mesh_2_phase(torch, cfg, smi, moe_cfg=None):
         moe_cfg, [o["moe_mesh_2"] for o in outs], smi, parts)
     gateway_mesh_2_report(mcfg, moe_cfg, [o["gateway_mesh_2"] for o in outs],
                           smi, parts, wall)
-    return launches, moe_launches
+    train_launches = train_mesh_2_report(
+        train_cfg, [o["train_mesh_2"] for o in outs], smi, parts)
+    return launches, moe_launches, train_launches
+
+
+def train_mesh_2_report(cfg, outs, smi, parts):
+    """train_mesh_2: qwen3-0.6b at full width, ``TRAIN_MESH_LAYERS``
+    layers, f32, B 8 x S 512, on the two gloo ranks (both on the one card).
+    Every run (``TRAIN_MESH_RUNS``: 2x1 under fsdp_tp, again under
+    REPRO_WEIGHT_AG=1 and with a failure; 1x2 under fsdp_tp and
+    REPRO_SEQ_PARALLEL=1, K3 at 8 heads over 4 a rank; 2x1 under dp) holds
+    each step's loss and gradient norm within 1e-4 relative and every leaf
+    within 1e-3 of its largest value of one device's Trainer on the same
+    weights (trained by the rank that reports it);
+    REPRO_WEIGHT_AG=1 and the restart are the first run's bits; a rank
+    holds half of the whole state apart from the leaves no axis splits
+    (under dp: the weights whole, the moments ZeRO-1 halves); each rank
+    launches K3 and K2 a step what the train phase does at this depth.
+    Returns rank 0's launches over the runs."""
+    layers = cfg.n_layers
+    want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
+            "rmsnorm": 2 * k2_per_model_call(cfg) - 1,
+            "rmsnorm_bwd": k2_per_model_call(cfg)}
+    runs = {}
+    for name, shape, env, steps in TRAIN_MESH_RUNS:
+        rows = [o["runs"][name] for o in outs]
+        r0 = next(r for r in rows if "loss_rel_err" in r)
+        assert r0["loss_rel_err"] <= TRAIN_MESH_LOSS_TOL, (name, r0)
+        assert r0["grad_norm_rel_err"] <= TRAIN_MESH_LOSS_TOL, (name, r0)
+        assert r0["leaf_rel_err"] <= TRAIN_MESH_LEAF_TOL, (name, r0)
+        if name != TRAIN_MESH_RUNS[0][0] and shape == (2, 1) \
+                and "REPRO_TRAIN_SHARDING" not in env:
+            assert all(r["bitwise_first_run"] for r in rows), name
+        dp = env.get("REPRO_TRAIN_SHARDING") == "dp"
+        for r in rows:
+            half = lambda mine, whole, kept: \
+                mine == kept + (whole - kept) // 2  # noqa: E731
+            assert (r["param_bytes"] == r["whole_param_bytes"]) if dp \
+                else half(r["param_bytes"], r["whole_param_bytes"],
+                          r["unsplit_param_bytes"]), (name, r)
+            assert half(r["moment_bytes"], r["whole_moment_bytes"],
+                        r["unsplit_moment_bytes"]), (name, r)
+            if not name.startswith("restart"):
+                per = {k: v / steps for k, v in r["launches"].items()}
+                assert {k: per[k] for k in want} == want, (name, per)
+                assert all(v == 0 for k, v in per.items()
+                           if k not in want), (name, per)
+        runs[name] = {
+            "mesh": r0["mesh"], "knobs": r0["knobs"], "steps": steps,
+            "losses": r0["losses"], "loss_rel_err": r0["loss_rel_err"],
+            "grad_norms": r0["grad_norms"],
+            "grad_norm_rel_err": r0["grad_norm_rel_err"],
+            "leaf_rel_err": r0["leaf_rel_err"],
+            "bitwise_first_run": r0.get("bitwise_first_run"),
+            "ranks": [{k: r[k] for k in (
+                "step_s", "wall_s", "launches", "collectives",
+                "peak_device_bytes", "param_bytes", "whole_param_bytes",
+                "unsplit_param_bytes", "moment_bytes", "whole_moment_bytes",
+                "unsplit_moment_bytes")} for r in rows]}
+    emit({"phase": "train_mesh_2", "arch": cfg.name, "dtype": cfg.dtype,
+          "layers": layers, "backend": "gloo", "world": 2,
+          "device": "cuda:0 (both ranks)", "nvidia_smi": smi,
+          "batch": 8, "seq_len": 512, "fail_at": TRAIN_MESH_FAIL_AT,
+          "plain_s": {k: v for o in outs for k, v in o.items()
+                      if k.startswith("plain_")},
+          "phase_s": [p["train_mesh_2"] for p in parts], "runs": runs})
+    return outs[0]["launches"]
 
 
 def serve_mesh_2_report(mcfg, outs, smi, parts):
@@ -4299,12 +4574,12 @@ def train_phase(torch, cfg):
     assert all(v == 0 for k, v in launches.items() if k not in want), \
         launches
     secs = [e["sec"] for e in res["log"]]
+    norms = [e["grad_norm"] for e in res["log"]]
     toks = 8 * 512
     emit({"phase": "train", "arch": cfg.name, "dtype": cfg.dtype,
           "layers": layers, "batch": 8, "seq_len": 512,
           "steps": TRAIN_STEPS, "losses": losses,
-          "grad_norms": [e["grad_norm"] for e in res["log"]],
-          "step_s": secs, "wall_s": wall,
+          "grad_norms": norms, "step_s": secs, "wall_s": wall,
           "tokens_per_s_after_step0": toks * (TRAIN_STEPS - 1)
           / sum(secs[1:]),
           "peak_device_bytes": torch.cuda.max_memory_allocated(),
@@ -4317,6 +4592,82 @@ def train_phase(torch, cfg):
           "step_s": [e["sec"] for e in res8["log"]]})
     del res8
     torch.cuda.empty_cache()
+    return launches, (losses, norms), toks * (TRAIN_STEPS - 1) \
+        / sum(secs[1:])
+
+
+TRAIN_MESH_STEPS = 3
+
+
+def train_mesh_phase(torch, cfg, train_log, train_rate):
+    """train_mesh: the train phase's first ``TRAIN_MESH_STEPS`` steps
+    through ``Trainer(mesh=make_train_mesh(1, 1))`` on a 1-rank NCCL group
+    (gloo off the card): full width and depth, bf16, the same seed and
+    optimizer (the train phase's warm-up and cosine), so the mesh step runs
+    with its "world" collectives on NCCL (the one-rank "data" and "model"
+    axes run none) and the losses and gradient norms are the train
+    phase's (``train_log``) bit for bit; K3 and K2 launch as many times a
+    step as there.  Reports the collectives a step by kind and bytes,
+    tokens/s against the train phase's and peak memory."""
+    import tempfile
+    from repro_torch.launch.mesh import make_train_mesh, process_group
+    from repro_torch.launch.train import opt_config
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    backend = "nccl" if DEV == "cuda" else "gloo"
+    steps = TRAIN_MESH_STEPS
+    with tempfile.TemporaryDirectory() as tmp, \
+            process_group(0, 1, backend, os.path.join(tmp, "store"), DEV):
+        mesh = make_train_mesh(1, 1)
+        trainer = Trainer(cfg, TrainerConfig(seq_len=512, global_batch=8,
+                                             steps=steps, log_every=1),
+                          opt_config(TRAIN_LR, TRAIN_STEPS), mesh=mesh,
+                          device=DEV)
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = trainer.train()
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        issued = mesh.issued
+        del trainer
+    losses = _losses(res, steps, falling=False)
+    norms = [e["grad_norm"] for e in res["log"]]
+    train_losses, train_norms = (x[:steps] for x in train_log)
+    secs = [e["sec"] for e in res["log"]]
+    rate = 8 * 512 * (steps - 1) / sum(secs[1:])
+    layers = cfg.n_layers
+    want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
+            "rmsnorm": 2 * k2_per_model_call(cfg) - 1,
+            "rmsnorm_bwd": k2_per_model_call(cfg)}
+    per_step = {k: v / steps for k, v in launches.items()}
+    emit({"phase": "train_mesh", "arch": cfg.name, "dtype": cfg.dtype,
+          "layers": layers, "backend": backend, "mesh": "1x1",
+          "batch": 8, "seq_len": 512, "steps": steps, "losses": losses,
+          "train_losses": train_losses, "grad_norms": norms,
+          "train_grad_norms": train_norms,
+          "bitwise_train": (losses, norms) == (train_losses, train_norms),
+          "step_s": secs, "wall_s": wall,
+          "tokens_per_s_after_step0": rate,
+          "train_tokens_per_s_after_step0": train_rate,
+          "collectives_per_step": {k: {"calls": n / steps,
+                                       "bytes": b / steps,
+                                       "host_s": t / steps}
+                                   for k, (n, b, t) in issued.items()},
+          "peak_device_bytes": torch.cuda.max_memory_allocated()
+          if DEV == "cuda" else 0,
+          "launches_per_step": per_step})
+    assert losses == train_losses, (losses, train_losses)
+    assert norms == train_norms, (norms, train_norms)
+    assert {k: per_step[k] for k in want} == want, per_step
+    assert all(v == 0 for k, v in launches.items() if k not in want), \
+        launches
+    del res
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -5603,10 +5954,12 @@ def main() -> int:
     params = build_model(cfg, DEV).init(0)
     launches, base, base_tokens = serve_phase(torch, cfg, params)
     # multi-device serving: the same workload on a 1-rank NCCL mesh with TP
-    # weights, then two gloo ranks on this card: qwen at 8 layers, olmoe at
-    # 4, and the gateway over both on that mesh
+    # weights, then two gloo ranks on this card: qwen at 4 layers, olmoe at 2,
+    # the gateway over both on that mesh, and qwen trained at 2 layers
+    # on 2x1 and 1x2 training meshes
     mesh_launches = serve_mesh_phase(torch, cfg, params, base_tokens)
-    mesh2_launches, moe_mesh_launches = serve_mesh_2_phase(torch, cfg, smi)
+    mesh2_launches, moe_mesh_launches, train_mesh_launches = \
+        serve_mesh_2_phase(torch, cfg, smi)
     plan_identity(torch, cfg, params)
     lora_launches = lora_serve_phase(torch, cfg, params, base)
     lora_identity_phase(torch, cfg, params)
@@ -5650,7 +6003,9 @@ def main() -> int:
     # 10. training: full-width qwen3-0.6b bf16 through the Trainer (K3
     # forward and backward, K2 through RMSNormFn), int8 moments, a restart,
     # the card's gradients against the CPU's, a profiled window
-    train_launches = train_phase(torch, cfg)
+    train_launches, train_log, train_rate = train_phase(torch, cfg)
+    # the same steps through the mesh path on a 1-rank NCCL group
+    train_mesh_phase(torch, cfg, train_log, train_rate)
     train_remat_phase(torch, cfg)
     train_restart_phase(torch, cfg)
     train_oracle_phase(torch, cfg)
@@ -5667,7 +6022,8 @@ def main() -> int:
                         phase="train_ssm_profile")
     hybrid_train_launches = train_stateful_phase(torch, hy_cfg, "f32")
     train_profile_phase(torch, hy_cfg, steps=2, phase="train_hybrid_profile")
-    train_stateful_oracle_phase(torch, ssm_cfg, 2, "int8")
+    train_stateful_oracle_phase(torch, ssm_cfg, 2, "int8", witness=False,
+                                restart_layers=1)
     train_stateful_oracle_phase(torch, hy_cfg, 2 * hy_cfg.hybrid.attn_every,
                                 "f32", restart_layers=hy_cfg.hybrid.attn_every)
 
@@ -5692,10 +6048,10 @@ def main() -> int:
                                               f32_layers=MOE_F32_LAYERS)
     train_profile_phase(torch, moe_cfg, steps=1, opt_state="int8",
                         phase="train_moe_profile")
-    # the restart in 6 steps, failing at 5: two checkpoints (steps 4 and
-    # 6) of 6.3 GB each, not three
+    # the restart at 1 layer in 6 steps, failing at 5: two checkpoints
+    # (steps 4 and 6), not three
     train_stateful_oracle_phase(torch, moe_cfg, 2, "int8", witness=False,
-                                restart=(6, 5))
+                                restart=(6, 5), restart_layers=1)
 
     # 13. the encoder-decoder and the VLM stub frontend at full width, bf16,
     # through the prefill and decode step builders (the paged engine
@@ -5720,6 +6076,8 @@ def main() -> int:
     # (the row's ``path``): the qwen3-0.6b serve workload (K1 at head_dim
     # 128, K2 at 1,024 and 128), its rank-0 run on the 2-rank serve mesh (K1
     # at 8 over 4 heads), olmoe's rank-0 run on that mesh (K1 at 8 over 8),
+    # rank 0's training runs on that group (K3 at 8 over 4 heads, K2 at a
+    # rank's rows),
     # the compile phase (K4), the multi-LoRA
     # workload (the fused delta, whose launches run K5's and K6's device
     # code: their rows count its launches, ``launches_of``), the ssm
@@ -5739,6 +6097,7 @@ def main() -> int:
                      "serve_mesh": mesh_launches,
                      "serve_mesh_2": mesh2_launches,
                      "moe_mesh_2": moe_mesh_launches,
+                     "train_mesh_2": train_mesh_launches,
                      "lora_serve": lora_launches, "ssm_serve": ssm_launches,
                      "hybrid_serve": hybrid_launches,
                      "train": train_launches,

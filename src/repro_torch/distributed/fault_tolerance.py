@@ -6,9 +6,12 @@
 * ``StragglerDetector`` — flags steps slower than ``threshold x`` the
   running median of the last ``window`` steps.
 
-The reference's ``elastic_remesh`` (rebuild a smaller mesh after losing
-hosts) is not ported: it waits for multi-device training (ROADMAP
-A10b).  Batches are keyed by (seed, step), so a restored run replays exactly.
+* ``elastic_remesh`` — the smaller training mesh after losing hosts: the
+  data axis shrinks and the model axis stays (the weights' tensor-parallel
+  shards must survive).  The caller re-spawns that many ranks and restores
+  the latest checkpoint (whole leaves, so any mesh restores it): the
+  reference's drain-and-resume path.  Batches are keyed by (seed, step), so
+  a restored run replays exactly.
 """
 from __future__ import annotations
 
@@ -42,6 +45,33 @@ class StragglerDetector:
                 self.events.append(StragglerEvent(step, duration, med))
                 return True
         return False
+
+
+def elastic_remesh(mesh, lost_hosts: int = 1,
+                   available: Optional[int] = None):
+    """The largest mesh left after losing ``lost_hosts`` along the data
+    axis, as a ``launch.mesh.MeshShape`` (the model axis kept).  As the
+    reference goes down one data size at a time while too few devices
+    remain, this shrinks the data axis until its device count fits in
+    ``available`` (the ranks still alive; by default the old count less
+    ``lost_hosts`` data rows), and raises at 0."""
+    from repro_torch.launch.mesh import MeshShape
+    shape = dict(mesh.shape)
+    axes = tuple(shape)
+    data_ax = "data" if "data" in shape else axes[0]
+    row = 1
+    for a in axes:
+        if a != data_ax:
+            row *= shape[a]
+    if available is None:
+        available = (shape[data_ax] - lost_hosts) * row
+    new_data = shape[data_ax] - lost_hosts
+    while new_data > 0:
+        if new_data * row <= available:
+            return MeshShape({a: new_data if a == data_ax else shape[a]
+                              for a in axes})
+        new_data -= 1
+    raise RuntimeError("no viable mesh after failures")
 
 
 class FaultTolerantLoop:

@@ -32,6 +32,16 @@ argument: two engines, one sharded and one not, may share a process):
     bitwise.  The vocab-sharded embedding is a masked local lookup plus an
     ``all_reduce``, and the tied logits are all-gathered over vocab: both
     exact (they add zeros or concatenate).
+
+A training step on a mesh hands the same use sites its ``TrainShard``
+(``repro_torch.distributed.sharding``) and ``TrainWeight`` shards, and
+they compute in the reference's GSPMD layout on "model", differentiably:
+column-parallel in-projections behind *f* (identity forward, an
+``all_reduce`` of the input's cotangent), row-parallel out-projections
+with *g* (one ``all_reduce`` forward, identity backward), the vocab-sharded
+lookup as in reduce-scatter mode behind *g*, and the vocab-sharded logits
+all-gathered before the cross-entropy (exact).  Serve behaviour is as
+above.
 """
 from __future__ import annotations
 
@@ -42,7 +52,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core.hardware import H100, Hardware
-from repro_torch.distributed.sharding import _tree_map, local_shard
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.sharding import (TrainShard, _tree_map,
+                                              local_shard, resolve)
 from repro_torch.train.tree import leaves
 
 
@@ -307,7 +319,10 @@ def tp_linear(x: torch.Tensor, w, shard: Optional[ServeShard] = None,
     column-parallel weight (its output dim sharded) gives the local slice
     of ``y`` with no collective; a row-parallel one (its input dim
     sharded) multiplies the local slice of ``x`` and sums the partials
-    over the ranks (one ``all_reduce``)."""
+    over the ranks (one ``all_reduce``).  A training shard computes in the
+    stored layout, differentiably (``_train_linear``)."""
+    if isinstance(shard, TrainShard):
+        return _train_linear(x, w, shard, x_local, transpose)
     if shard is None:
         return (x @ w.T if transpose else x @ w), False
     w = tp_use(w, shard)
@@ -326,11 +341,44 @@ def tp_linear(x: torch.Tensor, w, shard: Optional[ServeShard] = None,
     return shard.mesh.reduce(x @ local), False
 
 
+def _train_linear(x, w, shard: TrainShard, x_local: bool,
+                  transpose: bool) -> Tuple[torch.Tensor, bool]:
+    """``tp_linear`` on a training mesh.  A weight kept sharded on "model"
+    in a tensor-parallel region (``shard.tp``) is column-parallel when its
+    output dim is the sharded one: ``x`` enters through *f* (or, a rank's
+    slice, is gathered with its cotangent summed) and ``y`` is the rank's
+    slice; row-parallel otherwise: ``x`` is the rank's slice (cut from a
+    replicated ``x`` by ``Split``) and the partial sums meet in *g*.  Any
+    other weight is gathered whole (``sharding.resolve``) and multiplies a
+    whole ``x``."""
+    mesh = shard.mesh
+    t, j = resolve(w, shard, split=shard.model_split, keep_model=shard.tp)
+    if j is None:
+        if x_local:
+            x = col.gather(x, mesh, "model", -1, False)
+        return (x @ t.T if transpose else x @ t), False
+    out_dim = (1 - j) if transpose else j
+    local = t.T if transpose else t
+    if out_dim == 1:                                  # column-parallel
+        x = col.gather(x, mesh, "model", -1, True) if x_local \
+            else col.copy_to(x, mesh, "model")
+        return x @ local, True
+    if not x_local:                                   # row-parallel
+        x = col.split(x, mesh, "model", -1)
+    return col.reduce_from(x @ local, mesh, "model"), False
+
+
 def tp_whole(y: torch.Tensor, local: bool,
              shard: Optional[ServeShard] = None) -> torch.Tensor:
     """``y`` whole on its last dim: all-gathered over the ranks when it
-    holds only this rank's slice (``local``, as :func:`tp_linear` says)."""
-    return shard.mesh.gather(y, -1) if local else y
+    holds only this rank's slice (``local``, as :func:`tp_linear` says); on
+    a training mesh the gather keeps the rank's part of the cotangent (what
+    follows is replicated over "model")."""
+    if not local:
+        return y
+    if isinstance(shard, TrainShard):
+        return col.gather(y, shard.mesh, "model", -1, False)
+    return shard.mesh.gather(y, -1)
 
 
 def tp_embed(table, tokens: torch.Tensor,
@@ -338,7 +386,10 @@ def tp_embed(table, tokens: torch.Tensor,
     """Rows ``tokens`` of the embedding ``table``.  A vocab-sharded table
     in reduce-scatter mode looks up the rows this rank holds, zeros the
     rest and sums over the ranks (exact: each row has one nonzero
-    source); a table sharded on d gathers its columns."""
+    source); a table sharded on d gathers its columns.  On a training
+    mesh the vocab-sharded lookup is the same masked one behind *g*."""
+    if isinstance(shard, TrainShard):
+        return _train_embed(table, tokens, shard)
     table = tp_use(table, shard)
     if not isinstance(table, TPWeight):
         return table[tokens.long()]
@@ -351,3 +402,24 @@ def tp_embed(table, tokens: torch.Tensor,
         out = torch.where(mine[..., None], out, torch.zeros_like(out))
         return shard.mesh.reduce(out)
     return shard.mesh.gather(table.local[ids], -1)
+
+
+def _train_embed(table, tokens: torch.Tensor, shard: TrainShard
+                 ) -> torch.Tensor:
+    """``tp_embed`` on a training mesh: a table kept sharded on vocab
+    looks up the rows this rank holds, zeros the rest and sums over
+    "model" (*g*: exact, each row has one nonzero source); sharded on d,
+    its columns are gathered (the rank's part of the cotangent kept)."""
+    mesh = shard.mesh
+    t, j = resolve(table, shard, split=shard.model_split, keep_model=shard.tp)
+    ids = tokens.long()
+    if j is None:
+        return t[ids]
+    if j == 1:
+        return col.gather(t[ids], mesh, "model", -1, False)
+    rows = t.shape[0]
+    lo = mesh.coords["model"] * rows
+    mine = (ids >= lo) & (ids < lo + rows)
+    out = t[(ids - lo).clamp(0, rows - 1)]
+    out = torch.where(mine[..., None], out, torch.zeros_like(out))
+    return col.reduce_from(out, mesh, "model")

@@ -22,28 +22,281 @@ Conventions:
   * Any entry is dropped (-> None) if the dim size is not divisible by the
     mesh axis size (e.g. whisper's vocab 51865).
 
-``local_shard`` gives one rank's slice of a tensor under a spec.  What
-applies the specs to a training step (``constrain``, ``weight_use``'s
-``REPRO_WEIGHT_AG`` branch) waits for ROADMAP A10b; ``weight_use``'s serve
-branch defers to ``param_sharding.tp_use``.
+``local_shard`` gives one rank's slice of a tensor under a spec.  A training
+step on a mesh (``repro_torch.launch.mesh.TrainMesh``) applies the specs:
+``Trainer(mesh=)`` keeps each rank's shards (``train_layout``,
+``shard_tree``), and the model functions take a ``TrainShard`` through
+which every weight use (``weight_use``, ``resolve``) gathers what the
+compute needs, and ``constrain`` moves activations between the layouts the
+logical names give (``LOGICAL_AXES``), through the differentiable
+collectives of ``repro_torch.distributed.collectives``.  ``weight_use``'s
+serve branch defers to ``param_sharding.tp_use``.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import collectives as col
 from repro_torch.perf import perf
 
-def weight_use(w, *logical, shard=None):
-    """A weight at its use site.  On the serve path with weight tensor
-    parallelism (``shard`` of a ``ServeEngine(tp=True)``) this is
-    ``param_sharding.tp_use``: the all-gathered weight, or the stored
-    shard under REPRO_TP_REDUCE_SCATTER=1.  The training branch
-    (``REPRO_WEIGHT_AG``) waits for ROADMAP A10b."""
+# Logical activation axes -> mesh axes (the reference's table): the model
+# names what a dim holds and the mesh decides where it lives.
+LOGICAL_AXES = {
+    "batch": ("pod", "data"),
+    "fsdp": ("pod", "data"),
+    "heads": ("model",),
+    "kv": ("model",),
+    "ff": ("model",),
+    "vocab": ("model",),
+    "dinner": ("model",),
+    "experts": ("model",),
+    "seq_mp": ("model",),          # sequence-parallel over the model axis
+    "seq_dp": ("pod", "data"),     # sequence-parallel over the data axes
+    None: (),
+}
+
+
+# ---------------------------------------------------------------------------
+# A training step on a mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TrainWeight:
+    """One rank's shard of a weight on a training mesh under fsdp_tp:
+    ``local`` is the slice that ``spec`` gives (entries None, "data" or
+    "model") of the full ``shape``.  Use sites read it through
+    ``weight_use`` / ``resolve`` (or ``param_sharding.tp_linear`` /
+    ``tp_embed``), never as a tensor."""
+    local: torch.Tensor
+    spec: tuple
+    shape: Tuple[int, ...]
+    # its "data" entries already gathered (a layer's bucket)
+    data_done: bool = False
+
+    @property
+    def dtype(self):
+        return self.local.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainShard:
+    """What a training step on a mesh hands the model functions (an
+    explicit argument, as the serve engine's ``ServeShard``).
+
+    ``mode`` is REPRO_TRAIN_SHARDING.  ``batch_split``: the ranks of the
+    batch axes hold different rows (a global batch that does not divide is
+    replicated, and then nothing is summed over its copies).  ``tp``: the
+    region computes tensor-parallel over "model" (column and row products,
+    a rank's heads and experts); ``model_split``: the region's model ranks
+    compute on different rows (sequence parallelism), so a weight gathered
+    or replicated over "model" sums its gradient there.  ``seq_parallel``
+    (REPRO_SEQ_PARALLEL) and ``per_use`` (REPRO_WEIGHT_AG) as the knobs
+    say."""
+    mesh: Any
+    mode: str = "fsdp_tp"
+    batch_split: bool = True
+    tp: bool = True
+    model_split: bool = False
+    seq_parallel: bool = False
+    per_use: bool = False
+
+    @property
+    def batch_axis(self) -> str:
+        """The axis the batch is split over: "data", or every rank (dp)."""
+        return "world" if self.mode == "dp" else "data"
+
+    def seq_region(self) -> "TrainShard":
+        """The sequence-parallel MLP's region: no tensor parallelism, the
+        model ranks on different sequence slices."""
+        return dataclasses.replace(self, tp=False, model_split=True)
+
+
+def train_shard(mesh, seq_len: int, batch_split: bool) -> TrainShard:
+    """The step's ``TrainShard`` under the knobs: sequence parallelism only
+    under fsdp_tp, with more than one model rank and a sequence that
+    divides over them."""
+    p = perf()
+    n_model = mesh.shape["model"]
+    sp = p.seq_parallel and p.train_sharding == "fsdp_tp" and n_model > 1 \
+        and seq_len % n_model == 0
+    return TrainShard(mesh=mesh, mode=p.train_sharding,
+                      batch_split=batch_split,
+                      tp=p.train_sharding == "fsdp_tp", seq_parallel=sp,
+                      per_use=p.weight_ag)
+
+
+def _data_gathered(ws, shard: TrainShard):
+    """``TrainWeight``s with their "data" entries gathered in one bucket
+    (``collectives.GatherBucket``; the gradient summed over the data ranks
+    when their batches differ), a weight replicated over "data" passed
+    through with its gradient summed there."""
+    dims = [w.spec.index("data") if "data" in w.spec else None for w in ws]
+    outs = col.gather_bucket([w.local for w in ws], dims, shard.mesh,
+                             shard.batch_split)
+    return [TrainWeight(t, tuple(None if e == "data" else e for e in w.spec),
+                        w.shape, data_done=True) for w, t in zip(ws, outs)]
+
+
+def gather_layer(tree, shard: Optional[TrainShard]):
+    """A layer's (or the embedding's) weights with their "data" entries
+    gathered in one bucket: the REPRO_WEIGHT_AG=0 path, and the
+    embedding's once a step either way.  Anything but a ``TrainWeight``
+    tree under fsdp_tp comes back as it is."""
+    if shard is None or shard.mode != "fsdp_tp":
+        return tree
+    from repro_torch.train.tree import leaves
+    ws = [w for w in leaves(tree) if isinstance(w, TrainWeight)
+          and not w.data_done]
+    if not ws:
+        return tree
+    done = dict(zip(map(id, ws), _data_gathered(ws, shard)))
+    return _tree_map(lambda path, x: done.get(id(x), x), tree)
+
+
+def resolve(w, shard: Optional[TrainShard], split: bool = False,
+            keep_model: bool = False):
+    """A weight at its use on a training mesh: (tensor, the dim that holds
+    only this rank's "model" slice, or None).  Its "data" entry is gathered
+    (``_data_gathered``); a "model" entry is kept when ``keep_model`` (the
+    use is tensor-parallel on it), else gathered, the gradient summed over
+    the model ranks when ``split`` (their compute differs) and kept whole
+    when not.  A weight replicated over "model" used where the model ranks
+    compute on different rows (``split``: a rank's heads, a sequence
+    slice) goes through *f*.  A plain tensor comes back as it is."""
+    if not isinstance(w, TrainWeight):
+        return w, None
+    if not w.data_done:
+        w = _data_gathered([w], shard)[0]
+    mesh = shard.mesh
+    if "model" in w.spec:
+        j = w.spec.index("model")
+        if keep_model:
+            return w.local, j
+        return col.gather(w.local, mesh, "model", j, split), None
+    if split:
+        return col.copy_to(w.local, mesh, "model"), None
+    return w.local, None
+
+
+def weight_use(w, *logical, shard=None, split: bool = False):
+    """A weight at its use site (``logical``: the reference's names of its
+    dims).  On a training mesh (a ``TrainWeight``, ``shard`` the step's
+    ``TrainShard``) it is ``resolve``d whole: gathered over "data" (each use
+    under REPRO_WEIGHT_AG=1, a layer's bucket otherwise) and over "model";
+    ``split`` says the model ranks compute on different rows here.  The
+    tensor-parallel products keep their "model" slice through
+    ``param_sharding.tp_linear`` / ``tp_embed`` and the MoE experts.  On
+    the serve path with weight tensor parallelism (``shard`` of a
+    ``ServeEngine(tp=True)``) this is ``param_sharding.tp_use``: the
+    all-gathered weight, or the stored shard under
+    REPRO_TP_REDUCE_SCATTER=1."""
+    if isinstance(w, TrainWeight):
+        return resolve(w, shard, split)[0]
     from repro_torch.distributed import param_sharding
     return param_sharding.tp_use(w, shard)
 
+
+def constrain(x: torch.Tensor, *logical, shard=None, have=None
+              ) -> torch.Tensor:
+    """``x`` in the layout the logical names give (the reference's
+    ``with_sharding_constraint`` through ``LOGICAL_AXES``).  The port
+    tracks no layout on a tensor, so ``have`` names ``x``'s present one
+    (default: the wanted one, a no-op).  On a training shard each dim moves
+    between them: where an axis becomes sharded, the rank's part
+    (``collectives.Split``); where it stops, an ``all_gather`` whose
+    backward keeps the rank's part (the computation after it is
+    replicated).  A no-op without a training shard, where the names and
+    ``x`` differ in rank, on an axis of one rank, or where a dim does not
+    divide; under "dp" only the batch names mean anything (the batch over
+    every axis), as in the reference."""
+    if not isinstance(shard, TrainShard) or len(logical) != x.dim():
+        return x
+    have = logical if have is None else have
+    mesh = shard.mesh
+    for dim, (want_name, have_name) in enumerate(zip(logical, have)):
+        want = _axes(want_name, shard, mesh, x.shape[dim])
+        has = _axes(have_name, shard, mesh, x.shape[dim])
+        for axis in ("data", "model"):
+            if axis in want and axis not in has:
+                x = col.split(x, mesh, axis, dim)
+            elif axis in has and axis not in want:
+                x = col.gather(x, mesh, axis, dim, False)
+    return x
+
+
+def _axes(name, shard: TrainShard, mesh, size: int) -> tuple:
+    """The mesh axes (of more than one rank) that logical ``name`` maps
+    to, or () where the dim of ``size`` does not divide over them."""
+    table = LOGICAL_AXES.get(name, ())
+    if shard.mode == "dp":
+        if name in ("batch", "fsdp"):
+            table = tuple(mesh.shape.keys())
+        elif name not in (None, "seq_dp"):
+            table = ()
+    axes = tuple(a for a in table if mesh.shape.get(a, 1) > 1)
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    return axes if axes and size % n == 0 else ()
+
+
+# ---------------------------------------------------------------------------
+# A train state's layout on a mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TrainLayout:
+    """Where a train state lives on a training mesh: the spec tree of the
+    weights (``param_specs``) and of each AdamW moment (``opt_state_specs``:
+    the weight's, or ZeRO-1 slices under "dp"), over ``mesh``."""
+    mesh: Any
+    params: Any
+    moments: Any
+
+
+def train_layout(cfg, params, mesh) -> TrainLayout:
+    """The layout of ``params`` (full-shaped leaves, or anything with
+    ``.shape``) and of f32 moments shaped like them, under
+    REPRO_TRAIN_SHARDING."""
+    pspecs = param_specs(cfg, params, mesh)
+    mspecs = opt_state_specs(pspecs, {"m": params, "v": params}, mesh)["m"]
+    return TrainLayout(mesh, pspecs, mspecs)
+
+
+def shard_tree(tree, specs, mesh, device=None):
+    """Each leaf's slice on this rank (``local_shard`` at ``mesh.coords``),
+    on ``device`` (default: the leaf's)."""
+    coords = mesh.coords
+
+    def one(spec, x):
+        t = local_shard(x, spec, mesh, coords)
+        return t if device is None else t.to(device)
+    return _tree_map2(one, specs, tree)
+
+
+def unshard_tree(tree, specs, mesh, to_host: bool = False):
+    """The whole leaves of a tree of this rank's slices, on every rank
+    (``all_gather`` over each sharded dim's axes; several axes, as a ZeRO
+    moment's, over every rank in row-major order), each moved to the host
+    as soon as it is whole when ``to_host``."""
+    def one(spec, x):
+        for d, e in enumerate(spec):
+            if e is None:
+                continue
+            names = e if isinstance(e, tuple) else (e,)
+            axis = names[0] if len(names) == 1 else "world"
+            x = mesh.gather(x, d, axis)
+        return x.cpu() if to_host else x
+    return _tree_map2(one, specs, tree)
+
+
+def full_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """The whole shape of a slice of ``shape`` under ``spec``."""
+    return tuple(n if e is None else n * mesh_axis_size(mesh, e)
+                 for n, e in zip(shape, tuple(spec) + (None,) * len(shape)))
 
 def _tree_map(fn, tree, path=()):
     """``fn(path, leaf)`` over nested dicts and lists/tuples (path entries

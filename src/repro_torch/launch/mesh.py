@@ -6,7 +6,9 @@ runs one process per device (SPMD): every rank holds its own shard and
 drives the same engine, and the ranks meet only in collectives.  A mesh is
 then a process group plus its axis sizes; ``shape`` is a dict of axis
 sizes, as the reference's ``Mesh.shape`` is, so the spec functions of
-``repro_torch.distributed.sharding`` take either.
+``repro_torch.distributed.sharding`` take either.  A serve mesh
+(``ServeMesh``) is one "model" axis; a training mesh (``TrainMesh``) is
+``data x model`` with a process group for each data column and model row.
 
 ``spawn_ranks`` starts N ranks (the CPU tests' ``gloo`` ranks, the serve
 launcher's ranks on one or several cards) and replaces the reference's
@@ -138,6 +140,150 @@ def make_serve_mesh(n_model: Optional[int] = None) -> ServeMesh:
                      control=_control_group())
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainMesh:
+    """A training mesh: this rank of an initialized group of ``data *
+    model`` ranks laid out row-major as ``jax.make_mesh((D, M), ("data",
+    "model"))`` lays its devices out, so the rank's coordinates are
+    ``divmod(rank, M)``.  ``groups`` holds the process group of the rank's
+    data column ("data": the ranks that share its model coordinate), of its
+    model row ("model") and of every rank ("world"; None is the default
+    group).
+
+    The collectives are list-form ``all_gather`` and ``all_reduce``, which
+    gloo serves for CUDA tensors; a reduce-scatter is an ``all_reduce`` and
+    a slice (``reduce`` then ``part``).  A "data" or "model" axis of one
+    rank moves nothing, so ``gather`` and ``reduce`` over it start no
+    collective and return a copy (the values a one-rank collective gives);
+    the "world" group's collectives run whatever its size, so a one-rank
+    mesh still drives the backend.  ``issued`` counts the collectives
+    by kind, with the bytes this rank sent and the host seconds spent in the
+    calls (gloo's calls return when done; NCCL's when enqueued)."""
+    rank: int
+    world: int
+    shape: Dict[str, int]
+    groups: Dict[str, object]
+    device: torch.device
+    _issued: dict = dataclasses.field(
+        default_factory=lambda: {"all_gather": [0, 0, 0.0],
+                                 "all_reduce": [0, 0, 0.0]},
+        compare=False, repr=False)
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        d, m = divmod(self.rank, self.shape["model"])
+        return {"data": d, "model": m}
+
+    @property
+    def issued(self) -> Dict[str, list]:
+        """{kind: [collectives entered, bytes this rank sent, seconds]}."""
+        return {k: list(v) for k, v in self._issued.items()}
+
+    def reset_issued(self) -> None:
+        for v in self._issued.values():
+            v[:] = [0, 0, 0.0]
+
+    def size(self, axis: str) -> int:
+        return self.world if axis == "world" else self.shape[axis]
+
+    def index(self, axis: str) -> int:
+        return self.rank if axis == "world" else self.coords[axis]
+
+    def _count(self, kind: str, x: torch.Tensor, t0: float) -> None:
+        v = self._issued[kind]
+        v[0] += 1
+        v[1] += x.numel() * x.element_size()
+        v[2] += time.perf_counter() - t0
+
+    def _alone(self, axis: str) -> bool:
+        return axis != "world" and self.shape[axis] == 1
+
+    def gather(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        """Every ``axis`` rank's ``x`` concatenated along ``dim`` in
+        coordinate order."""
+        if self._alone(axis):
+            return x.clone(memory_format=torch.contiguous_format)
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size(axis))]
+        t0 = time.perf_counter()
+        dist.all_gather(parts, x, group=self.groups[axis])
+        self._count("all_gather", x, t0)
+        return torch.cat(parts, dim=dim)
+
+    def reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of every ``axis`` rank's ``x``, added in f32 and returned
+        in ``x``'s dtype (a bf16 partial is not rounded twice).  Always in a
+        buffer of its own: ``x`` may be an output that a selective
+        rematerialisation keeps, which an in-place sum would corrupt."""
+        if self._alone(axis):
+            return x.clone(memory_format=torch.contiguous_format)
+        y = x.to(torch.float32, memory_format=torch.contiguous_format,
+                 copy=True)
+        t0 = time.perf_counter()
+        dist.all_reduce(y, group=self.groups[axis])
+        self._count("all_reduce", y, t0)
+        return y.to(x.dtype)
+
+    def part(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        """This rank's contiguous 1/n of ``x`` along ``dim`` (n the size of
+        ``axis``): the inverse of ``gather``."""
+        n = self.size(axis)
+        k = x.shape[dim] // n
+        return x.narrow(dim, self.index(axis) * k, k).contiguous()
+
+    def barrier(self) -> None:
+        """Every rank has reached this point (an ``all_reduce`` of one value
+        on the world group)."""
+        self.reduce(torch.zeros((), device=self.device), "world")
+
+
+# the subgroups of the initialized process group, by their ranks (made
+# once, by every rank in the same order; dropped when ``process_group``
+# leaves the group)
+_GROUPS: Dict[tuple, object] = {}
+
+
+def _group(ranks: List[int]):
+    if len(ranks) == dist.get_world_size():
+        return None
+    key = tuple(ranks)
+    if key not in _GROUPS:
+        _GROUPS[key] = dist.new_group(ranks=list(ranks))
+    return _GROUPS[key]
+
+
+def make_train_mesh(data: int, model: int) -> TrainMesh:
+    """This rank's ``TrainMesh`` of ``data x model`` over the initialized
+    process group, which must hold exactly ``data * model`` ranks.  Every
+    rank creates every data column's and model row's group in the same
+    order, as ``dist.new_group`` requires; a later mesh of other axis sizes
+    over the same group reuses them where they coincide.  Raises without an
+    initialized group of that size."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"a {data}x{model} training mesh needs an initialized "
+            "torch.distributed process group (spawn_ranks, or "
+            "init_process_group with its world size and rank)")
+    world = dist.get_world_size()
+    if data < 1 or model < 1 or data * model != world:
+        raise ValueError(f"a {data}x{model} training mesh wants "
+                         f"{data * model} ranks, the process group holds "
+                         f"{world}")
+    columns = [_group([d * model + m for d in range(data)])
+               for m in range(model)]
+    rows = [_group([d * model + m for m in range(model)])
+            for d in range(data)]
+    rank = dist.get_rank()
+    d, m = divmod(rank, model)
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend() == "nccl" else torch.device("cpu")
+    return TrainMesh(rank=rank, world=world,
+                     shape={"data": data, "model": model},
+                     groups={"data": columns[m], "model": rows[d],
+                             "world": None},
+                     device=device)
+
+
 def make_local_mesh() -> MeshShape:
     """Degenerate ``{"data": n, "model": 1}`` over the initialized group's
     ranks (one without a group)."""
@@ -196,6 +342,7 @@ def process_group(rank: int, world: int, backend: str, store_path: str,
         yield dev
     finally:
         _CONTROL.clear()
+        _GROUPS.clear()
         dist.destroy_process_group()
 
 
@@ -261,7 +408,8 @@ def spawn_ranks(fn: Callable, world: int, backend: str = "gloo",
     # forks from it, where a spawned rank spent seconds importing torch
     ctx.set_forkserver_preload(["torch", "repro_torch.launch.mesh",
                                 "repro_torch.serve.engine",
-                                "repro_torch.models"])
+                                "repro_torch.models",
+                                "repro_torch.train.trainer"])
     global _stop_at_exit
     if not _stop_at_exit:
         atexit.register(stop_rank_server)

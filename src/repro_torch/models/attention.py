@@ -18,6 +18,13 @@ all-gathered on the heads axis before ``wo``, or stay local for a
 row-parallel ``wo`` under REPRO_TP_REDUCE_SCATTER=1 (one all_reduce on its
 partial sums instead).  No floating-point sum spans ranks in the
 attention, so identity mode is the single device's bit for bit.
+
+A training step on a mesh (``attention_block``'s ``shard``, a
+``TrainShard``) computes in the reference's GSPMD layout on "model": q/k/v
+column-parallel on the rank's H/n and KV/n heads (its kv heads' groups,
+so GQA stays on the rank), the q/k norms' weights behind *f* (each rank
+normalises other heads), the flash-attention kernel on the rank's heads
+and ``wo`` row-parallel with one ``all_reduce``.
 """
 from __future__ import annotations
 
@@ -27,7 +34,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.param_sharding import tp_linear, tp_whole
+from repro_torch.distributed.param_sharding import (ServeShard, tp_linear,
+                                                    tp_whole)
+from repro_torch.distributed.sharding import TrainShard, weight_use
 from repro_torch.models import lora as lora_mod
 from repro_torch.models.layers import (apply_rope, default_mrope_sections,
                                       rms_norm_pair, truncated_normal)
@@ -290,7 +299,8 @@ def qkv_project(cfg: ModelConfig, p, x: torch.Tensor,
     ``shard`` (a sharded serve engine's) gives this rank's H/n and KV/n
     heads: computed on them where the weights are column-parallel in
     reduce-scatter mode, else computed whole and cut, so they are the
-    single device's heads bit for bit."""
+    single device's heads bit for bit.  A training step's ``TrainShard``
+    gives the rank's heads from column-parallel weights."""
     hd = cfg.resolved_head_dim
     heads, local = [], []
     for proj in ("q", "k", "v"):
@@ -300,13 +310,20 @@ def qkv_project(cfg: ModelConfig, p, x: torch.Tensor,
         local.append(loc)
     q, k, v = heads
     if cfg.qk_norm:
-        q, k = rms_norm_pair(q, p["q_norm"], k, p["k_norm"], cfg.norm_eps)
+        wqn, wkn = p["q_norm"], p["k_norm"]
+        if isinstance(shard, TrainShard):
+            # on a training mesh each rank normalises its own heads: the
+            # weights' gradients are partial over "model"
+            split = local[0] or shard.model_split
+            wqn, wkn = (weight_use(w, None, shard=shard, split=split)
+                        for w in (wqn, wkn))
+        q, k = rms_norm_pair(q, wqn, k, wkn, cfg.norm_eps)
     if cfg.rope != "none":
         sections = default_mrope_sections(hd) if cfg.rope == "mrope" \
             else None
         q = apply_rope(q, positions, cfg.rope_theta, sections)
         k = apply_rope(k, positions, cfg.rope_theta, sections)
-    if shard is not None:
+    if isinstance(shard, ServeShard):
         q, k, v = (t if loc else t[:, :, shard.part(t.shape[2])]
                    .contiguous() for t, loc in zip((q, k, v), local))
     return q, k, v
@@ -314,15 +331,18 @@ def qkv_project(cfg: ModelConfig, p, x: torch.Tensor,
 
 def attention_block(cfg: ModelConfig, p, x: torch.Tensor,
                     positions: torch.Tensor, causal: bool = True,
-                    impl: Optional[str] = None) -> torch.Tensor:
+                    impl: Optional[str] = None, shard=None) -> torch.Tensor:
     """Full-sequence attention with its projections and no cache: x (B,S,d)
     at positions (B,S) -> (B,S,d).  The hybrid's shared block over a whole
     sequence (the JAX package's ``hybrid._segment_fwd``) and each layer of
-    ``transformer.lm_loss`` (with ``impl="kernel"``)."""
-    q, k, v = qkv_project(cfg, p, x, positions)
+    ``transformer.lm_loss`` (with ``impl="kernel"``; ``shard`` a training
+    step's on a mesh: the rank's heads)."""
+    q, k, v = qkv_project(cfg, p, x, positions, shard=shard)
     o = multi_head_attention(q, k, v, causal=causal, impl=impl)
     b, s = x.shape[:2]
-    return o.reshape(b, s, cfg.q_dim) @ p["wo"]
+    out, local = tp_linear(o.reshape(b, s, -1), p["wo"], shard,
+                           x_local=q.shape[2] < cfg.n_heads)
+    return tp_whole(out, local, shard)
 
 
 def attention_decode_block(cfg: ModelConfig, p, x: torch.Tensor,

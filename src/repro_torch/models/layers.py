@@ -7,8 +7,9 @@ Initializers draw from an explicit ``torch.Generator``.  ``apply_mlp``
 takes an optional per-layer LoRA descriptor (``repro_torch.models.lora``).
 Every weight use goes through ``tp_linear`` / ``tp_embed``
 (``repro_torch.distributed.param_sharding``), which take the sharded serve
-engine's ``shard`` (its ``ServeShard``); without one they are the plain
-``x @ w`` and ``table[ids]``.
+engine's ``shard`` (its ``ServeShard``) or a training step's on a mesh (a
+``TrainShard``); without one they are the plain ``x @ w`` and
+``table[ids]``.
 """
 from __future__ import annotations
 
@@ -124,7 +125,10 @@ def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor,
     engine's, never with ``lora``) runs it over tensor-parallel weights:
     the in-projections' outputs stay this rank's ff slice where their
     weights are column-parallel, and the down projection's row-parallel
-    partial sums meet in one all_reduce (``tp_linear``)."""
+    partial sums meet in one all_reduce (``tp_linear``).  A training
+    step's shard computes the same layout differentiably; in its
+    sequence-parallel region (``TrainShard.seq_region``) the weights are
+    gathered whole and the hidden stays the rank's sequence slice."""
     if cfg.act == "swiglu":
         # one rule (mlp_in) lays out both, so both are local or neither
         g, local = tp_linear(x, p["wi_gate"], shard)

@@ -18,7 +18,11 @@ from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 @dataclasses.dataclass(frozen=True)
 class ModelFns:
     init: Callable              # (seed) -> params on the bundle's device
-    loss: Callable              # (params, batch, remat=) -> scalar loss
+    # (params, batch, remat=) -> scalar loss; the dense, moe and vlm
+    # families' also take a training step's ``shard=`` on a mesh (the
+    # rank's batch rows as ``sharding.batch_specs`` splits them: the VLM's
+    # positions on dim 1)
+    loss: Callable
     prefill: Callable           # (params, batch) -> (cache, logits)
     decode_step: Callable       # (params, cache, batch) -> (cache, logits)
     make_cache: Callable        # (batch_size, max_len) -> cache

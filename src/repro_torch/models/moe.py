@@ -30,7 +30,17 @@ indexing the gathered stack), so the arithmetic is one device's; in
 reduce-scatter mode each rank computes its ``d_ff_expert`` slice and the
 down projection's partial sums meet in one ``ServeMesh.reduce``, where
 ``tp_linear`` puts it for a dense MLP.  The shared expert goes through
-``apply_mlp``.  There is no expert parallelism.
+``apply_mlp``.  Serving has no expert parallelism.
+
+A training step on a mesh (``shard``, a ``TrainShard``) takes the training
+specs, which split the expert stacks on E over "model" (expert
+parallelism): the router (its shard gathered over "data") routes every
+token alike on each model rank, each rank runs its E/n experts on the
+dispatch buffer (its input and the gates behind *f*), and the combine's
+partial sums meet in *g*.  The load-balance term takes ``frac`` and ``mean_prob`` over the
+global batch: both are summed over the batch axes' ranks before their
+product.  Capacity is per sequence, so splitting the batch over "data"
+changes no token's drop.
 """
 from __future__ import annotations
 
@@ -41,7 +51,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as col
 from repro_torch.distributed.param_sharding import TPWeight, tp_use
+from repro_torch.distributed.sharding import TrainShard, resolve, weight_use
 from repro_torch.models.layers import apply_mlp, init_mlp, truncated_normal
 
 
@@ -77,11 +89,17 @@ def _select(probs: torch.Tensor, k: int) -> torch.Tensor:
     return torch.topk(probs, k, dim=-1, sorted=True).indices
 
 
-def _route(cfg: ModelConfig, p, x: torch.Tensor):
+def _route(cfg: ModelConfig, p, x: torch.Tensor, shard=None):
     """x (B,S,d) -> (gates (B,S,k) f32, idx (B,S,k) int64, aux_loss f32
-    scalar)."""
+    scalar).  On a training mesh whose ranks hold different batch rows the
+    aux is the global batch's: ``frac`` and ``mean_prob`` are averaged over
+    the batch axes' ranks first (the product of local means is not the
+    global aux)."""
     m = cfg.moe
-    logits = x.float() @ p["router"]
+    router = p["router"]
+    if isinstance(shard, TrainShard):
+        router = weight_use(router, None, None, shard=shard)
+    logits = x.float() @ router
     probs = torch.softmax(logits, dim=-1)
     idx = _select(probs, m.top_k)
     gates = probs.gather(-1, idx)
@@ -92,6 +110,11 @@ def _route(cfg: ModelConfig, p, x: torch.Tensor):
     assign = F.one_hot(idx[..., 0], m.n_experts).float()
     frac = assign.mean(dim=(0, 1))
     mean_prob = probs.mean(dim=(0, 1))
+    if isinstance(shard, TrainShard) and shard.batch_split:
+        mesh, axis = shard.mesh, shard.batch_axis
+        n = mesh.size(axis)
+        frac = mesh.reduce(frac, axis) / n
+        mean_prob = col.all_reduce(mean_prob, mesh, axis) / n
     aux = m.n_experts * (frac * mean_prob).sum()
     return gates, idx, aux
 
@@ -171,20 +194,58 @@ def _combine(cfg: ModelConfig, p, x: torch.Tensor, gates, idx, capacity,
              shard=None) -> torch.Tensor:
     """The routed output of x (B,S,d): each top-k slot dispatched on its
     own at ``capacity`` and its expert rows gathered back, scaled by the
-    gate (0 for a dropped token), summed in slot order in x's dtype."""
+    gate (0 for a dropped token), summed in slot order in x's dtype.  On a
+    training mesh with the stacks split on E (``_train_experts``) each rank
+    runs its experts only, the others' rows zero, and the partial outputs
+    are summed over "model"."""
     m = cfg.moe
     b, s, d = x.shape
+    lo, hi, mesh = 0, m.n_experts, None
+    if isinstance(shard, TrainShard):
+        p, (lo, hi) = _train_experts(p, shard)
+        if hi - lo < m.n_experts:
+            # the expert rows and the gates enter the ranks' partial sums
+            mesh = shard.mesh
+            x = col.copy_to(x, mesh, "model")
+            gates = col.copy_to(gates, mesh, "model")
+        shard = None
     y = torch.zeros_like(x)
     for k in range(m.top_k):
         buf, dest, keep = _dispatch_one(x, idx[..., k], m.n_experts,
                                         capacity)
+        if mesh is not None:
+            buf = buf[:, lo:hi]
         out = _expert_ffn(cfg, p, buf, shard).reshape(
-            b, m.n_experts * capacity, d)
-        out = torch.cat([out, out.new_zeros((b, 1, d))], dim=1)
+            b, (hi - lo) * capacity, d)
+        # the other ranks' experts' rows, and the cut-off row E*C, are zero
+        parts = [out, out.new_zeros((b, (m.n_experts - hi) * capacity + 1,
+                                     d))]
+        if lo:
+            parts.insert(0, out.new_zeros((b, lo * capacity, d)))
+        out = torch.cat(parts, dim=1)
         gathered = torch.gather(out, 1, dest[..., None].expand(b, s, d))
         w = (gates[..., k] * keep.to(gates.dtype))[..., None]
         y = y + gathered * w.to(x.dtype)
+    if mesh is not None:
+        y = col.reduce_from(y, mesh, "model")
     return y
+
+
+def _train_experts(p, shard: TrainShard):
+    """The expert stacks at their use on a training mesh: (a dict of
+    tensors, the [lo, hi) experts this rank runs).  Split on E over
+    "model" in a tensor-parallel region (expert parallelism), each stack
+    is the rank's E/n experts; otherwise whole."""
+    out, span = {}, (0, p["wi_gate"].shape[0])
+    for name in ("wi_gate", "wi_up", "wo"):
+        t, j = resolve(p[name], shard, split=shard.model_split,
+                       keep_model=shard.tp)
+        out[name] = t
+        if j == 0:
+            k = t.shape[0]
+            span = (shard.mesh.coords["model"] * k,
+                    (shard.mesh.coords["model"] + 1) * k)
+    return out, span
 
 
 def apply_moe(cfg: ModelConfig, p, x: torch.Tensor, shard=None
@@ -192,7 +253,9 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor, shard=None
     """Train/prefill MoE: x (B,S,d) -> (y (B,S,d), aux_loss)."""
     m = cfg.moe
     s = x.shape[1]
-    gates, idx, aux = _route(cfg, p, x)
+    gates, idx, aux = _route(cfg, p, x, shard)
+    # per sequence: a training mesh's batch split over "data" drops the
+    # tokens one device drops
     capacity = max(1, int(math.ceil(s / m.n_experts * m.capacity_factor)))
     y = _combine(cfg, p, x, gates, idx, capacity, shard)
     if "shared" in p:

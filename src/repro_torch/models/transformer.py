@@ -44,6 +44,19 @@ the engine's ``shard`` (``repro_torch.distributed.param_sharding.
 ServeShard``), an explicit argument and never module state, which reaches
 every weight use and the attention's head split.  A dense arch only: the
 engine refuses the other families on a mesh.
+
+Training on a mesh: ``lm_loss`` takes the step's ``shard`` (a
+``repro_torch.distributed.sharding.TrainShard``; the weights are the
+rank's ``TrainWeight`` shards) and threads it through ``forward_hidden``,
+every layer, the MLP, the attention block and MoE.  Under fsdp_tp a layer's
+FSDP shards are gathered over "data" in one bucket at its entry, inside the
+remat region (REPRO_WEIGHT_AG=0), or each at its use (=1); the embedding's
+once a step.  Under REPRO_SEQ_PARALLEL=1 the residual stream between
+blocks is the rank's sequence slice over "model" (``constrain``, where the
+reference constrains it): attention and an MoE layer gather the sequence,
+the dense MLP runs on the slice with its weights gathered over "model".
+Remat re-runs a layer's collectives in the recompute, in the same order on
+every rank.
 """
 from __future__ import annotations
 
@@ -54,6 +67,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (constrain, gather_layer,
+                                              weight_use)
 from repro_torch.models import attention as attn
 from repro_torch.models import lora as lora_mod
 from repro_torch.models import moe as moe_lib
@@ -119,7 +134,7 @@ def _ffn(cfg: ModelConfig, lp, h: torch.Tensor, decode: bool,
     """The layer's FFN: (y, its load-balance loss, or None for a dense
     FFN).  MoE experts are routed per token, so an MoE FFN takes no LoRA
     (the adapter store adapts attention only for MoE archs); both kinds
-    take a sharded engine's ``shard``."""
+    take a sharded engine's ``shard`` or a training step's."""
     if "moe" in lp:
         if decode:
             fn = moe_lib.apply_moe_decode_dispatch \
@@ -155,10 +170,41 @@ def _head(cfg: ModelConfig, params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _layer_fwd(cfg: ModelConfig, lp, x: torch.Tensor, positions: torch.Tensor,
-               impl: Optional[str]
+               impl: Optional[str], shard=None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    return _block(cfg, lp, x, lambda xn: attn.attention_block(
-        cfg, lp["attn"], xn, positions, causal=True, impl=impl))
+    if shard is None:
+        return _block(cfg, lp, x, lambda xn: attn.attention_block(
+            cfg, lp["attn"], xn, positions, causal=True, impl=impl))
+    sp = shard.seq_parallel
+    seq = "seq_mp" if sp else None
+
+    def whole_seq(fn):
+        """``fn`` on the whole sequence: gathered from the rank's slice
+        before, the rank's slice taken after (sequence parallelism)."""
+        def run(xn):
+            xw = constrain(xn, "batch", None, None, shard=shard,
+                           have=("batch", seq, None))
+            y, aux = fn(xw)
+            return constrain(y, "batch", seq, None, shard=shard,
+                             have=("batch", None, None)), aux
+        return run
+
+    def norm(t, w):
+        return rms_norm(t, weight_use(w, None, shard=shard, split=sp),
+                        cfg.norm_eps)
+
+    a, _ = whole_seq(lambda xw: (attn.attention_block(
+        cfg, lp["attn"], xw, positions, causal=True, impl=impl,
+        shard=shard), None))(norm(x, lp["ln1"]))
+    h = constrain(x + a, "batch", seq, None, shard=shard)
+    hn = norm(h, lp["ln2"])
+    if "moe" in lp:
+        y, aux = whole_seq(lambda xw: _ffn(cfg, lp, xw, False,
+                                           shard=shard))(hn)
+    else:
+        y, aux = _ffn(cfg, lp, hn, False,
+                      shard=shard.seq_region() if sp else shard)
+    return constrain(h + y, "batch", seq, None, shard=shard), aux
 
 
 # the products a "dots" rematerialisation keeps: matrix products without
@@ -200,18 +246,29 @@ def run_blocks(fn, blocks, x, remat: bool, *args):
 
 def forward_hidden(cfg: ModelConfig, params, embeds: torch.Tensor,
                    positions: torch.Tensor, remat: bool = False,
-                   impl: Optional[str] = None
+                   impl: Optional[str] = None, shard=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """embeds (B,S,d) -> (final-normed hidden (B,S,d), the MoE layers'
     summed load-balance loss, an f32 scalar; 0 for a dense arch).
-    ``remat`` recomputes each layer in the backward."""
+    ``remat`` recomputes each layer in the backward; ``shard`` is a
+    training step's on a mesh (the rank's batch rows)."""
+    bucket = shard is not None and not shard.per_use
+
     def layer(lp, carry):
-        x, aux = _layer_fwd(cfg, lp, carry[0], positions, impl)
+        if bucket:
+            lp = gather_layer(lp, shard)
+        x, aux = _layer_fwd(cfg, lp, carry[0], positions, impl, shard)
         return x, carry[1] if aux is None else carry[1] + aux
 
+    seq = "seq_mp" if shard is not None and shard.seq_parallel else None
+    x = constrain(embeds, "batch", seq, None, shard=shard,
+                  have=("batch", None, None))
     zero = torch.zeros((), dtype=torch.float32, device=embeds.device)
-    x, aux = run_blocks(layer, params["layers"], (embeds, zero), remat)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+    x, aux = run_blocks(layer, params["layers"], (x, zero), remat)
+    x = constrain(x, "batch", None, None, shard=shard,
+                  have=("batch", seq, None))
+    return rms_norm(x, weight_use(params["final_norm"], None, shard=shard),
+                    cfg.norm_eps), aux
 
 
 def _stub_embeds(params, batch: Dict) -> torch.Tensor:
@@ -221,27 +278,31 @@ def _stub_embeds(params, batch: Dict) -> torch.Tensor:
     return batch["embeds"].to(params["embed"]["embed"].dtype)
 
 
-def _inputs(params, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+def _inputs(params, batch: Dict, shard=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(embeds (B,S,d), positions): the stub frontend's embeds and M-RoPE
     streams (3,B,S), or the tokens' embeddings at positions 0..S-1."""
     if "embeds" in batch:
         return _stub_embeds(params, batch), batch["positions"]
     tokens = batch["tokens"]
     b, s = tokens.shape
-    embeds = embed_tokens(params["embed"], tokens)
+    embeds = embed_tokens(params["embed"], tokens, shard)
     return embeds, torch.arange(s, device=embeds.device)[None, :].expand(b, s)
 
 
-def lm_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True
-            ) -> torch.Tensor:
+def lm_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True,
+            shard=None) -> torch.Tensor:
     """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,S)
     (or the stub frontend's {"embeds", "positions", "labels"}) plus 0.01
     times the MoE load-balance loss, every attention through the
-    flash-attention kernel."""
-    embeds, positions = _inputs(params, batch)
+    flash-attention kernel.  On a mesh (``shard``) the mean over this
+    rank's rows, with the load-balance term of the global batch; the
+    embedding's shards are gathered once for the lookup and the logits."""
+    params = {**params, "embed": gather_layer(params["embed"], shard)}
+    embeds, positions = _inputs(params, batch, shard)
     h, aux = forward_hidden(cfg, params, embeds, positions, remat=remat,
-                            impl="kernel")
-    logits = logits_from_hidden(cfg, params["embed"], h)
+                            impl="kernel", shard=shard)
+    logits = logits_from_hidden(cfg, params["embed"], h, shard)
     return softmax_cross_entropy(logits, batch["labels"]) + 0.01 * aux
 
 

@@ -83,7 +83,20 @@
   REPRO_TRAIN_SHARDING  fsdp_tp | dp
       the layout ``repro_torch.distributed.sharding``'s spec functions
       give a training mesh: FSDP over the data axes and TP over "model",
-      or pure data parallelism (weights replicated, moments ZeRO-sharded)
+      or pure data parallelism (weights replicated, moments ZeRO-sharded);
+      ``Trainer(mesh=)`` trains in that layout
+  REPRO_SEQ_PARALLEL   0 | 1
+      1 — on a training mesh under fsdp_tp, the residual stream between
+          blocks is split on the sequence over "model" and the dense MLP runs
+          on the rank's slice with its weights gathered over "model";
+          attention gathers the sequence (a no-op where the sequence does not
+          divide or "model" has one rank)
+  REPRO_WEIGHT_AG      0 | 1
+      on a training mesh under fsdp_tp: 0 — a layer's FSDP shards are
+      gathered over "data" in one bucket at the layer's entry (inside the
+      remat region); 1 — each weight is gathered at its use site (and again
+      in the recompute).  Gathers are exact: both give the same bits and
+      differ in collectives and peak memory
 
   REPRO_NORM_F32       1 | 0
       rms_norm's reduction and scale in f32 (1, the default) or in the
@@ -119,7 +132,17 @@ class PerfConfig:
     serve_tp: bool = False
     tp_reduce_scatter: bool = False
     train_sharding: str = "fsdp_tp"
+    seq_parallel: bool = False
+    weight_ag: bool = False
     norm_f32: bool = True
+
+
+def _flag(name: str) -> bool:
+    """A 0 | 1 knob (default 0); any other value raises."""
+    v = os.environ.get(name, "0")
+    if v not in ("0", "1"):
+        raise ValueError(f"bad {name} {v!r}")
+    return v == "1"
 
 
 def norm_f32() -> bool:
@@ -177,6 +200,8 @@ def perf() -> PerfConfig:
         tp_reduce_scatter=os.environ.get("REPRO_TP_REDUCE_SCATTER",
                                          "0") == "1",
         train_sharding=train_sharding,
+        seq_parallel=_flag("REPRO_SEQ_PARALLEL"),
+        weight_ag=_flag("REPRO_WEIGHT_AG"),
         norm_f32=norm_f32(),
     )
 

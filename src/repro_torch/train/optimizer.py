@@ -8,6 +8,15 @@ package and back.  Every update is computed in f32 and cast to the
 parameter's dtype and written into the leaf's own storage (the update is
 in place).  int8 moments hold 1 B a value plus an f32 scale per 256
 (~2.03 B a parameter for both moments together instead of 8).
+
+On a training mesh (``layout``, a ``sharding.TrainLayout``) the tensors are
+this rank's shards.  f32 moments mirror the weight's spec, so the update is
+elementwise on the rank's shard; under "dp" the moments are ZeRO-1 slices,
+and each rank updates its slice of the weight and ``all_gather``s the
+whole.  The global norm counts each distinct value once: a leaf replicated
+over an axis is counted only by that axis's coordinate 0, and the ranks'
+sums meet in one ``all_reduce`` (no 1/n scaling, which would not be
+exact).  int8 moments on a mesh wait for ROADMAP A10d.
 """
 from __future__ import annotations
 
@@ -94,20 +103,29 @@ class AdamW:
                              "'f32' or 'int8'")
         self.cfg = cfg
 
-    def init(self, params) -> Dict[str, Any]:
+    def init(self, params, layout=None) -> Dict[str, Any]:
+        """Zero moments shaped like ``params`` (on a mesh, the rank's
+        shards under ``layout``: a ZeRO moment is the rank's slice; int8
+        moments on a mesh are refused by ``trainer.check_mesh_trains``)."""
+
         def zero_like(p):
             z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             if self.cfg.state_dtype == "int8":
                 return quantize(z, self.cfg.quant_block)
             return z
         device = leaves(params)[0].device
+
+        def moments():
+            if layout is None:
+                return map_tree(zero_like, params)
+            return map_tree(lambda specs, p: _zero_slice(p, specs, layout),
+                            _spec_pairs(layout), params)
         return {"step": torch.zeros((), dtype=torch.int32, device=device),
-                "m": map_tree(zero_like, params),
-                "v": map_tree(zero_like, params)}
+                "m": moments(), "v": moments()}
 
     @torch.no_grad()
-    def update(self, grads, state, params) -> Tuple[Any, Dict[str, Any],
-                                                   Dict]:
+    def update(self, grads, state, params, layout=None
+               ) -> Tuple[Any, Dict[str, Any], Dict]:
         """(params, state, {"lr", "grad_norm"}), updated in place: each
         leaf's weight, ``m`` and ``v`` (an int8 moment's payload and scales)
         are overwritten in their own storage once the leaf's new values are
@@ -115,12 +133,17 @@ class AdamW:
         alive at a time (the reference donates its state to the jitted
         step).  A caller that needs the old tree afterwards clones it first.
         The global norm is taken in f32 over every gradient leaf and
-        reported before clipping."""
+        reported before clipping.  On a mesh (``layout``) the trees are the
+        rank's shards (see the module's docstring)."""
         cfg = self.cfg
         step = state["step"] + 1
         lr = cosine_lr(cfg, step)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                               for g in leaves(grads)))
+        gs = leaves(grads)
+        if layout is None:
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(
+                g.to(torch.float32))) for g in gs))
+        else:
+            gnorm = _mesh_norm(gs, layout)
         scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0)
         stepf = step.to(torch.float32)
         bc1 = 1 - cfg.b1 ** stepf
@@ -156,7 +179,10 @@ class AdamW:
                     else:
                         old.view(-1)[lo:hi] = new
 
-        map_tree(upd, params, grads, state["m"], state["v"])
+        if layout is None:
+            map_tree(upd, params, grads, state["m"], state["v"])
+        else:
+            _mesh_update(upd, params, grads, state, layout)
         state["step"].copy_(step)
         return params, state, {"lr": lr, "grad_norm": gnorm}
 
@@ -180,3 +206,68 @@ def _store_moment(d: Quantized, lo: int, x: torch.Tensor, block: int
     b0 = lo // block
     d.q[b0:b0 + new.q.shape[0]] = new.q
     d.scale[b0:b0 + new.scale.shape[0]] = new.scale
+
+
+# -- a training mesh ---------------------------------------------------------
+
+class _Specs:
+    """A weight's spec and its moments' (one leaf to ``train.tree``)."""
+
+    def __init__(self, param, moment):
+        self.param, self.moment = tuple(param), tuple(moment)
+
+
+def _spec_pairs(layout):
+    """A tree of ``_Specs`` in the weights' structure."""
+    from repro_torch.distributed.sharding import _tree_map2
+    return _tree_map2(_Specs, layout.params, layout.moments,
+                      is_leaf=lambda x: isinstance(x, tuple))
+
+
+def _zero_slice(p, specs: _Specs, layout) -> torch.Tensor:
+    """An f32 zero moment of weight shard ``p``: ``p``'s shape, or under a
+    ZeRO spec the rank's slice of it."""
+    from repro_torch.distributed.sharding import local_shard
+    z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    if specs.moment == specs.param:
+        return z
+    return local_shard(z, specs.moment, layout.mesh, layout.mesh.coords)
+
+
+def _counted(spec, coords) -> bool:
+    """Whether this rank counts a leaf of ``spec`` in the global norm: only
+    coordinate 0 of each axis the leaf is replicated over."""
+    axes = set()
+    for e in spec:
+        axes.update(e if isinstance(e, tuple) else (e,))
+    return all(i == 0 for a, i in coords.items() if a not in axes)
+
+
+def _mesh_norm(gs, layout) -> torch.Tensor:
+    coords = layout.mesh.coords
+    counted = [_counted(s.param, coords) for s in leaves(_spec_pairs(layout))]
+    sq = sum(torch.sum(torch.square(g.to(torch.float32)))
+             for g, c in zip(gs, counted) if c)
+    if not isinstance(sq, torch.Tensor):
+        sq = torch.zeros((), dtype=torch.float32, device=gs[0].device)
+    return torch.sqrt(layout.mesh.reduce(sq, "world"))
+
+
+def _mesh_update(upd, params, grads, state, layout) -> None:
+    """``upd`` over the rank's shards: in place where the moment mirrors the
+    weight; on a ZeRO moment, on the rank's slice of the weight, which the
+    ranks then ``all_gather`` whole."""
+    from repro_torch.distributed.sharding import local_shard
+    mesh = layout.mesh
+
+    def one(specs, p, g, m, v):
+        if specs.moment == specs.param:
+            return upd(p, g, m, v)
+        d = next(i for i, (a, b) in enumerate(zip(specs.moment, specs.param))
+                 if a != b)
+        ps = local_shard(p, specs.moment, mesh, mesh.coords)
+        upd(ps, local_shard(g, specs.moment, mesh, mesh.coords), m, v)
+        e = specs.moment[d]
+        p.copy_(mesh.gather(ps, d, e if isinstance(e, str) else "world"))
+
+    map_tree(one, _spec_pairs(layout), params, grads, state["m"], state["v"])

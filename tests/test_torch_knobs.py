@@ -140,3 +140,20 @@ def test_moe_decode_bad_value_raises(monkeypatch):
     monkeypatch.setenv("REPRO_MOE_DECODE", "all_to_all")
     with pytest.raises(ValueError, match="REPRO_MOE_DECODE"):
         perf()
+
+
+@pytest.mark.parametrize("name", ["REPRO_SEQ_PARALLEL", "REPRO_WEIGHT_AG"])
+def test_mesh_training_knobs_default_off_and_refuse_bad_values(monkeypatch,
+                                                              name):
+    """The mesh-training knobs read 0 by default, as the reference's, and
+    a value other than 0 or 1 raises."""
+    from repro_torch.perf import perf
+    field = {"REPRO_SEQ_PARALLEL": "seq_parallel",
+             "REPRO_WEIGHT_AG": "weight_ag"}[name]
+    monkeypatch.delenv(name, raising=False)
+    assert getattr(perf(), field) is False
+    monkeypatch.setenv(name, "1")
+    assert getattr(perf(), field) is True
+    monkeypatch.setenv(name, "yes")
+    with pytest.raises(ValueError, match=name):
+        perf()
