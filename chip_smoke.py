@@ -196,8 +196,9 @@ Phases, each printing JSON objects one per line:
    train_mesh_2 — in the same group: qwen3-0.6b at full width, 2 of 28
               layers, f32, B 8 x S 512, trained through ``Trainer(mesh=)``
               on ``TrainMesh``es of the two ranks: 2x1 under fsdp_tp (2
-              steps), again under REPRO_WEIGHT_AG=1 and with a failure at
-              step 1 (both the first run's bits); 1x2 (K3 at 8 heads over 4
+              steps), again under REPRO_WEIGHT_AG=1 (1 step, the first
+              run's bits after its first step) and with a failure at
+              step 1 (the first run's bits); 1x2 (K3 at 8 heads over 4
               a rank) under fsdp_tp (2 steps) and REPRO_SEQ_PARALLEL=1 (1
               step); 2x1 under dp (1 step, ZeRO-1 moments).  Each run's
               losses and gradient norms within 1e-4 and leaves within 1e-3
@@ -208,7 +209,32 @@ Phases, each printing JSON objects one per line:
               kernel rows gain K3 at 8 heads over 4 and K2 at a rank's
               rows (2,048 x 1,024; the q/k pair at 32,768 + 16,384 rows,
               2,048 x 16 + 8 heads at 2x1 and 4,096 x 8 + 4 at 1x2),
-              forward and backward.
+              forward and backward.  Then (``FAMILY_MESH_RUNS``, a
+              ``train_mesh_2_families`` line) the stateful and
+              encoder-decoder families at full width in f32, B 2, 1
+              step each: falcon-mamba-7b at 1 layer (S 512) on 1x2
+              (K7 over a rank's 4,096 of 8,192 channels) and with int8
+              moments on 2x1; zamba2-2.7b at 2 segments of 1 Mamba2
+              layer (the shared block at two call sites) on 1x2 (40 SSD
+              heads and 16 over 16 attention heads a rank); whisper-small
+              at 2 + 2 layers (S 448) on 2x1 and 1x2 (6 over 6 heads a
+              rank).  Each against one device's run (trained by the
+              ranks between them): losses and gradient norms within
+              1e-4, the first step's gradient leaves and the weights
+              within 1e-3 (zamba2's gradient leaves within the limit
+              train_hybrid_oracle sets in the same call, checked after
+              it, ``train_mesh_2_hybrid_gate``, its weights reported:
+              AdamW's first step makes a gradient near zero a step of
+              about lr; the int8 run's weights reported, its moments
+              within one quantization step of one device's instead, since
+              a v stored as 0 divides m by eps, C0);
+              K7, K3 and K2 launches a step a rank as one device's step
+              at that depth; collectives a step by kind and bytes, peak
+              memory and seconds a rank.  The kernel rows gain K7's
+              fused forward and backward at a rank's D 4,096 (B 8 x T
+              512, timed) and K3 gate rows at a rank's 16 over 16 heads,
+              head_dim 80, and 6 over 6, head_dim 64 (S 448, causal and
+              not).
 6. oracle   — teacher-forced logits of the paged path (kernels) against the
               dense prefill + decode path (plain attention), f32 and bf16;
               and one tenant's request (a 256-token prompt chunk and 8 decode
@@ -303,7 +329,9 @@ Phases, each printing JSON objects one per line:
               1 layer / 1 segment (its bits do not depend on a second
               layer or the shared block's second call, and the script
               needed the time: with both hybrid runs at 2 segments it took
-              1,008 s).
+              1,008 s), 6 steps checkpointed every 3 with the failure at
+              step 5 (8, 4 and 6 until train_mesh_2's family runs needed
+              the time).
 12. moe     — moe_serve: the serve workload through full-width olmoe-1b-7b
               (16 layers, d 2048, 16/16 heads, 64 experts, top-8; 13.84 GB)
               in bf16 at its native capacity factor 2.0: the invariants
@@ -1767,15 +1795,20 @@ def _check_ssm_bwd(torch, results, gen, case, b, t, d, n):
 # The fused entries (Mamba1's discretisation inside K7), which every Mamba1
 # layer calls: the serve shapes in bf16 (the path's dtype; B and C slices of
 # one projection as the layer hands them), then the training step's forward
-# with checkpoints and backward (bf16, timed; again in f32, where the planted
+# with checkpoints and backward (bf16, timed; at a rank's half of d_inner,
+# 4,096 channels, on the 1x2 training mesh, the train_mesh_2 path, timed;
+# again in f32, where the planted
 # faults of its reductions are held at the f32 limit), and gate-only shapes
 # no path gives, in f32: a ragged T = 300 and N = 1 and 32 at a small D.
 # Each backward case: (case, B, T, D, N, dtype).
 SSM_FUSED_BWD_CASES = (("train", 8, 512, SSM_D, SSM_N, "bfloat16"),
+                       ("rank_half", 8, 512, SSM_D // 2, SSM_N, "bfloat16"),
                        ("train_f32", 8, 512, SSM_D, SSM_N, "float32"),
                        ("ragged", 2, 300, SSM_D, SSM_N, "float32"),
                        ("n1", 2, 77, 320, 1, "float32"),
                        ("n32", 2, 77, 320, 32, "float32"))
+# the timed cases and the path each one's launches come from
+SSM_FUSED_TIMED = {"train": "train_ssm", "rank_half": "train_mesh_2"}
 # f32 operations a (b, t, d, n) beside its one expf: the forward rounds
 # dt A, dt B, (dt B) x, a h, + b and h c (and sums y); the backward also
 # rebuilds h from the checkpoints and forms g, u, v, d(dt)'s two products
@@ -1977,10 +2010,11 @@ def _check_ssm_fused_bwd(torch, results, gen, case, b, t, d, n, dtype):
                 f"passes ({planted})"
     info = {fn: v for fn, v in ptxas_info("ssm_scan").items()
             if "fused" in fn and f"ILi{n}E" in fn}
-    timed = case == "train"
+    path = SSM_FUSED_TIMED.get(case)
+    timed = path is not None
     row = dict(
         name=f"ssm_scan_fused_bwd/{case}", dtype=str(dtype).split(".")[1],
-        path="train_ssm" if timed else None, counter="ssm_scan_bwd",
+        path=path, counter="ssm_scan_bwd",
         shape=f"B={b} T={t} D={d} N={n} window={k7.WINDOW}",
         max_abs_err=max(g["max_abs_err"] for g in gates.values()),
         row_rel_err=max(g["row_rel_err"] for g in gates.values()),
@@ -2016,7 +2050,7 @@ def _check_ssm_fused_bwd(torch, results, gen, case, b, t, d, n, dtype):
             da, db, dc, dh0 = k7.ssm_scan_bwd_kernel(a, bb, cf, uckpt, dy, dh)
             return ref.ssm_discretise_bwd_ref(da, db, a, dt, A, bm, x), dc, dh0
         results.append(dict(
-            name="ssm_scan_fused/train", dtype=row["dtype"], path="train_ssm",
+            name=f"ssm_scan_fused/{case}", dtype=row["dtype"], path=path,
             counter="ssm_scan",
             shape=f"B={b} T={t} D={d} N={n} window={k7.WINDOW} "
                   "(checkpoints; B, C, x bf16)",
@@ -2089,7 +2123,10 @@ FLASH_TIMED = (("train", FLASH_TRAIN, True),
                ("train_mesh_2", FLASH_MESH_TRAIN, True))
 # gate-only: whisper's cross-attention at serve time, the prompt's 4 and a
 # training length's 448 queries over 1,500 frames (Sq != Skv, non-causal,
-# 1,500 not a multiple of the 64-key tile)
+# 1,500 not a multiple of the 64-key tile); a rank's half of the heads on
+# train_mesh_2's 1x2 runs (B 2): zamba2's shared block (16 over 16, head_dim
+# 80, S 512, causal) and whisper's (6 over 6, head_dim 64, S 448, causal and
+# not; a launch over half the heads runs the same blocks over half the grid)
 FLASH_GATES = (("non_causal", 32, 16, 512, 512, 128, False, 0),
                ("cross_4x1500", 8 * 12, 8 * 12, 4, 1500, 64, False, 0),
                ("cross_448x1500", 8 * 12, 8 * 12, 448, 1500, 64, False, 0),
@@ -2098,7 +2135,11 @@ FLASH_GATES = (("non_causal", 32, 16, 512, 512, 128, False, 0),
                ("head_dim_256", 8, 8, 200, 200, 256, True, 0),
                ("head_dim_80", 2 * 32, 2 * 32, 512, 512, 80, True, 0),
                ("group_8", 64, 8, 512, 512, 128, True, 0),
-               ("head_dim_40", 8, 4, 100, 100, 40, True, 3))
+               ("head_dim_40", 8, 4, 100, 100, 40, True, 3),
+               ("mesh_hybrid_16x16", 2 * 16, 2 * 16, 512, 512, 80, True, 0),
+               ("mesh_whisper_6x6_causal", 2 * 6, 2 * 6, 448, 448, 64, True,
+                0),
+               ("mesh_whisper_6x6", 2 * 6, 2 * 6, 448, 448, 64, False, 0))
 # SASS function-name fragments of K3's kernels by dtype and direction
 K3_SASS = {("bfloat16", "forward"): ("flash_fwd_mma_kernel",),
            ("bfloat16", "backward"): ("flash_bwd_dkdv_mma_kernel",
@@ -2924,13 +2965,15 @@ def _mesh_rank(mesh, device, cfg, moe_cfg, train_cfg, workdir):
 # train_mesh_2: qwen3-0.6b at full width and 2 of 28 layers in f32 (B 8 x S
 # 512) on the 2-rank group: (run, (data, model), knobs, steps); the restart
 # fails at step TRAIN_MESH_FAIL_AT (checkpoints every step) and is held
-# bitwise to the first run.  SP and dp take 1 step for the script's time
-# (PERF.md section 4): a 1-step run still holds the gradient's scale
-# through its gated norm, while AdamW's first update shows only its sign
+# bitwise to the first run.  SP, dp and REPRO_WEIGHT_AG=1 (held to the
+# first run's bits after its first step) take 1 step for the
+# script's time (PERF.md section 4): a 1-step run still holds the
+# gradient's scale through its gated norm, while AdamW's first update
+# shows only its sign
 TRAIN_MESH_LAYERS = 2
 TRAIN_MESH_RUNS = (
     ("fsdp_tp_2x1", (2, 1), {}, 2),
-    ("weight_ag_2x1", (2, 1), {"REPRO_WEIGHT_AG": "1"}, 2),
+    ("weight_ag_2x1", (2, 1), {"REPRO_WEIGHT_AG": "1"}, 1),
     ("restart_2x1", (2, 1), {}, 2),
     ("fsdp_tp_1x2", (1, 2), {}, 2),
     ("seq_parallel_1x2", (1, 2), {"REPRO_SEQ_PARALLEL": "1"}, 1),
@@ -2940,6 +2983,211 @@ TRAIN_MESH_FAIL_AT = 1
 # sqrt(v), so a gradient near zero amplifies a reordered sum); each step's
 # gradient norm is held to the loss tolerance
 TRAIN_MESH_LOSS_TOL, TRAIN_MESH_LEAF_TOL = 1e-4, 1e-3
+# then, in the same group, the stateful and encoder-decoder families at full
+# width in f32, cut in depth (``family_mesh_cfg``: falcon-mamba-7b 1 Mamba1
+# layer, zamba2-2.7b 2 segments of 1 Mamba2 layer, the shared block at both
+# call sites, whisper-small 2 + 2 layers), B 2 x S 512 (whisper S 448):
+# (run, arch, (data, model), steps, moments).  Each run takes 1 step for
+# the script's time (PERF.md section 4) and is held by its loss, gradient
+# norm and first gradients; the int8 run also by its moments after the
+# update, each value within one quantization step (its block's scale) of
+# one device's.  Its weights are reported, not gated: where v quantizes to
+# 0 the update divides m by eps, so a gradient's reordered sum, or m's
+# rounding flipped by one, moves a weight by up to lr / eps times the
+# difference (ROADMAP C0)
+FAMILY_MESH_RUNS = (
+    ("falcon_fsdp_tp_1x2", "falcon-mamba-7b", (1, 2), 1, "f32"),
+    ("falcon_int8_2x1", "falcon-mamba-7b", (2, 1), 1, "int8"),
+    ("zamba2_fsdp_tp_1x2", "zamba2-2.7b", (1, 2), 1, "f32"),
+    ("whisper_fsdp_tp_2x1", "whisper-small", (2, 1), 1, "f32"),
+    ("whisper_fsdp_tp_1x2", "whisper-small", (1, 2), 1, "f32"))
+FAMILY_MESH_BATCH = 2
+# train_mesh_2's zamba2 leaf gaps, held after train_hybrid_oracle sets the
+# hybrid's limit (``hybrid_mesh_gate``)
+HYBRID_MESH_LEAVES = {}
+
+
+def family_mesh_cfg(arch):
+    """A family's train_mesh_2 config: full width, f32, cut in depth."""
+    from repro_torch.configs.base import get_config
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if cfg.family == "hybrid":
+        return dataclasses.replace(cfg, n_layers=2, hybrid=dataclasses.replace(
+            cfg.hybrid, attn_every=1))
+    return at_depth(cfg, 1 if cfg.family == "ssm" else 2)
+
+
+def family_seq(cfg) -> int:
+    return WHISPER_TRAIN_SEQ if cfg.family == "audio" else 512
+
+
+def _family_trainer(cfg, steps, opt_state, device, mesh=None):
+    """A family run's Trainer (B 2, its sequence, the train phase's
+    optimizer with ``opt_state`` moments), on ``mesh`` if given, keeping
+    its first gradients (``_keep_first_grads``)."""
+    from repro_torch.launch.train import opt_config
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    tr = Trainer(cfg, TrainerConfig(seq_len=family_seq(cfg),
+                                    global_batch=FAMILY_MESH_BATCH,
+                                    steps=steps, log_every=1),
+                 opt_config(TRAIN_LR, TRAIN_STEPS, opt_state), mesh=mesh,
+                 device=device)
+    return _keep_first_grads(tr, mesh)
+
+
+def _keep_first_grads(tr, mesh=None):
+    """``tr`` with its optimizer's update wrapped to keep the whole
+    gradients of the first step (``tr.first_step_grads``), before AdamW
+    turns a gradient near zero into a step of about lr."""
+    from repro_torch.distributed import sharding
+    from repro_torch.train.tree import leaves
+    update = tr.opt.update
+    tr.first_step_grads = None
+
+    def first(grads, state, params, layout=None):
+        if tr.first_step_grads is None:
+            g = grads if mesh is None else sharding.unshard_tree(
+                grads, layout.params, mesh)
+            tr.first_step_grads = [t.clone() for t in leaves(g)]
+        return update(grads, state, params, layout=layout)
+    tr.opt.update = first
+    return tr
+
+
+def _keep_first_step(tr, mesh):
+    """``tr`` with its step wrapped to keep the whole weights after the
+    first step (``tr.first_step_params``)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.train.tree import leaves
+    step = tr._step
+    tr.first_step_params = None
+
+    def first(*args):
+        res = step(*args)
+        if tr.first_step_params is None:
+            p = sharding.unshard_tree(res[0], tr.layout.params, mesh)
+            tr.first_step_params = [t.clone() for t in leaves(p)]
+        return res
+    tr._step = first
+    return tr
+
+
+def _family_oracle(arch, opt_state, steps, device):
+    """One device's run of a family (``FAMILY_MESH_RUNS``' settings): its
+    losses, gradient norms, first gradients, weights and int8 moments."""
+    from repro_torch.train.tree import leaves
+    tr = _family_trainer(family_mesh_cfg(arch), steps, opt_state, device)
+    res = tr.train()
+    st = res["state"]
+    return {"losses": [e["loss"] for e in res["log"]],
+            "grad_norms": [e["grad_norm"] for e in res["log"]],
+            "params": leaves(st["params"]), "grads": tr.first_step_grads,
+            "moments": leaves([st["opt"]["m"], st["opt"]["v"]])
+            if opt_state == "int8" else None}
+
+
+def _gaps(got, want) -> list:
+    """Each leaf's largest gap over the leaf's largest value (on the
+    leaves' device)."""
+    return [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(got, want)]
+
+
+def _leaf_rel(got, want) -> float:
+    return max(_gaps(got, want))
+
+
+def _worst(gaps, names) -> str:
+    return names[max(range(len(gaps)), key=gaps.__getitem__)]
+
+
+def _moment_steps(got, want) -> float:
+    """The largest gap between two int8 moments' dequantized values, in
+    steps of ``want``'s block scale."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        gap = (g.q.float() * g.scale - w.q.float() * w.scale).abs()
+        worst = max(worst, float((gap / w.scale).max()))
+        del gap
+    return worst
+
+
+def _family_mesh_runs(device, plain, totals):
+    """train_mesh_2's ``FAMILY_MESH_RUNS`` on this rank: each run on a
+    ``TrainMesh`` of its shape over the group, launches counted from zero
+    (added to ``totals``), its whole weights (and int8 moments) held to
+    the oracle this rank trained, if it trained it."""
+    import torch
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.train.tree import leaves
+    card = device.type == "cuda"
+    runs = {}
+    for name, arch, shape, steps, opt_state in FAMILY_MESH_RUNS:
+        tmesh = make_train_mesh(*shape)
+        cfg = family_mesh_cfg(arch)
+        tr = _family_trainer(cfg, steps, opt_state, device, tmesh)
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        tmesh.reset_issued()
+        t0 = time.perf_counter()
+        res = tr.train()
+        if card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        issued = tmesh.issued
+        state = res["state"]
+        p_mine, p_whole, p_kept = _share(state["params"], tr.layout.params,
+                                         tmesh)
+        r = {"arch": cfg.name, "family": cfg.family,
+             "layers": cfg.n_layers, "mesh": f"{shape[0]}x{shape[1]}",
+             "opt_state": opt_state, "steps": steps,
+             "batch": FAMILY_MESH_BATCH, "seq_len": family_seq(cfg),
+             "losses": [e["loss"] for e in res["log"]],
+             "grad_norms": [e["grad_norm"] for e in res["log"]],
+             "step_s": [e["sec"] for e in res["log"]], "wall_s": wall,
+             "launches": launches,
+             "launches_per_step": {k: v / steps for k, v in launches.items()},
+             "collectives": issued,
+             "collectives_per_step": {k: [v[0] / steps, v[1] / steps]
+                                      for k, v in issued.items()},
+             "peak_device_bytes": torch.cuda.max_memory_allocated()
+             if card else 0,
+             "param_bytes": p_mine, "whole_param_bytes": p_whole,
+             "unsplit_param_bytes": p_kept}
+        whole = leaves(sharding.unshard_tree(state["params"],
+                                             tr.layout.params, tmesh))
+        moments = leaves(sharding.unshard_tree(
+            [state["opt"]["m"], state["opt"]["v"]],
+            [tr.layout.moments, tr.layout.moments], tmesh)) \
+            if opt_state == "int8" else None
+        grads, names = tr.first_step_grads, leaf_names(state["params"])
+        del tr, res, state
+        one = plain.get((arch, opt_state, steps))
+        if one is not None:
+            r["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in
+                                    zip(r["losses"], one["losses"]))
+            r["grad_norm_rel_err"] = max(
+                abs(a - b) / abs(b)
+                for a, b in zip(r["grad_norms"], one["grad_norms"]))
+            gaps = _gaps(whole, one["params"])
+            r["leaf_rel_err"], r["worst_leaf"] = max(gaps), _worst(gaps,
+                                                                   names)
+            gaps = _gaps(grads, one["grads"])
+            r["grad_leaf_rel_err"] = max(gaps)
+            r["worst_grad_leaf"] = _worst(gaps, names)
+            if moments is not None:
+                r["moment_steps"] = _moment_steps(moments, one["moments"])
+        del whole, moments, grads
+        runs[name] = r
+        if card:
+            torch.cuda.empty_cache()
+    return runs
 
 
 def _mesh_trainer(cfg, steps, device, mesh=None, workdir=None):
@@ -2971,7 +3219,7 @@ def _share(local, specs, mesh):
                         for a in (e if isinstance(e, tuple) else (e,)))
             or None)
         mine, whole = mine + n, whole + full
-        kept += full if all(e is None for e in spec) else 0
+        kept += full if full == n else 0
     return mine, whole, kept
 
 
@@ -2990,15 +3238,23 @@ def _train_mesh_rank(mesh, device, cfg, workdir):
     card = device.type == "cuda"
     out = {"rank": mesh.rank, "runs": {}, "launches": {}}
     plain = {}
-    counts = sorted({r[3] for r in TRAIN_MESH_RUNS})
-    for steps in counts[mesh.rank::mesh.world]:
+    oracles = [("qwen", s) for s in sorted({r[3] for r in TRAIN_MESH_RUNS})]
+    oracles += sorted({(arch, moments, steps)
+                       for _, arch, _, steps, moments in FAMILY_MESH_RUNS})
+    for key in oracles[mesh.rank::mesh.world]:
         t0 = time.perf_counter()
-        res = _mesh_trainer(cfg, steps, device).train()
-        plain[steps] = ([e["loss"] for e in res["log"]],
-                        [e["grad_norm"] for e in res["log"]],
-                        leaves(res["state"]["params"]))
-        out[f"plain_{steps}_steps_s"] = time.perf_counter() - t0
-        del res
+        if key[0] == "qwen":
+            steps = key[1]
+            res = _mesh_trainer(cfg, steps, device).train()
+            plain[steps] = ([e["loss"] for e in res["log"]],
+                            [e["grad_norm"] for e in res["log"]],
+                            leaves(res["state"]["params"]))
+            out[f"plain_{steps}_steps_s"] = time.perf_counter() - t0
+            del res
+        else:
+            plain[key] = _family_oracle(*key, device)
+            out["plain_{}_{}_{}_steps_s".format(*key)] = \
+                time.perf_counter() - t0
     torch.distributed.barrier()
     first = None
     for name, shape, env, steps in TRAIN_MESH_RUNS:
@@ -3009,6 +3265,8 @@ def _train_mesh_rank(mesh, device, cfg, workdir):
             restart = name.startswith("restart")
             tr = _mesh_trainer(cfg, steps, device, tmesh,
                                workdir if restart else None)
+            if first is None:
+                _keep_first_step(tr, tmesh)
             if card:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -3041,6 +3299,7 @@ def _train_mesh_rank(mesh, device, cfg, workdir):
                  "whole_moment_bytes": m_whole, "unsplit_moment_bytes": m_kept}
             whole = leaves(sharding.unshard_tree(state["params"],
                                                  tr.layout.params, tmesh))
+            first_step = getattr(tr, "first_step_params", None)
             del tr, res, state
             if steps in plain:
                 ploss, pnorm, pparams = plain[steps]
@@ -3053,12 +3312,15 @@ def _train_mesh_rank(mesh, device, cfg, workdir):
                     float((a - b).abs().max() / b.abs().max().clamp_min(
                         1e-30)) for a, b in zip(whole, pparams))
             if first is None:
-                first = (r["losses"], whole)
+                first = (r["losses"], whole, first_step)
             else:
+                # against the first run after as many steps (a 1-step run:
+                # its weights after its first step)
+                ref = first[1] if steps == len(first[0]) else first[2]
                 r["bitwise_first_run"] = \
-                    r["losses"][-1] == first[0][-1] and all(
-                        torch.equal(a, b) for a, b in zip(whole, first[1]))
-            del whole
+                    r["losses"][-1] == first[0][steps - 1] and all(
+                        torch.equal(a, b) for a, b in zip(whole, ref))
+            del whole, first_step
             out["runs"][name] = r
         finally:
             for k, v in old.items():
@@ -3068,6 +3330,7 @@ def _train_mesh_rank(mesh, device, cfg, workdir):
                     os.environ[k] = v
         if card:
             torch.cuda.empty_cache()
+    out["family_runs"] = _family_mesh_runs(device, plain, out["launches"])
     return out
 
 
@@ -3475,7 +3738,69 @@ def train_mesh_2_report(cfg, outs, smi, parts):
           "plain_s": {k: v for o in outs for k, v in o.items()
                       if k.startswith("plain_")},
           "phase_s": [p["train_mesh_2"] for p in parts], "runs": runs})
+    family_mesh_report(outs, smi)
     return outs[0]["launches"]
+
+
+def family_mesh_report(outs, smi):
+    """train_mesh_2's ``FAMILY_MESH_RUNS``: every run's losses and gradient
+    norms within 1e-4 relative of one device's Trainer on the same weights
+    (trained by the rank that reports it); its first step's gradient
+    leaves within 1e-3 of their largest value (zamba2's held later to
+    train_hybrid_oracle's limit, ``hybrid_mesh_gate``) and its weights too
+    (zamba2's reported: AdamW's first step turns a gradient near zero into
+    about lr, which a reordered sum moves by more than the hybrid's limit;
+    the int8 run's reported, its moments within one quantization step of
+    one device's instead); a rank holds half
+    of the whole weights apart from the leaves no axis splits; each rank
+    launches K7, K3 and K2 a step what one device's step launches at this
+    depth (K7 over a rank's 4,096 channels at 1x2, K3 over its heads)."""
+    runs = {}
+    for name, arch, shape, steps, opt_state in FAMILY_MESH_RUNS:
+        rows = [o["family_runs"][name] for o in outs]
+        r0 = next(r for r in rows if "loss_rel_err" in r)
+        assert r0["loss_rel_err"] <= TRAIN_MESH_LOSS_TOL, (name, r0)
+        assert r0["grad_norm_rel_err"] <= TRAIN_MESH_LOSS_TOL, (name, r0)
+        if r0["family"] == "hybrid":
+            HYBRID_MESH_LEAVES[name] = r0["grad_leaf_rel_err"]
+        else:
+            assert r0["grad_leaf_rel_err"] <= TRAIN_MESH_LEAF_TOL, (name, r0)
+        if opt_state == "int8":
+            assert r0["moment_steps"] <= 1 + 1e-3, (name, r0)
+        elif r0["family"] != "hybrid":
+            assert r0["leaf_rel_err"] <= TRAIN_MESH_LEAF_TOL, (name, r0)
+        want = stateful_train_launches(family_mesh_cfg(arch))
+        for r in rows:
+            per = r["launches_per_step"]
+            assert {k: per[k] for k in want} == want, (name, per, want)
+            assert all(v == 0 for k, v in per.items() if k not in want), \
+                (name, per)
+            assert r["param_bytes"] == r["unsplit_param_bytes"] + (
+                r["whole_param_bytes"] - r["unsplit_param_bytes"]) // 2, \
+                (name, r)
+        runs[name] = {**{k: r0[k] for k in r0 if k not in (
+            "step_s", "wall_s", "launches", "collectives", "peak_device_bytes",
+            "param_bytes", "whole_param_bytes", "unsplit_param_bytes",
+            "launches_per_step", "collectives_per_step")},
+            "ranks": [{k: r[k] for k in (
+                "step_s", "wall_s", "launches_per_step",
+                "collectives_per_step", "peak_device_bytes", "param_bytes",
+                "whole_param_bytes", "unsplit_param_bytes")} for r in rows]}
+    emit({"phase": "train_mesh_2_families", "backend": "gloo", "world": 2,
+          "device": "cuda:0 (both ranks)", "nvidia_smi": smi,
+          "dtype": "float32", "runs": runs})
+
+
+def hybrid_mesh_gate(leaf_tol):
+    """train_mesh_2's zamba2 runs: each gradient leaf of the first step
+    within ``leaf_tol`` of its largest value from one device's, the limit
+    train_hybrid_oracle held the card's gradient leaves to against the
+    CPU's: max(1e-3, twice its CPU witness's spread)."""
+    emit({"phase": "train_mesh_2_hybrid_gate", "leaf_tol": leaf_tol,
+          "grad_leaf_rel_err": HYBRID_MESH_LEAVES})
+    assert HYBRID_MESH_LEAVES, "train_mesh_2 ran no hybrid run"
+    for name, err in HYBRID_MESH_LEAVES.items():
+        assert err <= leaf_tol, (name, err, leaf_tol)
 
 
 def serve_mesh_2_report(mcfg, outs, smi, parts):
@@ -4712,17 +5037,18 @@ def at_depth(cfg, n_layers):
 
 def train_restart_phase(torch, cfg, n_layers=2, opt_state="f32",
                         phase="train_restart", steps=8, fail_at=6,
-                        seq_len=512):
+                        seq_len=512, every=4):
     """Checkpoint/restart on the card: ``n_layers`` layers at full width,
-    bf16, ``steps`` steps checkpointed every 4 with a failure injected at
-    step ``fail_at`` (restore step 4, replay); the final loss equals a
-    clean run's bit for bit (the reference bounds the gap at 5e-3)."""
+    bf16, ``steps`` steps checkpointed every ``every`` with a failure
+    injected at step ``fail_at`` (restore the last checkpoint, replay); the
+    final loss equals a clean run's bit for bit (the reference bounds the
+    gap at 5e-3)."""
     import tempfile
     cfg2 = at_depth(cfg, n_layers)
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         res = _trainer(cfg2, steps, opt_state, seq_len, workdir=d,
-                       checkpoint_every=4).train(fail_at=fail_at)
+                       checkpoint_every=every).train(fail_at=fail_at)
         failed_s = time.perf_counter() - t0
         assert res["final_step"] == steps
         from repro_torch.train.checkpoint import list_checkpoints
@@ -4731,7 +5057,7 @@ def train_restart_phase(torch, cfg, n_layers=2, opt_state="f32",
     gap = abs(res["log"][-1]["loss"] - clean["log"][-1]["loss"])
     emit({"phase": phase, "arch": cfg.name, "layers": n_layers,
           "opt_state": opt_state,
-          "steps": steps, "checkpoint_every": 4, "fail_at": fail_at,
+          "steps": steps, "checkpoint_every": every, "fail_at": fail_at,
           "checkpoints": ckpts, "replayed_steps": [e["step"]
                                                   for e in res["log"]],
           "final_loss": res["log"][-1]["loss"],
@@ -4884,6 +5210,9 @@ def train_profile_phase(torch, cfg, steps=3, opt_state="f32",
 
 
 TRAIN_STATEFUL_STEPS = 5
+# train_ssm_restart and train_hybrid_restart: (steps, the step that fails,
+# the checkpoint interval)
+STATEFUL_RESTART = (6, 5, 3)
 
 
 def stateful_train_launches(cfg) -> dict:
@@ -4993,8 +5322,8 @@ def _leaf_gaps(grads, want) -> list:
 
 
 def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state,
-                                witness=True, restart=(8, 6), seq_len=512,
-                                phase=None, restart_layers=None):
+                                witness=True, restart=(8, 6, 4),
+                                seq_len=512, phase=None, restart_layers=None):
     """``n_layers`` layers at full width (2 Mamba1 layers; 2 hybrid
     segments, 12 Mamba2 layers and 2 shared-block calls; 2 MoE layers),
     f32, B 2 x S 512:
@@ -5011,8 +5340,9 @@ def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state,
     this depth (PERF.md, Findings).  Without ``witness`` (moe) the limits
     are those two; the routers' leaves are reported apart.  Then a restart
     at that depth or at ``restart_layers`` (bf16, the family's moments;
-    ``restart`` = (steps, the step that fails)) replays the clean run's
-    final loss bit for bit.
+    ``restart`` = (steps, the step that fails, the checkpoint interval))
+    replays the clean run's final loss bit for bit.  Returns the leaf
+    limit it held the card to.
     ``phase`` names the lines (default ``train_<family>``); an
     encoder-decoder is cut to ``n_layers`` encoder and decoder layers and
     takes the pipeline's stub frames."""
@@ -5069,7 +5399,8 @@ def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state,
     train_restart_phase(torch, cfg, restart_layers or n_layers, opt_state,
                         phase=f"{phase}_restart",
                         steps=restart[0], fail_at=restart[1],
-                        seq_len=seq_len)
+                        seq_len=seq_len, every=restart[2])
+    return leaf_tol
 
 
 # ---------------------------------------------------------------------------
@@ -6022,10 +6353,17 @@ def main() -> int:
                         phase="train_ssm_profile")
     hybrid_train_launches = train_stateful_phase(torch, hy_cfg, "f32")
     train_profile_phase(torch, hy_cfg, steps=2, phase="train_hybrid_profile")
+    # (the restarts at 6 steps, checkpointed every 3 and failing at 5: a
+    # cut for the time of train_mesh_2's family runs)
     train_stateful_oracle_phase(torch, ssm_cfg, 2, "int8", witness=False,
-                                restart_layers=1)
-    train_stateful_oracle_phase(torch, hy_cfg, 2 * hy_cfg.hybrid.attn_every,
-                                "f32", restart_layers=hy_cfg.hybrid.attn_every)
+                                restart=STATEFUL_RESTART, restart_layers=1)
+    hybrid_leaf_tol = train_stateful_oracle_phase(
+        torch, hy_cfg, 2 * hy_cfg.hybrid.attn_every, "f32",
+        restart=STATEFUL_RESTART, restart_layers=hy_cfg.hybrid.attn_every)
+    # train_mesh_2's zamba2 run: its leaves against one device's, held to
+    # the hybrid oracle's limit (the hybrid's f32 gradients depend on the
+    # order of sums)
+    hybrid_mesh_gate(hybrid_leaf_tol)
 
     # 12. the moe family at full width: olmoe-1b-7b served (bf16, native
     # capacity factor), a profiled window, two tenants on its attention;
@@ -6051,7 +6389,7 @@ def main() -> int:
     # the restart at 1 layer in 6 steps, failing at 5: two checkpoints
     # (steps 4 and 6), not three
     train_stateful_oracle_phase(torch, moe_cfg, 2, "int8", witness=False,
-                                restart=(6, 5), restart_layers=1)
+                                restart=(6, 5, 4), restart_layers=1)
 
     # 13. the encoder-decoder and the VLM stub frontend at full width, bf16,
     # through the prefill and decode step builders (the paged engine

@@ -114,6 +114,11 @@ class TrainShard:
         return dataclasses.replace(self, tp=False, model_split=True)
 
 
+def in_tp(shard) -> bool:
+    """Whether ``shard`` is a training step's tensor-parallel region."""
+    return isinstance(shard, TrainShard) and shard.tp
+
+
 def train_shard(mesh, seq_len: int, batch_split: bool) -> TrainShard:
     """The step's ``TrainShard`` under the knobs: sequence parallelism only
     under fsdp_tp, with more than one model rank and a sequence that
@@ -247,23 +252,77 @@ def _axes(name, shard: TrainShard, mesh, size: int) -> tuple:
 # A train state's layout on a mesh
 # ---------------------------------------------------------------------------
 
+class Paired(tuple):
+    """The spec of a fused in-projection laid out as two halves along its
+    "model" dim (Mamba1's ``in_proj`` ``[x | z]``, Mamba2's ``in_proj_zx``
+    ``[z | x]``): a rank holds its slice of the first half next to its
+    slice of the second, so a column-parallel product gives it its own
+    channels of both.  Equal to the plain spec (a tuple subclass), so the
+    rules and their comparisons with the reference see the reference's
+    spec; ``local_shard`` and ``unshard_tree`` read the halves.  A rank
+    holds 1/n of the leaf's bytes, as under the plain spec."""
+
+
+# the leaves whose "model" dim holds two halves (``Paired``)
+PAIRED_LEAVES = ("in_proj", "in_proj_zx")
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainLayout:
     """Where a train state lives on a training mesh: the spec tree of the
-    weights (``param_specs``) and of each AdamW moment (``opt_state_specs``:
-    the weight's, or ZeRO-1 slices under "dp"), over ``mesh``."""
+    weights (``param_specs``, the fused in-projections ``Paired``) and of
+    each AdamW moment (``opt_state_specs``: the weight's, ZeRO-1 slices
+    under "dp", or for int8 moments a ``Quantized`` of the payload's and
+    the scales' specs, a range of the whole leaf's blocks), over
+    ``mesh``."""
     mesh: Any
     params: Any
     moments: Any
 
 
-def train_layout(cfg, params, mesh) -> TrainLayout:
+def train_layout(cfg, params, mesh, opt_state: str = "f32",
+                 quant_block: int = 256) -> TrainLayout:
     """The layout of ``params`` (full-shaped leaves, or anything with
-    ``.shape``) and of f32 moments shaped like them, under
+    ``.shape``) and of AdamW moments of ``opt_state`` ("f32": shaped like
+    them; "int8": block-quantized whole leaves) under
     REPRO_TRAIN_SHARDING."""
-    pspecs = param_specs(cfg, params, mesh)
-    mspecs = opt_state_specs(pspecs, {"m": params, "v": params}, mesh)["m"]
+    def pair(path, spec):
+        if path[-1] in PAIRED_LEAVES and "model" in spec:
+            return Paired(spec)
+        return spec
+    pspecs = _map_specs(pair, param_specs(cfg, params, mesh))
+    if opt_state == "int8":
+        from repro_torch.train.optimizer import quantized_like
+        moments = _tree_map(lambda path, leaf: quantized_like(
+            tuple(leaf.shape), quant_block), params)
+    else:
+        moments = params
+    mspecs = opt_state_specs(pspecs, {"m": moments, "v": moments},
+                             mesh)["m"]
     return TrainLayout(mesh, pspecs, mspecs)
+
+
+def _map_specs(fn, specs, path=()):
+    """``fn(path, spec)`` over a spec tree (a spec, a tuple, is a leaf)."""
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v, path + (str(k),))
+                for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_map_specs(fn, v, path + (str(i),))
+                for i, v in enumerate(specs)]
+    return fn(path, specs)
+
+
+def _arrays(fn):
+    """``fn(spec, tensor)`` lifted to a ``Quantized`` leaf: applied to its
+    payload and its scales under their own specs."""
+    def one(spec, x):
+        from repro_torch.train.optimizer import Quantized
+        if isinstance(x, Quantized):
+            return Quantized(fn(spec.q, x.q), fn(spec.scale, x.scale),
+                             x.shape, x.pad)
+        return fn(spec, x)
+    return one
 
 
 def shard_tree(tree, specs, mesh, device=None):
@@ -274,23 +333,29 @@ def shard_tree(tree, specs, mesh, device=None):
     def one(spec, x):
         t = local_shard(x, spec, mesh, coords)
         return t if device is None else t.to(device)
-    return _tree_map2(one, specs, tree)
+    return _tree_map2(_arrays(one), specs, tree)
 
 
 def unshard_tree(tree, specs, mesh, to_host: bool = False):
     """The whole leaves of a tree of this rank's slices, on every rank
     (``all_gather`` over each sharded dim's axes; several axes, as a ZeRO
-    moment's, over every rank in row-major order), each moved to the host
-    as soon as it is whole when ``to_host``."""
+    moment's, over every rank in row-major order; a ``Paired`` leaf's
+    halves put back in place), each moved to the host as soon as it is
+    whole when ``to_host``."""
     def one(spec, x):
         for d, e in enumerate(spec):
             if e is None:
                 continue
             names = e if isinstance(e, tuple) else (e,)
             axis = names[0] if len(names) == 1 else "world"
+            n = mesh.size(axis)
             x = mesh.gather(x, d, axis)
+            if isinstance(spec, Paired) and e == "model" and n > 1:
+                # [a_0 b_0 | a_1 b_1 | ...] -> [a_0 a_1 ... | b_0 b_1 ...]
+                parts = x.chunk(2 * n, dim=d)
+                x = torch.cat(parts[0::2] + parts[1::2], dim=d)
         return x.cpu() if to_host else x
-    return _tree_map2(one, specs, tree)
+    return _tree_map2(_arrays(one), specs, tree)
 
 
 def full_shape(shape, spec, mesh) -> Tuple[int, ...]:
@@ -590,20 +655,41 @@ def local_shard(x: torch.Tensor, spec: tuple, mesh,
     """The slice of ``x`` that the rank at mesh coordinates ``coords``
     (axis name -> index) holds under ``spec``: each dim with an entry is
     cut into that entry's axis-size product of equal parts (several axes
-    row-major, as the reference's ``NamedSharding`` lays them out).  A
-    tensor of its own (never a view of ``x``), contiguous."""
+    row-major, as the reference's ``NamedSharding`` lays them out; a
+    ``Paired`` spec's "model" dim in each of its halves).  A tensor of its
+    own (never a view of ``x``), contiguous."""
     out = x
-    for d, e in enumerate(spec):
+    for d, (lo, size) in enumerate(shard_ranges(x.shape, spec, mesh,
+                                                coords)):
+        if len(lo) == 1:
+            out = out.narrow(d, lo[0], size)
+        else:
+            out = torch.cat([out.narrow(d, a, size) for a in lo], dim=d)
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def shard_ranges(shape, spec, mesh, coords):
+    """Per dim of a whole ``shape``, (the starts of the ranges the rank at
+    ``coords`` holds, their common length): one range of 1/n of the dim
+    (n the entry's axis-size product), or under ``Paired`` on "model" one
+    in each half.  The rank's slice is their product, in order, so its
+    row-major positions map to increasing positions of the whole."""
+    out = []
+    for d, n_d in enumerate(shape):
+        e = spec[d] if d < len(spec) else None
         if e is None:
+            out.append(((0,), n_d))
             continue
         names = e if isinstance(e, tuple) else (e,)
         idx = 0
         for a in names:
             idx = idx * mesh_axis_size(mesh, a) + coords.get(a, 0)
         n = mesh_axis_size(mesh, names)
-        if x.shape[d] % n:
-            raise ValueError(f"dim {d} of size {x.shape[d]} does not split "
-                             f"{n} ways under spec {spec}")
-        size = x.shape[d] // n
-        out = out.narrow(d, idx * size, size)
-    return out.clone(memory_format=torch.contiguous_format)
+        halves = 2 if isinstance(spec, Paired) and e == "model" else 1
+        if n_d % (n * halves):
+            raise ValueError(f"dim {d} of size {n_d} does not split "
+                             f"{n * halves} ways under spec {spec}")
+        size = n_d // (n * halves)
+        out.append((tuple(h * (n_d // halves) + idx * size
+                          for h in range(halves)), size))
+    return out

@@ -14,6 +14,9 @@ is given.
         --steps 5 --seq-len 448 --batch 8
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
         --device cuda --mesh 2x1 --steps 5 --seq-len 512 --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch falcon-mamba-7b --mesh 2x1 --opt-state int8 --steps 3 \
+        --seq-len 512 --batch 8
 
 Same CLI as ``repro.launch.train`` with ``--device`` added (default cuda;
 asking for cuda without a card is an error).  ``--mesh DxM`` trains on a
@@ -22,10 +25,14 @@ one rank a card, when that many cards are visible; otherwise gloo on
 ``cuda:0``, or on the CPU under ``--device cpu``), each rank a ``Trainer``
 over its ``TrainMesh`` in the layout REPRO_TRAIN_SHARDING names; ``local``
 is 1x1 through the mesh code; ``pod1`` / ``pod2`` need the reference's
-256 / 512 devices and raise.  The dense, moe and vlm families train on a
-mesh, with f32 moments.  ``--smoke`` swaps in the
+256 / 512 devices and raise.  Every family trains on a mesh, with f32 or
+int8 moments (a tensor-parallel split that does not divide is refused
+before anything is allocated: heads, and for the ssm and hybrid families
+d_inner and the SSD heads).  ``--smoke`` swaps in the
 reduced same-family config (``--device cpu --smoke`` trains it here in
 seconds); without it the arch trains at full width from random weights.
+``--layers N`` cuts the arch to its first N layers, widths kept (a depth
+that fits: two ranks of falcon-mamba-7b share one card).
 The dense, moe (olmoe-1b-7b: the loss adds 0.01 times the routers'
 load-balance loss), ssm (falcon-mamba-7b: K7 forward and backward) and
 hybrid (zamba2-2.7b: K3 at head_dim 80) archs train, and so do the
@@ -42,6 +49,7 @@ with int8 moments, 41.7 GB).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 import torch
@@ -70,11 +78,17 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--mesh", default=None,
                     help="DxM (data x model ranks), local (1x1), pod1, pod2")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the arch to its first N layers (an "
+                         "encoder-decoder: N encoder and N decoder layers; "
+                         "a hybrid: whole segments), widths kept")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced_config(cfg)
+    if args.layers is not None:
+        cfg = at_depth(cfg, args.layers)
     device = resolve_device(args.device)
     if args.mesh is not None:
         return _train_on_mesh(cfg, args, *mesh_shape(args.mesh))
@@ -87,6 +101,21 @@ def main(argv=None):
         print(f"peak device memory {torch.cuda.max_memory_allocated(device)}"
               " bytes", flush=True)
     return result
+
+
+def at_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
+    """``cfg`` cut to ``n_layers`` layers, widths kept: an encoder-decoder
+    to that many encoder and decoder layers; a hybrid's count must be a
+    whole number of segments."""
+    if n_layers < 1:
+        raise ValueError(f"--layers {n_layers}: need at least one layer")
+    if cfg.hybrid is not None and n_layers % cfg.hybrid.attn_every:
+        raise ValueError(f"--layers {n_layers}: {cfg.name} runs segments of "
+                         f"{cfg.hybrid.attn_every} layers")
+    kw = {"n_layers": n_layers}
+    if cfg.encdec is not None:
+        kw["encdec"] = dataclasses.replace(cfg.encdec, n_enc_layers=n_layers)
+    return dataclasses.replace(cfg, **kw)
 
 
 def _trainer(cfg, args, device, mesh=None) -> Trainer:
@@ -139,8 +168,7 @@ def _train_on_mesh(cfg, args, data: int, model: int):
         on_card = 1 if backend == "nccl" else world
         check_state_fits(cfg, args.opt_state, props.total_memory // on_card,
                          data, model)
-    check_mesh_trains(cfg, MeshShape({"data": data, "model": model}),
-                      opt_config(args.lr, args.steps, args.opt_state))
+    check_mesh_trains(cfg, MeshShape({"data": data, "model": model}))
     print(f"training {cfg.name} on a {data}x{model} mesh ({backend}, "
           f"{world} rank(s))", flush=True)
     try:

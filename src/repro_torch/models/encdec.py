@@ -18,6 +18,18 @@ the prefill; a decode step attends its one token in plain PyTorch
 K/V written in place at ``cur_len``, the encoder's K/V per layer, and the
 true encoder length, to which the cross-attention is masked when the cache
 is padded.
+
+Training on a mesh: ``encdec_loss`` takes the step's ``shard`` (a
+``repro_torch.distributed.sharding.TrainShard``), the frames and tokens
+split on the batch.  Every attention and MLP, the encoder's and the
+decoder's, uses the dense path's tensor parallelism (the rank's query and
+kv heads, column- and row-parallel MLP); the cross-attention's K/V are
+projected column-parallel on the kv heads from the encoder output, which
+is replicated over "model" and enters each layer's projections through
+its own *f* (``_enc_in``).  A layer's FSDP shards are gathered in one
+bucket at its entry (REPRO_WEIGHT_AG=0) or each at its use (=1), the
+embedding's once a step; a vocabulary that does not divide over "model"
+(whisper's 51,865) leaves the embedding and the logits whole there.
 """
 from __future__ import annotations
 
@@ -27,6 +39,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.param_sharding import tp_linear, tp_whole
+from repro_torch.distributed.sharding import (gather_layer, in_tp, resolve,
+                                              weight_use)
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     apply_mlp, embed_tokens, init_embed, init_mlp, logits_from_hidden,
@@ -69,78 +85,131 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None, :].expand(b, s)
 
 
-def encode(cfg: ModelConfig, params, frames: torch.Tensor, remat: bool = False
-           ) -> torch.Tensor:
+def _norm(cfg: ModelConfig, x: torch.Tensor, w, shard) -> torch.Tensor:
+    return rms_norm(x, weight_use(w, None, shard=shard), cfg.norm_eps)
+
+
+def _bucket(lp, shard):
+    """A layer's weights with their FSDP shards gathered in one bucket
+    (REPRO_WEIGHT_AG=0 on a mesh), else as they are."""
+    if shard is not None and not shard.per_use:
+        return gather_layer(lp, shard)
+    return lp
+
+
+def encode(cfg: ModelConfig, params, frames: torch.Tensor, remat: bool = False,
+           shard=None) -> torch.Tensor:
     """frames (B,S,d) stub embeddings -> encoder output (B,S,d) in the
-    parameters' dtype (the frames are cast to it first)."""
+    parameters' dtype (the frames are cast to it first); ``shard`` a
+    training step's on a mesh."""
     x = frames.to(params["enc_norm"].dtype)
     b, s, d = x.shape
     x = x + sinusoidal_positions(s, d, x.device).to(x.dtype)[None]
     positions = _positions(b, s, x.device)
 
     def layer(lp, x):
+        lp = _bucket(lp, shard)
         h = x + attn.attention_block(
-            cfg, lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), positions,
-            causal=False, impl="kernel")
-        return h + apply_mlp(cfg, lp["mlp"],
-                             rms_norm(h, lp["ln2"], cfg.norm_eps))
+            cfg, lp["attn"], _norm(cfg, x, lp["ln1"], shard), positions,
+            causal=False, impl="kernel", shard=shard)
+        return h + apply_mlp(cfg, lp["mlp"], _norm(cfg, h, lp["ln2"], shard),
+                             shard=shard)
 
     x = run_blocks(layer, params["enc_layers"], x, remat)
-    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    return _norm(cfg, x, params["enc_norm"], shard)
 
 
-def _enc_kv(cfg: ModelConfig, p, enc_out: torch.Tensor
+def _enc_in(enc_out: torch.Tensor, shard) -> torch.Tensor:
+    """The encoder output where a decoder layer's cross-attention reads
+    it, one node a layer whose cotangent sums both projections' before it
+    reaches ``enc_out`` (so one device and a 1x1 mesh add them in one
+    order).  On a mesh's tensor parallelism ``enc_out`` is replicated over
+    "model" and read by each rank's own kv heads, so this is *f*, summing
+    the cotangent over the model ranks (without it the encoder's gradients
+    are one rank's share)."""
+    if in_tp(shard):
+        return col.copy_to(enc_out, shard.mesh, "model")
+    return enc_out.view_as(enc_out)
+
+
+def _enc_kv(cfg: ModelConfig, p, enc_out: torch.Tensor, shard=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The cross-attention's K/V (B,S_enc,KV,hd) from the encoder output."""
+    """The cross-attention's K/V (B,S_enc,KV,hd) from the encoder output
+    (the rank's KV/n heads on a mesh's tensor parallelism: column-parallel
+    projections of ``_enc_in``'s output)."""
     b, s, _ = enc_out.shape
     hd = cfg.resolved_head_dim
-    return ((enc_out @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd),
-            (enc_out @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd))
+    e = _enc_in(enc_out, shard)
+    out = []
+    for w in (p["wk"], p["wv"]):
+        if in_tp(shard):
+            t, j = resolve(w, shard, keep_model=True)
+            assert j == 1, "the cross-attention's kv heads not split on model"
+            y = e @ t
+        else:
+            y = tp_linear(e, w, shard)[0]
+        out.append(y.reshape(b, s, -1, hd))
+    return out[0], out[1]
+
+
+def _attn_out(cfg: ModelConfig, p, o: torch.Tensor, shard) -> torch.Tensor:
+    """o (B,S,H,hd) through ``wo`` (row-parallel over the rank's heads on
+    a mesh), whole on its last dim."""
+    b, s = o.shape[:2]
+    out, local = tp_linear(o.reshape(b, s, -1), p["wo"], shard,
+                           x_local=o.shape[2] < cfg.n_heads)
+    return tp_whole(out, local, shard)
 
 
 def _dec_layer(cfg: ModelConfig, lp, x: torch.Tensor, enc_out: torch.Tensor,
-               positions: torch.Tensor, kv: Optional[list] = None
-               ) -> torch.Tensor:
+               positions: torch.Tensor, kv: Optional[list] = None,
+               shard=None) -> torch.Tensor:
     """One decoder layer over the whole sequence: causal self-attention,
     cross-attention (queries from the decoder, K/V from ``enc_out``, no
     mask), MLP.  ``kv``, when given, receives the layer's (k, v, xk, xv)
-    for a decode cache."""
-    b, s = x.shape[:2]
+    for a decode cache; ``shard`` is a training step's on a mesh."""
+    lp = _bucket(lp, shard)
     q, k, v = attn.qkv_project(cfg, lp["self_attn"],
-                               rms_norm(x, lp["ln1"], cfg.norm_eps), positions)
+                               _norm(cfg, x, lp["ln1"], shard), positions,
+                               shard=shard)
     o = attn.multi_head_attention(q, k, v, causal=True, impl="kernel")
-    h = x + o.reshape(b, s, cfg.q_dim) @ lp["self_attn"]["wo"]
+    h = x + _attn_out(cfg, lp["self_attn"], o, shard)
     # the reference projects the decoder's k and v here too and drops them
     q, _, _ = attn.qkv_project(cfg, lp["cross_attn"],
-                               rms_norm(h, lp["ln_x"], cfg.norm_eps),
-                               positions)
-    xk, xv = _enc_kv(cfg, lp["cross_attn"], enc_out)
+                               _norm(cfg, h, lp["ln_x"], shard), positions,
+                               shard=shard)
+    xk, xv = _enc_kv(cfg, lp["cross_attn"], enc_out, shard)
     o = attn.multi_head_attention(q, xk, xv, causal=False, impl="kernel")
-    h = h + o.reshape(b, s, cfg.q_dim) @ lp["cross_attn"]["wo"]
+    h = h + _attn_out(cfg, lp["cross_attn"], o, shard)
     if kv is not None:
         kv.append((k, v, xk, xv))
-    return h + apply_mlp(cfg, lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps))
+    return h + apply_mlp(cfg, lp["mlp"], _norm(cfg, h, lp["ln2"], shard),
+                         shard=shard)
 
 
-def _decoder_input(cfg: ModelConfig, params, tokens: torch.Tensor):
+def _decoder_input(cfg: ModelConfig, params, tokens: torch.Tensor,
+                   shard=None):
     b, s = tokens.shape
-    x = embed_tokens(params["embed"], tokens)
+    x = embed_tokens(params["embed"], tokens, shard)
     x = x + sinusoidal_positions(s, cfg.d_model, x.device).to(x.dtype)[None]
     return x, _positions(b, s, x.device)
 
 
-def encdec_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True
-                ) -> torch.Tensor:
+def encdec_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True,
+                shard=None) -> torch.Tensor:
     """Mean next-token cross-entropy of batch {"frames" (B,S_enc,d),
     "tokens", "labels" (B,S)}; with ``remat`` each encoder and decoder
-    layer runs again in the backward."""
-    enc_out = encode(cfg, params, batch["frames"], remat)
-    x, positions = _decoder_input(cfg, params, batch["tokens"])
-    x = run_blocks(lambda lp, x, e: _dec_layer(cfg, lp, x, e, positions),
+    layer runs again in the backward; on a mesh (``shard``) the mean over
+    this rank's rows."""
+    params = {**params, "embed": gather_layer(params["embed"], shard)}
+    enc_out = encode(cfg, params, batch["frames"], remat, shard)
+    x, positions = _decoder_input(cfg, params, batch["tokens"], shard)
+    x = run_blocks(lambda lp, x, e: _dec_layer(cfg, lp, x, e, positions,
+                                               shard=shard),
                    params["dec_layers"], x, remat, enc_out)
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    h = _norm(cfg, x, params["final_norm"], shard)
     return softmax_cross_entropy(
-        logits_from_hidden(cfg, params["embed"], h), batch["labels"])
+        logits_from_hidden(cfg, params["embed"], h, shard), batch["labels"])
 
 
 def encdec_prefill(cfg: ModelConfig, params, batch: Dict

@@ -9,6 +9,19 @@ in torch einsums under autograd (the JAX package has no kernel for it);
 with ``remat`` each segment runs again in the backward, as the reference
 checkpoints its segment body.
 
+Training on a mesh: ``hybrid_loss`` takes the step's ``shard`` (a
+``repro_torch.distributed.sharding.TrainShard``).  Each Mamba2 layer
+computes the rank's SSD heads under fsdp_tp (``mamba.mamba2_forward``);
+the shared block runs the dense path's tensor parallelism (the rank's
+query and kv heads, column- and row-parallel MLP), and under
+REPRO_SEQ_PARALLEL=1 its MLP runs on the rank's sequence slice with its
+weights gathered over "model" (the reference's ``apply_mlp`` branch; the
+residual stream itself carries no sequence constraint in the hybrid).  A
+segment's FSDP shards, the shared block's with them, are gathered in one
+bucket at the segment's entry, inside its remat region (REPRO_WEIGHT_AG=0;
+=1 gathers each at its use), so the shared weights are gathered once a
+call site and autograd sums their gradient over the call sites.
+
 ``params["layers"]`` is a list of ``n_layers`` per-layer dicts
 ``{"ln", "mamba"}`` in forward order (segment s holds layers
 ``s*per .. s*per+per-1``), ``params["shared"]`` the shared block.  Caches
@@ -26,6 +39,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (constrain, gather_layer,
+                                              weight_use)
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba, ssm_lm, transformer
 from repro_torch.models.layers import (
@@ -60,13 +75,23 @@ def _segment(cfg: ModelConfig, params, s: int):
     return params["layers"][s * per:(s + 1) * per]
 
 
-def _shared_tail(cfg: ModelConfig, shared, x: torch.Tensor, attend
-                 ) -> torch.Tensor:
+def _shared_tail(cfg: ModelConfig, shared, x: torch.Tensor, attend,
+                 shard=None) -> torch.Tensor:
     """The shared block after a segment's Mamba2 layers: ``attend`` maps the
-    normed input to the attention output (it owns any cache update)."""
-    h = x + attend(rms_norm(x, shared["ln1"], cfg.norm_eps))
-    return h + apply_mlp(cfg, shared["mlp"],
-                         rms_norm(h, shared["ln2"], cfg.norm_eps))
+    normed input to the attention output (it owns any cache update);
+    ``shard`` a training step's on a mesh."""
+    def norm(t, w):
+        return rms_norm(t, weight_use(w, None, shard=shard), cfg.norm_eps)
+    h = x + attend(norm(x, shared["ln1"]))
+    hn = norm(h, shared["ln2"])
+    if shard is None or not shard.seq_parallel:
+        return h + apply_mlp(cfg, shared["mlp"], hn, shard=shard)
+    # sequence parallelism: the MLP on the rank's sequence slice
+    part = constrain(hn, "batch", "seq_mp", None, shard=shard,
+                     have=("batch", None, None))
+    y = apply_mlp(cfg, shared["mlp"], part, shard=shard.seq_region())
+    return h + constrain(y, "batch", None, None, shard=shard,
+                         have=("batch", "seq_mp", None))
 
 
 def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
@@ -79,36 +104,50 @@ def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _segment_fwd(cfg: ModelConfig, shared, seg_layers, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, shard=None) -> torch.Tensor:
     """One segment: its Mamba2 layers, then the shared block with its
-    attention on the flash-attention kernel."""
+    attention on the flash-attention kernel; ``shard`` a training step's
+    on a mesh (the segment's and the shared block's FSDP shards gathered
+    in one bucket here, unless REPRO_WEIGHT_AG=1)."""
+    if shard is not None and not shard.per_use:
+        g = gather_layer({"layers": seg_layers, "shared": shared}, shard)
+        seg_layers, shared = g["layers"], g["shared"]
     for lp in seg_layers:
+        ln = weight_use(lp["ln"], None, shard=shard)
         y, _ = mamba.mamba2_forward(cfg, lp["mamba"],
-                                    rms_norm(x, lp["ln"], cfg.norm_eps))
+                                    rms_norm(x, ln, cfg.norm_eps),
+                                    shard=shard)
         x = x + y
     return _shared_tail(cfg, shared, x, lambda xn: attn.attention_block(
-        cfg, shared["attn"], xn, positions, causal=True, impl="kernel"))
+        cfg, shared["attn"], xn, positions, causal=True, impl="kernel",
+        shard=shard), shard)
 
 
-def _fwd(cfg: ModelConfig, params, embeds: torch.Tensor, remat: bool
-         ) -> torch.Tensor:
+def _fwd(cfg: ModelConfig, params, embeds: torch.Tensor, remat: bool,
+         shard=None) -> torch.Tensor:
     """embeds (B,S,d) -> final-normed hidden (B,S,d); ``remat`` recomputes
     each segment in the backward."""
     b, s = embeds.shape[:2]
     positions = torch.arange(s, device=embeds.device)[None, :].expand(b, s)
     segments = [_segment(cfg, params, i) for i in range(_n_segments(cfg))]
     x = transformer.run_blocks(
-        lambda seg, x: _segment_fwd(cfg, params["shared"], seg, x, positions),
+        lambda seg, x: _segment_fwd(cfg, params["shared"], seg, x, positions,
+                                    shard),
         segments, embeds, remat)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return rms_norm(x, weight_use(params["final_norm"], None, shard=shard),
+                    cfg.norm_eps)
 
 
-def hybrid_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True
-                ) -> torch.Tensor:
-    """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,S)."""
-    h = _fwd(cfg, params, embed_tokens(params["embed"], batch["tokens"]),
-             remat)
-    logits = logits_from_hidden(cfg, params["embed"], h)
+def hybrid_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True,
+                shard=None) -> torch.Tensor:
+    """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,S);
+    on a mesh (``shard``) the mean over this rank's rows, the embedding's
+    shards gathered once for the lookup and the logits."""
+    params = {**params, "embed": gather_layer(params["embed"], shard)}
+    h = _fwd(cfg, params,
+             embed_tokens(params["embed"], batch["tokens"], shard), remat,
+             shard)
+    logits = logits_from_hidden(cfg, params["embed"], h, shard)
     return softmax_cross_entropy(logits, batch["labels"])
 
 

@@ -34,6 +34,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.param_sharding import tp_linear
+from repro_torch.distributed.sharding import (constrain, in_tp, resolve,
+                                              weight_use)
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import rms_norm, truncated_normal
 
@@ -49,6 +53,55 @@ def _d_inner(cfg: ModelConfig) -> int:
 def _silu(x: torch.Tensor) -> torch.Tensor:
     """silu in f32, result in x's dtype."""
     return F.silu(x.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# A training step on a mesh
+# ---------------------------------------------------------------------------
+# Under a ``TrainShard``'s tensor parallelism a rank computes its own
+# d_inner channels (Mamba1) or SSD heads (Mamba2): the fused in-projection
+# is column-parallel (its ``sharding.Paired`` layout gives the rank its
+# channels of both halves), every d_inner- or head-sized weight is the
+# rank's slice, and out_proj is row-parallel through *g*.  What is
+# replicated over "model" and read by each rank's own channels (B and C,
+# Mamba2's gated-norm rows) gets its cotangent summed or gathered back.
+
+
+def _in_halves(x: torch.Tensor, w, shard):
+    """``x @ w`` of a fused in-projection, as its two halves: the whole
+    halves, or on a training mesh's tensor-parallel region the rank's
+    channels of each (column-parallel, ``x`` through *f*)."""
+    y, local = tp_linear(x, w, shard)
+    assert local == in_tp(shard), "a fused in-projection not split on model"
+    half = y.shape[-1] // 2
+    return y[..., :half], y[..., half:]
+
+
+def _channels(w, shard, dim: int):
+    """A d_inner- or SSD-head-sized weight at its use: whole, or under a
+    training mesh's tensor parallelism the rank's slice along ``dim``, its
+    stored "model" shard (``trainer.check_mesh_trains`` has checked that
+    d_inner and the SSD heads divide)."""
+    if not in_tp(shard):
+        return weight_use(w, None, shard=shard)
+    t, j = resolve(w, shard, keep_model=True)
+    assert j == dim % t.dim(), "a d_inner-sized weight not split on model"
+    return t
+
+
+def _bc_in(bc: torch.Tensor, shard) -> torch.Tensor:
+    """B and C (one tensor, last dim [B | C]) where each rank's channels
+    read them: replicated over "model", so *f* sums their cotangent over
+    the model ranks (each rank's is its channels' share; without the sum
+    every gradient upstream of them is one rank's)."""
+    return col.copy_to(bc, shard.mesh, "model") if in_tp(shard) else bc
+
+
+def _dinner(shard) -> tuple:
+    """The layout of a (B, S, d_inner) activation: the rank's channels
+    under tensor parallelism (the reference's ``constrain(xs, "batch",
+    None, "dinner")``)."""
+    return ("batch", None, "dinner" if in_tp(shard) else None)
 
 
 # ===========================================================================
@@ -87,13 +140,18 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 
 
 def _selective_scan(p, dt: torch.Tensor, b_ssm: torch.Tensor,
-                    c_ssm: torch.Tensor, xs: torch.Tensor, h0: torch.Tensor):
+                    c_ssm: torch.Tensor, xs: torch.Tensor, h0: torch.Tensor,
+                    shard=None):
     """dt (B,S,di) f32, B and C (B,S,N), x (B,S,di), h0 (B,di,N) f32 ->
     (y (B,S,di) f32, h_last): the fused selective-scan kernel, one launch
     over all S (the reference's ``cfg.ssm.chunk`` scan granule changes no
-    bit of the result)."""
-    return ops.ssm_scan_fused(dt, -torch.exp(p["A_log"]), b_ssm, c_ssm, xs,
-                              h0)
+    bit of the result); on a training mesh over the rank's channels (di
+    its share, A_log its rows).  The reference constrains its
+    materialised a = exp(dt A) and b = dt B x to the rank's channels
+    (``mamba.py:123``, ``:126``); the kernel makes both in registers, so
+    the port has no such tensor to constrain."""
+    a_log = _channels(p["A_log"], shard, 0)
+    return ops.ssm_scan_fused(dt, -torch.exp(a_log), b_ssm, c_ssm, xs, h0)
 
 
 def _discretise(dt: torch.Tensor, a_log: torch.Tensor, b_ssm: torch.Tensor,
@@ -105,21 +163,29 @@ def _discretise(dt: torch.Tensor, a_log: torch.Tensor, b_ssm: torch.Tensor,
     return ref.ssm_discretise_ref(dt, -torch.exp(a_log), b_ssm, xs)
 
 
-def _project(cfg: ModelConfig, p, xs: torch.Tensor):
+def _project(cfg: ModelConfig, p, xs: torch.Tensor, shard=None):
     """Post-conv activations xs (..., di) -> (dt (..., di) f32 after
-    softplus, B (..., N), C (..., N))."""
+    softplus, B (..., N), C (..., N)).  On a training mesh ``xs`` is the
+    rank's channels: x_proj is row-parallel (its partial sums meet in
+    *g*, giving every rank dt_r, B and C whole), dt_proj column-parallel
+    (dt_r through its *f*), and B and C go through ``_bc_in``."""
     dtr, n = _dt_rank(cfg), cfg.ssm.d_state
-    proj = xs @ p["x_proj"]
-    dt_r, b_ssm, c_ssm = torch.split(proj, [dtr, n, n], dim=-1)
-    dt = F.softplus((dt_r @ p["dt_proj"]).float() + p["dt_bias"])
+    proj, _ = tp_linear(xs, p["x_proj"], shard, x_local=in_tp(shard))
+    dt_r, bc = proj[..., :dtr], _bc_in(proj[..., dtr:], shard)
+    b_ssm, c_ssm = bc[..., :n], bc[..., n:]
+    dtp, _ = tp_linear(dt_r, p["dt_proj"], shard)
+    dt = F.softplus(dtp.float() + _channels(p["dt_bias"], shard, 0))
     return dt, b_ssm, c_ssm
 
 
 def _gate_out(p, y: torch.Tensor, xs: torch.Tensor, z: torch.Tensor,
-              dtype) -> torch.Tensor:
-    """(y + D * x) * silu(z) @ out_proj."""
-    y = (y + p["D"] * xs.float()).to(dtype)
-    return (y * _silu(z)) @ p["out_proj"]
+              dtype, shard=None) -> torch.Tensor:
+    """(y + D * x) * silu(z) @ out_proj (row-parallel through *g* on a
+    training mesh)."""
+    y = (y + _channels(p["D"], shard, 0) * xs.float()).to(dtype)
+    out, _ = tp_linear(y * _silu(z), p["out_proj"], shard,
+                       x_local=in_tp(shard))
+    return out
 
 
 def _tail_window(x_pre: torch.Tensor, w: int) -> torch.Tensor:
@@ -132,20 +198,26 @@ def _tail_window(x_pre: torch.Tensor, w: int) -> torch.Tensor:
 
 
 def mamba1_forward(cfg: ModelConfig, p, x: torch.Tensor,
-                   h0: torch.Tensor = None) -> Tuple[torch.Tensor, Dict]:
-    """x (B,S,d) -> (y (B,S,d), state {"h", "conv"})."""
+                   h0: torch.Tensor = None, shard=None
+                   ) -> Tuple[torch.Tensor, Dict]:
+    """x (B,S,d) -> (y (B,S,d), state {"h", "conv"}).  ``shard``: a
+    training step's on a mesh (the rank's batch rows; under tensor
+    parallelism its d_inner channels, K7 over them)."""
     bsz = x.shape[0]
-    di, n = _d_inner(cfg), cfg.ssm.d_state
-    xz = x @ p["in_proj"]
-    xs, z = xz[..., :di], xz[..., di:]
-    xs = _silu(causal_conv1d(xs, p["conv_w"], p["conv_b"]))
-    dt, b_ssm, c_ssm = _project(cfg, p, xs)
+    n = cfg.ssm.d_state
+    x_pre, z = _in_halves(x, p["in_proj"], shard)
+    xs = constrain(x_pre, "batch", None, "dinner", shard=shard,
+                   have=_dinner(shard))
+    xs = _silu(causal_conv1d(xs, _channels(p["conv_w"], shard, 1),
+                             _channels(p["conv_b"], shard, 0)))
+    dt, b_ssm, c_ssm = _project(cfg, p, xs, shard)
     if h0 is None:
-        h0 = torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
-    y, h_last = _selective_scan(p, dt, b_ssm, c_ssm, xs, h0)
-    out = _gate_out(p, y, xs, z, x.dtype)
+        h0 = torch.zeros((bsz, xs.shape[-1], n), dtype=torch.float32,
+                         device=x.device)
+    y, h_last = _selective_scan(p, dt, b_ssm, c_ssm, xs, h0, shard)
+    out = _gate_out(p, y, xs, z, x.dtype, shard)
     return out, {"h": h_last,
-                 "conv": _tail_window(xz[..., :di], cfg.ssm.d_conv - 1)}
+                 "conv": _tail_window(x_pre, cfg.ssm.d_conv - 1)}
 
 
 def mamba1_decode_step(cfg: ModelConfig, p, x: torch.Tensor, state: Dict):
@@ -299,36 +371,59 @@ def ssd_forward(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def _mamba2_out(cfg: ModelConfig, p, y: torch.Tensor, xh: torch.Tensor,
-                z: torch.Tensor, dtype) -> torch.Tensor:
-    """(y + D * x), the gated norm over d_inner, and out_proj."""
-    di = _d_inner(cfg)
-    y = y + p["D"][:, None] * xh.float()
-    y = y.reshape(*y.shape[:-2], di).to(dtype)
-    y = rms_norm(y * _silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"]
+                z: torch.Tensor, dtype, shard=None) -> torch.Tensor:
+    """(y + D * x), the gated norm over d_inner, and out_proj.  On a
+    training mesh's tensor parallelism the rank's channels of each row are
+    gathered over "model" (the backward keeps the rank's part), the norm
+    (K2) runs on the whole rows as on one device, and the rank's channels
+    are split back out for the row-parallel out_proj (*g*)."""
+    y = y + _channels(p["D"], shard, 0)[:, None] * xh.float()
+    y = y.reshape(*y.shape[:-2], -1).to(dtype)
+    g = y * _silu(z)
+    if in_tp(shard):
+        g = col.gather(g, shard.mesh, "model", -1, False)
+    g = rms_norm(g, weight_use(p["norm"], None, shard=shard), cfg.norm_eps)
+    if in_tp(shard):
+        g = col.split(g, shard.mesh, "model", -1)
+    out, _ = tp_linear(g, p["out_proj"], shard, x_local=in_tp(shard))
+    return out
 
 
-def _split_bcdt(cfg: ModelConfig, bcdt: torch.Tensor):
+def _split_bcdt(cfg: ModelConfig, bcdt: torch.Tensor, shard=None):
+    """(B, C, dt) of the bcdt projection; on a training mesh's tensor
+    parallelism B and C through ``_bc_in`` and dt the rank's heads
+    (``collectives.Split``: its cotangent gathered back whole)."""
     n = cfg.ssm.d_state
-    return torch.split(bcdt, [n, n, _ssd_heads(cfg)], dim=-1)
+    if not in_tp(shard):
+        return torch.split(bcdt, [n, n, _ssd_heads(cfg)], dim=-1)
+    bc = _bc_in(bcdt[..., :2 * n], shard)
+    return (bc[..., :n], bc[..., n:],
+            col.split(bcdt[..., 2 * n:], shard.mesh, "model", -1))
 
 
-def mamba2_forward(cfg: ModelConfig, p, x: torch.Tensor, h0=None):
-    """x (B,S,d) -> (y (B,S,d), state {"h" (B,H,P,N), "conv"})."""
+def mamba2_forward(cfg: ModelConfig, p, x: torch.Tensor, h0=None,
+                   shard=None):
+    """x (B,S,d) -> (y (B,S,d), state {"h" (B,H,P,N), "conv"}).
+    ``shard``: a training step's on a mesh (the rank's batch rows; under
+    tensor parallelism its SSD heads and their d_inner channels)."""
     bsz, s, _ = x.shape
-    di = _d_inner(cfg)
-    hh, pp = _ssd_heads(cfg), cfg.ssm.head_dim
-    zx = x @ p["in_proj_zx"]
-    b_ssm, c_ssm, dt = _split_bcdt(cfg, x @ p["in_proj_bcdt"])
-    z, xs = zx[..., :di], zx[..., di:]
-    xs = _silu(causal_conv1d(xs, p["conv_w"], p["conv_b"]))
-    dt = F.softplus(dt.float() + p["dt_bias"])            # (B,S,H)
-    A = -torch.exp(p["A_log"])
-    xh = xs.reshape(bsz, s, hh, pp)
+    pp = cfg.ssm.head_dim
+    z, x_pre = _in_halves(x, p["in_proj_zx"], shard)
+    bcdt, _ = tp_linear(x, p["in_proj_bcdt"], shard)
+    b_ssm, c_ssm, dt = _split_bcdt(cfg, bcdt, shard)
+    xs = constrain(x_pre, "batch", None, "dinner", shard=shard,
+                   have=_dinner(shard))
+    xs = _silu(causal_conv1d(xs, _channels(p["conv_w"], shard, 1),
+                             _channels(p["conv_b"], shard, 0)))
+    dt = F.softplus(dt.float() + _channels(p["dt_bias"], shard, 0))
+    A = -torch.exp(_channels(p["A_log"], shard, 0))
+    heads = ("batch", None, "heads" if in_tp(shard) else None, None)
+    xh = constrain(xs.reshape(bsz, s, -1, pp), "batch", None, "heads", None,
+                   shard=shard, have=heads)
     y, h_last = ssd_forward(xh, dt, A, b_ssm, c_ssm, cfg.ssm.chunk, h0)
-    out = _mamba2_out(cfg, p, y, xh, z, x.dtype)
+    out = _mamba2_out(cfg, p, y, xh, z, x.dtype, shard)
     return out, {"h": h_last,
-                 "conv": _tail_window(zx[..., di:], cfg.ssm.d_conv - 1)}
+                 "conv": _tail_window(x_pre, cfg.ssm.d_conv - 1)}
 
 
 def mamba2_decode_step(cfg: ModelConfig, p, x: torch.Tensor, state: Dict):

@@ -18,10 +18,10 @@ from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 @dataclasses.dataclass(frozen=True)
 class ModelFns:
     init: Callable              # (seed) -> params on the bundle's device
-    # (params, batch, remat=) -> scalar loss; the dense, moe and vlm
-    # families' also take a training step's ``shard=`` on a mesh (the
-    # rank's batch rows as ``sharding.batch_specs`` splits them: the VLM's
-    # positions on dim 1)
+    # (params, batch, remat=, shard=) -> scalar loss; every family's takes
+    # a training step's ``shard=`` on a mesh (the rank's batch rows as
+    # ``sharding.batch_specs`` splits them: the VLM's positions on dim 1,
+    # the audio frames on dim 0)
     loss: Callable
     prefill: Callable           # (params, batch) -> (cache, logits)
     decode_step: Callable       # (params, cache, batch) -> (cache, logits)

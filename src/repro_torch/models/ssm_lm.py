@@ -7,6 +7,16 @@ backward kernels) and every norm through ``RMSNormFn``; with ``remat`` each
 layer runs again in the backward, as the reference checkpoints its scan
 body.
 
+Training on a mesh: ``ssm_lm_loss`` takes the step's ``shard`` (a
+``repro_torch.distributed.sharding.TrainShard``; the weights are the
+rank's ``TrainWeight`` shards) and threads it through every layer: a
+layer's FSDP shards are gathered in one bucket at its entry, inside the
+remat region (REPRO_WEIGHT_AG=0), or each at its use (=1), the
+embedding's once a step, and under fsdp_tp each Mamba1 layer computes the
+rank's d_inner channels (``mamba.mamba1_forward``).  The reference's
+Mamba and ssm_lm constraints name no sequence axis, so under
+REPRO_SEQ_PARALLEL=1 the family trains exactly as without it.
+
 ``params["layers"]`` is a list of per-layer dicts ``{"ln", "mamba"}``; the
 JAX package's ``lax.scan`` over stacked layers is a Python loop.  The dense
 cache and the paged state slab keep the JAX layouts, ``{"h": (L, B|slots,
@@ -21,6 +31,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import gather_layer, weight_use
 from repro_torch.models import mamba
 from repro_torch.models.layers import (
     embed_tokens, init_embed, logits_from_hidden, rms_norm,
@@ -50,27 +61,39 @@ def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     return logits_from_hidden(cfg, params["embed"], h)
 
 
-def _layer_fwd(cfg: ModelConfig, lp, x: torch.Tensor) -> torch.Tensor:
+def _layer_fwd(cfg: ModelConfig, lp, x: torch.Tensor, shard=None
+               ) -> torch.Tensor:
+    ln = weight_use(lp["ln"], None, shard=shard)
     y, _ = mamba.mamba1_forward(cfg, lp["mamba"],
-                                rms_norm(x, lp["ln"], cfg.norm_eps))
+                                rms_norm(x, ln, cfg.norm_eps), shard=shard)
     return x + y
 
 
-def _fwd(cfg: ModelConfig, params, embeds: torch.Tensor, remat: bool
-         ) -> torch.Tensor:
+def _fwd(cfg: ModelConfig, params, embeds: torch.Tensor, remat: bool,
+         shard=None) -> torch.Tensor:
     """embeds (B,S,d) -> final-normed hidden (B,S,d); ``remat`` recomputes
-    each layer in the backward."""
-    x = run_blocks(lambda lp, x: _layer_fwd(cfg, lp, x), params["layers"],
-                   embeds, remat)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    each layer in the backward; ``shard`` a training step's on a mesh."""
+    bucket = shard is not None and not shard.per_use
+
+    def layer(lp, x):
+        if bucket:
+            lp = gather_layer(lp, shard)
+        return _layer_fwd(cfg, lp, x, shard)
+    x = run_blocks(layer, params["layers"], embeds, remat)
+    return rms_norm(x, weight_use(params["final_norm"], None, shard=shard),
+                    cfg.norm_eps)
 
 
-def ssm_lm_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True
-                ) -> torch.Tensor:
-    """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,S)."""
-    h = _fwd(cfg, params, embed_tokens(params["embed"], batch["tokens"]),
-             remat)
-    logits = logits_from_hidden(cfg, params["embed"], h)
+def ssm_lm_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True,
+                shard=None) -> torch.Tensor:
+    """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,S);
+    on a mesh (``shard``) the mean over this rank's rows, the embedding's
+    shards gathered once for the lookup and the logits."""
+    params = {**params, "embed": gather_layer(params["embed"], shard)}
+    h = _fwd(cfg, params,
+             embed_tokens(params["embed"], batch["tokens"], shard), remat,
+             shard)
+    logits = logits_from_hidden(cfg, params["embed"], h, shard)
     return softmax_cross_entropy(logits, batch["labels"])
 
 

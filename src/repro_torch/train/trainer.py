@@ -21,9 +21,11 @@ under REPRO_TRAIN_SHARDING) and takes its slice of each
 checkpoint holds the single device's layout (whole leaves, gathered to
 rank 0, the same atomic rename), and on restore each rank reads whole
 leaves and keeps its slice, so a checkpoint of any mesh restores on any
-other mesh or on one device.  The dense, moe and vlm families train on a
-mesh with f32 moments; ssm, hybrid, the encoder-decoder and int8 moments
-raise, naming ROADMAP A10d.
+other mesh or on one device.  Every family trains on a mesh, with f32 or
+int8 moments (an int8 moment is a range of the whole leaf's blocks a
+rank, so its checkpoint moves between meshes as well);
+``check_mesh_trains`` refuses only a tensor-parallel split that does not
+divide.
 """
 from __future__ import annotations
 
@@ -69,7 +71,7 @@ class Trainer:
         self._step, self.opt = make_train_step(cfg, opt_cfg, remat=tcfg.remat,
                                                device=self.device, mesh=mesh)
         if mesh is not None:
-            check_mesh_trains(cfg, mesh, self.opt.cfg)
+            check_mesh_trains(cfg, mesh)
         self.pipeline = TokenPipeline(
             cfg.vocab, tcfg.seq_len, tcfg.global_batch, seed=tcfg.seed,
             family=cfg.family, d_model=cfg.d_model)
@@ -86,7 +88,9 @@ class Trainer:
         if self.mesh is None:
             return {"params": params, "opt": self.opt.init(params)}
         if self.layout is None:
-            self.layout = sharding.train_layout(self.cfg, params, self.mesh)
+            self.layout = sharding.train_layout(
+                self.cfg, params, self.mesh, self.opt.cfg.state_dtype,
+                self.opt.cfg.quant_block)
         local = sharding.shard_tree(params, self.layout.params, self.mesh)
         del params
         return {"params": local, "opt": self.opt.init(local, self.layout)}
@@ -137,6 +141,7 @@ class Trainer:
         def like(spec, x):
             return _Like(tuple(sharding.full_shape(x.shape, spec, mesh)),
                          x.dtype, torch.device("cpu"))
+        like = sharding._arrays(like)
         return {"params": sharding._tree_map2(like, self.layout.params,
                                               state["params"]),
                 "opt": sharding._tree_map2(like, self._moment_specs(),
@@ -204,7 +209,9 @@ class Trainer:
             step += 1
             if step % self.tcfg.checkpoint_every == 0:
                 self.save(state, step)
-        self.save(state, step)
+        if step % self.tcfg.checkpoint_every:
+            # the final step's checkpoint, unless the loop just wrote it
+            self.save(state, step)
         return {"state": state, "final_step": step, "log": self.metrics_log,
                 "stragglers": len(self.detector.events)}
 
@@ -217,30 +224,29 @@ class _Like:
     device: torch.device
 
 
-# the families whose training on a mesh waits for ROADMAP A10d
-MESH_PENDING_FAMILIES = ("ssm", "hybrid", "audio")
-
-
-def check_mesh_trains(cfg: ModelConfig, mesh, opt_cfg=None) -> None:
+def check_mesh_trains(cfg: ModelConfig, mesh) -> None:
     """Raise before anything is allocated when ``cfg`` cannot train on
-    ``mesh``: the stateful and encoder-decoder families and int8 moments
-    wait for ROADMAP A10d; under fsdp_tp the query and kv heads must divide
-    over "model" (a rank's heads and their kv groups)."""
-    if cfg.family in MESH_PENDING_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family does not train on a mesh "
-            "yet (ROADMAP A10d: its d_inner / SSD sharding rules and "
-            "constraints are not ported)")
-    if opt_cfg is not None and opt_cfg.state_dtype == "int8":
-        raise NotImplementedError(
-            "int8 AdamW moments on a training mesh are not ported yet "
-            "(ROADMAP A10d): the reference splits a leaf's quantization "
-            "blocks over every axis, which does not line up with the "
-            "weight's shards; train with f32 moments")
+    ``mesh``: under fsdp_tp with more than one model rank, what the family
+    splits over "model" must divide, and the error names the numbers.  The
+    ssm family splits d_inner (its one "head" is not split); the hybrid
+    d_inner, the SSD heads (d_inner / ssm.head_dim) and the shared block's
+    query and kv heads; the encoder-decoder and the transformer families
+    their query and kv heads.  Every family trains, with f32 or int8
+    moments."""
     from repro_torch.perf import perf
     n = mesh.shape["model"]
-    if perf().train_sharding == "fsdp_tp" and n > 1 and (
-            cfg.n_heads % n or cfg.n_kv_heads % n):
+    if perf().train_sharding != "fsdp_tp" or n <= 1:
+        return
+    splits = []
+    if cfg.family in ("ssm", "hybrid"):
+        di = cfg.ssm.expand * cfg.d_model
+        splits.append(("d_inner", di))
+        if cfg.family == "hybrid":
+            splits.append(("SSD heads", di // cfg.ssm.head_dim))
+    if cfg.family != "ssm":
+        splits += [("query heads", cfg.n_heads), ("kv heads", cfg.n_kv_heads)]
+    bad = [f"{k} {v}" for k, v in splits if v % n]
+    if bad:
         raise ValueError(
-            f"{cfg.name}: {cfg.n_heads} query / {cfg.n_kv_heads} kv heads "
-            f"do not split over a model axis of {n}")
+            f"{cfg.name} ({cfg.family}): {', '.join(bad)} do not split over "
+            f"a model axis of {n}")

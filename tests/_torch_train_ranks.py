@@ -19,7 +19,9 @@ class Job:
     package's, bridged) in place of the seeded init; ``workdir`` and
     ``checkpoint_every``: checkpoints; ``fail_at``: one injected
     failure; ``plant``: a fault of ``PLANTS`` put into the mesh step for
-    the run."""
+    the run; ``opt_state``: the AdamW moments' dtype; ``layers`` and
+    ``vocab``: the reduced config's depth and vocabulary, when given;
+    ``snap``: also keep the whole weights after that many steps."""
     name: str
     arch: str = "qwen3-0.6b"
     mesh: tuple = (1, 1)
@@ -33,11 +35,20 @@ class Job:
     checkpoint_every: int = 50
     fail_at: int = None
     plant: str = None
+    opt_state: str = "f32"
+    layers: int = None
+    vocab: int = None
+    snap: int = None
 
 
-def cfg_of(arch):
+def cfg_of(arch, layers=None, vocab=None):
     from repro_torch.configs.base import get_config, reduced_config
-    return reduced_config(get_config(arch))
+    cfg = reduced_config(get_config(arch))
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if vocab is not None:
+        cfg = dataclasses.replace(cfg, vocab=vocab)
+    return cfg
 
 
 def trainer_of(job, mesh=None, device="cpu"):
@@ -48,8 +59,10 @@ def trainer_of(job, mesh=None, device="cpu"):
     tcfg = TrainerConfig(seq_len=job.seq, global_batch=job.batch,
                          steps=job.steps, log_every=1, workdir=job.workdir,
                          checkpoint_every=job.checkpoint_every)
-    ocfg = AdamWConfig(lr=job.lr, warmup_steps=1, total_steps=10)
-    tr = Trainer(cfg_of(job.arch), tcfg, ocfg, mesh=mesh, device=device)
+    ocfg = AdamWConfig(lr=job.lr, warmup_steps=1, total_steps=10,
+                       state_dtype=job.opt_state)
+    tr = Trainer(cfg_of(job.arch, job.layers, job.vocab), tcfg, ocfg,
+                 mesh=mesh, device=device)
     if job.init is not None:
         tr.fns = dataclasses.replace(
             tr.fns, init=lambda seed=0: bridge.params_from_numpy(job.init))
@@ -90,9 +103,31 @@ def _replicated_rows_summed(steps, sharding):
     return lambda: setattr(sharding, "train_shard", shard)
 
 
-# faults that scale every gradient of a 2-rank mesh step by 2
+def _bc_without_f(steps, sharding):
+    """Mamba1's B and C used by each rank's channels without *f*: their
+    cotangent, and every gradient upstream of it, is one model rank's
+    share."""
+    from repro_torch.models import mamba
+    bc_in = mamba._bc_in
+    mamba._bc_in = lambda bc, shard: bc
+    return lambda: setattr(mamba, "_bc_in", bc_in)
+
+
+def _enc_out_without_f(steps, sharding):
+    """The cross-attention reads the encoder output without *f*: the
+    encoder's gradients are one model rank's share."""
+    from repro_torch.models import encdec
+    enc_in = encdec._enc_in
+    encdec._enc_in = lambda enc_out, shard: enc_out.view_as(enc_out)
+    return lambda: setattr(encdec, "_enc_in", enc_in)
+
+
+# faults of a 2-rank mesh step: the first two scale every gradient by 2,
+# the last two leave some gradients one model rank's share
 PLANTS = {"dp_summed": _summed_over_the_world,
-          "replicated_summed": _replicated_rows_summed}
+          "replicated_summed": _replicated_rows_summed,
+          "bc_without_f": _bc_without_f,
+          "enc_out_without_f": _enc_out_without_f}
 
 
 @contextlib.contextmanager
@@ -110,35 +145,81 @@ def planted(name):
 
 
 def _bytes(tree):
+    from repro_torch.train.tree import flatten
+    return sum(t.numel() * t.element_size() for t in flatten(tree)[0])
+
+
+def _numpy(tree):
     from repro_torch.train.tree import leaves
-    return sum(t.numel() * t.element_size() for t in leaves(tree))
+    return [p.detach().cpu().numpy().copy() for p in leaves(tree)]
+
+
+def _snapping(tr, job, mesh, out):
+    """Wrap the trainer's step so that the whole weights after step
+    ``job.snap`` land in ``out["snap_params"]`` (every rank gathers)."""
+    from repro_torch.distributed import sharding
+    step, calls = tr._step, [0]
+
+    def snapped(*args):
+        res = step(*args)
+        calls[0] += 1
+        if calls[0] == job.snap:
+            params = res[0] if mesh is None else sharding.unshard_tree(
+                res[0], tr.layout.params, mesh, to_host=True)
+            out["snap_params"] = _numpy(params)
+        return res
+    tr._step = snapped
+
+
+def _moments(opt):
+    """Whole int8 moments as numpy: (m dequantized, each value's block
+    scale, the same for v) per leaf; whole f32 moments as they are."""
+    from repro_torch.train.optimizer import Quantized, dequantize
+    from repro_torch.train.tree import leaves
+
+    def one(d):
+        if not isinstance(d, Quantized):
+            return d.cpu().numpy(), None
+        scale = d.scale.expand(d.q.shape).reshape(-1)
+        scale = scale[:scale.numel() - d.pad].reshape(d.shape)
+        return dequantize(d).cpu().numpy(), scale.cpu().numpy()
+    return [one(m) + one(v) for m, v in zip(leaves(opt["m"]),
+                                             leaves(opt["v"]))]
 
 
 def run(job, mesh=None, device="cpu", whole=True):
     """Train ``job``: its losses and grad norms, this rank's param and
     moment bytes, the collectives a step, and (``whole``) the whole
-    trained weights as numpy, flattened in ``leaves`` order."""
+    trained weights as numpy, flattened in ``leaves`` order, with the
+    whole moments (``_moments``) of an int8 run."""
     from repro_torch.distributed import sharding
-    from repro_torch.train.tree import leaves
     with knobs(job.env), planted(job.plant):
         tr = trainer_of(job, mesh, device)
+        out = {}
+        if job.snap is not None:
+            _snapping(tr, job, mesh, out)
         if mesh is not None:
             mesh.reset_issued()
         res = tr.train(fail_at=job.fail_at)
         state = res["state"]
-        out = {"losses": [e["loss"] for e in res["log"]],
-               "grad_norms": [e["grad_norm"] for e in res["log"]],
-               "param_bytes": _bytes(state["params"]),
-               "moment_bytes": _bytes(state["opt"]["m"])
-               + _bytes(state["opt"]["v"])}
-        params = state["params"]
+        out.update({"losses": [e["loss"] for e in res["log"]],
+                    "grad_norms": [e["grad_norm"] for e in res["log"]],
+                    "param_bytes": _bytes(state["params"]),
+                    "moment_bytes": _bytes(state["opt"]["m"])
+                    + _bytes(state["opt"]["v"])})
+        params, opt = state["params"], state["opt"]
         if mesh is not None:
             out["issued"] = mesh.issued
             if whole:
                 params = sharding.unshard_tree(params, tr.layout.params,
                                                mesh, to_host=True)
+                if job.opt_state == "int8":
+                    opt = sharding.unshard_tree(opt, tr._moment_specs(),
+                                                mesh, to_host=True)
     if whole:
-        out["params"] = [p.detach().cpu().numpy() for p in leaves(params)]
+        out["params"] = _numpy(params)
+        if job.opt_state == "int8":
+            out["moments"] = _moments(opt)
     return out
 
 
@@ -151,11 +232,14 @@ def train_world(mesh, device, jobs, collectives=False):
     out = {"rank": mesh.rank}
     if collectives:
         out["functions"] = functions_world(mesh, device)
+        out["paired"] = paired_world(mesh)
+        out["int8_update"] = int8_update_world(mesh)
     for job in jobs:
         tmesh = make_train_mesh(*job.mesh)
         out[job.name] = run(job, tmesh, device, whole=True)
         if mesh.rank:
-            out[job.name].pop("params")
+            for k in ("params", "snap_params", "moments"):
+                out[job.name].pop(k, None)
     return out
 
 
@@ -216,3 +300,89 @@ def functions_world(mesh, device):
     from repro_torch.launch.mesh import make_train_mesh
     return {"data": functions(make_train_mesh(mesh.world, 1), "data"),
             "model": functions(make_train_mesh(1, mesh.world), "model")}
+
+
+def paired_world(mesh):
+    """A fused in-projection's ``sharding.Paired`` layout on a 2x1 and a
+    1x2 mesh of the group: whether this rank holds its rows' slice of each
+    half, its bytes and the whole's, and whether ``unshard_tree`` gives the
+    whole back bit for bit."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_train_mesh
+    out = {}
+    for shape in ((mesh.world, 1), (1, mesh.world)):
+        tm = make_train_mesh(*shape)
+        whole = rand((8, 12), 21)
+        spec = {"w": sharding.Paired(("data", "model"))}
+        local = sharding.shard_tree({"w": whole}, spec, tm)["w"]
+        back = sharding.unshard_tree({"w": local}, spec, tm)["w"]
+        n, r = tm.shape["model"], tm.coords["model"]
+        rows = 8 // tm.shape["data"]
+        mine = whole[tm.coords["data"] * rows:(tm.coords["data"] + 1) * rows]
+        k = 6 // n
+        out[f"{shape[0]}x{shape[1]}"] = {
+            "round_trip": torch.equal(back, whole),
+            "local_bytes": local.numel() * local.element_size(),
+            "whole_bytes": whole.numel() * whole.element_size(),
+            "halves": torch.equal(local, torch.cat(
+                [mine[:, r * k:(r + 1) * k],
+                 mine[:, 6 + r * k:6 + (r + 1) * k]], 1))}
+    return out
+
+
+def int8_update_world(mesh):
+    """One AdamW step with int8 moments on a 2x1 and a 1x2 mesh of the
+    group, from one set of whole weights and gradients, in windows of
+    ``MESH_UPDATE_CHUNK`` = 256 values (so a leaf spans several, and a
+    window cuts a rank's block range), against the same step on one
+    device: whether the whole weights and the moments' payload and scales
+    are its bits, leaf by leaf (a ``Paired`` leaf, leaves split on dim 0,
+    dim 1 and both, a replicated one, one of fewer blocks than ranks)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.train import optimizer as opt_mod
+    shapes = {"paired": ((12, 64), sharding.Paired(("data", "model"))),
+              "rows": ((40, 50), ("data", None)),
+              "cols": ((20, 96), (None, "model")),
+              "both": ((30, 64), ("model", "data")),
+              "whole": ((700,), (None,)), "small": ((100,), (None,))}
+    params = {k: rand(shape, 30 + i) for i, (k, (shape, _)) in
+              enumerate(shapes.items())}
+    grads = {k: rand(p.shape, 40 + i) for i, (k, p) in
+             enumerate(params.items())}
+    ocfg = opt_mod.AdamWConfig(state_dtype="int8", quant_block=16, lr=1e-2,
+                               warmup_steps=1)
+    adam = opt_mod.AdamW(ocfg)
+    one = {k: v.clone() for k, v in params.items()}
+    one_state = adam.init(one)
+    adam.update(grads, one_state, one)
+    chunk = opt_mod.MESH_UPDATE_CHUNK
+    opt_mod.MESH_UPDATE_CHUNK = 256
+    out = {}
+    try:
+        for shape in ((mesh.world, 1), (1, mesh.world)):
+            tm = make_train_mesh(*shape)
+            specs = {k: sp for k, (_, sp) in shapes.items()}
+            q = {k: opt_mod.quantized_like(tuple(v.shape), 16)
+                 for k, v in params.items()}
+            layout = sharding.TrainLayout(
+                tm, specs, sharding.opt_state_specs(
+                    specs, {"m": q, "v": q}, tm)["m"])
+            local = sharding.shard_tree({k: v.clone() for k, v in
+                                         params.items()}, specs, tm)
+            state = adam.init(local, layout)
+            adam.update(sharding.shard_tree(grads, specs, tm), state, local,
+                        layout=layout)
+            whole = sharding.unshard_tree(local, specs, tm)
+            moments = sharding.unshard_tree(
+                [state["m"], state["v"]], [layout.moments, layout.moments],
+                tm)
+            out[f"{shape[0]}x{shape[1]}"] = {
+                k: torch.equal(whole[k], one[k]) and all(
+                    torch.equal(a.q, b.q) and torch.equal(a.scale, b.scale)
+                    for a, b in zip((moments[0][k], moments[1][k]),
+                                    (one_state["m"][k], one_state["v"][k])))
+                for k in params}
+    finally:
+        opt_mod.MESH_UPDATE_CHUNK = chunk
+    return out

@@ -592,20 +592,20 @@ def test_stateful_trainer_recovers_from_failure_bitwise(arch):
 
 
 def test_trainer_refuses_a_mesh_and_unported_families():
-    """A 1x1 ``TrainMesh`` is accepted (mesh training is ported, ROADMAP
-    A10b); the families whose mesh training waits for ROADMAP A10d raise
-    on it, naming A10d."""
+    """A 1x1 ``TrainMesh`` is accepted for every family (mesh training is
+    ported: ROADMAP A10b for the transformer families, A10d for ssm,
+    hybrid and the encoder-decoder), with f32 and int8 moments."""
     from repro_torch.launch.mesh import make_train_mesh, process_group
     with tempfile.TemporaryDirectory() as d, \
             process_group(0, 1, "gloo", os.path.join(d, "store")):
         mesh = make_train_mesh(1, 1)
-        tr = Trainer(reduced_config(get_config("qwen3-0.6b")), _tcfg(),
-                     mesh=mesh, device="cpu")
-        assert tr.mesh is mesh
-        for arch in ("falcon-mamba-7b", "zamba2-2.7b", "whisper-small"):
-            with pytest.raises(NotImplementedError, match="A10d"):
-                Trainer(reduced_config(get_config(arch)), _tcfg(),
-                        mesh=mesh, device="cpu")
+        for arch in ("qwen3-0.6b", "falcon-mamba-7b", "zamba2-2.7b",
+                     "whisper-small"):
+            for state in ("f32", "int8"):
+                tr = Trainer(reduced_config(get_config(arch)), _tcfg(),
+                             topt.AdamWConfig(state_dtype=state), mesh=mesh,
+                             device="cpu")
+                assert tr.mesh is mesh
 
 
 def _train_cli(*args):
