@@ -232,9 +232,15 @@ Phases, each printing JSON objects one per line:
               at that depth; collectives a step by kind and bytes, peak
               memory and seconds a rank.  The kernel rows gain K7's
               fused forward and backward at a rank's D 4,096 (B 8 x T
-              512, timed) and K3 gate rows at a rank's 16 over 16 heads,
-              head_dim 80, and 6 over 6, head_dim 64 (S 448, causal and
-              not).
+              512, timed) and K3 at a rank's 16 over 16 heads, head_dim
+              80, and 6 over 6, head_dim 64 (S 448, causal and not),
+              timed.
+   dryrun_mesh — the dry run (``launch.dryrun``: a ``DryTrainMesh`` on
+              meta, no process) of one step of train_mesh_2's qwen runs
+              on 2x1 and 1x2 and its falcon-mamba run on 1x2 gives each
+              rank's collectives a step (calls and bytes, by kind) exactly
+              as its ``TrainMesh.issued`` (less the whole-weight gathers
+              the oracle checks add).
 6. oracle   — teacher-forced logits of the paged path (kernels) against the
               dense prefill + decode path (plain attention), f32 and bf16;
               and one tenant's request (a 256-token prompt chunk and 8 decode
@@ -318,8 +324,9 @@ Phases, each printing JSON objects one per line:
               K2 a step (ssm), 18 / 9 of K3 at head_dim 80 with 253 / 127
               of K2 (hybrid).  train_ssm_profile, train_hybrid_profile: 2
               profiled steps each, K7's share of the busy time.
-              train_ssm_oracle, train_hybrid_oracle: 2 Mamba1 layers / 2
-              hybrid segments at full width, f32, B 2 x S 512, the loss and
+              train_ssm_oracle, train_hybrid_oracle: 2 Mamba1 layers / 1
+              hybrid segment (2 until the dry run's phases needed the
+              time) at full width, f32, B 2 x S 512, the loss and
               every gradient leaf on the card against the CPU's, within
               1e-4 / 1e-3, or for the hybrid twice the CPU's own spread
               between two thread counts where that is wider (falcon-mamba
@@ -329,9 +336,9 @@ Phases, each printing JSON objects one per line:
               1 layer / 1 segment (its bits do not depend on a second
               layer or the shared block's second call, and the script
               needed the time: with both hybrid runs at 2 segments it took
-              1,008 s), 6 steps checkpointed every 3 with the failure at
-              step 5 (8, 4 and 6 until train_mesh_2's family runs needed
-              the time).
+              1,008 s), 4 steps checkpointed every 2 with the failure at
+              step 3 (8 until train_mesh_2's family runs and 6 until the
+              dry run's phases needed the time).
 12. moe     — moe_serve: the serve workload through full-width olmoe-1b-7b
               (16 layers, d 2048, 16/16 heads, 64 experts, top-8; 13.84 GB)
               in bf16 at its native capacity factor 2.0: the invariants
@@ -369,7 +376,7 @@ Phases, each printing JSON objects one per line:
               train_moe_profile (1 step); train_moe_oracle: 2 layers,
               f32, loss and every leaf (the routers' reported apart)
               against the CPU within 1e-4 / 1e-3, then a bitwise restart
-              at 1 layer (6 steps, the failure at step 5).
+              at 1 layer (4 steps, the failure at step 3).
 13. encdec, vlm — the families the paged engine refuses (as the
               reference's does), through ``launch.steps``' prefill and
               decode step builders over a dense cache.  whisper_serve:
@@ -402,6 +409,19 @@ Phases, each printing JSON objects one per line:
               cross-attention's 4 and 448 queries over 1,500 frames
               (gate-only) and qwen2-vl's (64 over 8 heads, S 512), and
               K2 at 768 and 8,192 (forward and backward).
+
+The dry run (ROADMAP A13a): ``dryrun_calib`` after train: qwen3-0.6b's
+train step at its shape (B 8 x S 512, 28 layers, bf16, remat "dots")
+counted twice, by the dry run on a 1x1 virtual mesh on meta and by
+``hlo_analysis.analyze_step`` over one more step of the train phase's
+Trainer on the card (not timed): FLOPs equal exactly, K2 and K3 launches
+equal (the hooks' count equal to the wrappers' counters: 169 + 85 K2, 56 +
+28 K3), the dry run's peak above its arguments within ``CALIB_PEAK`` of
+the step's ``max_memory_allocated`` rise, and the roofline's step time
+beside the train phase's measured step seconds.  ``dryrun_grid`` at the
+end: two production cells (qwen3-0.6b train_4k on pod1, llama4-maverick
+train_4k on pod2) in subprocesses under a time limit, each cell's line
+without its collectives, with its host seconds.
 
 Then a ``{"kernels": [...]}`` summary line (each row's launches from the
 main path that gives its shape, named in its ``path``), a check that no
@@ -2112,6 +2132,15 @@ FLASH_VLM_TRAIN = (8 * 64, 8 * 8, 512, 512, 128, True, 0)
 # a rank's half of qwen3-0.6b's heads on the 1x2 training mesh (B 8 x 8
 # heads over 4, S 512, head_dim 128, causal; the train_mesh_2 path)
 FLASH_MESH_TRAIN = (8 * 8, 8 * 4, 512, 512, 128, True, 0)
+# a rank's half of the heads on train_mesh_2's 1x2 family runs (B 2):
+# zamba2's shared block (16 over 16, head_dim 80, S 512, causal) and
+# whisper's (6 over 6, head_dim 64, S 448, causal and not)
+FLASH_MESH_HYBRID = (2 * 16, 2 * 16, 512, 512, 80, True, 0)
+FLASH_MESH_WHISPER_CAUSAL = (2 * 6, 2 * 6, 448, 448, 64, True, 0)
+FLASH_MESH_WHISPER = (2 * 6, 2 * 6, 448, 448, 64, False, 0)
+# the batch of a timed shape (SDPA's view), where it is not 8
+FLASH_BATCH = {FLASH_MESH_HYBRID: 2, FLASH_MESH_WHISPER_CAUSAL: 2,
+               FLASH_MESH_WHISPER: 2}
 # (path, shape, whether the path runs the backward)
 FLASH_TIMED = (("train", FLASH_TRAIN, True),
                ("train_hybrid", FLASH_HYBRID_TRAIN, True),
@@ -2120,13 +2149,13 @@ FLASH_TIMED = (("train", FLASH_TRAIN, True),
                ("train_whisper", FLASH_WHISPER, True),
                ("whisper_serve", FLASH_WHISPER_ENCODER, False),
                ("train_vlm", FLASH_VLM_TRAIN, True),
-               ("train_mesh_2", FLASH_MESH_TRAIN, True))
+               ("train_mesh_2", FLASH_MESH_TRAIN, True),
+               ("train_mesh_2", FLASH_MESH_HYBRID, True),
+               ("train_mesh_2", FLASH_MESH_WHISPER_CAUSAL, True),
+               ("train_mesh_2", FLASH_MESH_WHISPER, True))
 # gate-only: whisper's cross-attention at serve time, the prompt's 4 and a
 # training length's 448 queries over 1,500 frames (Sq != Skv, non-causal,
-# 1,500 not a multiple of the 64-key tile); a rank's half of the heads on
-# train_mesh_2's 1x2 runs (B 2): zamba2's shared block (16 over 16, head_dim
-# 80, S 512, causal) and whisper's (6 over 6, head_dim 64, S 448, causal and
-# not; a launch over half the heads runs the same blocks over half the grid)
+# 1,500 not a multiple of the 64-key tile)
 FLASH_GATES = (("non_causal", 32, 16, 512, 512, 128, False, 0),
                ("cross_4x1500", 8 * 12, 8 * 12, 4, 1500, 64, False, 0),
                ("cross_448x1500", 8 * 12, 8 * 12, 448, 1500, 64, False, 0),
@@ -2135,11 +2164,7 @@ FLASH_GATES = (("non_causal", 32, 16, 512, 512, 128, False, 0),
                ("head_dim_256", 8, 8, 200, 200, 256, True, 0),
                ("head_dim_80", 2 * 32, 2 * 32, 512, 512, 80, True, 0),
                ("group_8", 64, 8, 512, 512, 128, True, 0),
-               ("head_dim_40", 8, 4, 100, 100, 40, True, 3),
-               ("mesh_hybrid_16x16", 2 * 16, 2 * 16, 512, 512, 80, True, 0),
-               ("mesh_whisper_6x6_causal", 2 * 6, 2 * 6, 448, 448, 64, True,
-                0),
-               ("mesh_whisper_6x6", 2 * 6, 2 * 6, 448, 448, 64, False, 0))
+               ("head_dim_40", 8, 4, 100, 100, 40, True, 3))
 # SASS function-name fragments of K3's kernels by dtype and direction
 K3_SASS = {("bfloat16", "forward"): ("flash_fwd_mma_kernel",),
            ("bfloat16", "backward"): ("flash_bwd_dkdv_mma_kernel",
@@ -2345,9 +2370,10 @@ def check_flash_attention(torch, results):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         esize = torch.finfo(dtype).bits // 8
-        for path, (bh, bkv, sq, skv, hd, causal, off), backward \
-                in FLASH_TIMED:
-            b, h, kvh = 8, bh // 8, bkv // 8
+        for path, shape, backward in FLASH_TIMED:
+            bh, bkv, sq, skv, hd, causal, off = shape
+            b = FLASH_BATCH.get(shape, 8)
+            h, kvh = bh // b, bkv // b
             (q, k, v, do, o, lse), fwd, bwd = _flash_case(
                 torch, path, dtype, bh, bkv, sq, skv, hd, causal, off, gen)
             # (query, key) pairs the mask leaves visible
@@ -3046,9 +3072,12 @@ def _keep_first_grads(tr, mesh=None):
 
     def first(grads, state, params, layout=None):
         if tr.first_step_grads is None:
+            before = None if mesh is None else mesh.issued
             g = grads if mesh is None else sharding.unshard_tree(
                 grads, layout.params, mesh)
             tr.first_step_grads = [t.clone() for t in leaves(g)]
+            if mesh is not None:
+                tr.check_issued = _issued_since(mesh, before)
         return update(grads, state, params, layout=layout)
     tr.opt.update = first
     return tr
@@ -3065,11 +3094,29 @@ def _keep_first_step(tr, mesh):
     def first(*args):
         res = step(*args)
         if tr.first_step_params is None:
+            before = mesh.issued
             p = sharding.unshard_tree(res[0], tr.layout.params, mesh)
             tr.first_step_params = [t.clone() for t in leaves(p)]
+            tr.check_issued = _issued_since(mesh, before)
         return res
     tr._step = first
     return tr
+
+
+def _issued_since(mesh, before) -> dict:
+    """The collectives ``mesh`` issued since its ``issued`` was
+    ``before`` (a check's own gathers, kept out of a step's count)."""
+    return {k: [a - b for a, b in zip(v, before[k])]
+            for k, v in mesh.issued.items()}
+
+
+def collectives_per_step(issued, steps, tr) -> dict:
+    """A run's ``TrainMesh.issued`` a step by kind, [calls, bytes], less
+    the gathers a first-step check added (``tr.check_issued``)."""
+    extra = getattr(tr, "check_issued", {})
+    return {k: [(v[0] - extra.get(k, [0, 0])[0]) / steps,
+                (v[1] - extra.get(k, [0, 0])[1]) / steps]
+            for k, v in issued.items()}
 
 
 def _family_oracle(arch, opt_state, steps, device):
@@ -3154,8 +3201,8 @@ def _family_mesh_runs(device, plain, totals):
              "launches": launches,
              "launches_per_step": {k: v / steps for k, v in launches.items()},
              "collectives": issued,
-             "collectives_per_step": {k: [v[0] / steps, v[1] / steps]
-                                      for k, v in issued.items()},
+             "collectives_per_step": collectives_per_step(issued, steps,
+                                                          tr),
              "peak_device_bytes": torch.cuda.max_memory_allocated()
              if card else 0,
              "param_bytes": p_mine, "whole_param_bytes": p_whole,
@@ -3292,6 +3339,8 @@ def _train_mesh_rank(mesh, device, cfg, workdir):
                  "step_s": [e["sec"] for e in res["log"]], "wall_s": wall,
                  "launches": launches, "steps_run": len(res["log"]),
                  "collectives": tmesh.issued,
+                 "collectives_per_step": collectives_per_step(
+                     tmesh.issued, steps, tr),
                  "peak_device_bytes": torch.cuda.max_memory_allocated()
                  if card else 0,
                  "param_bytes": p_mine, "whole_param_bytes": p_whole,
@@ -3674,7 +3723,55 @@ def serve_mesh_2_phase(torch, cfg, smi, moe_cfg=None):
                           smi, parts, wall)
     train_launches = train_mesh_2_report(
         train_cfg, [o["train_mesh_2"] for o in outs], smi, parts)
+    dryrun_mesh_phase(train_cfg, [o["train_mesh_2"] for o in outs], smi)
     return launches, moe_launches, train_launches
+
+
+# train_mesh_2's runs that the dry run counts again: (run, config, batch,
+# sequence); its qwen runs at B 8 x S 512, its falcon-mamba run at B 2
+DRYRUN_MESH_RUNS = (("fsdp_tp_2x1", "qwen", 8, 512),
+                    ("fsdp_tp_1x2", "qwen", 8, 512),
+                    ("falcon_fsdp_tp_1x2", "falcon-mamba-7b",
+                     FAMILY_MESH_BATCH, 512))
+
+
+def dryrun_mesh_phase(cfg, outs, smi):
+    """dryrun_mesh: one step of each ``DRYRUN_MESH_RUNS`` run counted by
+    the dry run on a ``DryTrainMesh`` of the run's shape (meta tensors, no
+    process) issues each rank's collectives a step exactly: calls and
+    bytes by kind, against the ranks' ``TrainMesh.issued`` a step (less
+    the oracle checks' whole-weight gathers).  ``cfg``: train_mesh_2's
+    qwen config; ``outs``: its ranks' results."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import count_train_step
+    from repro_torch.launch.mesh import dry_train_mesh
+    from repro_torch.launch.train import opt_config
+    rows = {}
+    for name, arch, batch, seq in DRYRUN_MESH_RUNS:
+        family = arch != "qwen"
+        runs = [o["family_runs" if family else "runs"][name] for o in outs]
+        d, m = (int(x) for x in runs[0]["mesh"].split("x"))
+        run_cfg = family_mesh_cfg(arch) if family else cfg
+        t0 = time.perf_counter()
+        for rank in range(d * m):
+            mesh = dry_train_mesh({"data": d, "model": m}, rank)
+            analysis = count_train_step(
+                run_cfg, ShapeSpec(name, seq, batch, "train"), mesh,
+                opt_cfg=opt_config(TRAIN_LR, TRAIN_STEPS))
+            got = {k: [float(v[0]), float(v[1])]
+                   for k, v in mesh.issued.items()}
+            want = runs[rank]["collectives_per_step"]
+            assert got == want, (name, rank, got, want)
+        rows[name] = {"mesh": runs[0]["mesh"], "arch": run_cfg.name,
+                      "layers": run_cfg.n_layers, "batch": batch,
+                      "seq_len": seq, "collectives_per_step": got,
+                      "dry_flops": analysis["flops"],
+                      "dry_peak_bytes": analysis["peak_bytes"],
+                      "rank_peak_device_bytes": [
+                          r["peak_device_bytes"] for r in runs],
+                      "dry_s": time.perf_counter() - t0}
+    emit({"phase": "dryrun_mesh", "nvidia_smi": smi, "equal": True,
+          "runs": rows})
 
 
 def train_mesh_2_report(cfg, outs, smi, parts):
@@ -3728,7 +3825,7 @@ def train_mesh_2_report(cfg, outs, smi, parts):
             "bitwise_first_run": r0.get("bitwise_first_run"),
             "ranks": [{k: r[k] for k in (
                 "step_s", "wall_s", "launches", "collectives",
-                "peak_device_bytes", "param_bytes", "whole_param_bytes",
+                "collectives_per_step", "peak_device_bytes", "param_bytes", "whole_param_bytes",
                 "unsplit_param_bytes", "moment_bytes", "whole_moment_bytes",
                 "unsplit_moment_bytes")} for r in rows]}
     emit({"phase": "train_mesh_2", "arch": cfg.name, "dtype": cfg.dtype,
@@ -4909,6 +5006,7 @@ def train_phase(torch, cfg):
           / sum(secs[1:]),
           "peak_device_bytes": torch.cuda.max_memory_allocated(),
           "launches": launches, "launches_per_step": per_step})
+    dryrun_calib_phase(torch, cfg, trainer, res["state"], secs, want)
     del trainer, res
     torch.cuda.empty_cache()
     res8 = _trainer(cfg, 3, "int8").train()
@@ -4919,6 +5017,78 @@ def train_phase(torch, cfg):
     torch.cuda.empty_cache()
     return launches, (losses, norms), toks * (TRAIN_STEPS - 1) \
         / sum(secs[1:])
+
+
+# the dry run's peak above its arguments over the card's
+# max_memory_allocated rise in one more step of the train phase: its lower
+# and upper limit.  The first reading (H100 80GB HBM3) was 1.020:
+# the analyzer's own tracking on the card matched the allocator's rise
+# within 1.5 KB, so the dry run sees every allocation; the 2% is the 1x1
+# mesh path's copies of a layer's weights at its one-rank gathers, less the
+# allocator's rounding up to its block sizes.  Both are fixed by the
+# shapes, so the limits leave 5% below and 8% above the reading.
+CALIB_PEAK = (0.97, 1.10)
+
+
+def dryrun_calib_phase(torch, cfg, trainer, state, step_s, want):
+    """dryrun_calib: the train phase's step (B 8 x S 512, ``cfg`` at full
+    depth, remat "dots") counted by the dry run on a 1x1 ``DryTrainMesh``
+    on meta, and by ``analyze_step`` over one more step of ``trainer`` on
+    the card from its trained ``state`` (not timed).  FLOPs equal exactly;
+    the K2 and K3 launches equal, the hooks' count equal to the wrappers'
+    counters and to ``want`` a step; the dry run's peak above its
+    arguments within ``CALIB_PEAK`` of the card's ``max_memory_allocated``
+    rise over the step; the roofline's step seconds beside the train
+    phase's measured ones (median of steps 1-9)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.hardware import H100
+    from repro_torch.launch.dryrun import count_train_step
+    from repro_torch.launch.hlo_analysis import analyze_step, roofline_terms
+    from repro_torch.launch.mesh import dry_train_mesh
+    t0 = time.perf_counter()
+    dry = count_train_step(cfg, ShapeSpec("train", 512, 8, "train"),
+                           dry_train_mesh({"data": 1, "model": 1}))
+    dry_s = time.perf_counter() - t0
+    batch, _ = trainer.batch_at(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    card = analyze_step(trainer._step, state["params"], state["opt"], batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    rise = torch.cuda.max_memory_allocated() - before
+    launches = read_counts()
+    del card["out"], dry["out"]
+    assert card["flops"] == dry["flops"], (card["flops"], dry["flops"])
+    assert card["launches"] == dry["launches"] == want, \
+        (card["launches"], dry["launches"], want)
+    assert {k: launches[k] for k in want} == want, launches
+    dry_rise = dry["peak_bytes"] - dry["argument_bytes"]
+    ratio = dry_rise / rise
+    assert CALIB_PEAK[0] <= ratio <= CALIB_PEAK[1], (dry_rise, rise)
+    roof = roofline_terms(dry, H100)
+    measured = statistics.median(step_s[1:])
+    emit({"phase": "dryrun_calib", "arch": cfg.name, "dtype": cfg.dtype,
+          "layers": cfg.n_layers, "batch": 8, "seq_len": 512,
+          "nvidia_smi": nvidia_smi(), "hardware": H100.name,
+          "flops": dry["flops"], "flops_equal": True,
+          "kernel_flops": dry["kernel_flops"], "launches": dry["launches"],
+          "dry_bytes_traffic": dry["bytes_traffic"],
+          "card_bytes_traffic": card["bytes_traffic"],
+          "dry_argument_bytes": dry["argument_bytes"],
+          "dry_peak_bytes": dry["peak_bytes"], "dry_peak_rise": dry_rise,
+          "card_bytes_before": before, "card_max_allocated_rise": rise,
+          "card_tracked_peak_rise": card["peak_bytes"]
+          - card["argument_bytes"],
+          "peak_ratio": ratio, "peak_limits": CALIB_PEAK,
+          "card_total_memory":
+          torch.cuda.get_device_properties(0).total_memory,
+          "record_hbm_bytes": H100.hbm_bytes,
+          "roofline": roof, "measured_step_s": measured,
+          "measured_over_roofline": measured / roof["step_time_s"],
+          "dry_s": dry_s, "card_analyzed_step_s": card_s})
 
 
 TRAIN_MESH_STEPS = 3
@@ -5212,7 +5382,7 @@ def train_profile_phase(torch, cfg, steps=3, opt_state="f32",
 TRAIN_STATEFUL_STEPS = 5
 # train_ssm_restart and train_hybrid_restart: (steps, the step that fails,
 # the checkpoint interval)
-STATEFUL_RESTART = (6, 5, 3)
+STATEFUL_RESTART = (4, 3, 2)
 
 
 def stateful_train_launches(cfg) -> dict:
@@ -5324,8 +5494,8 @@ def _leaf_gaps(grads, want) -> list:
 def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state,
                                 witness=True, restart=(8, 6, 4),
                                 seq_len=512, phase=None, restart_layers=None):
-    """``n_layers`` layers at full width (2 Mamba1 layers; 2 hybrid
-    segments, 12 Mamba2 layers and 2 shared-block calls; 2 MoE layers),
+    """``n_layers`` layers at full width (2 Mamba1 layers; 1 hybrid
+    segment, 6 Mamba2 layers and 1 shared-block call; 2 MoE layers),
     f32, B 2 x S 512:
     the loss and every gradient leaf on the card (K7 forward and backward,
     or K3 at head_dim 80, and K2, remat "dots" as the trainer runs) against
@@ -5337,7 +5507,7 @@ def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state,
     far from the CPU as that, and never held looser than 1e-4 (loss) and
     1e-3 of each leaf's largest value (the dense train_oracle's limits).
     The hybrid needs it: two CPU orders part by about 4e-3 of a leaf at
-    this depth (PERF.md, Findings).  Without ``witness`` (moe) the limits
+    2 segments.  Without ``witness`` (moe) the limits
     are those two; the routers' leaves are reported apart.  Then a restart
     at that depth or at ``restart_layers`` (bf16, the family's moments;
     ``restart`` = (steps, the step that fails, the checkpoint interval))
@@ -6209,6 +6379,86 @@ def _to(tree, where):
 # ---------------------------------------------------------------------------
 
 # the kernel checks that ``--only`` can name
+# production cells the dry run counts on the host: (arch, shape, mesh)
+DRYRUN_GRID = (("qwen3-0.6b", "train_4k", "pod1"),
+               ("llama4-maverick-400b-a17b", "train_4k", "pod2"))
+DRYRUN_CELL_TIMEOUT_S = 300
+
+
+def start_dryrun_grid():
+    """Start each ``DRYRUN_GRID`` cell through ``python -m
+    repro_torch.launch.dryrun`` in a subprocess of its own (meta tensors,
+    one CPU thread each: the host's work only), all together, so they run
+    beside the card's phases; a thread a cell waits for it, at most
+    ``DRYRUN_CELL_TIMEOUT_S`` (then kills it), and notes when it ended.
+    ``dryrun_grid_phase`` collects them; they are killed if the script
+    exits first."""
+    import atexit
+    import tempfile
+    import threading
+    out_dir = tempfile.mkdtemp(prefix="dryrun_grid_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    grid = {"out_dir": out_dir, "cells": []}
+
+    def watch(cell):
+        p = cell["proc"]
+
+        def expire():
+            cell["timed_out"] = True
+            p.kill()
+        timer = threading.Timer(DRYRUN_CELL_TIMEOUT_S, expire)
+        timer.start()
+        cell["err"] = p.communicate()[1]
+        timer.cancel()
+        cell["end"] = time.perf_counter()
+
+    for arch, shape, mesh in DRYRUN_GRID:
+        cell = {"key": (arch, shape, mesh), "start": time.perf_counter(),
+                "timed_out": False, "proc": subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", arch, "--shape", shape, "--mesh", mesh,
+                     "--out", out_dir],
+                    env=env, cwd=ROOT, stdout=subprocess.DEVNULL,
+                    stderr=subprocess.PIPE, text=True)}
+        cell["watch"] = threading.Thread(target=watch, args=(cell,),
+                                         daemon=True)
+        cell["watch"].start()
+        grid["cells"].append(cell)
+    atexit.register(_stop_dryrun_grid, grid)
+    return grid
+
+
+def _stop_dryrun_grid(grid) -> None:
+    import shutil
+    for cell in grid["cells"]:
+        if cell["proc"].poll() is None:
+            cell["proc"].kill()
+        cell["watch"].join()
+    shutil.rmtree(grid["out_dir"], ignore_errors=True)
+
+
+def dryrun_grid_phase(grid, smi):
+    """dryrun_grid: each cell started by ``start_dryrun_grid``, ended
+    within ``DRYRUN_CELL_TIMEOUT_S`` of its start: its result line without
+    the collectives, with the subprocess's seconds (host time, shared with
+    the phases it ran beside); every cell ok."""
+    try:
+        for cell in grid["cells"]:
+            arch, shape, mesh = cell["key"]
+            cell["watch"].join()
+            assert not cell["timed_out"], (arch, mesh, "timed out")
+            assert cell["proc"].returncode == 0, \
+                (arch, mesh, cell["err"][-3000:])
+            res = json.loads(Path(grid["out_dir"],
+                                  f"{arch}__{shape}__{mesh}.json").read_text())
+            assert res["status"] == "ok", res
+            emit({"phase": "dryrun_grid", "nvidia_smi": smi,
+                  "host_s": cell["end"] - cell["start"],
+                  **{k: v for k, v in res.items() if k != "collectives"}})
+    finally:
+        _stop_dryrun_grid(grid)
+
+
 KERNEL_CHECKS = ("paged_attention", "rmsnorm", "matmul", "lora", "ssm_scan",
                  "flash_attention")
 
@@ -6262,6 +6512,9 @@ def main() -> int:
           "ptxas": {n: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n, log in build.BUILD_LOG.items()}})
+    # the dry run's production cells need no card: they run beside the
+    # phases below (dryrun_grid collects them at the end)
+    grid = None if args.only is not None else start_dryrun_grid()
 
     # 3. kernels against their plain versions
     results = []
@@ -6345,20 +6598,21 @@ def main() -> int:
     # 11. the stateful families' training at full width, bf16 (falcon-mamba
     # with int8 moments: f32 ones do not fit beside its weights), a
     # profiled window each, then their card-against-CPU oracles at 2
-    # layers / 2 segments and restarts at 2 layers / 1 segment (with the
-    # hybrid's restart at 2 segments the script took 1,008 s; at 1 segment
-    # it took 846 s on a faster host and 1,084 s on the slowest seen)
+    # layers / 1 segment and restarts at 1 layer / 1 segment (with the
+    # hybrid's restart at 2 segments the script took 1,008 s; its oracle
+    # went from 2 segments to 1 when the script with the dry run's phases
+    # took 1,133 s on a slow host)
     ssm_train_launches = train_stateful_phase(torch, ssm_cfg, "int8")
     train_profile_phase(torch, ssm_cfg, steps=2, opt_state="int8",
                         phase="train_ssm_profile")
     hybrid_train_launches = train_stateful_phase(torch, hy_cfg, "f32")
     train_profile_phase(torch, hy_cfg, steps=2, phase="train_hybrid_profile")
-    # (the restarts at 6 steps, checkpointed every 3 and failing at 5: a
-    # cut for the time of train_mesh_2's family runs)
+    # (the restarts at 4 steps, checkpointed every 2 and failing at 3: cuts
+    # for the time of train_mesh_2's family runs and the dry run's phases)
     train_stateful_oracle_phase(torch, ssm_cfg, 2, "int8", witness=False,
                                 restart=STATEFUL_RESTART, restart_layers=1)
     hybrid_leaf_tol = train_stateful_oracle_phase(
-        torch, hy_cfg, 2 * hy_cfg.hybrid.attn_every, "f32",
+        torch, hy_cfg, hy_cfg.hybrid.attn_every, "f32",
         restart=STATEFUL_RESTART, restart_layers=hy_cfg.hybrid.attn_every)
     # train_mesh_2's zamba2 run: its leaves against one device's, held to
     # the hybrid oracle's limit (the hybrid's f32 gradients depend on the
@@ -6386,10 +6640,10 @@ def main() -> int:
                                               f32_layers=MOE_F32_LAYERS)
     train_profile_phase(torch, moe_cfg, steps=1, opt_state="int8",
                         phase="train_moe_profile")
-    # the restart at 1 layer in 6 steps, failing at 5: two checkpoints
-    # (steps 4 and 6), not three
+    # the restart at 1 layer in 4 steps, failing at 3: checkpoints at
+    # steps 2 and 4 (6 steps until the dry run's phases needed the time)
     train_stateful_oracle_phase(torch, moe_cfg, 2, "int8", witness=False,
-                                restart=(6, 5, 4), restart_layers=1)
+                                restart=(4, 3, 2), restart_layers=1)
 
     # 13. the encoder-decoder and the VLM stub frontend at full width, bf16,
     # through the prefill and decode step builders (the paged engine
@@ -6409,6 +6663,9 @@ def main() -> int:
     vlm_cfg = get_config(VLM_ARCH)
     vlm_launches = vlm_serve_phase(torch, vlm_cfg)
     vlm_train_launches = train_vlm_phase(torch, vlm_cfg)
+
+    # the dry run's two production cells, started after the build
+    dryrun_grid_phase(grid, smi)
 
     # each row's launches come from the main path that gives its shape
     # (the row's ``path``): the qwen3-0.6b serve workload (K1 at head_dim

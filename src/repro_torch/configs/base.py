@@ -5,12 +5,14 @@ A framework-free copy of ``src/repro/configs/base.py`` (which pulls in
 field-for-field identical, so a config built here equals its JAX twin.
 
 Every assigned architecture is a ``ModelConfig`` instance registered under its
-``--arch`` id.  (The dry-run's ``ShapeSpec`` registry is not ported yet.)
+``--arch`` id; the dry run's cells are an arch by a ``ShapeSpec`` of
+``SHAPES`` (``cell_is_runnable`` drops the long-context cell of a
+full-attention arch).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +147,21 @@ class ModelConfig:
         return self.param_count() - inactive
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
 
@@ -167,6 +184,13 @@ def get_config(arch_id: str) -> ModelConfig:
 def list_archs():
     from repro_torch import configs  # noqa: F401
     return sorted(_REGISTRY)
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Assignment rules: long_500k only for sub-quadratic (ssm/hybrid) archs."""
+    if shape.name == "long_500k" and cfg.full_attention:
+        return False, "long_500k skipped: pure full-attention arch (see DESIGN.md §4)"
+    return True, ""
 
 
 def reduced_config(cfg: ModelConfig) -> ModelConfig:

@@ -55,7 +55,16 @@ class Hardware:
     paged_block_kv: int
     lora_block_out: int
     lora_block_rank: int
+    # --- a cluster of these devices (the dry run's roofline) ---------------
+    hbm_bytes: int               # device memory capacity, bytes
+    node_devices: int            # devices a node joins at link_bw
+    net_bw: float                # bytes/s a device sends between nodes
 
+
+# device memory of an H100 80GB HBM3 as the card reports it
+# (torch.cuda.get_device_properties(0).total_memory, read on the card by
+# chip_smoke.py's dryrun_calib line)
+HBM_BYTES_H100 = 85_017_493_504
 
 # H100 SXM 80 GB.  Data sheet: 989 TFLOP/s bf16 dense on the tensor cores,
 # 67 TFLOP/s f32 on the CUDA cores, 3.35 TB/s HBM3, 900 GB/s NVLink (450 GB/s
@@ -114,4 +123,9 @@ H100 = Hardware(
     # wgmma k step
     lora_block_out=128,
     lora_block_rank=16,
+    hbm_bytes=HBM_BYTES_H100,
+    # eight cards on one NVLink switch (an HGX H100 board)
+    node_devices=8,
+    # one 400 Gb/s NDR InfiniBand link a card between nodes
+    net_bw=50e9,
 )

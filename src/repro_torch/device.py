@@ -2,7 +2,8 @@
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Asking for CUDA on a host without a card is an error, never a silent move
-to the CPU.
+to the CPU.  ``meta`` (shapes and dtypes, no data: the dry run's abstract
+weights) is taken only where a caller allows it by name.
 """
 from __future__ import annotations
 
@@ -11,8 +12,10 @@ import torch
 DEFAULT_DEVICE = "cuda"
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, allow_meta: bool = False) -> torch.device:
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    if dev.type == "meta" and allow_meta:
+        return dev
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device 'cuda' requested but torch.cuda.is_available() is False; "

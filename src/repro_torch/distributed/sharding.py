@@ -119,6 +119,20 @@ def in_tp(shard) -> bool:
     return isinstance(shard, TrainShard) and shard.tp
 
 
+def attention_shard(cfg, shard):
+    """The shard a training step's attention computes under: the step's
+    own where the query heads split over "model" (a rank's H/n heads, and
+    its KV/n, or where fewer KV heads than model ranks divide them, the one
+    its query heads read: ``attention.qkv_project``); else the step's
+    without tensor parallelism, the block's weights gathered whole and
+    every head computed on every model rank (the same compute on each, so
+    nothing is summed over "model"): llama4-maverick's 40 heads and
+    whisper's 12 on a model axis of 16."""
+    if in_tp(shard) and cfg.n_heads % shard.mesh.shape["model"]:
+        return dataclasses.replace(shard, tp=False)
+    return shard
+
+
 def train_shard(mesh, seq_len: int, batch_split: bool) -> TrainShard:
     """The step's ``TrainShard`` under the knobs: sequence parallelism only
     under fsdp_tp, with more than one model rank and a sequence that

@@ -1,7 +1,13 @@
 """The port's kernels, all CUDA C++: paged attention, rmsnorm (forward and
 backward), flash attention (forward and backward), matrix product,
 segmented LoRA shrink/expand and selective scan, each beside its plain
-PyTorch version (``ref``)."""
+PyTorch version (``ref``).
+
+A wrapper takes the branch its tensors' device names
+(``device_branch``): the kernel for CUDA tensors, the plain version for
+CPU ones, and for ``meta`` tensors (the dry run's) empty outputs of the
+right shapes and dtypes.  The training path's wrappers (K2, K3, K7) report
+each call to the dry run's cost analyzer through ``costed``."""
 import threading
 
 import torch
@@ -18,6 +24,33 @@ def count(counters: dict, name: str) -> None:
     ``globals()``), atomically across threads."""
     with _count_lock:
         counters[name] += 1
+
+
+# the cost analyzer of ``launch.hlo_analysis.analyze_step`` while one
+# runs, else None (a module global: the backward runs on autograd's own
+# thread)
+analyzer = None
+
+
+def costed(name: str, flops: int, fn, *args):
+    """``fn(*args)``: one call of a kernel wrapper on whichever branch its
+    tensors take, reported to the active analyzer as one launch of
+    ``name`` with ``flops`` and its outputs' bytes, the torch ops inside
+    uncounted.  A call then counts the same whatever implements it (the
+    CUDA kernel, the CPU plain version or meta)."""
+    a = analyzer
+    if a is None:
+        return fn(*args)
+    return a.kernel(name, flops, fn, *args)
+
+
+def device_branch(name: str, x) -> str:
+    """"cuda", "cpu" or "meta": the branch a wrapper takes for ``x``'s
+    device; raise on any other."""
+    kind = x.device.type
+    if kind not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return kind
 
 
 def refuse_grad(name: str, *tensors) -> None:

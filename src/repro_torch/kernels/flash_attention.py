@@ -13,7 +13,12 @@ gradients from them, and ``FlashAttentionFn`` joins the two as a
 raise on anything the kernels do not take, allocate outputs and scratch with
 ``torch.empty`` and launch on the current CUDA stream.  Tensors that lie on
 the CPU take the plain versions (``ref.flash_attention_ref`` and
-``ref.flash_attention_bwd_ref``); CUDA tensors launch the kernels or raise.
+``ref.flash_attention_bwd_ref``); CUDA tensors launch the kernels or raise;
+``meta`` tensors get empty outputs.  Each call reports to the dry run's
+analyzer (``kernels.costed``) the dots of the reference's jnp attention
+over the same heads: QK^T and PV over the whole Sq x Skv rectangle in the
+forward, the four of its gradient in the backward (``attention_flops``),
+and its outputs' bytes.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, count, ref, refuse_grad
+from repro_torch.kernels import (build, costed, count, device_branch, ref,
+                                 refuse_grad)
 
 # kernel launches since the last reset (chip_smoke.py reads and zeroes them):
 # forward calls, and backward calls (each runs the D, dK/dV and dQ kernels)
@@ -84,6 +90,14 @@ def _check(q, k, v, q_offset, extra=()) -> None:
         raise ValueError("flash_attention: inputs must be contiguous")
 
 
+def attention_flops(q, k, dots: int) -> int:
+    """FLOPs of ``dots`` products of the reference's attention on q
+    (BH,Sq,hd) against k (BKV,Skv,hd): each is 2 BH Sq Skv hd, the causal
+    mask skipping nothing (the reference computes the whole rectangle)."""
+    bh, sq, hd = q.shape
+    return dots * 2 * bh * sq * k.shape[1] * hd
+
+
 def _check_aligned(*ts) -> None:
     if any(t.data_ptr() % ALIGN for t in ts):
         raise ValueError(f"flash_attention: CUDA inputs must be "
@@ -97,10 +111,17 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse (BH,Sq) f32)."""
     refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, q_offset)
-    if q.device.type == "cpu":
+    return costed("flash_attention", attention_flops(q, k, 2), _forward, q,
+                  k, v, causal, q_offset)
+
+
+def _forward(q, k, v, causal, q_offset):
+    branch = device_branch("flash_attention", q)
+    if branch == "meta":
+        return torch.empty_like(q), q.new_empty(q.shape[:2],
+                                                dtype=torch.float32)
+    if branch == "cpu":
         return ref.flash_attention_ref(q, k, v, causal, q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_aligned(q, k, v)
     bh, sq, hd = q.shape
     o = torch.empty_like(q)
@@ -127,11 +148,17 @@ def flash_attention_bwd_kernel(q, k, v, o, lse, do, causal: bool = True,
     _check(q, k, v, q_offset, extra=(
         ("o", o, q.shape, q.dtype), ("do", do, q.shape, q.dtype),
         ("lse", lse, q.shape[:2], torch.float32)))
-    if q.device.type == "cpu":
+    return costed("flash_attention_bwd", attention_flops(q, k, 4), _backward,
+                  q, k, v, o, lse, do, causal, q_offset)
+
+
+def _backward(q, k, v, o, lse, do, causal, q_offset):
+    branch = device_branch("flash_attention", q)
+    if branch == "meta":
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if branch == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
                                            q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_aligned(q, k, v, o, do)
     bh, sq, hd = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \

@@ -22,7 +22,9 @@ checks what it is given and raises on anything the kernels do not take,
 allocates outputs with ``torch.empty`` and launches on the current CUDA
 stream.  Tensors that lie on the CPU take the plain versions
 (``ref.rmsnorm_ref``, ``ref.rmsnorm_bwd_ref``; a pair is two calls); CUDA
-tensors launch the kernels or raise.
+tensors launch the kernels or raise; ``meta`` tensors get empty outputs.
+Each call reports 0 FLOPs (the reference counts only dots) and its
+outputs' bytes to the dry run's analyzer (``kernels.costed``).
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, count, launch, ref, refuse_grad
+from repro_torch.kernels import (build, costed, count, device_branch, launch,
+                                 ref, refuse_grad)
 
 # forward launches (single and pair) and backward calls (each launches the
 # row pass and the column pass) since the last reset (chip_smoke.py reads
@@ -100,15 +103,6 @@ def _check_pair(name, x1, w1, x2, w2, g1=None, g2=None) -> None:
                          f"{tuple(x2.shape)} {x2.dtype}/{w2.dtype}")
 
 
-def _cuda(name, x) -> bool:
-    """True for CUDA tensors, False for CPU ones; raise on anything else."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    return True
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -134,7 +128,14 @@ def rmsnorm_kernel(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
     in f32, else in x's dtype."""
     refuse_grad("rmsnorm", x, w)
     _check("rmsnorm", x, w)
-    if not _cuda("rmsnorm", x):
+    return costed("rmsnorm", 0, _single, x, w, eps, f32)
+
+
+def _single(x, w, eps, f32):
+    branch = device_branch("rmsnorm", x)
+    if branch == "meta":
+        return torch.empty_like(x)
+    if branch == "cpu":
         return ref.rmsnorm_ref(x, w, eps, f32)
     return _fwd(x, w, None, None, eps, f32)[0]
 
@@ -146,7 +147,14 @@ def rmsnorm_pair_kernel(x1: torch.Tensor, w1: torch.Tensor,
     (y1, y2), each bitwise ``rmsnorm_kernel`` of its own pair."""
     refuse_grad("rmsnorm_pair", x1, w1, x2, w2)
     _check_pair("rmsnorm_pair", x1, w1, x2, w2)
-    if not _cuda("rmsnorm_pair", x1):
+    return costed("rmsnorm", 0, _pair, x1, w1, x2, w2, eps, f32)
+
+
+def _pair(x1, w1, x2, w2, eps, f32):
+    branch = device_branch("rmsnorm_pair", x1)
+    if branch == "meta":
+        return torch.empty_like(x1), torch.empty_like(x2)
+    if branch == "cpu":
         return ref.rmsnorm_ref(x1, w1, eps, f32), \
             ref.rmsnorm_ref(x2, w2, eps, f32)
     return _fwd(x1, w1, x2, w2, eps, f32)
@@ -180,7 +188,14 @@ def rmsnorm_bwd_kernel(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     gradient g (R, D) in x's dtype -> (dx in x's dtype, dw in w's)."""
     refuse_grad("rmsnorm_bwd", x, w, g)
     _check("rmsnorm_bwd", x, w, g)
-    if not _cuda("rmsnorm_bwd", x):
+    return costed("rmsnorm_bwd", 0, _single_bwd, x, w, g, eps, f32)
+
+
+def _single_bwd(x, w, g, eps, f32):
+    branch = device_branch("rmsnorm_bwd", x)
+    if branch == "meta":
+        return torch.empty_like(x), torch.empty_like(w)
+    if branch == "cpu":
         return ref.rmsnorm_bwd_ref(x, w, g, eps, f32=f32)
     return _bwd(x, w, g, None, None, None, eps, f32)[:2]
 
@@ -191,7 +206,16 @@ def rmsnorm_pair_bwd_kernel(x1, w1, g1, x2, w2, g2, eps: float = 1e-5,
     same two launches as one tensor's; each bitwise its single call's."""
     refuse_grad("rmsnorm_pair_bwd", x1, w1, g1, x2, w2, g2)
     _check_pair("rmsnorm_pair_bwd", x1, w1, x2, w2, g1, g2)
-    if not _cuda("rmsnorm_pair_bwd", x1):
+    return costed("rmsnorm_bwd", 0, _pair_bwd, x1, w1, g1, x2, w2, g2, eps,
+                  f32)
+
+
+def _pair_bwd(x1, w1, g1, x2, w2, g2, eps, f32):
+    branch = device_branch("rmsnorm_pair_bwd", x1)
+    if branch == "meta":
+        return (torch.empty_like(x1), torch.empty_like(w1),
+                torch.empty_like(x2), torch.empty_like(w2))
+    if branch == "cpu":
         return ref.rmsnorm_bwd_ref(x1, w1, g1, eps, f32=f32) \
             + ref.rmsnorm_bwd_ref(x2, w2, g2, eps, f32=f32)
     return _bwd(x1, w1, g1, x2, w2, g2, eps, f32)

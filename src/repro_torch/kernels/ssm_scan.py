@@ -22,7 +22,13 @@ scratch with ``torch.empty`` and launches on the current CUDA stream.
 Tensors that lie on the CPU take the plain versions (``ref.ssm_scan_ref``,
 ``ref.ssm_scan_ckpt_ref``, ``ref.ssm_scan_bwd_ref``; the fused entries
 ``ref.ssm_discretise_ref`` before them, and ``ref.ssm_scan_fused_bwd_ref``);
-CUDA tensors launch the kernels or raise.
+CUDA tensors launch the kernels or raise; ``meta`` tensors get empty
+outputs.  Each call reports to the dry run's analyzer (``kernels.costed``)
+the dots of the reference's scan (``mamba._chunked_selective_scan``): its
+``einsum("btdn,btn->btd")``, 2 B T D N FLOPs, in the forward and that
+einsum's two transposes in the backward (``scan_flops``; the
+discretisation and the associative scan are elementwise), and its outputs'
+bytes.
 """
 from __future__ import annotations
 
@@ -30,7 +36,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, count, launch, ref, refuse_grad
+from repro_torch.kernels import (build, costed, count, device_branch, launch,
+                                 ref, refuse_grad)
 
 # forward launches (with or without checkpoints, fused or not) and backward
 # calls (each launches the windowed backward and the ordered sums of its
@@ -120,13 +127,15 @@ def _check(a, b, c, h0=None) -> None:
                          "contiguous")
 
 
-def _cuda(x) -> bool:
-    """True for CUDA tensors, False for CPU ones; raise on anything else."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"ssm_scan: unsupported device {x.device}")
-    return True
+def scan_flops(bsz: int, t: int, d: int, n: int, dots: int) -> int:
+    """FLOPs of ``dots`` products of the reference scan's readout at (B, T,
+    D, N): each 2 B T D N (the forward's y = <h, c>; the backward's dh =
+    dy c and dc = <h, dy>)."""
+    return dots * 2 * bsz * t * d * n
+
+
+def _f32(*shape, like):
+    return like.new_empty(shape, dtype=torch.float32)
 
 
 def _fwd(a, b, c, h0, ckpt):
@@ -149,7 +158,15 @@ def ssm_scan_kernel(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     over the state axis.  T may be 0 (then h_last equals h0)."""
     refuse_grad("ssm_scan", a, b, c, h0)
     _check(a, b, c, h0)
-    if not _cuda(a):
+    return costed("ssm_scan", scan_flops(*a.shape, 1), _scan, a, b, c, h0)
+
+
+def _scan(a, b, c, h0):
+    branch = device_branch("ssm_scan", a)
+    if branch == "meta":
+        bsz, t, d, n = a.shape
+        return _f32(bsz, t, d, like=a), _f32(bsz, d, n, like=a)
+    if branch == "cpu":
         return ref.ssm_scan_ref(a, b, c, h0)
     return _fwd(a, b, c, h0, None)
 
@@ -161,9 +178,18 @@ def ssm_scan_ckpt_kernel(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     (so ``ckpt[:, 0]`` is h0), in the same launch."""
     refuse_grad("ssm_scan", a, b, c, h0)
     _check(a, b, c, h0)
-    if not _cuda(a):
-        return ref.ssm_scan_ckpt_ref(a, b, c, h0, WINDOW)
+    return costed("ssm_scan", scan_flops(*a.shape, 1), _scan_ckpt, a, b, c,
+                  h0)
+
+
+def _scan_ckpt(a, b, c, h0):
+    branch = device_branch("ssm_scan", a)
     bsz, t, d, n = a.shape
+    if branch == "meta":
+        return _f32(bsz, t, d, like=a), _f32(bsz, d, n, like=a), \
+            _f32(bsz, windows(t), d, n, like=a)
+    if branch == "cpu":
+        return ref.ssm_scan_ckpt_ref(a, b, c, h0, WINDOW)
     ckpt = torch.empty((bsz, windows(t), d, n), dtype=torch.float32,
                        device=a.device)
     return _fwd(a, b, c, h0, ckpt) + (ckpt,)
@@ -194,8 +220,17 @@ def ssm_scan_bwd_kernel(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     refuse_grad("ssm_scan_bwd", a, b, c, ckpt, dy, dh_last)
     _check(a, b, c)
     _check_bwd(a, b, c, ckpt, dy, dh_last)
+    return costed("ssm_scan_bwd", scan_flops(*a.shape, 2), _scan_bwd, a, b,
+                  c, ckpt, dy, dh_last)
+
+
+def _scan_bwd(a, b, c, ckpt, dy, dh_last):
+    branch = device_branch("ssm_scan_bwd", a)
     bsz, t, d, n = a.shape
-    if not _cuda(a):
+    if branch == "meta":
+        return torch.empty_like(a), torch.empty_like(b), \
+            _f32(bsz, t, n, like=a), _f32(bsz, d, n, like=a)
+    if branch == "cpu":
         h0 = ckpt[:, 0] if t else a.new_zeros((bsz, d, n))
         return ref.ssm_scan_bwd_ref(a, b, c, h0, dy, dh_last)
     da, db = torch.empty_like(a), torch.empty_like(b)
@@ -306,7 +341,20 @@ def ssm_scan_fused_kernel(dt: torch.Tensor, A: torch.Tensor,
     c = C, with a and b made in the kernel."""
     refuse_grad("ssm_scan_fused", dt, A, Bm, C, x, h0)
     _check_fused(dt, A, Bm, C, x, h0)
-    if not _cuda(dt):
+    return costed("ssm_scan", _fused_flops(dt, A, 1), _fused, dt, A, Bm, C,
+                  x, h0)
+
+
+def _fused_flops(dt, A, dots: int) -> int:
+    return scan_flops(*dt.shape, A.shape[1], dots)
+
+
+def _fused(dt, A, Bm, C, x, h0):
+    branch = device_branch("ssm_scan_fused", dt)
+    if branch == "meta":
+        bsz, t, d = dt.shape
+        return _f32(bsz, t, d, like=dt), _f32(bsz, d, A.shape[1], like=dt)
+    if branch == "cpu":
         return ref.ssm_scan_fused_ref(dt, A, Bm, C, x, h0)
     return _fused_fwd(dt, A, Bm, C, x, h0, None)
 
@@ -319,11 +367,21 @@ def ssm_scan_fused_ckpt_kernel(dt: torch.Tensor, A: torch.Tensor,
     in the same launch."""
     refuse_grad("ssm_scan_fused", dt, A, Bm, C, x, h0)
     _check_fused(dt, A, Bm, C, x, h0)
-    if not _cuda(dt):
+    return costed("ssm_scan", _fused_flops(dt, A, 1), _fused_ckpt, dt, A, Bm,
+                  C, x, h0)
+
+
+def _fused_ckpt(dt, A, Bm, C, x, h0):
+    branch = device_branch("ssm_scan_fused", dt)
+    bsz, t, d = dt.shape
+    n = A.shape[1]
+    if branch == "meta":
+        return _f32(bsz, t, d, like=dt), _f32(bsz, d, n, like=dt), \
+            _f32(bsz, windows(t), d, n, like=dt)
+    if branch == "cpu":
         a, b = ref.ssm_discretise_ref(dt, A, Bm, x)
         return ref.ssm_scan_ckpt_ref(a, b, C.float(), h0, WINDOW)
-    bsz, t, d = dt.shape
-    ckpt = torch.empty((bsz, windows(t), d, A.shape[1]), dtype=torch.float32,
+    ckpt = torch.empty((bsz, windows(t), d, n), dtype=torch.float32,
                        device=dt.device)
     return _fused_fwd(dt, A, Bm, C, x, h0, ckpt) + (ckpt,)
 
@@ -350,7 +408,19 @@ def ssm_scan_fused_bwd_kernel(dt: torch.Tensor, A: torch.Tensor,
             raise ValueError(f"ssm_scan_fused_bwd: {name} must be a "
                              f"contiguous float32 {shape} on {dt.device}, "
                              f"got {v.dtype} {tuple(v.shape)} on {v.device}")
-    if not _cuda(dt):
+    return costed("ssm_scan_bwd", _fused_flops(dt, A, 2), _fused_bwd, dt, A,
+                  Bm, C, x, ckpt, dy, dh_last)
+
+
+def _fused_bwd(dt, A, Bm, C, x, ckpt, dy, dh_last):
+    branch = device_branch("ssm_scan_fused_bwd", dt)
+    bsz, t, d = dt.shape
+    n = A.shape[1]
+    if branch == "meta":
+        return (_f32(bsz, t, d, like=dt), _f32(d, n, like=dt),
+                Bm.new_empty((bsz, t, n)), C.new_empty((bsz, t, n)),
+                torch.empty_like(x), _f32(bsz, d, n, like=dt))
+    if branch == "cpu":
         h0 = ckpt[:, 0] if t else dt.new_zeros((bsz, d, n))
         return ref.ssm_scan_fused_bwd_ref(dt, A, Bm, C, x, h0, dy, dh_last)
     f32 = dict(dtype=torch.float32, device=dt.device)

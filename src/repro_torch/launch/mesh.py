@@ -10,6 +10,11 @@ sizes, as the reference's ``Mesh.shape`` is, so the spec functions of
 (``ServeMesh``) is one "model" axis; a training mesh (``TrainMesh``) is
 ``data x model`` with a process group for each data column and model row.
 
+``DryTrainMesh`` is a training mesh with no process behind it: a rank of a
+virtual ``data x model`` mesh of any size, on ``meta`` tensors, whose
+collectives return their results' shapes and are only recorded (the dry
+run, ``launch.dryrun``).
+
 ``spawn_ranks`` starts N ranks (the CPU tests' ``gloo`` ranks, the serve
 launcher's ranks on one or several cards) and replaces the reference's
 ``ensure_fake_pod``.  Everything here is a function: importing the module
@@ -235,6 +240,74 @@ class TrainMesh:
         """Every rank has reached this point (an ``all_reduce`` of one value
         on the world group)."""
         self.reduce(torch.zeros((), device=self.device), "world")
+
+
+@dataclasses.dataclass(frozen=True)
+class DryTrainMesh(TrainMesh):
+    """A rank (the dry run's: 0) of a virtual ``data x model`` training
+    mesh: the interface
+    ``TrainMesh`` offers the train step and ``distributed.collectives``,
+    with ``meta`` tensors and no process group.  ``gather`` and ``reduce``
+    start no collective: they return a tensor of the result's shape and
+    dtype and record the collective in ``TrainMesh``'s units (``issued``:
+    kind, calls, the bytes this rank sends; the host seconds stay 0) and in
+    ``log`` (kind, bytes, axis, the ranks of the group).  A one-rank
+    "data" or "model" axis moves nothing, as on ``TrainMesh``.
+
+    The reference's production meshes (``production_mesh_shape``) are
+    16 x 16 over ("data", "model") and 2 x 16 x 16 over ("pod", "data",
+    "model"); its FSDP and batch axes are ("pod", "data") jointly, so the
+    pod mesh is 32 x 16 here (``dry_train_mesh``): "data" holds both.
+    Ranks are laid out row-major, ``rank = d * model + m``, as on
+    ``TrainMesh``."""
+    log: list = dataclasses.field(default_factory=list, compare=False,
+                                  repr=False)
+
+    def group_ranks(self, axis: str) -> List[int]:
+        """The ranks of this rank's ``axis`` group, in coordinate order."""
+        n_model = self.shape["model"]
+        d, m = self.coords["data"], self.coords["model"]
+        if axis == "world":
+            return list(range(self.world))
+        if axis == "data":
+            return [i * n_model + m for i in range(self.shape["data"])]
+        return [d * n_model + j for j in range(n_model)]
+
+    def _record(self, kind: str, nbytes: int, axis: str) -> None:
+        v = self._issued[kind]
+        v[0] += 1
+        v[1] += nbytes
+        self.log.append((kind, nbytes, axis, self.group_ranks(axis)))
+
+    def reset_issued(self) -> None:
+        super().reset_issued()
+        self.log.clear()
+
+    def gather(self, x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        if self._alone(axis):
+            return x.clone(memory_format=torch.contiguous_format)
+        self._record("all_gather", x.numel() * x.element_size(), axis)
+        shape = list(x.shape)
+        shape[dim] *= self.size(axis)
+        return x.new_empty(shape)
+
+    def reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        if self._alone(axis):
+            return x.clone(memory_format=torch.contiguous_format)
+        # sent in f32, as TrainMesh.reduce adds
+        self._record("all_reduce", x.numel() * 4, axis)
+        return x.new_empty(x.shape)
+
+
+def dry_train_mesh(shape: Dict[str, int], rank: int = 0) -> DryTrainMesh:
+    """Rank ``rank`` of a virtual training mesh of axis sizes ``shape``:
+    ("data", "model"), or the pod mesh's ("pod", "data", "model") with
+    "pod" folded into "data" (see ``DryTrainMesh``)."""
+    data = shape.get("pod", 1) * shape["data"]
+    model = shape["model"]
+    return DryTrainMesh(rank=rank, world=data * model,
+                        shape={"data": data, "model": model},
+                        groups={}, device=torch.device("meta"))
 
 
 # the subgroups of the initialized process group, by their ranks (made

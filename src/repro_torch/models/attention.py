@@ -24,7 +24,11 @@ A training step on a mesh (``attention_block``'s ``shard``, a
 column-parallel on the rank's H/n and KV/n heads (its kv heads' groups,
 so GQA stays on the rank), the q/k norms' weights behind *f* (each rank
 normalises other heads), the flash-attention kernel on the rank's heads
-and ``wo`` row-parallel with one ``all_reduce``.
+and ``wo`` row-parallel with one ``all_reduce``.  Where the KV heads are
+fewer than the model ranks (and divide them) a rank projects the one KV
+head its query heads read, from k/v weights gathered whole over "model"
+(``_kv_head``); where the query heads do not split, the block runs whole
+on every model rank (``sharding.attention_shard``).
 """
 from __future__ import annotations
 
@@ -34,9 +38,11 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as col
 from repro_torch.distributed.param_sharding import (ServeShard, tp_linear,
                                                     tp_whole)
-from repro_torch.distributed.sharding import TrainShard, weight_use
+from repro_torch.distributed.sharding import (TrainShard, attention_shard,
+                                              in_tp, resolve, weight_use)
 from repro_torch.models import lora as lora_mod
 from repro_torch.models.layers import (apply_rope, default_mrope_sections,
                                       rms_norm_pair, truncated_normal)
@@ -299,12 +305,18 @@ def qkv_project(cfg: ModelConfig, p, x: torch.Tensor,
     ``shard`` (a sharded serve engine's) gives this rank's H/n and KV/n
     heads: computed on them where the weights are column-parallel in
     reduce-scatter mode, else computed whole and cut, so they are the
-    single device's heads bit for bit.  A training step's ``TrainShard``
-    gives the rank's heads from column-parallel weights."""
+    single device's heads bit for bit.  A training step's shard (the
+    attention's, ``sharding.attention_shard``) gives the rank's heads from
+    column-parallel weights (one KV head a rank where they are fewer than
+    the model ranks: ``_kv_head``)."""
     hd = cfg.resolved_head_dim
+    kv_head = in_tp(shard) and cfg.n_kv_heads % shard.mesh.shape["model"]
     heads, local = [], []
     for proj in ("q", "k", "v"):
-        y, loc = tp_linear(x, p["w" + proj], shard)
+        if proj != "q" and kv_head:
+            y, loc = _kv_head(cfg, x, p["w" + proj], shard), True
+        else:
+            y, loc = tp_linear(x, p["w" + proj], shard)
         y = lora_mod.add_delta(proj, y, x, lora)
         heads.append(y.unflatten(-1, (-1, hd)))
         local.append(loc)
@@ -329,6 +341,19 @@ def qkv_project(cfg: ModelConfig, p, x: torch.Tensor,
     return q, k, v
 
 
+def _kv_head(cfg: ModelConfig, x: torch.Tensor, w, shard) -> torch.Tensor:
+    """x (B,S,d) -> (B,S,hd): on a training mesh whose model ranks
+    outnumber the KV heads (and are a multiple of them), this rank's one
+    KV head, the one its query heads read (n/KV ranks share each).  The
+    projection is gathered whole over "model" with its gradient summed
+    there (each rank's lies on its head's columns) and cut to the head's
+    columns; ``x`` enters through *f*."""
+    mesh, hd = shard.mesh, cfg.resolved_head_dim
+    t, _ = resolve(w, shard, split=True)
+    head = mesh.index("model") * cfg.n_kv_heads // mesh.size("model")
+    return col.copy_to(x, mesh, "model") @ t.narrow(1, head * hd, hd)
+
+
 def attention_block(cfg: ModelConfig, p, x: torch.Tensor,
                     positions: torch.Tensor, causal: bool = True,
                     impl: Optional[str] = None, shard=None) -> torch.Tensor:
@@ -337,6 +362,7 @@ def attention_block(cfg: ModelConfig, p, x: torch.Tensor,
     sequence (the JAX package's ``hybrid._segment_fwd``) and each layer of
     ``transformer.lm_loss`` (with ``impl="kernel"``; ``shard`` a training
     step's on a mesh: the rank's heads)."""
+    shard = attention_shard(cfg, shard)
     q, k, v = qkv_project(cfg, p, x, positions, shard=shard)
     o = multi_head_attention(q, k, v, causal=causal, impl=impl)
     b, s = x.shape[:2]

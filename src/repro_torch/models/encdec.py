@@ -41,12 +41,12 @@ from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed.param_sharding import tp_linear, tp_whole
-from repro_torch.distributed.sharding import (gather_layer, in_tp, resolve,
-                                              weight_use)
+from repro_torch.distributed.sharding import (attention_shard, gather_layer,
+                                              in_tp, resolve, weight_use)
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
-    apply_mlp, embed_tokens, init_embed, init_mlp, logits_from_hidden,
-    rms_norm, sinusoidal_positions, softmax_cross_entropy,
+    apply_mlp, embed_tokens, generator, init_embed, init_mlp,
+    logits_from_hidden, rms_norm, sinusoidal_positions, softmax_cross_entropy,
 )
 from repro_torch.models.transformer import run_blocks
 
@@ -70,9 +70,9 @@ def init_encdec(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
     """Random weights from a ``torch.Generator`` seeded with ``seed``, drawn
     on ``device`` (default cuda): the encoder's layers, the decoder's, then
     the embedding, as the reference splits its key."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, allow_meta=True)
     dtype = torch_dtype(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(seed, dev)
     enc = [_init_enc_layer(cfg, gen, dtype, dev)
            for _ in range(cfg.encdec.n_enc_layers)]
     dec = [_init_dec_layer(cfg, gen, dtype, dev) for _ in range(cfg.n_layers)]
@@ -169,18 +169,21 @@ def _dec_layer(cfg: ModelConfig, lp, x: torch.Tensor, enc_out: torch.Tensor,
     mask), MLP.  ``kv``, when given, receives the layer's (k, v, xk, xv)
     for a decode cache; ``shard`` is a training step's on a mesh."""
     lp = _bucket(lp, shard)
+    # the attention's own shard: whole on every model rank where the heads
+    # do not split
+    ashard = attention_shard(cfg, shard)
     q, k, v = attn.qkv_project(cfg, lp["self_attn"],
                                _norm(cfg, x, lp["ln1"], shard), positions,
-                               shard=shard)
+                               shard=ashard)
     o = attn.multi_head_attention(q, k, v, causal=True, impl="kernel")
-    h = x + _attn_out(cfg, lp["self_attn"], o, shard)
+    h = x + _attn_out(cfg, lp["self_attn"], o, ashard)
     # the reference projects the decoder's k and v here too and drops them
     q, _, _ = attn.qkv_project(cfg, lp["cross_attn"],
                                _norm(cfg, h, lp["ln_x"], shard), positions,
-                               shard=shard)
-    xk, xv = _enc_kv(cfg, lp["cross_attn"], enc_out, shard)
+                               shard=ashard)
+    xk, xv = _enc_kv(cfg, lp["cross_attn"], enc_out, ashard)
     o = attn.multi_head_attention(q, xk, xv, causal=False, impl="kernel")
-    h = h + _attn_out(cfg, lp["cross_attn"], o, shard)
+    h = h + _attn_out(cfg, lp["cross_attn"], o, ashard)
     if kv is not None:
         kv.append((k, v, xk, xv))
     return h + apply_mlp(cfg, lp["mlp"], _norm(cfg, h, lp["ln2"], shard),
@@ -235,7 +238,7 @@ def make_encdec_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype,
                       device=None) -> Dict:
     """An empty decode cache of capacity ``max_len`` for the decoder's
     tokens and for the encoder's frames alike."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, allow_meta=True)
     shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
              cfg.resolved_head_dim)
     cache = {k: torch.zeros(shape, dtype=dtype, device=dev)

@@ -44,8 +44,8 @@ from repro_torch.distributed.sharding import (constrain, gather_layer,
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba, ssm_lm, transformer
 from repro_torch.models.layers import (
-    apply_mlp, embed_tokens, init_embed, init_mlp, logits_from_hidden,
-    rms_norm, softmax_cross_entropy,
+    apply_mlp, embed_tokens, generator, init_embed, init_mlp,
+    logits_from_hidden, rms_norm, softmax_cross_entropy,
 )
 
 
@@ -56,9 +56,9 @@ def _n_segments(cfg: ModelConfig) -> int:
 def init_hybrid(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
     """Random weights from a ``torch.Generator`` seeded with ``seed``,
     drawn on ``device`` (default cuda)."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, allow_meta=True)
     dtype = torch_dtype(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(seed, dev)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=dev)  # noqa: E731
     layers = [{"ln": ones(), "mamba": mamba.init_mamba2(cfg, gen, dtype, dev)}
               for _ in range(_n_segments(cfg) * cfg.hybrid.attn_every)]
@@ -195,7 +195,7 @@ def make_hybrid_cache(cfg: ModelConfig, batch_size: int, max_len: int,
 
 
 def _make_cache(cfg: ModelConfig, slots: int, kv_lead, dtype, device):
-    dev = resolve_device(device)
+    dev = resolve_device(device, allow_meta=True)
     n_seg, per = _n_segments(cfg), cfg.hybrid.attn_every
     di = cfg.ssm.expand * cfg.d_model
     heads, p = di // cfg.ssm.head_dim, cfg.ssm.head_dim

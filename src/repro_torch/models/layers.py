@@ -27,11 +27,22 @@ from repro_torch.models.lora import add_delta
 from repro_torch.perf import norm_f32
 
 
+def generator(seed: int, device: torch.device):
+    """The init functions' ``torch.Generator`` seeded with ``seed``; None on
+    ``meta``, where nothing is drawn (``model_zoo.abstract_params``)."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def truncated_normal(gen: torch.Generator, shape, scale, dtype,
                      device) -> torch.Tensor:
     """N(0,1) truncated to [-2, 2], times ``scale``, drawn in f32 and cast
     (the JAX package's ``truncated_normal``; the draws differ, the law is the
-    same)."""
+    same).  On ``meta`` an empty leaf of the shape and dtype, drawn from
+    nothing."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * scale).to(dtype)

@@ -4,13 +4,21 @@ families share the transformer's functions (vlm takes the stub frontend's
 embeds and M-RoPE positions); ssm, hybrid and the audio encoder-decoder
 have their own.  The audio family has no paged interface (its paged
 fields are None), and the serve engine refuses vlm and audio, as the
-reference's does: they are served through ``launch.steps``."""
+reference's does: they are served through ``launch.steps``.
+
+The dry run reads shapes only: ``input_specs`` gives a cell's batch,
+``abstract_params`` the weights and ``abstract_cache`` a decode cache, all
+``meta`` tensors with the reference's shapes and dtypes (nothing is drawn
+or stored).  ``build_model`` takes ``meta`` when it is named; every entry
+point that runs a model refuses it."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
-from repro_torch.configs.base import ModelConfig, torch_dtype
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeSpec, torch_dtype
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 
@@ -26,6 +34,8 @@ class ModelFns:
     prefill: Callable           # (params, batch) -> (cache, logits)
     decode_step: Callable       # (params, cache, batch) -> (cache, logits)
     make_cache: Callable        # (batch_size, max_len) -> cache
+    # (ShapeSpec) -> {name: meta tensor}: a cell's global batch
+    input_specs: Callable
     # paged serving interface (block-table-aware); caches update in place.
     # Stateful families (ssm, hybrid) take ``state_slots=`` on
     # make_paged_cache and read "state_slot(s)" from the batch; None for
@@ -51,12 +61,13 @@ class ModelFns:
 
 def build_model(cfg: ModelConfig, device=None) -> ModelFns:
     """The family's functions, with params and caches on ``device``
-    (default cuda)."""
+    (default cuda; ``meta`` for shapes only)."""
     fam = cfg.family
     if fam not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
         raise ValueError(f"unknown family {fam!r}")
-    dev = resolve_device(device)
+    dev = resolve_device(device, allow_meta=True)
     dtype = torch_dtype(cfg)
+    specs = lambda spec: input_specs(cfg, spec)  # noqa: E731
     if fam == "audio":
         return ModelFns(
             init=lambda seed=0: encdec.init_encdec(cfg, seed, dev),
@@ -66,6 +77,7 @@ def build_model(cfg: ModelConfig, device=None) -> ModelFns:
                 cfg, p, c, b),
             make_cache=lambda bs, ml: encdec.make_encdec_cache(
                 cfg, bs, ml, dtype, dev),
+            input_specs=specs,
         )
     if fam == "ssm":
         # attention-free: the "paged" cache is all slab, no KV pages, and
@@ -78,6 +90,7 @@ def build_model(cfg: ModelConfig, device=None) -> ModelFns:
                 cfg, p, c, b),
             make_cache=lambda bs, ml: ssm_lm.make_ssm_cache(cfg, bs, dtype,
                                                             dev),
+            input_specs=specs,
             make_paged_cache=lambda nb, bsz, state_slots=1:
                 ssm_lm.make_ssm_paged_cache(cfg, state_slots, dtype, dev),
             decode_paged=lambda p, c, b: ssm_lm.ssm_lm_decode_step_paged(
@@ -102,6 +115,7 @@ def build_model(cfg: ModelConfig, device=None) -> ModelFns:
                 cfg, p, c, b),
             make_cache=lambda bs, ml: hybrid.make_hybrid_cache(
                 cfg, bs, ml, dtype, dev),
+            input_specs=specs,
             make_paged_cache=lambda nb, bsz, state_slots=1:
                 hybrid.make_hybrid_paged_cache(cfg, nb, bsz, state_slots,
                                                dtype, dev),
@@ -123,6 +137,7 @@ def build_model(cfg: ModelConfig, device=None) -> ModelFns:
         decode_step=lambda p, c, b: transformer.lm_decode_step(cfg, p, c, b),
         make_cache=lambda bs, ml: transformer.make_decode_cache(
             cfg, bs, ml, dtype, dev),
+        input_specs=specs,
         make_paged_cache=lambda nb, bsz, n_model=1:
             transformer.make_paged_cache(cfg, nb, bsz, dtype, dev,
                                          n_model=n_model),
@@ -135,3 +150,49 @@ def build_model(cfg: ModelConfig, device=None) -> ModelFns:
         paged_block_read=transformer.paged_block_read,
         paged_block_write=transformer.paged_block_write,
     )
+
+
+def input_specs(cfg: ModelConfig, spec: ShapeSpec):
+    """A cell's global batch as ``meta`` tensors, the reference's
+    ``ModelFns.input_specs`` name for name: tokens and labels int32
+    (B, S); the VLM's stub embeds (B, S, d) in the model's dtype and M-RoPE
+    positions (3, B, S); the audio family's frames (B, S, d).  Prefill
+    drops the labels, decode is one token (``token`` (B, 1), ``cur_len``
+    a scalar; the VLM's embeds and positions of length 1; no ``cur_len``
+    for ssm)."""
+    b, s = spec.global_batch, spec.seq_len
+    dtype = torch_dtype(cfg)
+    fam = cfg.family
+
+    def t(shape, dt=torch.int32):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    if spec.kind in ("train", "prefill"):
+        if fam == "vlm":
+            out = {"embeds": t((b, s, cfg.d_model), dtype),
+                   "positions": t((3, b, s))}
+        elif fam == "audio":
+            out = {"frames": t((b, s, cfg.d_model), dtype),
+                   "tokens": t((b, s))}
+        else:
+            out = {"tokens": t((b, s))}
+        if spec.kind == "train":
+            out["labels"] = t((b, s))
+        return out
+    if fam == "vlm":
+        return {"embeds": t((b, 1, cfg.d_model), dtype),
+                "positions": t((3, b, 1)), "cur_len": t(())}
+    if fam == "ssm":
+        return {"token": t((b, 1))}
+    return {"token": t((b, 1)), "cur_len": t(())}
+
+
+def abstract_params(cfg: ModelConfig):
+    """``init``'s tree on ``meta``: every leaf's shape and dtype, nothing
+    drawn (the init functions make each leaf empty there)."""
+    return build_model(cfg, "meta").init(0)
+
+
+def abstract_cache(cfg: ModelConfig, batch_size: int, max_len: int):
+    """``make_cache(batch_size, max_len)``'s tree on ``meta``."""
+    return build_model(cfg, "meta").make_cache(batch_size, max_len)

@@ -34,7 +34,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import gather_layer, weight_use
 from repro_torch.models import mamba
 from repro_torch.models.layers import (
-    embed_tokens, init_embed, logits_from_hidden, rms_norm,
+    generator, embed_tokens, init_embed, logits_from_hidden, rms_norm,
     softmax_cross_entropy,
 )
 from repro_torch.models.transformer import run_blocks
@@ -43,9 +43,9 @@ from repro_torch.models.transformer import run_blocks
 def init_ssm_lm(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
     """Random weights from a ``torch.Generator`` seeded with ``seed``,
     drawn on ``device`` (default cuda)."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, allow_meta=True)
     dtype = torch_dtype(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(seed, dev)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dtype, device=dev)  # noqa: E731
     return {
         "embed": init_embed(cfg, gen, dtype, dev),
@@ -115,7 +115,7 @@ def ssm_lm_prefill(cfg: ModelConfig, params, batch: Dict
 
 def make_ssm_cache(cfg: ModelConfig, batch_size: int, dtype,
                    device=None) -> Dict:
-    dev = resolve_device(device)
+    dev = resolve_device(device, allow_meta=True)
     di = cfg.ssm.expand * cfg.d_model
     return {
         "h": torch.zeros((cfg.n_layers, batch_size, di, cfg.ssm.d_state),

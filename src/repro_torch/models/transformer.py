@@ -73,8 +73,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import lora as lora_mod
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
-    apply_mlp, embed_tokens, init_embed, init_mlp, logits_from_hidden,
-    rms_norm, softmax_cross_entropy,
+    apply_mlp, embed_tokens, generator, init_embed, init_mlp,
+    logits_from_hidden, rms_norm, softmax_cross_entropy,
 )
 from repro_torch.perf import perf
 
@@ -115,9 +115,9 @@ def init_layer(cfg: ModelConfig, gen, kind: str, dtype, device) -> Dict:
 def init_lm(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
     """Random weights from a ``torch.Generator`` seeded with ``seed``,
     drawn on ``device`` (default cuda), layer by layer in forward order."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, allow_meta=True)
     dtype = torch_dtype(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(seed, dev)
     every = _every(cfg)
     return {
         "embed": init_embed(cfg, gen, dtype, dev),
@@ -340,7 +340,7 @@ def make_decode_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype,
                       device=None) -> Dict:
     shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
              cfg.resolved_head_dim)
-    dev = resolve_device(device)
+    dev = resolve_device(device, allow_meta=True)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
@@ -354,7 +354,7 @@ def make_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     engine has checked that n_model divides the kv heads."""
     shape = (cfg.n_layers, num_blocks, block_size,
              cfg.n_kv_heads // n_model, cfg.resolved_head_dim)
-    dev = resolve_device(device)
+    dev = resolve_device(device, allow_meta=True)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 

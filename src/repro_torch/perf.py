@@ -205,3 +205,8 @@ def perf() -> PerfConfig:
         norm_f32=norm_f32(),
     )
 
+
+
+def knob_snapshot() -> dict:
+    """Every knob of ``perf()`` as a dict (what a dry-run result records)."""
+    return dataclasses.asdict(perf())

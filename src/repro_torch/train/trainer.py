@@ -229,9 +229,11 @@ def check_mesh_trains(cfg: ModelConfig, mesh) -> None:
     ``mesh``: under fsdp_tp with more than one model rank, what the family
     splits over "model" must divide, and the error names the numbers.  The
     ssm family splits d_inner (its one "head" is not split); the hybrid
-    d_inner, the SSD heads (d_inner / ssm.head_dim) and the shared block's
-    query and kv heads; the encoder-decoder and the transformer families
-    their query and kv heads.  Every family trains, with f32 or int8
+    d_inner and the SSD heads (d_inner / ssm.head_dim).  Attention splits
+    its query heads where they divide (else it runs whole on every model
+    rank, ``sharding.attention_shard``) and then its kv heads, which must
+    divide or be divided by the model ranks (a rank then projects the one
+    its query heads read).  Every family trains, with f32 or int8
     moments."""
     from repro_torch.perf import perf
     n = mesh.shape["model"]
@@ -243,9 +245,10 @@ def check_mesh_trains(cfg: ModelConfig, mesh) -> None:
         splits.append(("d_inner", di))
         if cfg.family == "hybrid":
             splits.append(("SSD heads", di // cfg.ssm.head_dim))
-    if cfg.family != "ssm":
-        splits += [("query heads", cfg.n_heads), ("kv heads", cfg.n_kv_heads)]
     bad = [f"{k} {v}" for k, v in splits if v % n]
+    kv = cfg.n_kv_heads
+    if cfg.family != "ssm" and cfg.n_heads % n == 0 and kv % n and n % kv:
+        bad.append(f"kv heads {kv}")
     if bad:
         raise ValueError(
             f"{cfg.name} ({cfg.family}): {', '.join(bad)} do not split over "

@@ -52,6 +52,7 @@ def reference_hardware():
     import dataclasses
     from repro.core import codegen, cost_model, vectorize
     from repro.core.schedule import minlp, ntt
+    from repro.launch import hlo_analysis
     from repro_torch.core.hardware import Hardware
     probe = codegen.kernel_plan(minlp.Schedule({0: {"i": 1, "l": 1}},
                                                0.0, 0.0, 0.0, 0))
@@ -78,6 +79,11 @@ def reference_hardware():
         vector_lanes=vectorize.VPU_LANES,
         tile_align=probe.block_m,
         fine_align=probe.paged_block_kv,
+        # the dry run's cluster terms: the chip's memory, one node holding
+        # every device, its links at the ICI rate
+        hbm_bytes=hlo_analysis.HBM_BYTES,
+        node_devices=2**31,
+        net_bw=cost_model.ICI_BW,
         **defaults)
 
 
@@ -85,3 +91,32 @@ def port_term(t):
     """The same term built from ``repro_torch.core.tensor_ir``."""
     from repro_torch.core.tensor_ir import Term
     return Term(t.op, tuple(port_term(c) for c in t.children), t.attrs)
+
+
+class Elsewhere(torch.Tensor):
+    """A tensor with no data that claims a device no kernel wrapper serves
+    (``xpu``): a wrapper must refuse it, as it refused ``meta`` before the
+    dry run gave ``meta`` a branch of its own.  An op on it runs on
+    ``meta`` stand-ins and its results claim ``xpu`` again (a caller's
+    reshape reaches the wrapper)."""
+
+    @staticmethod
+    def __new__(cls, *shape, dtype=torch.float32):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, shape, dtype=dtype, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        from torch.utils._pytree import tree_map
+        meta = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device="meta")
+                        if isinstance(t, Elsewhere) else t,
+                        (args, kwargs or {}))
+        out = func(*meta[0], **meta[1])
+        return tree_map(lambda t: Elsewhere(*t.shape, dtype=t.dtype)
+                        if isinstance(t, torch.Tensor) else t, out)
+
+
+def elsewhere(*tensors):
+    """``Elsewhere`` stand-ins of ``tensors``' shapes and dtypes."""
+    return tuple(Elsewhere(*t.shape, dtype=t.dtype) for t in tensors)

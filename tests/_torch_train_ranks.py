@@ -21,7 +21,8 @@ class Job:
     failure; ``plant``: a fault of ``PLANTS`` put into the mesh step for
     the run; ``opt_state``: the AdamW moments' dtype; ``layers`` and
     ``vocab``: the reduced config's depth and vocabulary, when given;
-    ``snap``: also keep the whole weights after that many steps."""
+    ``heads``: its (query, kv) heads, when given; ``snap``: also keep the
+    whole weights after that many steps."""
     name: str
     arch: str = "qwen3-0.6b"
     mesh: tuple = (1, 1)
@@ -39,15 +40,18 @@ class Job:
     layers: int = None
     vocab: int = None
     snap: int = None
+    heads: tuple = None
 
 
-def cfg_of(arch, layers=None, vocab=None):
+def cfg_of(arch, layers=None, vocab=None, heads=None):
     from repro_torch.configs.base import get_config, reduced_config
     cfg = reduced_config(get_config(arch))
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     if vocab is not None:
         cfg = dataclasses.replace(cfg, vocab=vocab)
+    if heads is not None:
+        cfg = dataclasses.replace(cfg, n_heads=heads[0], n_kv_heads=heads[1])
     return cfg
 
 
@@ -61,7 +65,8 @@ def trainer_of(job, mesh=None, device="cpu"):
                          checkpoint_every=job.checkpoint_every)
     ocfg = AdamWConfig(lr=job.lr, warmup_steps=1, total_steps=10,
                        state_dtype=job.opt_state)
-    tr = Trainer(cfg_of(job.arch, job.layers, job.vocab), tcfg, ocfg,
+    tr = Trainer(cfg_of(job.arch, job.layers, job.vocab, job.heads), tcfg,
+                 ocfg,
                  mesh=mesh, device=device)
     if job.init is not None:
         tr.fns = dataclasses.replace(

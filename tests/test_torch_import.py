@@ -30,6 +30,8 @@ assert "repro_torch.launch.serve" in names, names
 assert "repro_torch.launch.train" in names, names
 assert "repro_torch.launch.gateway" in names, names
 assert "repro_torch.serve.async_engine" in names, names
+assert "repro_torch.launch.dryrun" in names, names
+assert "repro_torch.launch.hlo_analysis" in names, names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "triton")
              or m == "repro" or m.startswith("repro."))
@@ -43,7 +45,7 @@ def test_importing_every_module_pulls_in_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 71
+    assert int(n) >= 73
     assert bad == "[]", f"forbidden modules imported: {bad}"
 
 
@@ -84,8 +86,10 @@ def test_import_scan_sees_the_port_tools_imports():
     assert "repro_torch.serve.gateway" in names
 
 
-# the reference's TPU peak rates, on-chip capacity, chip and unit names
-TPU_TOKENS = ("197e12", "819e9", "16 * 2**20", "v5e", "VMEM", "MXU")
+# the reference's TPU peak rates, on-chip and device memory, chip and unit
+# names
+TPU_TOKENS = ("197e12", "819e9", "16 * 2**20", "16 * 2**30", "v5e", "VMEM",
+              "MXU")
 
 
 def test_no_port_source_states_a_tpu_constant():

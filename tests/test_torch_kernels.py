@@ -19,6 +19,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import layers as jlayers
+from _torch_parity import elsewhere
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.matmul import matmul_kernel
 from repro_torch.kernels.paged_attention import paged_attention_kernel
@@ -214,8 +215,7 @@ def test_wrappers_raise_instead_of_falling_back():
         ops.rmsnorm(torch.zeros(2, 8, dtype=torch.float16),
                     torch.ones(8, dtype=torch.float16))
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.rmsnorm(torch.empty(2, 8, device="meta"),
-                    torch.empty(8, device="meta"))
+        ops.rmsnorm(*elsewhere(torch.empty(2, 8), torch.empty(8)))
     with pytest.raises(ValueError, match="unsupported device"):
         matmul_kernel(torch.empty(2, 8, device="meta"),
                       torch.empty(8, 4, device="meta"))

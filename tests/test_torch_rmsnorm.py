@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import LOGITS_TOL, assert_close, bridged_params
+from _torch_parity import (LOGITS_TOL, assert_close, bridged_params,
+                           elsewhere)
 from repro.models import layers as jlayers
 from repro.models import transformer as jtf
 from repro_torch.kernels import ops, ref
@@ -179,14 +180,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         k2.rmsnorm_bwd_kernel(x, w, torch.zeros(8, 3).t())
     with pytest.raises(TypeError):
         k2.rmsnorm_pair_kernel(x.half(), w.half(), x.half(), w.half())
-    meta = dict(device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        k2.rmsnorm_bwd_kernel(torch.empty(3, 8, **meta),
-                              torch.empty(8, **meta),
-                              torch.empty(3, 8, **meta))
+        k2.rmsnorm_bwd_kernel(*elsewhere(x, w, x))
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.rmsnorm_pair(torch.empty(2, 8, **meta), torch.empty(8, **meta),
-                         torch.empty(1, 8, **meta), torch.empty(8, **meta))
+        ops.rmsnorm_pair(*elsewhere(torch.empty(2, 8), w,
+                                    torch.empty(1, 8), w))
     with pytest.raises(RuntimeError, match="requires grad"):
         k2.rmsnorm_pair_kernel(x.requires_grad_(), w, x, w)
 

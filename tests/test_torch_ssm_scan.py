@@ -32,7 +32,7 @@ from repro.models import mamba as jmamba
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssm_scan as k7
 from repro_torch.models import mamba as tmb
-from _torch_parity import MODULE_TOL
+from _torch_parity import MODULE_TOL, elsewhere
 
 torch.set_num_threads(1)
 
@@ -151,7 +151,11 @@ def test_identity_steps_leave_the_state_unchanged():
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     a, bb, c, h0 = _t(*_inputs(1, 4, 8, 4))
     with pytest.raises(ValueError, match="unsupported device"):
-        k7.ssm_scan_kernel(*(x.to("meta") for x in (a, bb, c, h0)))
+        k7.ssm_scan_kernel(*elsewhere(a, bb, c, h0))
+    # meta (the dry run's) gets empty outputs of the plain version's shapes
+    got = k7.ssm_scan_kernel(*(x.to("meta") for x in (a, bb, c, h0)))
+    assert [(t.device.type, t.shape) for t in got] \
+        == [("meta", t.shape) for t in k7.ssm_scan_kernel(a, bb, c, h0)]
     with pytest.raises(TypeError):
         k7.ssm_scan_kernel(a.double(), bb, c, h0)
     with pytest.raises(ValueError, match="power of two"):
@@ -269,7 +273,7 @@ def test_bwd_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="dh_last"):
         k7.ssm_scan_bwd_kernel(a, bb, c, ckpt, dy, h0.double())
     with pytest.raises(ValueError, match="unsupported device"):
-        k7.ssm_scan_bwd_kernel(*(x.to("meta") for x in (a, bb, c, ckpt, dy)))
+        k7.ssm_scan_bwd_kernel(*elsewhere(a, bb, c, ckpt, dy))
 
 
 # -- the fused entries ---------------------------------------------------------
@@ -463,8 +467,7 @@ def test_fused_wrappers_refuse_what_the_kernels_do_not_take():
     dt, a_log, bm, c, x, h0 = _fused_inputs(1, 4, 8, 4)
     A = -torch.exp(a_log)
     with pytest.raises(ValueError, match="unsupported device"):
-        k7.ssm_scan_fused_kernel(*(v.to("meta")
-                                   for v in (dt, A, bm, c, x, h0)))
+        k7.ssm_scan_fused_kernel(*elsewhere(dt, A, bm, c, x, h0))
     with pytest.raises(TypeError, match="float32"):
         k7.ssm_scan_fused_kernel(dt.double(), A, bm, c, x, h0)
     with pytest.raises(TypeError, match="one dtype"):

@@ -507,24 +507,32 @@ def test_families_and_modes_waiting_for_a10d_raise_on_a_mesh(arch):
         == [(e["loss"], e["grad_norm"]) for e in want]
 
 
-@pytest.mark.parametrize("arch,model,what", [
-    ("falcon-mamba-7b", 3, "d_inner 128"),
-    ("zamba2-2.7b", 16, "SSD heads 8"),
-    ("zamba2-2.7b", 3, "query heads 4"),
-    ("whisper-small", 8, "kv heads 4")])
-def test_a_split_that_does_not_divide_raises(arch, model, what):
+@pytest.mark.parametrize("arch,model,heads,what", [
+    ("falcon-mamba-7b", 3, None, "d_inner 128"),
+    ("zamba2-2.7b", 16, None, "SSD heads 8"),
+    ("zamba2-2.7b", 3, None, "d_inner 128, SSD heads 8"),
+    ("whisper-small", 2, (6, 3), "kv heads 3")])
+def test_a_split_that_does_not_divide_raises(arch, model, heads, what):
     """Under fsdp_tp, what a family splits over "model" must divide, and
     the error names the numbers: falcon-mamba's d_inner (its single head
-    is never split), the hybrid's SSD heads and attention heads, the
-    encoder-decoder's heads."""
+    is never split), the hybrid's d_inner and SSD heads, and kv heads that
+    neither divide the model ranks nor are divided by them where the query
+    heads split.  Query heads that do not split refuse nothing (the
+    attention then runs whole on each model rank)."""
     from repro_torch.train.trainer import check_mesh_trains
     cfg = reduced_config(get_config(arch))
+    bad = cfg if heads is None else dataclasses.replace(
+        cfg, n_heads=heads[0], n_kv_heads=heads[1])
     with pytest.raises(ValueError, match=what):
-        check_mesh_trains(cfg, MeshShape({"data": 1, "model": model}))
+        check_mesh_trains(bad, MeshShape({"data": 1, "model": model}))
     # one model rank per d_inner slice that divides: no refusal
     check_mesh_trains(cfg, MeshShape({"data": 3, "model": 2}))
     check_mesh_trains(get_config("falcon-mamba-7b"),
                       MeshShape({"data": 1, "model": 2}))
+    # heads that do not split (4 over 8), kv heads fewer than the ranks
+    check_mesh_trains(cfg, MeshShape({"data": 1, "model": 8}))
+    check_mesh_trains(get_config("qwen3-0.6b"),
+                      MeshShape({"data": 16, "model": 16}))
 
 
 # -- the stateful and encoder-decoder families, int8 moments (A10d) ---------
