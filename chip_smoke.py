@@ -267,7 +267,8 @@ Phases, each printing JSON objects one per line:
               weights from seed 0, bf16, the serve engine's settings): a
               ``Router`` of two engines on their own stepper threads,
               full-width qwen3-0.6b (adapters t0 and t1 declared, loaded on
-              first use) and full-width falcon-mamba-7b.  ``/health`` and
+              first use) and full-width falcon-mamba-7b at 16 of its 64
+              layers (a cut for the script's time).  ``/health`` and
               ``/v1/models``; 16 streamed ``/v1/completions`` of the serve
               workload to qwen (every fourth to ``:t0`` or ``:t1``; one
               client closes its socket after 6 tokens) and 4 to
@@ -279,7 +280,7 @@ Phases, each printing JSON objects one per line:
               blocks the call it lands, both pools drain to zero with the
               invariants clean, and K1, K2, the fused delta and K7 launch
               exactly what the dispatches imply (28 / 85 a qwen call, 196 an
-              adapter dispatch, 64 K7 and 65 K2 a falcon-mamba call);
+              adapter dispatch, 16 K7 and 17 K2 a falcon-mamba call);
               TTFT, inter-token latency and host ms a dispatch.
    gateway_open_loop — qwen3-0.6b alone: 32 requests of the serve workload
               as Poisson arrivals at 2 a second; every stream ``length``
@@ -312,8 +313,8 @@ Phases, each printing JSON objects one per line:
               off / dots / nothing agreeing on the card.  train_remat: four
               full-width steps under each REPRO_REMAT_POLICY, step time and
               peak memory.  train_profile:
-              torch.profiler over 3 steps, busy time by group and the idle
-              share.
+              torch.profiler over 3 steps at 14 of 28 layers, busy time by
+              group and the idle share.
 11. train_ssm, train_hybrid — full-width falcon-mamba-7b (int8 moments)
               and zamba2-2.7b (f32 moments) in bf16 through ``Trainer`` (B 8
               x S 512, 5 steps, remat on): losses finite and falling (for
@@ -323,10 +324,12 @@ Phases, each printing JSON objects one per line:
               128 K7 forward and 64 K7 backward launches with 129 / 65 of
               K2 a step (ssm), 18 / 9 of K3 at head_dim 80 with 253 / 127
               of K2 (hybrid).  train_ssm_profile, train_hybrid_profile: 2
-              profiled steps each, K7's share of the busy time.
+              profiled steps each at half depth (32 of 64 layers; 4 of 9
+              segments), K7's share of the busy time.
               train_ssm_oracle, train_hybrid_oracle: 2 Mamba1 layers / 1
-              hybrid segment (2 until the dry run's phases needed the
-              time) at full width, f32, B 2 x S 512, the loss and
+              hybrid segment of 3 Mamba2 layers (2 segments of 6 until the
+              dry run's phases needed the time) at full width, f32, B 2 x
+              S 512, the loss and
               every gradient leaf on the card against the CPU's, within
               1e-4 / 1e-3, or for the hybrid twice the CPU's own spread
               between two thread counts where that is wider (falcon-mamba
@@ -373,8 +376,9 @@ Phases, each printing JSON objects one per line:
               steps, int8 moments: f32 ones leave about 2 GB of the card):
               finite losses, exactly 32 / 16 K3 and 97 / 49 K2 a step;
               its loss falls at 8 layers with f32 moments;
-              train_moe_profile (1 step); train_moe_oracle: 2 layers,
-              f32, loss and every leaf (the routers' reported apart)
+              train_moe_profile (1 step, 8 of 16 layers);
+              train_moe_oracle: 2 layers, f32, loss and every leaf (the
+              routers' reported apart)
               against the CPU within 1e-4 / 1e-3, then a bitwise restart
               at 1 layer (4 steps, the failure at step 3).
 13. encdec, vlm — the families the paged engine refuses (as the
@@ -418,10 +422,26 @@ Trainer on the card (not timed): FLOPs equal exactly, K2 and K3 launches
 equal (the hooks' count equal to the wrappers' counters: 169 + 85 K2, 56 +
 28 K3), the dry run's peak above its arguments within ``CALIB_PEAK`` of
 the step's ``max_memory_allocated`` rise, and the roofline's step time
-beside the train phase's measured step seconds.  ``dryrun_grid`` at the
-end: two production cells (qwen3-0.6b train_4k on pod1, llama4-maverick
-train_4k on pod2) in subprocesses under a time limit, each cell's line
-without its collectives, with its host seconds.
+beside the train phase's measured step seconds.  Its prefill and decode
+steps (A13b): ``dryrun_serve_calib`` after train_mesh: qwen3-0.6b at full
+depth in bf16, a prefill at prefill_32k's batch a device on pod1 (B 2 x
+S 32,768) and a decode step at decode_32k's (B 8 over a 32,768-position
+cache), counted by the dry run on a 1x1 virtual mesh on meta and over the
+same mesh step on the card (a 1-rank NCCL group): FLOPs equal, K2's 85
+launches equal to the counters, the peak within ``CALIB_PEAK``, the
+measured seconds beside the roofline's; and after ssm_serve,
+falcon-mamba-7b's long_500k decode step (B 1): FLOPs equal, K7 once a
+layer.  ``serve_steps_mesh_2`` in train_mesh_2's rank group:
+``make_prefill_step`` / ``make_decode_step`` on the two gloo ranks, bf16
+at full width (qwen3-0.6b at 2 layers on 2x1 and 1x2, falcon-mamba-7b at
+1 on 1x2; B 2, a 4,096-token prompt, 8 decode steps): logits and caches
+gathered whole within ``BF16_ORACLE_TOL`` of one device's, launches a
+step one device's; ``dryrun_mesh`` counts their prefill and first decode
+step too.  ``dryrun_grid`` at the end: four production cells (qwen3-0.6b
+train_4k and decode_32k on pod1, llama4-maverick train_4k and zamba2-2.7b
+long_500k on pod2: both sequence-parallel caches) in subprocesses under a
+time limit, each cell's line without its collectives, with its host
+seconds.
 
 Then a ``{"kernels": [...]}`` summary line (each row's launches from the
 main path that gives its shape, named in its ``path``), a check that no
@@ -3380,6 +3400,122 @@ def _train_mesh_rank(mesh, device, cfg, workdir):
         if card:
             torch.cuda.empty_cache()
     out["family_runs"] = _family_mesh_runs(device, plain, out["launches"])
+    out["serve_steps"] = _serve_steps_rank(mesh, device)
+    return out
+
+
+# serve_steps_mesh_2: the prefill and decode step builders on the 2-rank
+# group (``make_prefill_step(mesh=)``, ``make_decode_step(mesh=)``), bf16 at
+# full width, cut in depth (``serve_mesh_cfg``: qwen3-0.6b 2 layers,
+# falcon-mamba-7b 1): (run, arch, (data, model)); B 2, a 4,096-token
+# prompt, then 8 teacher-forced decode steps in a cache of 4,104 positions
+SERVE_MESH_RUNS = (("qwen_serve_2x1", "qwen3-0.6b", (2, 1)),
+                   ("qwen_serve_1x2", "qwen3-0.6b", (1, 2)),
+                   ("falcon_serve_1x2", "falcon-mamba-7b", (1, 2)))
+SERVE_MESH_BATCH, SERVE_MESH_PROMPT, SERVE_MESH_STEPS = 2, 4096, 8
+
+
+def serve_mesh_cfg(arch):
+    """A serve_steps_mesh_2 config: full width, bf16, cut in depth."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    return at_depth(cfg, 1 if cfg.family == "ssm" else 2)
+
+
+def _serve_run(torch, cfg, device, mesh=None):
+    """The prompt's prefill and ``SERVE_MESH_STEPS`` decode steps of
+    ``cfg`` (seeded weights and tokens) on one device, or on ``mesh`` from
+    the rank's shards, batch rows and cache blocks: the logits and both
+    caches whole (gathered over the ranks), and per step its seconds, its
+    launches and the collectives this rank issued."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.models.model_zoo import abstract_cache
+    b, s, n = SERVE_MESH_BATCH, SERVE_MESH_PROMPT, SERVE_MESH_STEPS
+    fns = build_model(cfg, device)
+    params = fns.init(0)
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (b, s + n), generator=g,
+                           dtype=torch.int32).to(device)
+    prefill = make_prefill_step(cfg, device, mesh=mesh)
+    decode = make_decode_step(cfg, device, mesh=mesh)
+    split = mesh is not None and mesh.shape["data"] > 1
+    rows = (lambda t: mesh.part(t, 0, "data")) if split else (lambda t: t)
+    whole = (lambda t: mesh.gather(t, 0, "data")) if split \
+        else (lambda t: t)
+    extra = ()
+    if mesh is not None:
+        layout = sharding.train_layout(cfg, params, mesh)
+        params = sharding.shard_tree(params, layout.params, mesh)
+        extra = (layout, True)
+    out = {"step_s": [], "launches": [], "issued": []}
+
+    def step(fn, *args):
+        torch.cuda.synchronize()
+        zero_counts()
+        if mesh is not None:
+            mesh.reset_issued()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["launches"].append(read_counts())
+        out["issued"].append(mesh.issued if mesh is not None else {})
+        return res
+
+    cache, logits = step(prefill, params, {"tokens": rows(tokens[:, :s])},
+                         *extra)
+    out["logits"] = [whole(logits)]
+    if mesh is not None:
+        cache = sharding.unshard_tree(cache, sharding.cache_specs(
+            cfg, abstract_cache(cfg, b, s), mesh), mesh)
+    out["prefill_cache"] = cache
+    big = place_cache(dict(cache), fns.make_cache(b, s + n))
+    if mesh is not None:
+        specs = sharding.cache_specs(cfg, big, mesh)
+        big = sharding.shard_tree(big, specs, mesh)
+        extra = (layout, specs, True)
+    for i in range(n):
+        batch = {"token": rows(tokens[:, s + i:s + i + 1])}
+        if cfg.family != "ssm":
+            batch["cur_len"] = s + i
+        big, logits = step(decode, params, big, batch, *extra)
+        out["logits"].append(whole(logits))
+    out["cache"] = sharding.unshard_tree(big, specs, mesh) \
+        if mesh is not None else big
+    return out
+
+
+def _serve_steps_rank(mesh, device):
+    """One rank of serve_steps_mesh_2 (see ``serve_steps_mesh_report``):
+    each run on a ``TrainMesh`` of its shape over the group, held to one
+    device's run of the same weights and tokens on this rank: the logits
+    of the prefill and of every decode step, and the prefill's and the
+    final cache gathered whole."""
+    import torch
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.train.tree import leaves
+    out = {}
+    for name, arch, shape in SERVE_MESH_RUNS:
+        cfg = serve_mesh_cfg(arch)
+        with torch.no_grad():
+            one = _serve_run(torch, cfg, device)
+            got = _serve_run(torch, cfg, device, make_train_mesh(*shape))
+        errs = {"logits": max(rel_err(a, b)[1] for a, b in
+                              zip(got["logits"], one["logits"]))}
+        for c in ("prefill_cache", "cache"):
+            errs[c] = max(rel_err(a, b)[1] for a, b in
+                          zip(leaves(got[c]), leaves(one[c])))
+        out[name] = {"mesh": f"{shape[0]}x{shape[1]}", "arch": cfg.name,
+                     "layers": cfg.n_layers, "rel_err": errs,
+                     "finite": all(bool(torch.isfinite(t).all())
+                                   for t in got["logits"]),
+                     **{k: got[k] for k in ("step_s", "launches", "issued")},
+                     "one_device_step_s": one["step_s"],
+                     "one_device_launches": one["launches"]}
+        del one, got
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3723,6 +3859,8 @@ def serve_mesh_2_phase(torch, cfg, smi, moe_cfg=None):
                           smi, parts, wall)
     train_launches = train_mesh_2_report(
         train_cfg, [o["train_mesh_2"] for o in outs], smi, parts)
+    serve_steps_mesh_report([o["train_mesh_2"]["serve_steps"] for o in outs],
+                            smi)
     dryrun_mesh_phase(train_cfg, [o["train_mesh_2"] for o in outs], smi)
     return launches, moe_launches, train_launches
 
@@ -3735,18 +3873,89 @@ DRYRUN_MESH_RUNS = (("fsdp_tp_2x1", "qwen", 8, 512),
                      FAMILY_MESH_BATCH, 512))
 
 
+def serve_steps_mesh_report(outs, smi):
+    """serve_steps_mesh_2: each ``SERVE_MESH_RUNS`` run on the two gloo
+    ranks (both on the one card) against one device's run of the same
+    weights and tokens on each rank: the logits of the prefill and of all
+    8 decode steps, the prefill's cache and the cache after the last step
+    (gathered whole) within ``BF16_ORACLE_TOL``, the logits finite, and
+    each step's launches (K2; K7 for falcon-mamba) one device's.  Reports
+    the steps' seconds and collectives."""
+    runs = {}
+    for name, _, _ in SERVE_MESH_RUNS:
+        rows = [o[name] for o in outs]
+        for r in rows:
+            assert all(v <= BF16_ORACLE_TOL for v in r["rel_err"].values()), \
+                (name, r["rel_err"])
+            assert r["finite"], name
+            assert r["launches"] == r["one_device_launches"], \
+                (name, r["launches"], r["one_device_launches"])
+            assert all(n["rmsnorm"] > 0 for n in r["launches"]), name
+        r0 = rows[0]
+        runs[name] = {"mesh": r0["mesh"], "arch": r0["arch"],
+                      "layers": r0["layers"],
+                      "rel_err": [r["rel_err"] for r in rows],
+                      "launches_per_step": [
+                          {k: v for k, v in n.items() if v}
+                          for n in r0["launches"][:2]],
+                      "prefill_s": [r["step_s"][0] for r in rows],
+                      "decode_s": [r["step_s"][1:] for r in rows],
+                      "one_device_prefill_s": r0["one_device_step_s"][0],
+                      "one_device_decode_s": r0["one_device_step_s"][1:],
+                      "collectives": {"prefill": r0["issued"][0],
+                                      "decode": r0["issued"][1]}}
+    emit({"phase": "serve_steps_mesh_2", "backend": "gloo", "world": 2,
+          "device": "cuda:0 (both ranks)", "nvidia_smi": smi,
+          "dtype": "bfloat16", "batch": SERVE_MESH_BATCH,
+          "prompt": SERVE_MESH_PROMPT, "decode_steps": SERVE_MESH_STEPS,
+          "tol": BF16_ORACLE_TOL, "runs": runs})
+
+
+def _dry_serve_issued(cfg, shape, rank):
+    """The collectives a ``DryTrainMesh`` of ``shape`` issues at ``rank``
+    in a serve_steps_mesh_2 run's prefill and in one decode step over its
+    cache, by kind [calls, bytes]."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import count_decode_step, \
+        count_prefill_step
+    from repro_torch.launch.mesh import dry_train_mesh
+    b, s = SERVE_MESH_BATCH, SERVE_MESH_PROMPT
+    out = []
+    for count, spec in (
+            (count_prefill_step, ShapeSpec("p", s, b, "prefill")),
+            (count_decode_step,
+             ShapeSpec("d", s + SERVE_MESH_STEPS, b, "decode"))):
+        mesh = dry_train_mesh({"data": shape[0], "model": shape[1]}, rank)
+        count(cfg, spec, mesh)
+        out.append({k: v[:2] for k, v in mesh.issued.items()})
+    return out
+
+
 def dryrun_mesh_phase(cfg, outs, smi):
     """dryrun_mesh: one step of each ``DRYRUN_MESH_RUNS`` run counted by
     the dry run on a ``DryTrainMesh`` of the run's shape (meta tensors, no
     process) issues each rank's collectives a step exactly: calls and
     bytes by kind, against the ranks' ``TrainMesh.issued`` a step (less
-    the oracle checks' whole-weight gathers).  ``cfg``: train_mesh_2's
-    qwen config; ``outs``: its ranks' results."""
+    the oracle checks' whole-weight gathers); so do the prefill and the
+    first decode step of each ``SERVE_MESH_RUNS`` run.  ``cfg``:
+    train_mesh_2's qwen config; ``outs``: its ranks' results."""
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.dryrun import count_train_step
     from repro_torch.launch.mesh import dry_train_mesh
     from repro_torch.launch.train import opt_config
     rows = {}
+    for name, arch, shape in SERVE_MESH_RUNS:
+        t0 = time.perf_counter()
+        run_cfg = serve_mesh_cfg(arch)
+        for rank in range(shape[0] * shape[1]):
+            got = _dry_serve_issued(run_cfg, shape, rank)
+            want = [{k: v[:2] for k, v in w.items()}
+                    for w in outs[rank]["serve_steps"][name]["issued"][:2]]
+            assert got == want, (name, rank, got, want)
+        rows[name] = {"mesh": f"{shape[0]}x{shape[1]}", "arch": run_cfg.name,
+                      "layers": run_cfg.n_layers,
+                      "collectives": {"prefill": got[0], "decode": got[1]},
+                      "dry_s": time.perf_counter() - t0}
     for name, arch, batch, seq in DRYRUN_MESH_RUNS:
         family = arch != "qwen"
         runs = [o["family_runs" if family else "runs"][name] for o in outs]
@@ -4610,6 +4819,9 @@ def _dense_oracle_gaps(torch, cfg, sides, prompt, forced_tokens):
 GATEWAY_ADAPTERS = ("t0", "t1")
 GATEWAY_TENANTS = (None, None, None, "t0", None, None, None, "t1")
 GATEWAY_SSM_STREAMS = 4
+# falcon-mamba-7b's depth behind the gateway (of 64): cut for the time of
+# the prefill and decode phases
+GATEWAY_SSM_LAYERS = 16
 # the qwen stream whose client closes its socket, and after how many tokens
 GATEWAY_CANCEL = (4, 6)
 GATEWAY_TIMEOUT_S = 300.0
@@ -4676,7 +4888,8 @@ def oracle_outputs(cfg, params, reqs, adapters=()):
 def gateway_phase(torch, cfg, ssm_cfg, smi):
     """One in-process ``Gateway`` on port 0 over a ``Router`` of two engines,
     each on its own stepper thread: full-width qwen3-0.6b (adapters t0 and
-    t1 declared, loaded on first use) and full-width falcon-mamba-7b.
+    t1 declared, loaded on first use) and full-width falcon-mamba-7b (the
+    caller's depth, ``GATEWAY_SSM_LAYERS``).
     ``/health`` and ``/v1/models``; 16 streamed completions to qwen (the
     serve workload, every fourth to ``:t0`` or ``:t1``, one client closing
     its socket after 6 tokens) and 4 to falcon-mamba at once over real HTTP,
@@ -5091,6 +5304,175 @@ def dryrun_calib_phase(torch, cfg, trainer, state, step_s, want):
           "dry_s": dry_s, "card_analyzed_step_s": card_s})
 
 
+# dryrun_serve_calib: prefill_32k's and decode_32k's batch a device on pod1
+# (B 32 and 128 over 16 data ranks): (kind, batch, sequence or capacity)
+SERVE_CALIB = (("prefill", 2, 32768), ("decode", 8, 32768))
+
+
+def _calib_row(torch, cfg, kind, dry, step, args, mesh):
+    """One step of ``SERVE_CALIB`` on the card, run under
+    ``analyze_step`` with its
+    launches counted and the allocator's rise read, and timed: the
+    decode step by one call after a warm-up, the prefill (20 s at 32,768
+    positions) by the analyzed call itself; the gates of
+    ``dryrun_serve_calib_phase``.  Returns the phase's row."""
+    from repro_torch.core.hardware import H100
+    from repro_torch.launch.hlo_analysis import analyze_step, roofline_terms
+    if kind == "decode":
+        step(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        measured = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    card = analyze_step(step, *args, mesh=mesh)
+    torch.cuda.synchronize()
+    if kind == "prefill":
+        # the analyzed call (about 13,000 ops' tracking on the host beside
+        # a 20-second step; kernels and cuBLAS warm from earlier phases)
+        measured = time.perf_counter() - t0
+    rise = torch.cuda.max_memory_allocated() - before
+    launches = read_counts()
+    finite = bool(torch.isfinite(card["out"][1]).all())
+    del card["out"], dry["out"]
+    assert finite, kind
+    assert card["flops"] == dry["flops"], (kind, card["flops"], dry["flops"])
+    assert card["launches"] == dry["launches"] \
+        == {k: v for k, v in launches.items() if v}, \
+        (kind, card["launches"], dry["launches"], launches)
+    dry_rise = dry["peak_bytes"] - dry["argument_bytes"]
+    ratio = dry_rise / rise
+    assert CALIB_PEAK[0] <= ratio <= CALIB_PEAK[1], (kind, dry_rise, rise)
+    roof = roofline_terms(dry, H100)
+    return {"flops": dry["flops"], "flops_equal": True,
+            "kernel_flops": dry["kernel_flops"], "launches": dry["launches"],
+            "dry_bytes_traffic": dry["bytes_traffic"],
+            "card_bytes_traffic": card["bytes_traffic"],
+            "dry_argument_bytes": dry["argument_bytes"],
+            "dry_peak_bytes": dry["peak_bytes"], "dry_peak_rise": dry_rise,
+            "card_bytes_before": before, "card_max_allocated_rise": rise,
+            "peak_ratio": ratio, "peak_limits": CALIB_PEAK,
+            "roofline": roof, "measured_step_s": measured,
+            "measured_over_roofline": measured / roof["step_time_s"]}
+
+
+def dryrun_serve_calib_phase(torch, cfg, smi):
+    """dryrun_serve_calib: qwen3-0.6b at full width and depth, bf16, one
+    prefill at prefill_32k's batch a device on pod1 (B 2 x S 32,768) and
+    one decode step at decode_32k's (B 8 over a 32,768-position cache at
+    ``cur_len`` 32,767), each counted by the dry run on a 1x1
+    ``DryTrainMesh`` on meta and by ``analyze_step`` over the same mesh
+    step on the card (a 1-rank NCCL group's 1x1 ``TrainMesh``, whose
+    one-rank gathers copy what the dry run's do).  FLOPs equal exactly;
+    the K2 launches equal, the hooks' count equal to the wrappers'
+    counters; the dry run's peak above its arguments within
+    ``CALIB_PEAK`` of the card's ``max_memory_allocated`` rise; the
+    measured seconds of each step (``_calib_row``) beside the roofline's
+    ``step_time_s``, not gated."""
+    import tempfile
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.hardware import H100
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (dry_train_mesh, make_train_mesh,
+                                         process_group)
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.models.model_zoo import abstract_cache
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            process_group(0, 1, "nccl", os.path.join(tmp, "store"), DEV):
+        mesh = make_train_mesh(1, 1)
+        fns = build_model(cfg, DEV)
+        params = fns.init(0)
+        layout = sharding.train_layout(cfg, params, mesh)
+        local = sharding.shard_tree(params, layout.params, mesh)
+        del params
+        gen = torch.Generator(device=DEV).manual_seed(5)
+        for kind, batch, seq in SERVE_CALIB:
+            t0 = time.perf_counter()
+            dry = dryrun.COUNTERS[kind](
+                cfg, ShapeSpec(kind, seq, batch, kind),
+                dry_train_mesh({"data": 1, "model": 1}))
+            dry_s = time.perf_counter() - t0
+            if kind == "prefill":
+                step = make_prefill_step(cfg, DEV, mesh=mesh)
+                tokens = torch.randint(0, cfg.vocab, (batch, seq),
+                                       generator=gen, device=DEV,
+                                       dtype=torch.int32)
+                args = (local, {"tokens": tokens}, layout, True)
+            else:
+                step = make_decode_step(cfg, DEV, mesh=mesh)
+                whole = abstract_cache(cfg, batch, seq)
+                specs = sharding.cache_specs(cfg, whole, mesh)
+                # the rank's blocks made in place (30 GB of K/V at 1x1)
+                cache = {k: torch.empty(t.shape, dtype=t.dtype, device=DEV)
+                         .normal_(generator=gen) for k, t in
+                         sharding.shard_tree(whole, specs, mesh).items()}
+                token = torch.randint(0, cfg.vocab, (batch, 1),
+                                      generator=gen, device=DEV,
+                                      dtype=torch.int32)
+                args = (local, cache, {"token": token, "cur_len": seq - 1},
+                        layout, specs, True)
+            rows[kind] = {"batch": batch, "seq_len": seq, "dry_s": dry_s,
+                          **_calib_row(torch, cfg, kind, dry, step, args,
+                                       mesh)}
+            del args, step
+            torch.cuda.empty_cache()
+        del local
+    torch.cuda.empty_cache()
+    emit({"phase": "dryrun_serve_calib", "arch": cfg.name,
+          "dtype": cfg.dtype, "layers": cfg.n_layers, "mesh": "1x1",
+          "nvidia_smi": smi, "hardware": H100.name, "steps": rows})
+
+
+def dryrun_ssm_calib_phase(torch, cfg, params, smi):
+    """dryrun_serve_calib (ssm): falcon-mamba-7b's long_500k decode step
+    (B 1, at full width and depth, bf16, on the ssm_serve phase's weights)
+    counted by the dry run on a 1x1 ``DryTrainMesh`` on meta and by
+    ``analyze_step`` over one device's step on the card: FLOPs equal, K7
+    launching once a layer in both and in its counter.  The state cache
+    does not grow with the sequence, so the step is the decode_32k
+    step's at B 1."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import analyze_step
+    from repro_torch.launch.mesh import dry_train_mesh
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import build_model
+    spec = SHAPES["long_500k"]
+    t0 = time.perf_counter()
+    dry = dryrun.count_decode_step(cfg, spec,
+                                   dry_train_mesh({"data": 1, "model": 1}))
+    dry_s = time.perf_counter() - t0
+    cache = build_model(cfg, DEV).make_cache(1, spec.seq_len)
+    token = torch.zeros((1, 1), dtype=torch.int32, device=DEV)
+    zero_counts()
+    card = analyze_step(make_decode_step(cfg, DEV), params, cache,
+                        {"token": token})
+    launches = read_counts()
+    logits = card.pop("out")[1]
+    del dry["out"]
+    assert bool(torch.isfinite(logits).all())
+    assert card["flops"] == dry["flops"], (card["flops"], dry["flops"])
+    assert card["launches"]["ssm_scan"] == dry["launches"]["ssm_scan"] \
+        == launches["ssm_scan"] == cfg.n_layers, \
+        (card["launches"], dry["launches"], launches)
+    emit({"phase": "dryrun_serve_calib", "arch": cfg.name,
+          "dtype": cfg.dtype, "layers": cfg.n_layers, "shape": spec.name,
+          "batch": 1, "nvidia_smi": smi, "flops": dry["flops"],
+          "flops_equal": True, "launches": dry["launches"],
+          "card_launches": card["launches"],
+          "state_bytes": dry["state_bytes"], "dry_s": dry_s})
+    del cache, card
+    torch.cuda.empty_cache()
+
+
 TRAIN_MESH_STEPS = 3
 
 
@@ -5380,6 +5762,9 @@ def train_profile_phase(torch, cfg, steps=3, opt_state="f32",
 
 
 TRAIN_STATEFUL_STEPS = 5
+# train_hybrid_oracle and its restart: one segment of this many Mamba2
+# layers before the shared block (zamba2-2.7b's segments hold 6)
+HYBRID_ORACLE_SEGMENT = 3
 # train_ssm_restart and train_hybrid_restart: (steps, the step that fails,
 # the checkpoint interval)
 STATEFUL_RESTART = (4, 3, 2)
@@ -5495,7 +5880,8 @@ def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state,
                                 witness=True, restart=(8, 6, 4),
                                 seq_len=512, phase=None, restart_layers=None):
     """``n_layers`` layers at full width (2 Mamba1 layers; 1 hybrid
-    segment, 6 Mamba2 layers and 1 shared-block call; 2 MoE layers),
+    segment, ``HYBRID_ORACLE_SEGMENT`` Mamba2 layers and 1 shared-block
+    call; 2 MoE layers),
     f32, B 2 x S 512:
     the loss and every gradient leaf on the card (K7 forward and backward,
     or K3 at head_dim 80, and K2, remat "dots" as the trainer runs) against
@@ -6381,7 +6767,11 @@ def _to(tree, where):
 # the kernel checks that ``--only`` can name
 # production cells the dry run counts on the host: (arch, shape, mesh)
 DRYRUN_GRID = (("qwen3-0.6b", "train_4k", "pod1"),
-               ("llama4-maverick-400b-a17b", "train_4k", "pod2"))
+               ("llama4-maverick-400b-a17b", "train_4k", "pod2"),
+               # the sequence-parallel caches: over "model" (8 kv heads,
+               # 16 model ranks) and over "data" (B 1)
+               ("qwen3-0.6b", "decode_32k", "pod1"),
+               ("zamba2-2.7b", "long_500k", "pod2"))
 DRYRUN_CELL_TIMEOUT_S = 300
 
 
@@ -6560,6 +6950,7 @@ def main() -> int:
     ssm_cfg = get_config(SSM_ARCH)
     params = build_model(ssm_cfg, DEV).init(0)
     ssm_launches = stateful_serve_phase(torch, ssm_cfg, params)
+    dryrun_ssm_calib_phase(torch, ssm_cfg, params, smi)
     swap_resume_phase(torch, ssm_cfg, params)
     profile_phase(torch, ssm_cfg, params, steps=8, phase="ssm_profile")
     del params
@@ -6578,7 +6969,8 @@ def main() -> int:
     # 9. the gateway at full width, bf16: qwen3-0.6b with adapters and
     # falcon-mamba-7b behind one router, streamed over HTTP; qwen alone
     # under open-loop arrivals; the chaos lane on qwen
-    params = gateway_phase(torch, cfg, ssm_cfg, smi)
+    params = gateway_phase(torch, cfg, at_depth(ssm_cfg, GATEWAY_SSM_LAYERS),
+                           smi)
     gateway_open_loop_phase(torch, cfg, params, smi)
     gateway_chaos_phase(torch, cfg, params, smi)
     del params
@@ -6590,10 +6982,15 @@ def main() -> int:
     train_launches, train_log, train_rate = train_phase(torch, cfg)
     # the same steps through the mesh path on a 1-rank NCCL group
     train_mesh_phase(torch, cfg, train_log, train_rate)
+    # the dry run's prefill and decode steps against the card's
+    dryrun_serve_calib_phase(torch, cfg, smi)
     train_remat_phase(torch, cfg)
     train_restart_phase(torch, cfg)
     train_oracle_phase(torch, cfg)
-    train_profile_phase(torch, cfg)
+    # the train profiles at half depth (the hybrid's at 4 of its 9
+    # segments), cut for the time of the prefill and decode phases when
+    # the script took 1,189 s on a slow host
+    train_profile_phase(torch, at_depth(cfg, cfg.n_layers // 2))
 
     # 11. the stateful families' training at full width, bf16 (falcon-mamba
     # with int8 moments: f32 ones do not fit beside its weights), a
@@ -6601,19 +6998,23 @@ def main() -> int:
     # layers / 1 segment and restarts at 1 layer / 1 segment (with the
     # hybrid's restart at 2 segments the script took 1,008 s; its oracle
     # went from 2 segments to 1 when the script with the dry run's phases
-    # took 1,133 s on a slow host)
+    # took 1,133 s on a slow host, and to 3 of its 6 Mamba2 layers, with
+    # its restart, when the prefill and decode phases took it to 1,189 s)
     ssm_train_launches = train_stateful_phase(torch, ssm_cfg, "int8")
-    train_profile_phase(torch, ssm_cfg, steps=2, opt_state="int8",
-                        phase="train_ssm_profile")
+    train_profile_phase(torch, at_depth(ssm_cfg, ssm_cfg.n_layers // 2),
+                        steps=2, opt_state="int8", phase="train_ssm_profile")
     hybrid_train_launches = train_stateful_phase(torch, hy_cfg, "f32")
-    train_profile_phase(torch, hy_cfg, steps=2, phase="train_hybrid_profile")
+    train_profile_phase(torch, at_depth(hy_cfg, 4 * hy_cfg.hybrid.attn_every),
+                        steps=2, phase="train_hybrid_profile")
     # (the restarts at 4 steps, checkpointed every 2 and failing at 3: cuts
     # for the time of train_mesh_2's family runs and the dry run's phases)
     train_stateful_oracle_phase(torch, ssm_cfg, 2, "int8", witness=False,
                                 restart=STATEFUL_RESTART, restart_layers=1)
+    hy_short = dataclasses.replace(hy_cfg, hybrid=dataclasses.replace(
+        hy_cfg.hybrid, attn_every=HYBRID_ORACLE_SEGMENT))
     hybrid_leaf_tol = train_stateful_oracle_phase(
-        torch, hy_cfg, hy_cfg.hybrid.attn_every, "f32",
-        restart=STATEFUL_RESTART, restart_layers=hy_cfg.hybrid.attn_every)
+        torch, hy_short, HYBRID_ORACLE_SEGMENT, "f32",
+        restart=STATEFUL_RESTART, restart_layers=HYBRID_ORACLE_SEGMENT)
     # train_mesh_2's zamba2 run: its leaves against one device's, held to
     # the hybrid oracle's limit (the hybrid's f32 gradients depend on the
     # order of sums)
@@ -6638,7 +7039,8 @@ def main() -> int:
     llama4_launches = llama4_layer_phase(torch, get_config(LLAMA4_ARCH))
     moe_train_launches = train_stateful_phase(torch, moe_cfg, "int8",
                                               f32_layers=MOE_F32_LAYERS)
-    train_profile_phase(torch, moe_cfg, steps=1, opt_state="int8",
+    train_profile_phase(torch, at_depth(moe_cfg, moe_cfg.n_layers // 2),
+                        steps=1, opt_state="int8",
                         phase="train_moe_profile")
     # the restart at 1 layer in 4 steps, failing at 3: checkpoints at
     # steps 2 and 4 (6 steps until the dry run's phases needed the time)

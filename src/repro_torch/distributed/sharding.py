@@ -30,7 +30,11 @@ which every weight use (``weight_use``, ``resolve``) gathers what the
 compute needs, and ``constrain`` moves activations between the layouts the
 logical names give (``LOGICAL_AXES``), through the differentiable
 collectives of ``repro_torch.distributed.collectives``.  ``weight_use``'s
-serve branch defers to ``param_sharding.tp_use``.
+serve branch defers to ``param_sharding.tp_use``.  A prefill or decode
+step on a training mesh takes the same weights under the forward-only
+``serve_shard``, and its dense cache the ``cache_specs`` layout
+(``to_cache_block``, ``kv_heads_as``); ``check_mesh_serves`` refuses a
+split that does not divide.
 """
 from __future__ import annotations
 
@@ -94,7 +98,10 @@ class TrainShard:
     compute on different rows (sequence parallelism), so a weight gathered
     or replicated over "model" sums its gradient there.  ``seq_parallel``
     (REPRO_SEQ_PARALLEL) and ``per_use`` (REPRO_WEIGHT_AG) as the knobs
-    say."""
+    say.  ``grad`` False (a prefill or decode step, ``serve_shard``):
+    nothing that only a loss reads is summed over the ranks; ``cache``
+    then holds the spec tree of a decode step's cache blocks
+    (``cache_specs``)."""
     mesh: Any
     mode: str = "fsdp_tp"
     batch_split: bool = True
@@ -102,6 +109,8 @@ class TrainShard:
     model_split: bool = False
     seq_parallel: bool = False
     per_use: bool = False
+    grad: bool = True
+    cache: Any = None
 
     @property
     def batch_axis(self) -> str:
@@ -145,6 +154,138 @@ def train_shard(mesh, seq_len: int, batch_split: bool) -> TrainShard:
                       batch_split=batch_split,
                       tp=p.train_sharding == "fsdp_tp", seq_parallel=sp,
                       per_use=p.weight_ag)
+
+
+def serve_shard(mesh, batch_split: bool, cache=None) -> TrainShard:
+    """The forward-only ``TrainShard`` of a prefill or decode step on a
+    training mesh: the fsdp_tp layout (the weights as
+    ``train_layout(...).params`` lays them out), tensor parallelism on
+    "model", no sequence parallelism, REPRO_WEIGHT_AG as the knob says,
+    and no gradient bookkeeping.  ``batch_split`` as ``train_shard``'s;
+    ``cache`` the spec tree of a decode step's cache blocks."""
+    return TrainShard(mesh=mesh, mode="fsdp_tp", batch_split=batch_split,
+                      tp=True, per_use=perf().weight_ag, grad=False,
+                      cache=cache)
+
+
+def tp_splits_bad(cfg, n: int) -> list:
+    """What ``cfg``'s tensor parallelism splits over a model axis of ``n``
+    and does not divide, as "name size" strings (``check_mesh_trains``,
+    ``check_mesh_serves``): d_inner (ssm, hybrid), the SSD heads (hybrid),
+    and the kv heads where the query heads split and the kv heads neither
+    divide nor are divided by ``n``."""
+    splits = []
+    if cfg.family in ("ssm", "hybrid"):
+        di = cfg.ssm.expand * cfg.d_model
+        splits.append(("d_inner", di))
+        if cfg.family == "hybrid":
+            splits.append(("SSD heads", di // cfg.ssm.head_dim))
+    bad = [f"{k} {v}" for k, v in splits if v % n]
+    kv = cfg.n_kv_heads
+    if cfg.family != "ssm" and cfg.n_heads % n == 0 and kv % n and n % kv:
+        bad.append(f"kv heads {kv}")
+    return bad
+
+
+def check_mesh_serves(cfg, mesh, spec) -> None:
+    """Raise before anything is allocated when a prefill or decode step of
+    ``cfg`` at ``spec`` (a ``ShapeSpec``) cannot run on the training mesh
+    ``mesh``: it takes the fsdp_tp layout (REPRO_TRAIN_SHARDING=dp
+    trains only), and with more than one model rank what the family
+    splits over "model" must divide (``tp_splits_bad``), as
+    ``trainer.check_mesh_trains`` says.  The batch and the cache need
+    nothing: an entry that does not divide is dropped (replicated) by
+    ``batch_specs`` and ``cache_specs`` alike."""
+    if spec.kind not in ("prefill", "decode"):
+        raise ValueError(f"{spec.name}: a {spec.kind} shape is not a "
+                         "prefill or decode step")
+    if perf().train_sharding != "fsdp_tp":
+        raise ValueError(
+            f"{cfg.name}: prefill and decode on a mesh take the fsdp_tp "
+            f"layout; REPRO_TRAIN_SHARDING={perf().train_sharding} trains "
+            "only")
+    n = mesh.shape["model"]
+    bad = tp_splits_bad(cfg, n) if n > 1 else []
+    if bad:
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}): {', '.join(bad)} do not split over "
+            f"a model axis of {n}")
+
+
+# ---------------------------------------------------------------------------
+# A K/V cache on a mesh
+# ---------------------------------------------------------------------------
+# ``cache_specs`` lays a (B, S, KV, hd) K/V leaf out with its kv heads over
+# "model" where they divide, else as a sequence-parallel cache: every kv
+# head, the positions over "model" (or over the batch axes where the batch
+# does not divide, or over both).  A rank's attention computes the heads
+# ``kv_held`` names; these move its K/V between the two.
+
+def kv_held(cfg, shard) -> str:
+    """The KV heads a rank's attention projects under ``shard``
+    (``attention.qkv_project``): "all" (no tensor parallelism: one device,
+    a model axis of one rank, or query heads that do not split,
+    ``attention_shard``), "split" (its KV/n) or "one" (the one KV head its
+    query heads read, where the KV heads are fewer than the model
+    ranks)."""
+    s = attention_shard(cfg, shard)
+    if not in_tp(s) or s.mesh.shape["model"] == 1:
+        return "all"
+    return "split" if cfg.n_kv_heads % s.mesh.shape["model"] == 0 \
+        else "one"
+
+
+def kv_heads_as(x: torch.Tensor, held: str, entry, mesh, n_kv: int
+                ) -> torch.Tensor:
+    """``x`` (B, S, heads ``held``, hd) with the kv heads a cache block of
+    heads entry ``entry`` holds: the rank's KV/n ("model") or every one
+    (None, gathered over "model": a rank holding one head of each group
+    of n/KV ranks keeps the first rank's copy)."""
+    if entry == "model":
+        if held == "all":
+            return mesh.part(x, 2, "model")
+        return x
+    if held == "all":
+        return x
+    x = mesh.gather(x, 2, "model")
+    if held == "one":
+        x = x[:, :, ::mesh.size("model") // n_kv]
+    return x
+
+
+def seq_axis(entry):
+    """The mesh axis a cache's sequence entry splits over ("data",
+    "model", or "world" for both, whose joint index is the rank), or
+    None."""
+    if entry is None:
+        return None
+    names = entry if isinstance(entry, tuple) else (entry,)
+    return names[0] if len(names) == 1 else "world"
+
+
+def seq_start(entry, n_local: int, mesh) -> int:
+    """The first position of a rank's block of ``n_local`` positions under
+    the sequence entry ``entry``."""
+    axis = seq_axis(entry)
+    return 0 if axis is None else mesh.index(axis) * n_local
+
+
+def to_cache_block(x: torch.Tensor, held: str, n_kv: int, shard
+                   ) -> torch.Tensor:
+    """A rank's K or V of a prefill (B rows as its batch slice, every
+    position, heads ``held``) as its block of the cache that
+    ``cache_specs`` lays out for the whole (B, S, KV, hd) leaf: its kv
+    heads (``kv_heads_as``), then its positions (a slice: every rank
+    computed them all)."""
+    mesh = shard.mesh
+    b = x.shape[0] * (mesh.size(shard.batch_axis) if shard.batch_split
+                      else 1)
+    spec = _kv_rule((b, x.shape[1], n_kv, x.shape[3]), mesh)
+    x = kv_heads_as(x, held, spec[-2], mesh, n_kv)
+    if seq_axis(spec[-3]) is not None:
+        n = x.shape[1] // mesh_axis_size(mesh, spec[-3])
+        x = x.narrow(1, seq_start(spec[-3], n, mesh), n)
+    return x.contiguous()
 
 
 def _data_gathered(ws, shard: TrainShard):
@@ -372,6 +513,13 @@ def unshard_tree(tree, specs, mesh, to_host: bool = False):
     return _tree_map2(_arrays(one), specs, tree)
 
 
+def train_weights(params, specs, mesh):
+    """A tree of this rank's shards under ``specs`` as the ``TrainWeight``s
+    the model functions read on a training mesh under fsdp_tp."""
+    return _tree_map2(lambda spec, w: TrainWeight(
+        w, tuple(spec), full_shape(w.shape, spec, mesh)), specs, params)
+
+
 def full_shape(shape, spec, mesh) -> Tuple[int, ...]:
     """The whole shape of a slice of ``shape`` under ``spec``."""
     return tuple(n if e is None else n * mesh_axis_size(mesh, e)
@@ -558,21 +706,7 @@ def cache_specs(cfg, cache_abstract, mesh):
         name = keys[-1]
         shape = tuple(leaf.shape)
         if name in ("k", "v", "xk", "xv"):
-            # (..., B, S, KV, hd)
-            b, s, kv = shape[-4], shape[-3], shape[-2]
-            lead = (None,) * (len(shape) - 4)
-            if b % nb == 0:
-                bent, sent = BA, None
-            else:
-                bent, sent = None, BA if s % nb == 0 else None
-            if kv % tp_n == 0:
-                kvent, s2 = "model", sent
-            else:
-                # GQA with KV < model size: sequence-parallel KV cache
-                kvent = None
-                s2 = (sent, "model") if sent and s % (nb * tp_n) == 0 else (
-                    "model" if s % tp_n == 0 else sent)
-            return lead + (bent, s2, kvent, None)
+            return _kv_rule(shape, mesh)
         if name == "h":
             # mamba1 (L,B,di,N) / hybrid (nseg,per,B,H,P,N)
             if len(shape) == 4:
@@ -593,6 +727,27 @@ def cache_specs(cfg, cache_abstract, mesh):
 
     return _tree_map(lambda keys, leaf: _spec(rule(keys, leaf)),
                      cache_abstract)
+
+
+def _kv_rule(shape, mesh) -> tuple:
+    """``cache_specs``' entries of a (..., B, S, KV, hd) K/V leaf."""
+    BA = batch_axes(mesh)
+    nb = mesh_axis_size(mesh, BA)
+    tp_n = mesh_axis_size(mesh, "model")
+    b, s, kv = shape[-4], shape[-3], shape[-2]
+    lead = (None,) * (len(shape) - 4)
+    if b % nb == 0:
+        bent, sent = BA, None
+    else:
+        bent, sent = None, BA if s % nb == 0 else None
+    if kv % tp_n == 0:
+        kvent, s2 = "model", sent
+    else:
+        # GQA with KV < model size: sequence-parallel KV cache
+        kvent = None
+        s2 = (sent, "model") if sent and s % (nb * tp_n) == 0 else (
+            "model" if s % tp_n == 0 else sent)
+    return _spec(lead + (bent, s2, kvent, None))
 
 
 def paged_cache_specs(cfg, cache_abstract, mesh):

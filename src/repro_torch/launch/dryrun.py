@@ -6,14 +6,27 @@ roofline terms on the H100 record.
 A cell builds the arch's abstract weights (``model_zoo.abstract_params``),
 their training layout on a virtual mesh (``launch.mesh.dry_train_mesh`` of
 ``production_mesh_shape``: 16 x 16, or 2 x 16 x 16 with "pod" folded into
-"data"), rank 0's shards, moments and batch slice, and runs the port's own
-mesh train step (``launch.steps.make_train_step(mesh=)``) once under
-``hlo_analysis.analyze_step``, with the knobs as they are
+"data"), rank 0's shards and batch slice, and runs the port's own mesh
+step once under ``hlo_analysis.analyze_step``, with the knobs as they are
 (``perf.knob_snapshot`` is recorded; the defaults are remat "dots", f32
-moments, fsdp_tp).  Nothing is stored or computed: the counts come from the
-ops the step dispatches and from the kernel wrappers' reports.  Only the
-``train`` shapes are ported (ROADMAP A13a); prefill and decode cells need
-steps that take a mesh (A13b).
+moments, fsdp_tp):
+
+  * ``train``: ``launch.steps.make_train_step(mesh=)`` on the rank's
+    shards, AdamW moments and batch slice;
+  * ``prefill``: ``make_prefill_step(mesh=)`` on the rank's shards and
+    batch slice, the cache coming back as its block of ``cache_specs``;
+  * ``decode``: ``make_decode_step(mesh=)`` over the rank's block of a
+    dense cache of the shape's capacity (``model_zoo.abstract_cache``
+    laid out by ``cache_specs``), at ``cur_len = seq_len - 1`` passed as a
+    host int.  The reference's ``cur_len`` is an abstract scalar; its
+    decode attention, as the port's (``attention.decode_attention`` and
+    ``mesh_decode_attention``), covers the cache's whole capacity under a
+    mask, so the count does not depend on ``cur_len``.
+
+The 16 ``long_500k`` cells of the full-attention archs are written
+``skipped`` with the reference's reason (``cell_is_runnable``).  Nothing
+is stored or computed: the counts come from the ops the step dispatches
+and from the kernel wrappers' reports.
 
 One cell:  python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k --mesh pod1
 All cells: python -m repro_torch.launch.dryrun --all [--mesh pod1|pod2|both]
@@ -22,8 +35,9 @@ Results land in results/dryrun_torch/<arch>__<shape>__<mesh>.json, with the
 reference's fields where they mean the same (``hlo_flops_per_device`` and
 ``hlo_bytes_per_device`` are the dispatched ops' counts) and the port's
 memory fields (``argument_bytes_per_device``, ``peak_bytes_per_device``,
-``fits``); existing files are skipped, so ``--all`` resumes where it
-stopped.
+``fits``; a decode cell's ``cache_bytes_per_device``, the K/V blocks,
+and ``state_bytes_per_device``, the recurrent states' blocks); existing
+files are skipped, so ``--all`` resumes where it stopped.
 """
 from __future__ import annotations
 
@@ -36,12 +50,6 @@ import traceback
 from pathlib import Path
 
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
-
-
-def _not_ported(spec) -> NotImplementedError:
-    return NotImplementedError(
-        f"dry run of a {spec.kind} shape ({spec.name}): only train shapes "
-        "are ported; prefill and decode wait for ROADMAP A13b")
 
 
 def cell_mesh(mesh_kind: str):
@@ -82,6 +90,74 @@ def count_train_step(cfg, spec, mesh, hw=None, opt_cfg=None) -> dict:
                         hw=hw)
 
 
+def _serve_args(cfg, spec, mesh):
+    """The rank's weights, layout and batch slice of a prefill or decode
+    step at ``spec`` on ``mesh`` (meta), with whether the batch is
+    split."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models.model_zoo import abstract_params, input_specs
+    sharding.check_mesh_serves(cfg, mesh, spec)
+    params = abstract_params(cfg)
+    layout = sharding.train_layout(cfg, params, mesh)
+    local = sharding.shard_tree(params, layout.params, mesh)
+    del params
+    batch = input_specs(cfg, spec)
+    bspecs = sharding.batch_specs(cfg, batch, mesh)
+    split = any(e is not None for sp in bspecs.values() for e in sp)
+    return local, layout, sharding.shard_tree(batch, bspecs, mesh), split
+
+
+def count_prefill_step(cfg, spec, mesh, hw=None) -> dict:
+    """``analyze_step`` of one prefill step of ``cfg`` at ``spec``'s global
+    batch and sequence on rank ``mesh.rank`` of ``mesh`` (a
+    ``DryTrainMesh``), every tensor on ``meta``."""
+    import torch
+
+    from repro_torch.launch.hlo_analysis import analyze_step
+    from repro_torch.launch.steps import make_prefill_step
+    local, layout, batch, split = _serve_args(cfg, spec, mesh)
+    step = make_prefill_step(cfg, device=torch.device("meta"), mesh=mesh)
+    return analyze_step(step, local, batch, layout, split, mesh=mesh, hw=hw)
+
+
+def count_decode_step(cfg, spec, mesh, hw=None) -> dict:
+    """``analyze_step`` of one decode step of ``cfg`` at ``spec``'s global
+    batch over a cache of capacity ``spec.seq_len``, at ``cur_len =
+    seq_len - 1`` (a host int; see the module's docstring), on rank
+    ``mesh.rank`` of ``mesh``, every tensor on ``meta``.  Adds
+    ``cache_bytes`` (the rank's K/V blocks) and ``state_bytes`` (its
+    recurrent states' blocks)."""
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.hlo_analysis import analyze_step
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models.model_zoo import abstract_cache
+    from repro_torch.train.tree import leaves_with_path
+    local, layout, batch, split = _serve_args(cfg, spec, mesh)
+    if "cur_len" in batch:
+        batch["cur_len"] = spec.seq_len - 1
+    cache = abstract_cache(cfg, spec.global_batch, spec.seq_len)
+    cspecs = sharding.cache_specs(cfg, cache, mesh)
+    cache = sharding.shard_tree(cache, cspecs, mesh)
+    step = make_decode_step(cfg, device=torch.device("meta"), mesh=mesh)
+    out = analyze_step(step, local, cache, batch, layout, cspecs, split,
+                       mesh=mesh, hw=hw)
+    kv = state = 0
+    for path, t in leaves_with_path(cache):
+        n = t.numel() * t.element_size()
+        if path[-1] in ("k", "v", "xk", "xv"):
+            kv += n
+        elif path[-1] in ("h", "conv"):
+            state += n
+    out["cache_bytes"], out["state_bytes"] = kv, state
+    return out
+
+
+COUNTERS = {"train": count_train_step, "prefill": count_prefill_step,
+            "decode": count_decode_step}
+
+
 def run_cell(arch: str, shape_name: str, mesh_kind: str, out_path: Path,
              hw=None) -> dict:
     from repro_torch.configs.base import SHAPES, cell_is_runnable, get_config
@@ -106,14 +182,12 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_path: Path,
         result["skip_reason"] = why
         out_path.write_text(json.dumps(result, indent=1))
         return result
-    if spec.kind != "train":
-        raise _not_ported(spec)
 
     mesh = cell_mesh(mesh_kind)
     n_dev = mesh.world
     result["devices"] = n_dev
     result["mesh_shape"] = dict(mesh.shape)
-    analysis = count_train_step(cfg, spec, mesh, hw)
+    analysis = COUNTERS[spec.kind](cfg, spec, mesh, hw)
 
     result["status"] = "ok"
     result["analyze_s"] = round(time.time() - t0, 2)
@@ -125,9 +199,15 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_path: Path,
     result["peak_bytes_per_device"] = analysis["peak_bytes"]
     result["fits"] = analysis["peak_bytes"] <= hw.hbm_bytes
     result["launches"] = analysis["launches"]
-    # model flops: 6 N_active D for a training step (forward and backward)
-    tokens = spec.global_batch * spec.seq_len
-    model_flops = 6 * cfg.active_param_count() * tokens
+    if spec.kind == "decode":
+        result["cache_bytes_per_device"] = analysis["cache_bytes"]
+        result["state_bytes_per_device"] = analysis["state_bytes"]
+    # model flops: 6 N_active D for a training step (forward and backward),
+    # 2 N_active D for inference (D one token a row at decode)
+    tokens = spec.global_batch * (spec.seq_len if spec.kind != "decode"
+                                  else 1)
+    model_flops = (6 if spec.kind == "train" else 2) \
+        * cfg.active_param_count() * tokens
     result["model_flops_global"] = float(model_flops)
     hlo_flops_global = analysis["flops"] * n_dev
     result["model_vs_hlo_flops"] = (
@@ -144,12 +224,11 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_path: Path,
 # ---------------------------------------------------------------------------
 
 def all_cells(meshes):
-    """(arch, shape, mesh) of every ported cell: the ``train`` shapes."""
+    """(arch, shape, mesh) of every cell: every arch x every shape x
+    ``meshes``, as the reference's."""
     from repro_torch.configs.base import SHAPES, list_archs
     for arch in list_archs():
-        for shape, spec in SHAPES.items():
-            if spec.kind != "train":
-                continue
+        for shape in SHAPES:
             for mesh in meshes:
                 yield arch, shape, mesh
 
@@ -198,10 +277,6 @@ def main(argv=None):
 
     if args.mesh == "both":
         ap.error("one cell runs on one mesh: pod1 or pod2")
-    from repro_torch.configs.base import SHAPES
-    spec = SHAPES[args.shape]
-    if spec.kind != "train":
-        raise _not_ported(spec)
     out = results / f"{args.arch}__{args.shape}__{args.mesh}.json"
     try:
         run_cell(args.arch, args.shape, args.mesh, out)

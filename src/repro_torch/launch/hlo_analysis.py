@@ -1,13 +1,14 @@
-"""Per-device cost analysis of one training step, and its roofline terms
+"""Per-device cost analysis of one step (train, prefill or decode), and
+its roofline terms
 (the port of ``src/repro/launch/hlo_analysis.py``; the name is kept so a
 reader finds the counterpart).
 
 The reference compiles a step and reads the scheduled HLO: dot FLOPs, the
 bytes every op writes, the collectives with their replica groups.  The port
 runs eagerly and has no HLO: it counts the ops one call of the step
-dispatches.  ``analyze_step(fn, *args)`` runs ``fn(*args)`` once (forward,
-backward and optimizer together) under a ``TorchDispatchMode`` and gives,
-per device:
+dispatches.  ``analyze_step(fn, *args)`` runs ``fn(*args)`` once (a train
+step's forward, backward and optimizer together; a prefill or decode
+step) under a ``TorchDispatchMode`` and gives, per device:
 
   * ``flops``: the matrix products (mm, bmm, addmm, baddbmm, which
     ``einsum`` and ``matmul`` lower to) by ``torch.utils.flop_counter``'s

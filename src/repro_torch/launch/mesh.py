@@ -13,7 +13,10 @@ sizes, as the reference's ``Mesh.shape`` is, so the spec functions of
 ``DryTrainMesh`` is a training mesh with no process behind it: a rank of a
 virtual ``data x model`` mesh of any size, on ``meta`` tensors, whose
 collectives return their results' shapes and are only recorded (the dry
-run, ``launch.dryrun``).
+run, ``launch.dryrun``).  The prefill and decode steps on a mesh need no
+collective of their own: a sequence-parallel cache's kv heads are an
+``all_gather`` over "model" and a slice (``part``), and its decode
+partials an ``all_gather`` over the sequence's axis.
 
 ``spawn_ranks`` starts N ranks (the CPU tests' ``gloo`` ranks, the serve
 launcher's ranks on one or several cards) and replaces the reference's

@@ -9,10 +9,14 @@ takes its loss and gradients from ``loss.backward()``: the parameters are
 marked ``requires_grad`` for the step and released after it, so the
 tensors the caller holds never keep a graph or a ``.grad``.
 
-On a training mesh (``mesh=``, a ``TrainMesh``) the step runs on this
+On a training mesh (``mesh=``, a ``TrainMesh``) each step runs on this
 rank's shards (a ``sharding.TrainLayout``) and its slice of the batch:
 the arithmetic is the single device's, split over the ranks, with the
-collectives GSPMD inserts in the reference's jitted step.
+collectives GSPMD inserts in the reference's jitted step.  The prefill
+and decode steps there take the reference's layouts too (its dry run
+lowers them with ``param_specs``, ``batch_specs`` and ``cache_specs``
+shardings): the train step's weights, the batch split over "data", the
+cache as ``cache_specs`` lays it out.
 """
 from __future__ import annotations
 
@@ -84,11 +88,8 @@ def _mesh_step(cfg: ModelConfig, fns, opt: AdamW, remat: bool, mesh):
             p.requires_grad_(True)
         try:
             if shard.mode == "fsdp_tp":
-                model_params = sharding._tree_map2(
-                    lambda spec, w: sharding.TrainWeight(
-                        w, tuple(spec), sharding.full_shape(w.shape, spec,
-                                                            mesh)),
-                    layout.params, params)
+                model_params = sharding.train_weights(params, layout.params,
+                                                      mesh)
             else:
                 model_params = params
             local = fns.loss(model_params, batch, remat=remat, shard=shard)
@@ -133,10 +134,26 @@ def _dp_mean(grads, mesh):
     return map_tree(lambda g: out[id(g)], grads)
 
 
-def make_prefill_step(cfg: ModelConfig, device=None) -> Callable:
+def make_prefill_step(cfg: ModelConfig, device=None, mesh=None) -> Callable:
     """prefill_step(params, batch) -> (cache, last-position logits (B,V)):
-    the family's ``prefill`` (a dense cache of the prompt's capacity)."""
+    the family's ``prefill`` (a dense cache of the prompt's capacity).
+
+    With a training ``mesh`` the step is ``prefill_step(params, batch,
+    layout, batch_split=True)``: ``params`` this rank's shards under
+    ``layout.params`` (``sharding.train_layout``: FSDP over "data", tensor
+    parallelism over "model"), ``batch`` its slice (``batch_specs``;
+    ``batch_split`` whether the ranks' slices differ), computed under the
+    forward-only ``sharding.serve_shard``; the cache comes back as the
+    rank's block of its ``cache_specs`` layout, the logits whole."""
     fns = build_model(cfg, device)
+    if mesh is not None:
+        def mesh_prefill_step(params, batch, layout, batch_split=True):
+            shard = sharding.serve_shard(mesh, batch_split)
+            with torch.no_grad():
+                return fns.prefill(
+                    sharding.train_weights(params, layout.params, mesh),
+                    batch, shard=shard)
+        return mesh_prefill_step
 
     def prefill_step(params, batch):
         with torch.no_grad():
@@ -145,14 +162,29 @@ def make_prefill_step(cfg: ModelConfig, device=None) -> Callable:
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, device=None) -> Callable:
+def make_decode_step(cfg: ModelConfig, device=None, mesh=None) -> Callable:
     """decode_step(params, cache, batch) -> (cache, logits (B,V)): the
-    family's ``decode_step``, writing the cache in place."""
+    family's ``decode_step``, writing the cache in place.
+
+    With a training ``mesh`` the step is ``decode_step(params, cache,
+    batch, layout, cache_specs, batch_split=True)``: the weights and batch
+    as ``make_prefill_step``'s, ``cache`` this rank's blocks under
+    ``cache_specs`` (``sharding.cache_specs`` of the whole cache: the kv
+    heads over "model" where they divide, else a sequence-parallel cache;
+    the states' d_inner or SSD heads over "model"), written in place."""
     fns = build_model(cfg, device)
+    if mesh is not None:
+        def mesh_decode_step(params, cache, batch, layout, cache_specs,
+                             batch_split=True):
+            shard = sharding.serve_shard(mesh, batch_split, cache_specs)
+            with torch.no_grad():
+                return fns.decode_step(
+                    sharding.train_weights(params, layout.params, mesh),
+                    cache, batch, shard=shard)
+        return mesh_decode_step
 
     def decode_step(params, cache, batch):
         with torch.no_grad():
             return fns.decode_step(params, cache, batch)
 
     return decode_step
-

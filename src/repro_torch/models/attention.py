@@ -29,6 +29,14 @@ fewer than the model ranks (and divide them) a rank projects the one KV
 head its query heads read, from k/v weights gathered whole over "model"
 (``_kv_head``); where the query heads do not split, the block runs whole
 on every model rank (``sharding.attention_shard``).
+
+A prefill or decode step on a mesh (``sharding.serve_shard``)
+computes the same heads; its dense cache is laid out by ``cache_specs``:
+the kv heads over "model" where they divide, else a sequence-parallel
+cache with every kv head and a rank's block of positions.  Decode against
+the latter (``mesh_decode_attention``) gathers the token's heads over
+"model", attends every head over the rank's positions and combines the
+ranks' (max, sum, output) partials in rank order.
 """
 from __future__ import annotations
 
@@ -42,7 +50,9 @@ from repro_torch.distributed import collectives as col
 from repro_torch.distributed.param_sharding import (ServeShard, tp_linear,
                                                     tp_whole)
 from repro_torch.distributed.sharding import (TrainShard, attention_shard,
-                                              in_tp, resolve, weight_use)
+                                              in_tp, kv_heads_as, kv_held,
+                                              resolve, seq_axis, seq_start,
+                                              weight_use)
 from repro_torch.models import lora as lora_mod
 from repro_torch.models.layers import (apply_rope, default_mrope_sections,
                                       rms_norm_pair, truncated_normal)
@@ -356,14 +366,19 @@ def _kv_head(cfg: ModelConfig, x: torch.Tensor, w, shard) -> torch.Tensor:
 
 def attention_block(cfg: ModelConfig, p, x: torch.Tensor,
                     positions: torch.Tensor, causal: bool = True,
-                    impl: Optional[str] = None, shard=None) -> torch.Tensor:
+                    impl: Optional[str] = None, shard=None,
+                    kv: Optional[list] = None) -> torch.Tensor:
     """Full-sequence attention with its projections and no cache: x (B,S,d)
     at positions (B,S) -> (B,S,d).  The hybrid's shared block over a whole
-    sequence (the JAX package's ``hybrid._segment_fwd``) and each layer of
+    sequence (the JAX package's ``hybrid._segment_fwd``), each layer of
     ``transformer.lm_loss`` (with ``impl="kernel"``; ``shard`` a training
-    step's on a mesh: the rank's heads)."""
+    step's on a mesh: the rank's heads) and of the prefills, which pass
+    ``kv``, a list that receives the layer's (k, v) (the rank's heads on a
+    mesh: ``sharding.kv_held``)."""
     shard = attention_shard(cfg, shard)
     q, k, v = qkv_project(cfg, p, x, positions, shard=shard)
+    if kv is not None:
+        kv.append((k, v))
     o = multi_head_attention(q, k, v, causal=causal, impl=impl)
     b, s = x.shape[:2]
     out, local = tp_linear(o.reshape(b, s, -1), p["wo"], shard,
@@ -373,12 +388,106 @@ def attention_block(cfg: ModelConfig, p, x: torch.Tensor,
 
 def attention_decode_block(cfg: ModelConfig, p, x: torch.Tensor,
                            k_cache: torch.Tensor, v_cache: torch.Tensor,
-                           cur_len: int, positions: torch.Tensor):
+                           cur_len: int, positions: torch.Tensor,
+                           shard=None, spec=None):
     """One-token attention against a dense (B,Smax,KV,hd) cache, written in
-    place at ``cur_len``; returns (out, k_cache, v_cache)."""
-    q, k, v = qkv_project(cfg, p, x, positions)
-    k_cache[:, cur_len:cur_len + 1] = k.to(k_cache.dtype)
-    v_cache[:, cur_len:cur_len + 1] = v.to(v_cache.dtype)
-    o = decode_attention(q, k_cache, v_cache, cur_len + 1)
-    out = o.reshape(x.shape[0], 1, cfg.q_dim) @ p["wo"]
-    return out, k_cache, v_cache
+    place at ``cur_len``; returns (out, k_cache, v_cache).  On a training
+    mesh (``shard``, a prefill or decode step's ``TrainShard``) the caches
+    are the rank's blocks of the layout ``spec`` gives (``cache_specs``'
+    entries of the leaf), the token projected on the rank's heads and
+    attended as ``mesh_decode_attention`` says, and ``wo`` row-parallel
+    over the rank's heads."""
+    if shard is None:
+        q, k, v = qkv_project(cfg, p, x, positions)
+        k_cache[:, cur_len:cur_len + 1] = k.to(k_cache.dtype)
+        v_cache[:, cur_len:cur_len + 1] = v.to(v_cache.dtype)
+        o = decode_attention(q, k_cache, v_cache, cur_len + 1)
+        out = o.reshape(x.shape[0], 1, cfg.q_dim) @ p["wo"]
+        return out, k_cache, v_cache
+    ashard = attention_shard(cfg, shard)
+    q, k, v = qkv_project(cfg, p, x, positions, shard=ashard)
+    o = mesh_decode_attention(cfg, q, k_cache, v_cache, cur_len + 1, shard,
+                              spec, new=(k, v, cur_len))
+    return decode_out(cfg, p, o, ashard), k_cache, v_cache
+
+
+def decode_out(cfg: ModelConfig, p, o: torch.Tensor, ashard
+               ) -> torch.Tensor:
+    """o (B,1,heads,hd) through ``wo``: row-parallel over the rank's heads
+    on a mesh's tensor parallelism, whole on its last dim."""
+    out, local = tp_linear(o.reshape(o.shape[0], 1, -1), p["wo"], ashard,
+                           x_local=o.shape[2] < cfg.n_heads)
+    return tp_whole(out, local, ashard)
+
+
+def mesh_decode_attention(cfg: ModelConfig, q: torch.Tensor,
+                          k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          lens, shard, spec, new=None) -> torch.Tensor:
+    """``decode_attention`` on a training mesh: q (B,1,heads,hd) the rank's
+    query heads (``sharding.kv_held`` says which kv heads it projected),
+    the caches the rank's blocks of a cache laid out by ``spec``
+    (``cache_specs``' entries), ``lens`` the positions visible, ``new`` the
+    token's (k, v, position) to write first, or None (a cross-attention's
+    cache).  Returns (B,1,heads,hd), q's heads.
+
+    Where the cache's kv heads lie over "model" the block holds the rank's
+    own, and the attention is one device's on them.  A sequence-parallel
+    cache (every kv head, the positions over "model", over the batch axes,
+    or both) needs every head on every rank: q and the token's k/v are
+    gathered over "model", the rank that holds position ``new[2]`` writes
+    it, each rank attends every head over its positions, keeping (row max,
+    row sum, unnormalised output), the partials are gathered over the
+    sequence's axis and combined in rank order (the same sums on every
+    rank), and the rank keeps its own heads' rows."""
+    mesh = shard.mesh
+    held = kv_held(cfg, shard)
+    whole = spec[-2] is None and held != "all"
+    n_q = q.shape[2]
+    if whole:
+        q = mesh.gather(q, 2, "model")
+    n = k_cache.shape[1]
+    start = seq_start(spec[-3], n, mesh)
+    if new is not None:
+        k, v, pos = new
+        k, v = (kv_heads_as(t, held, spec[-2], mesh, cfg.n_kv_heads)
+                for t in (k, v))
+        if start <= pos < start + n:
+            k_cache[:, pos - start:pos - start + 1] = k.to(k_cache.dtype)
+            v_cache[:, pos - start:pos - start + 1] = v.to(v_cache.dtype)
+    axis = seq_axis(spec[-3])
+    if axis is None:
+        o = decode_attention(q, k_cache, v_cache, lens)
+    else:
+        part = _decode_partial(q, k_cache, v_cache, lens, start)
+        parts = mesh.gather(part[None], 0, axis)     # (n, B, H, 1, 2 + hd)
+        m, l, ou = parts[..., :1], parts[..., 1:2], parts[..., 2:]
+        w = torch.exp(m - m.amax(dim=0))
+        o = ((w * ou).sum(dim=0) / (w * l).sum(dim=0)).to(q.dtype) \
+            .transpose(1, 2)
+    if whole:
+        o = o.narrow(2, mesh.index("model") * n_q, n_q)
+    return o
+
+
+def _decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, lens, start: int) -> torch.Tensor:
+    """q (B,1,H,hd) against a block of a cache's positions ``start`` ..
+    ``start + Sblk - 1`` (B,Sblk,KV,hd), positions >= ``lens`` masked:
+    (B,H,1,2+hd) f32 of the row max, the row sum of exp(score - max) and
+    the unnormalised output, the probabilities cast to v's dtype as
+    ``decode_attention`` casts them.  A block with no visible position
+    gives max -1e30, which the combine weighs by exp(-1e30 - max) = 0."""
+    h, hd = q.shape[2], q.shape[3]
+    kv = k_cache.shape[2]
+    kh = _repeat_kv(k_cache, h // kv)
+    vh = _repeat_kv(v_cache, h // kv)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kh).float() \
+        * (1.0 / math.sqrt(hd))
+    kpos = start + torch.arange(k_cache.shape[1], device=q.device)
+    lens = torch.as_tensor(lens, device=q.device)
+    scores = scores + torch.where(kpos < lens, 0.0, NEG_INF) \
+        .to(torch.float32)[None, None, None, :]
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    o = torch.einsum("bhqk,bkhd->bhqd", e.to(vh.dtype), vh)
+    return torch.cat([m, e.sum(dim=-1, keepdim=True), o.float()], dim=-1)

@@ -42,7 +42,8 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed.param_sharding import tp_linear, tp_whole
 from repro_torch.distributed.sharding import (attention_shard, gather_layer,
-                                              in_tp, resolve, weight_use)
+                                              in_tp, kv_held, resolve,
+                                              to_cache_block, weight_use)
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     apply_mlp, embed_tokens, generator, init_embed, init_mlp,
@@ -215,18 +216,28 @@ def encdec_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True,
         logits_from_hidden(cfg, params["embed"], h, shard), batch["labels"])
 
 
-def encdec_prefill(cfg: ModelConfig, params, batch: Dict
+def encdec_prefill(cfg: ModelConfig, params, batch: Dict, shard=None
                    ) -> Tuple[Dict, torch.Tensor]:
     """Encode the frames and prefill the decoder: batch {"frames", "tokens"
     (B,S)} -> (cache of capacity S for the self-attention and S_enc for the
-    cross-attention, last-position logits (B,V))."""
-    enc_out = encode(cfg, params, batch["frames"])
-    x, positions = _decoder_input(cfg, params, batch["tokens"])
+    cross-attention, last-position logits (B,V)).  ``shard``: a prefill
+    step's on a training mesh: the rank's batch rows and heads as
+    ``encdec_loss`` computes them (whisper's 12 heads whole on every rank
+    of a 16-way model axis), the four K/V leaves the rank's blocks of
+    their ``cache_specs`` layout."""
+    if shard is not None:
+        params = {**params, "embed": gather_layer(params["embed"], shard)}
+    enc_out = encode(cfg, params, batch["frames"], shard=shard)
+    x, positions = _decoder_input(cfg, params, batch["tokens"], shard)
     kv: list = []
     for lp in params["dec_layers"]:
-        x = _dec_layer(cfg, lp, x, enc_out, positions, kv=kv)
-    h = rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
-    logits = logits_from_hidden(cfg, params["embed"], h)[:, 0, :]
+        x = _dec_layer(cfg, lp, x, enc_out, positions, kv=kv, shard=shard)
+    h = _norm(cfg, x[:, -1:, :], params["final_norm"], shard)
+    logits = logits_from_hidden(cfg, params["embed"], h, shard)[:, 0, :]
+    if shard is not None:
+        held = kv_held(cfg, shard)
+        kv = [[to_cache_block(t, held, cfg.n_kv_heads, shard) for t in layer]
+              for layer in kv]
     cache = {name: torch.stack([layer[i] for layer in kv])
              for i, name in enumerate(("k", "v", "xk", "xv"))}
     cache["enc_len"] = torch.tensor(enc_out.shape[1], dtype=torch.int32,
@@ -247,31 +258,47 @@ def make_encdec_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype,
     return cache
 
 
-def encdec_decode_step(cfg: ModelConfig, params, cache: Dict, batch: Dict
-                       ) -> Tuple[Dict, torch.Tensor]:
+def encdec_decode_step(cfg: ModelConfig, params, cache: Dict, batch: Dict,
+                       shard=None) -> Tuple[Dict, torch.Tensor]:
     """One decode step.  batch {"token" (B,1), "cur_len" int}: the token's
     self-attention K/V are written at cur_len (in place), its
     cross-attention reads the first ``cache["enc_len"]`` frames; returns
-    (cache, logits (B,V))."""
+    (cache, logits (B,V)).  ``shard``: a decode step's on a training mesh:
+    each decoder layer's weights gathered as ``encdec_loss`` gathers them,
+    the four K/V leaves the rank's blocks, the self-attention through
+    ``attention.attention_decode_block`` and the cross-attention's query
+    (the rank's heads) through ``attention.mesh_decode_attention``."""
     cur_len = int(batch["cur_len"])
-    x = embed_tokens(params["embed"], batch["token"])
+    if shard is not None:
+        params = {**params, "embed": gather_layer(params["embed"], shard)}
+    x = embed_tokens(params["embed"], batch["token"], shard)
     b = x.shape[0]
-    table = sinusoidal_positions(cache["k"].shape[2], cfg.d_model, x.device)
+    # row cur_len of the table (its rows do not depend on its length)
+    table = sinusoidal_positions(cur_len + 1, cfg.d_model, x.device)
     x = x + table[cur_len:cur_len + 1][None].to(x.dtype)
     positions = torch.full((b, 1), cur_len, dtype=torch.int32,
                            device=x.device)
+    ashard = attention_shard(cfg, shard)
     for i, lp in enumerate(params["dec_layers"]):
+        lp = _bucket(lp, shard)
         o, _, _ = attn.attention_decode_block(
-            cfg, lp["self_attn"], rms_norm(x, lp["ln1"], cfg.norm_eps),
-            cache["k"][i], cache["v"][i], cur_len, positions)
+            cfg, lp["self_attn"], _norm(cfg, x, lp["ln1"], shard),
+            cache["k"][i], cache["v"][i], cur_len, positions, shard=shard,
+            spec=None if shard is None else shard.cache["k"])
         h = x + o
         q, _, _ = attn.qkv_project(cfg, lp["cross_attn"],
-                                   rms_norm(h, lp["ln_x"], cfg.norm_eps),
-                                   positions)
+                                   _norm(cfg, h, lp["ln_x"], shard),
+                                   positions, shard=ashard)
         # masked to the true encoder length: the cache may be padded
-        o = attn.decode_attention(q, cache["xk"][i], cache["xv"][i],
-                                  cache["enc_len"])
-        h = h + o.reshape(b, 1, cfg.q_dim) @ lp["cross_attn"]["wo"]
-        x = h + apply_mlp(cfg, lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps))
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return cache, logits_from_hidden(cfg, params["embed"], h)[:, 0, :]
+        if shard is None:
+            o = attn.decode_attention(q, cache["xk"][i], cache["xv"][i],
+                                      cache["enc_len"])
+        else:
+            o = attn.mesh_decode_attention(cfg, q, cache["xk"][i],
+                                           cache["xv"][i], cache["enc_len"],
+                                           shard, shard.cache["xk"])
+        h = h + attn.decode_out(cfg, lp["cross_attn"], o, ashard)
+        x = h + apply_mlp(cfg, lp["mlp"], _norm(cfg, h, lp["ln2"], shard),
+                          shard=shard)
+    h = _norm(cfg, x, params["final_norm"], shard)
+    return cache, logits_from_hidden(cfg, params["embed"], h, shard)[:, 0, :]

@@ -94,9 +94,36 @@ def _shared_tail(cfg: ModelConfig, shared, x: torch.Tensor, attend,
                          have=("batch", "seq_mp", None))
 
 
-def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return logits_from_hidden(cfg, params["embed"], h)
+def _head(cfg: ModelConfig, params, x: torch.Tensor,
+          shard=None) -> torch.Tensor:
+    h = rms_norm(x, weight_use(params["final_norm"], None, shard=shard),
+                 cfg.norm_eps)
+    return logits_from_hidden(cfg, params["embed"], h, shard)
+
+
+def _serve_segments(cfg: ModelConfig, params, shard):
+    """(params with the embedding gathered, [(segment's Mamba2 layers, the
+    shared block)] with a segment's FSDP shards and the shared block's
+    gathered in one bucket as the train step's segment does) of a prefill
+    or decode step; one device's weights as they are."""
+    params, layer = transformer.serve_layers(params, shard)
+    out = []
+    for seg in range(_n_segments(cfg)):
+        g = layer({"layers": _segment(cfg, params, seg),
+                   "shared": params["shared"]})
+        out.append((g["layers"], g["shared"]))
+    return params, out
+
+
+def _mamba2_layer(cfg: ModelConfig, lp, x: torch.Tensor, shard, state=None):
+    """A Mamba2 layer's residual update and its state: the whole-sequence
+    forward (``state`` None) or one decode step from ``state``."""
+    xn = rms_norm(x, weight_use(lp["ln"], None, shard=shard), cfg.norm_eps)
+    if state is None:
+        y, st = mamba.mamba2_forward(cfg, lp["mamba"], xn, shard=shard)
+    else:
+        y, st = mamba.mamba2_decode_step(cfg, lp["mamba"], xn, state, shard)
+    return x + y, st
 
 
 # ---------------------------------------------------------------------------
@@ -155,35 +182,29 @@ def hybrid_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True,
 # Dense oracle
 # ---------------------------------------------------------------------------
 
-def hybrid_prefill(cfg: ModelConfig, params, batch: Dict):
+def hybrid_prefill(cfg: ModelConfig, params, batch: Dict, shard=None):
     """batch {"tokens" (B,S)} -> (cache of capacity S, last-position logits
     (B,V)): the Mamba2 states and the shared block's K/V of every
-    segment."""
-    x = embed_tokens(params["embed"], batch["tokens"])
+    segment.  ``shard``: a prefill step's on a training mesh: the rank's
+    batch rows, SSD heads and attention heads, the cache its block of the
+    ``cache_specs`` layout."""
+    params, segments = _serve_segments(cfg, params, shard)
+    x = embed_tokens(params["embed"], batch["tokens"], shard)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    shared = params["shared"]
-    hs, convs, ks, vs = [], [], [], []
-
-    def attend(xn):
-        q, k, v = attn.qkv_project(cfg, shared["attn"], xn, positions)
-        ks.append(k)
-        vs.append(v)
-        o = attn.multi_head_attention(q, k, v, causal=True)
-        return o.reshape(b, s, cfg.q_dim) @ shared["attn"]["wo"]
-
-    for seg in range(_n_segments(cfg)):
+    hs, convs, kvs = [], [], []
+    for seg_layers, shared in segments:
         seg_h, seg_conv = [], []
-        for lp in _segment(cfg, params, seg):
-            y, st = mamba.mamba2_forward(cfg, lp["mamba"],
-                                         rms_norm(x, lp["ln"], cfg.norm_eps))
-            x = x + y
+        for lp in seg_layers:
+            x, st = _mamba2_layer(cfg, lp, x, shard)
             seg_h.append(st["h"])
             seg_conv.append(st["conv"])
         hs.append(torch.stack(seg_h))
         convs.append(torch.stack(seg_conv))
-        x = _shared_tail(cfg, shared, x, attend)
-    logits = _head(cfg, params, x[:, -1:, :])[:, 0, :]
+        x = _shared_tail(cfg, shared, x, lambda xn: attn.attention_block(
+            cfg, shared["attn"], xn, positions, shard=shard, kv=kvs), shard)
+    logits = _head(cfg, params, x[:, -1:, :], shard)[:, 0, :]
+    ks, vs = transformer.cache_blocks(cfg, kvs, shard)
     cache = {"ssm": {"h": torch.stack(hs), "conv": torch.stack(convs)},
              "k": torch.stack(ks), "v": torch.stack(vs)}
     return cache, logits
@@ -212,31 +233,34 @@ def _make_cache(cfg: ModelConfig, slots: int, kv_lead, dtype, device):
     }
 
 
-def hybrid_decode_step(cfg: ModelConfig, params, cache: Dict, batch: Dict):
+def hybrid_decode_step(cfg: ModelConfig, params, cache: Dict, batch: Dict,
+                       shard=None):
     """One decode step.  batch {"token" (B,1), "cur_len" int}: K/V written at
     cur_len and the states stepped, all in place; returns (cache, logits
-    (B,V))."""
+    (B,V)).  ``shard``: a decode step's on a training mesh (the cache the
+    rank's blocks; at B 1 the shared block's positions over "data",
+    ``attention.mesh_decode_attention``)."""
     cur_len = int(batch["cur_len"])
-    x = embed_tokens(params["embed"], batch["token"])
+    params, segments = _serve_segments(cfg, params, shard)
+    spec = None if shard is None else shard.cache["k"]
+    x = embed_tokens(params["embed"], batch["token"], shard)
     positions = torch.full((x.shape[0], 1), cur_len, dtype=torch.int32,
                            device=x.device)
-    shared, ssm = params["shared"], cache["ssm"]
-    for seg in range(_n_segments(cfg)):
-        for j, lp in enumerate(_segment(cfg, params, seg)):
-            st = {k: v[seg, j] for k, v in ssm.items()}
-            y, st2 = mamba.mamba2_decode_step(
-                cfg, lp["mamba"], rms_norm(x, lp["ln"], cfg.norm_eps), st)
-            x = x + y
+    ssm = cache["ssm"]
+    for seg, (seg_layers, shared) in enumerate(segments):
+        for j, lp in enumerate(seg_layers):
+            x, st2 = _mamba2_layer(cfg, lp, x, shard,
+                                   {k: v[seg, j] for k, v in ssm.items()})
             for k, v in ssm.items():
                 v[seg, j].copy_(st2[k])
 
-        def attend(xn, seg=seg):
+        def attend(xn, seg=seg, shared=shared):
             o, _, _ = attn.attention_decode_block(
                 cfg, shared["attn"], xn, cache["k"][seg], cache["v"][seg],
-                cur_len, positions)
+                cur_len, positions, shard=shard, spec=spec)
             return o
-        x = _shared_tail(cfg, shared, x, attend)
-    return cache, _head(cfg, params, x)[:, 0, :]
+        x = _shared_tail(cfg, shared, x, attend, shard)
+    return cache, _head(cfg, params, x, shard)[:, 0, :]
 
 
 # ---------------------------------------------------------------------------

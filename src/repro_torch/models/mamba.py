@@ -220,19 +220,22 @@ def mamba1_forward(cfg: ModelConfig, p, x: torch.Tensor,
                  "conv": _tail_window(x_pre, cfg.ssm.d_conv - 1)}
 
 
-def mamba1_decode_step(cfg: ModelConfig, p, x: torch.Tensor, state: Dict):
+def mamba1_decode_step(cfg: ModelConfig, p, x: torch.Tensor, state: Dict,
+                       shard=None):
     """x (B,1,d); state {"h" (B,di,N) f32, "conv" (B,K-1,di)}.  The one-step
-    recurrence is the selective-scan kernel at T = 1."""
-    di = _d_inner(cfg)
-    xz = x @ p["in_proj"]
-    xs, z = xz[..., :di], xz[..., di:]                         # (B,1,di)
+    recurrence is the selective-scan kernel at T = 1.  ``shard``: a decode
+    step's on a training mesh: the rank's d_inner channels (the state's
+    block under ``cache_specs``), as ``mamba1_forward`` computes them."""
+    xs, z = _in_halves(x, p["in_proj"], shard)                 # (B,1,di)
     window = torch.cat([state["conv"].to(xs.dtype), xs], dim=1)  # (B,K,di)
-    conv = torch.einsum("bki,ki->bi", window, p["conv_w"]) + p["conv_b"]
+    conv = torch.einsum("bki,ki->bi", window,
+                        _channels(p["conv_w"], shard, 1)) \
+        + _channels(p["conv_b"], shard, 0)
     xs1 = _silu(conv)                                          # (B,di)
-    dt, b_ssm, c_ssm = _project(cfg, p, xs1)
+    dt, b_ssm, c_ssm = _project(cfg, p, xs1, shard)
     y, h = _selective_scan(p, dt[:, None], b_ssm[:, None], c_ssm[:, None],
-                           xs1[:, None], state["h"].float())
-    out = _gate_out(p, y[:, 0], xs1, z[:, 0], x.dtype)[:, None, :]
+                           xs1[:, None], state["h"].float(), shard)
+    out = _gate_out(p, y[:, 0], xs1, z[:, 0], x.dtype, shard)[:, None, :]
     return out, {"h": h, "conv": window[:, 1:, :]}
 
 
@@ -426,24 +429,29 @@ def mamba2_forward(cfg: ModelConfig, p, x: torch.Tensor, h0=None,
                  "conv": _tail_window(x_pre, cfg.ssm.d_conv - 1)}
 
 
-def mamba2_decode_step(cfg: ModelConfig, p, x: torch.Tensor, state: Dict):
-    """x (B,1,d); state {"h" (B,H,P,N) f32, "conv" (B,K-1,di)}."""
+def mamba2_decode_step(cfg: ModelConfig, p, x: torch.Tensor, state: Dict,
+                       shard=None):
+    """x (B,1,d); state {"h" (B,H,P,N) f32, "conv" (B,K-1,di)}.
+    ``shard``: a decode step's on a training mesh: the rank's SSD heads and
+    their d_inner channels (the state's block under ``cache_specs``), as
+    ``mamba2_forward`` computes them."""
     bsz = x.shape[0]
-    di = _d_inner(cfg)
-    hh, pp = _ssd_heads(cfg), cfg.ssm.head_dim
-    zx = (x @ p["in_proj_zx"])[:, 0]
-    b_ssm, c_ssm, dt = _split_bcdt(cfg, (x @ p["in_proj_bcdt"])[:, 0])
-    z, xs = zx[..., :di], zx[..., di:]
+    pp = cfg.ssm.head_dim
+    z, xs = (t[:, 0] for t in _in_halves(x, p["in_proj_zx"], shard))
+    bcdt, _ = tp_linear(x, p["in_proj_bcdt"], shard)
+    b_ssm, c_ssm, dt = _split_bcdt(cfg, bcdt[:, 0], shard)
     window = torch.cat([state["conv"].to(xs.dtype), xs[:, None, :]], dim=1)
-    conv = torch.einsum("bki,ki->bi", window, p["conv_w"]) + p["conv_b"]
+    conv = torch.einsum("bki,ki->bi", window,
+                        _channels(p["conv_w"], shard, 1)) \
+        + _channels(p["conv_b"], shard, 0)
     xs1 = F.silu(conv.float())                            # (B,di) f32
-    dt = F.softplus(dt.float() + p["dt_bias"])            # (B,H)
-    a = torch.exp(dt * -torch.exp(p["A_log"]))            # (B,H)
-    xh = xs1.reshape(bsz, hh, pp)
+    dt = F.softplus(dt.float() + _channels(p["dt_bias"], shard, 0))
+    a = torch.exp(dt * -torch.exp(_channels(p["A_log"], shard, 0)))
+    xh = xs1.reshape(bsz, -1, pp)
     binc = torch.einsum("bh,bn,bhp->bhpn", dt, b_ssm.float(), xh)
     h = a[..., None, None] * state["h"].float() + binc
     y = torch.einsum("bhpn,bn->bhp", h, c_ssm.float())
-    out = _mamba2_out(cfg, p, y, xh, z, x.dtype)[:, None, :]
+    out = _mamba2_out(cfg, p, y, xh, z, x.dtype, shard)[:, None, :]
     return out, {"h": h, "conv": window[:, 1:, :]}
 
 

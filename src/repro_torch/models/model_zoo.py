@@ -31,8 +31,12 @@ class ModelFns:
     # ``sharding.batch_specs`` splits them: the VLM's positions on dim 1,
     # the audio frames on dim 0)
     loss: Callable
-    prefill: Callable           # (params, batch) -> (cache, logits)
-    decode_step: Callable       # (params, cache, batch) -> (cache, logits)
+    # (params, batch, shard=) -> (cache, logits) and (params, cache, batch,
+    # shard=) -> (cache, logits); every family's take a prefill or decode
+    # step's ``shard=`` on a training mesh (``sharding.serve_shard``: the
+    # rank's weights, batch rows and cache blocks)
+    prefill: Callable
+    decode_step: Callable
     make_cache: Callable        # (batch_size, max_len) -> cache
     # (ShapeSpec) -> {name: meta tensor}: a cell's global batch
     input_specs: Callable
@@ -72,9 +76,10 @@ def build_model(cfg: ModelConfig, device=None) -> ModelFns:
         return ModelFns(
             init=lambda seed=0: encdec.init_encdec(cfg, seed, dev),
             loss=lambda p, b, **kw: encdec.encdec_loss(cfg, p, b, **kw),
-            prefill=lambda p, b: encdec.encdec_prefill(cfg, p, b),
-            decode_step=lambda p, c, b: encdec.encdec_decode_step(
-                cfg, p, c, b),
+            prefill=lambda p, b, shard=None: encdec.encdec_prefill(
+                cfg, p, b, shard=shard),
+            decode_step=lambda p, c, b, shard=None: encdec.encdec_decode_step(
+                cfg, p, c, b, shard=shard),
             make_cache=lambda bs, ml: encdec.make_encdec_cache(
                 cfg, bs, ml, dtype, dev),
             input_specs=specs,
@@ -85,9 +90,10 @@ def build_model(cfg: ModelConfig, device=None) -> ModelFns:
         return ModelFns(
             init=lambda seed=0: ssm_lm.init_ssm_lm(cfg, seed, dev),
             loss=lambda p, b, **kw: ssm_lm.ssm_lm_loss(cfg, p, b, **kw),
-            prefill=lambda p, b: ssm_lm.ssm_lm_prefill(cfg, p, b),
-            decode_step=lambda p, c, b: ssm_lm.ssm_lm_decode_step(
-                cfg, p, c, b),
+            prefill=lambda p, b, shard=None: ssm_lm.ssm_lm_prefill(
+                cfg, p, b, shard=shard),
+            decode_step=lambda p, c, b, shard=None: ssm_lm.ssm_lm_decode_step(
+                cfg, p, c, b, shard=shard),
             make_cache=lambda bs, ml: ssm_lm.make_ssm_cache(cfg, bs, dtype,
                                                             dev),
             input_specs=specs,
@@ -110,9 +116,10 @@ def build_model(cfg: ModelConfig, device=None) -> ModelFns:
         return ModelFns(
             init=lambda seed=0: hybrid.init_hybrid(cfg, seed, dev),
             loss=lambda p, b, **kw: hybrid.hybrid_loss(cfg, p, b, **kw),
-            prefill=lambda p, b: hybrid.hybrid_prefill(cfg, p, b),
-            decode_step=lambda p, c, b: hybrid.hybrid_decode_step(
-                cfg, p, c, b),
+            prefill=lambda p, b, shard=None: hybrid.hybrid_prefill(
+                cfg, p, b, shard=shard),
+            decode_step=lambda p, c, b, shard=None: hybrid.hybrid_decode_step(
+                cfg, p, c, b, shard=shard),
             make_cache=lambda bs, ml: hybrid.make_hybrid_cache(
                 cfg, bs, ml, dtype, dev),
             input_specs=specs,
@@ -133,8 +140,10 @@ def build_model(cfg: ModelConfig, device=None) -> ModelFns:
     return ModelFns(
         init=lambda seed=0: transformer.init_lm(cfg, seed, dev),
         loss=lambda p, b, **kw: transformer.lm_loss(cfg, p, b, **kw),
-        prefill=lambda p, b: transformer.lm_prefill(cfg, p, b),
-        decode_step=lambda p, c, b: transformer.lm_decode_step(cfg, p, c, b),
+        prefill=lambda p, b, shard=None: transformer.lm_prefill(
+            cfg, p, b, shard=shard),
+        decode_step=lambda p, c, b, shard=None: transformer.lm_decode_step(
+            cfg, p, c, b, shard=shard),
         make_cache=lambda bs, ml: transformer.make_decode_cache(
             cfg, bs, ml, dtype, dev),
         input_specs=specs,

@@ -94,7 +94,8 @@ def _route(cfg: ModelConfig, p, x: torch.Tensor, shard=None):
     scalar).  On a training mesh whose ranks hold different batch rows the
     aux is the global batch's: ``frac`` and ``mean_prob`` are averaged over
     the batch axes' ranks first (the product of local means is not the
-    global aux)."""
+    global aux); a forward-only step (``TrainShard.grad`` False) reads no
+    aux and sums nothing."""
     m = cfg.moe
     router = p["router"]
     if isinstance(shard, TrainShard):
@@ -110,7 +111,7 @@ def _route(cfg: ModelConfig, p, x: torch.Tensor, shard=None):
     assign = F.one_hot(idx[..., 0], m.n_experts).float()
     frac = assign.mean(dim=(0, 1))
     mean_prob = probs.mean(dim=(0, 1))
-    if isinstance(shard, TrainShard) and shard.batch_split:
+    if isinstance(shard, TrainShard) and shard.batch_split and shard.grad:
         mesh, axis = shard.mesh, shard.batch_axis
         n = mesh.size(axis)
         frac = mesh.reduce(frac, axis) / n
@@ -266,16 +267,27 @@ def apply_moe(cfg: ModelConfig, p, x: torch.Tensor, shard=None
 def apply_moe_decode_dispatch(cfg: ModelConfig, p, x: torch.Tensor,
                               shard=None) -> torch.Tensor:
     """Decode MoE by capacity-based dispatch: all B*S decode tokens form
-    one dispatch group."""
+    one dispatch group.  On a training mesh whose data ranks hold
+    different rows the group is the global batch's (its tokens gathered
+    over "data", so every token is kept or dropped as on one device), the
+    experts run expert-parallel (``_combine``) and the rank keeps its
+    rows."""
     m = cfg.moe
-    b, s, d = x.shape
-    gates, idx, _ = _route(cfg, p, x)
+    xg = x
+    split = isinstance(shard, TrainShard) and shard.batch_split \
+        and shard.mesh.size(shard.batch_axis) > 1
+    if split:
+        xg = col.gather(x, shard.mesh, shard.batch_axis, 0, False)
+    b, s, d = xg.shape
+    gates, idx, _ = _route(cfg, p, xg, shard)
     capacity = max(1, int(math.ceil(b * s * m.capacity_factor
                                     / m.n_experts)))
-    y = _combine(cfg, p, x.reshape(1, b * s, d),
+    y = _combine(cfg, p, xg.reshape(1, b * s, d),
                  gates.reshape(1, b * s, m.top_k),
                  idx.reshape(1, b * s, m.top_k), capacity,
                  shard).reshape(b, s, d)
+    if split:
+        y = shard.mesh.part(y, 0, shard.batch_axis)
     if "shared" in p:
         y = y + apply_mlp(cfg, p["shared"], x, shard=shard)
     return y
@@ -284,22 +296,60 @@ def apply_moe_decode_dispatch(cfg: ModelConfig, p, x: torch.Tensor,
 def apply_moe_decode(cfg: ModelConfig, p, x: torch.Tensor, shard=None
                      ) -> torch.Tensor:
     """Decode MoE (S=1): gather each token's expert weights and run them
-    locally."""
+    locally.  On a training mesh with the stacks split on E over "model"
+    (``_train_experts``) a rank runs the tokens whose expert it holds,
+    the others' rows zero, and the partial outputs are summed over
+    "model"."""
     m = cfg.moe
     b, s, d = x.shape
-    gates, idx, _ = _route(cfg, p, x)
+    gates, idx, _ = _route(cfg, p, x, shard)
     xt = x.reshape(b * s, 1, d)
     idx = idx.reshape(b * s, m.top_k)
     gates = gates.reshape(b * s, m.top_k)
+    rows, mesh = _decode_rows(p, shard)
     y = torch.zeros((b * s, d), dtype=x.dtype, device=x.device)
     for k in range(m.top_k):
         sel = idx[:, k]
-        g = torch.bmm(xt, _rows(p["wi_gate"], sel, shard)[0])   # (T,1,f)
-        u = torch.bmm(xt, _rows(p["wi_up"], sel, shard)[0])
+        g = torch.bmm(xt, rows("wi_gate", sel)[0])              # (T,1,f)
+        u = torch.bmm(xt, rows("wi_up", sel)[0])
         h = F.silu(g.float()).to(x.dtype) * u
-        out = _down(h, *_rows(p["wo"], sel, shard), shard)[:, 0]  # (T,d)
+        out = _down(h, *rows("wo", sel), shard)[:, 0]           # (T,d)
+        if mesh is not None:
+            out = torch.where(rows.mine(sel)[:, None], out,
+                              torch.zeros_like(out))
         y = y + out * gates[:, k, None].to(x.dtype)
+    if mesh is not None:
+        y = col.reduce_from(y, mesh, "model")
     y = y.reshape(b, s, d)
     if "shared" in p:
         y = y + apply_mlp(cfg, p["shared"], x, shard=shard)
     return y
+
+
+class _TrainRows:
+    """The experts ``sel`` (one a token) of a training mesh's stacks: a
+    rank whose stacks hold experts [lo, hi) indexes its own (a token whose
+    expert lies elsewhere reads row ``lo``, and ``mine`` says which are
+    real)."""
+
+    def __init__(self, p, shard):
+        self.ws, (self.lo, self.hi) = _train_experts(p, shard)
+
+    def __call__(self, name, sel):
+        local = (sel - self.lo).clamp(0, self.hi - self.lo - 1)
+        return self.ws[name][local], False
+
+    def mine(self, sel):
+        return (sel >= self.lo) & (sel < self.hi)
+
+
+def _decode_rows(p, shard):
+    """(rows(name, sel) -> (the experts ``sel`` of stack ``name``, whether
+    they are this rank's slice), the mesh whose model ranks sum partial
+    outputs or None): ``_rows`` on one device or a sharded engine, the
+    training mesh's own experts (``_TrainRows``) under a ``TrainShard``."""
+    if not isinstance(shard, TrainShard):
+        return (lambda name, sel: _rows(p[name], sel, shard)), None
+    rows = _TrainRows(p, shard)
+    split = rows.hi - rows.lo < p["wi_gate"].shape[0]
+    return rows, shard.mesh if split else None

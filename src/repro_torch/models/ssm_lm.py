@@ -37,7 +37,7 @@ from repro_torch.models.layers import (
     generator, embed_tokens, init_embed, logits_from_hidden, rms_norm,
     softmax_cross_entropy,
 )
-from repro_torch.models.transformer import run_blocks
+from repro_torch.models.transformer import run_blocks, serve_layers
 
 
 def init_ssm_lm(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
@@ -56,9 +56,11 @@ def init_ssm_lm(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
     }
 
 
-def _head(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return logits_from_hidden(cfg, params["embed"], h)
+def _head(cfg: ModelConfig, params, x: torch.Tensor,
+          shard=None) -> torch.Tensor:
+    h = rms_norm(x, weight_use(params["final_norm"], None, shard=shard),
+                 cfg.norm_eps)
+    return logits_from_hidden(cfg, params["embed"], h, shard)
 
 
 def _layer_fwd(cfg: ModelConfig, lp, x: torch.Tensor, shard=None
@@ -97,19 +99,25 @@ def ssm_lm_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True,
     return softmax_cross_entropy(logits, batch["labels"])
 
 
-def ssm_lm_prefill(cfg: ModelConfig, params, batch: Dict
+def ssm_lm_prefill(cfg: ModelConfig, params, batch: Dict, shard=None
                    ) -> Tuple[Dict, torch.Tensor]:
     """batch {"tokens" (B,S)} -> (states {"h": (L,B,di,N), "conv":
-    (L,B,K-1,di)}, last-position logits (B,V))."""
-    x = embed_tokens(params["embed"], batch["tokens"])
+    (L,B,K-1,di)}, last-position logits (B,V)).  ``shard``: a prefill
+    step's on a training mesh: the rank's batch rows and d_inner channels,
+    which are its block of the states under ``cache_specs``."""
+    params, layer = serve_layers(params, shard)
+    x = embed_tokens(params["embed"], batch["tokens"], shard)
     hs, convs = [], []
     for lp in params["layers"]:
+        lp = layer(lp)
+        ln = weight_use(lp["ln"], None, shard=shard)
         y, st = mamba.mamba1_forward(cfg, lp["mamba"],
-                                     rms_norm(x, lp["ln"], cfg.norm_eps))
+                                     rms_norm(x, ln, cfg.norm_eps),
+                                     shard=shard)
         x = x + y
         hs.append(st["h"])
         convs.append(st["conv"])
-    logits = _head(cfg, params, x[:, -1:, :])[:, 0, :]
+    logits = _head(cfg, params, x[:, -1:, :], shard)[:, 0, :]
     return {"h": torch.stack(hs), "conv": torch.stack(convs)}, logits
 
 
@@ -125,19 +133,24 @@ def make_ssm_cache(cfg: ModelConfig, batch_size: int, dtype,
     }
 
 
-def ssm_lm_decode_step(cfg: ModelConfig, params, cache: Dict, batch: Dict):
+def ssm_lm_decode_step(cfg: ModelConfig, params, cache: Dict, batch: Dict,
+                       shard=None):
     """One decode step over the dense state cache.  batch {"token" (B,1)}
-    -> (new states, logits (B,V))."""
-    x = embed_tokens(params["embed"], batch["token"])
+    -> (new states, logits (B,V)).  ``shard``: a decode step's on a
+    training mesh (the states the rank's blocks)."""
+    params, layer = serve_layers(params, shard)
+    x = embed_tokens(params["embed"], batch["token"], shard)
     hs, convs = [], []
     for i, lp in enumerate(params["layers"]):
+        lp = layer(lp)
         st = {"h": cache["h"][i], "conv": cache["conv"][i]}
+        ln = weight_use(lp["ln"], None, shard=shard)
         y, st2 = mamba.mamba1_decode_step(
-            cfg, lp["mamba"], rms_norm(x, lp["ln"], cfg.norm_eps), st)
+            cfg, lp["mamba"], rms_norm(x, ln, cfg.norm_eps), st, shard)
         x = x + y
         hs.append(st2["h"])
         convs.append(st2["conv"].to(cache["conv"].dtype))
-    logits = _head(cfg, params, x)[:, 0, :]
+    logits = _head(cfg, params, x, shard)[:, 0, :]
     return {"h": torch.stack(hs), "conv": torch.stack(convs)}, logits
 
 

@@ -57,6 +57,12 @@ reference constrains it): attention and an MoE layer gather the sequence,
 the dense MLP runs on the slice with its weights gathered over "model".
 Remat re-runs a layer's collectives in the recompute, in the same order on
 every rank.
+
+Prefill and decode on a mesh (``lm_prefill`` / ``lm_decode_step``'s
+``shard``, a step's ``sharding.serve_shard``): the train step's weights,
+gathers and heads, forward only; the dense cache is each rank's block of
+its ``cache_specs`` layout (``cache_blocks``), and an MoE layer decodes
+expert-parallel.
 """
 from __future__ import annotations
 
@@ -67,6 +73,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import (constrain, gather_layer,
                                               weight_use)
 from repro_torch.models import attention as attn
@@ -152,17 +159,50 @@ def _block(cfg: ModelConfig, lp, x: torch.Tensor, attend,
     ``attend`` maps the normed input to the attention output (it owns the
     cache update); ``lora`` is the layer's adapter descriptor for a dense
     MLP, or None; ``decode`` picks an MoE layer's decode path; ``shard`` is
-    a sharded serve engine's."""
-    h = x + attend(rms_norm(x, lp["ln1"], cfg.norm_eps))
-    y, aux = _ffn(cfg, lp, rms_norm(h, lp["ln2"], cfg.norm_eps), decode,
-                  lora, shard)
+    a sharded serve engine's or a prefill or decode step's on a training
+    mesh."""
+    h = x + attend(_norm(cfg, x, lp["ln1"], shard))
+    y, aux = _ffn(cfg, lp, _norm(cfg, h, lp["ln2"], shard), decode, lora,
+                  shard)
     return h + y, aux
+
+
+def _norm(cfg: ModelConfig, x: torch.Tensor, w, shard) -> torch.Tensor:
+    """rms_norm by a norm weight at its use (``weight_use``: a training
+    mesh's shard gathered whole; any other weight as it is)."""
+    return rms_norm(x, weight_use(w, None, shard=shard), cfg.norm_eps)
 
 
 def _head(cfg: ModelConfig, params, x: torch.Tensor,
           shard=None) -> torch.Tensor:
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    h = _norm(cfg, x, params["final_norm"], shard)
     return logits_from_hidden(cfg, params["embed"], h, shard)
+
+
+def serve_layers(params, shard):
+    """(params with the embedding's FSDP shards gathered once, a function
+    of a layer's (or segment's) weights with theirs gathered in one
+    bucket) of a prefill or decode step: on a training mesh (``shard``)
+    as the train step gathers them, else the weights as they are."""
+    if shard is None:
+        return params, lambda lp: lp
+    params = {**params, "embed": gather_layer(params["embed"], shard)}
+    if shard.per_use:
+        return params, lambda lp: lp
+    return params, lambda lp: gather_layer(lp, shard)
+
+
+def cache_blocks(cfg: ModelConfig, kvs, shard):
+    """The prefill's (k, v) of each attention call, in order, as
+    (ks, vs): one device's, or on a training mesh each rank's block of the
+    ``cache_specs`` layout of the whole leaf (``sharding.to_cache_block``:
+    the rank's kv heads or every one, its positions)."""
+    if shard is None:
+        return [k for k, _ in kvs], [v for _, v in kvs]
+    held = sharding.kv_held(cfg, shard)
+    blk = lambda t: sharding.to_cache_block(  # noqa: E731
+        t, held, cfg.n_kv_heads, shard)
+    return [blk(k) for k, _ in kvs], [blk(v) for _, v in kvs]
 
 
 # ---------------------------------------------------------------------------
@@ -310,26 +350,25 @@ def lm_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True,
 # Dense oracle: full prefill + decode over a (L, B, Smax, KV, hd) cache
 # ---------------------------------------------------------------------------
 
-def lm_prefill(cfg: ModelConfig, params, batch: Dict
+def lm_prefill(cfg: ModelConfig, params, batch: Dict, shard=None
                ) -> Tuple[Dict, torch.Tensor]:
     """batch {"tokens" (B,S)} or {"embeds" (B,S,d), "positions" (3,B,S)}
-    -> (cache of capacity S, last-position logits (B,V))."""
-    x, positions = _inputs(params, batch)
-    b, s = x.shape[:2]
-    ks, vs = [], []
-
-    def attend(lp):
-        def f(xn):
-            q, k, v = attn.qkv_project(cfg, lp["attn"], xn, positions)
-            ks.append(k)
-            vs.append(v)
-            o = attn.multi_head_attention(q, k, v, causal=True)
-            return o.reshape(b, s, cfg.q_dim) @ lp["attn"]["wo"]
-        return f
-
+    -> (cache of capacity S, last-position logits (B,V)).  ``shard``: a
+    prefill step's on a training mesh (``sharding.serve_shard``): the
+    rank's batch rows, weights and heads as the train step computes them
+    (the plain attention, as here), the cache the rank's block of its
+    ``cache_specs`` layout and the logits gathered over the
+    vocabulary."""
+    params, layer = serve_layers(params, shard)
+    x, positions = _inputs(params, batch, shard)
+    kvs: list = []
     for lp in params["layers"]:
-        x, _ = _block(cfg, lp, x, attend(lp))
-    logits = _head(cfg, params, x[:, -1:, :])[:, 0, :]
+        lp = layer(lp)
+        x, _ = _block(cfg, lp, x, lambda xn, lp=lp: attn.attention_block(
+            cfg, lp["attn"], xn, positions, shard=shard, kv=kvs),
+            shard=shard)
+    logits = _head(cfg, params, x[:, -1:, :], shard)[:, 0, :]
+    ks, vs = cache_blocks(cfg, kvs, shard)
     # stack in cache-row order (slot-major)
     order = sorted(range(cfg.n_layers), key=lambda l: cache_row(cfg, l))
     return {"k": torch.stack([ks[l] for l in order]),
@@ -359,28 +398,35 @@ def make_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def lm_decode_step(cfg: ModelConfig, params, cache: Dict, batch: Dict
-                   ) -> Tuple[Dict, torch.Tensor]:
+def lm_decode_step(cfg: ModelConfig, params, cache: Dict, batch: Dict,
+                   shard=None) -> Tuple[Dict, torch.Tensor]:
     """One decode step.  batch {"token" (B,1), "cur_len" int} or {"embeds"
     (B,1,d), "positions" (3,B,1), "cur_len"}: the new token's K/V are
-    written at cur_len (in place); returns its logits (B,V)."""
+    written at cur_len (in place); returns its logits (B,V).  ``shard``: a
+    decode step's on a training mesh (``sharding.serve_shard``, its
+    ``cache`` the cache's specs): the rank's batch rows, weights and heads,
+    ``cache`` its blocks (``attention.mesh_decode_attention``), an MoE
+    layer expert-parallel."""
     cur_len = int(batch["cur_len"])
+    params, layer = serve_layers(params, shard)
+    spec = None if shard is None else shard.cache["k"]
     if "embeds" in batch:
         x, positions = _stub_embeds(params, batch), batch["positions"]
     else:
-        x = embed_tokens(params["embed"], batch["token"])
+        x = embed_tokens(params["embed"], batch["token"], shard)
         positions = torch.full((x.shape[0], 1), cur_len, dtype=torch.int32,
                                device=x.device)
     for i, lp in enumerate(params["layers"]):
         r = cache_row(cfg, i)
+        lp = layer(lp)
 
         def attend(xn, lp=lp, r=r):
             o, _, _ = attn.attention_decode_block(
                 cfg, lp["attn"], xn, cache["k"][r], cache["v"][r], cur_len,
-                positions)
+                positions, shard=shard, spec=spec)
             return o
-        x, _ = _block(cfg, lp, x, attend, decode=True)
-    return cache, _head(cfg, params, x)[:, 0, :]
+        x, _ = _block(cfg, lp, x, attend, decode=True, shard=shard)
+    return cache, _head(cfg, params, x, shard)[:, 0, :]
 
 
 # ---------------------------------------------------------------------------

@@ -239,16 +239,7 @@ def check_mesh_trains(cfg: ModelConfig, mesh) -> None:
     n = mesh.shape["model"]
     if perf().train_sharding != "fsdp_tp" or n <= 1:
         return
-    splits = []
-    if cfg.family in ("ssm", "hybrid"):
-        di = cfg.ssm.expand * cfg.d_model
-        splits.append(("d_inner", di))
-        if cfg.family == "hybrid":
-            splits.append(("SSD heads", di // cfg.ssm.head_dim))
-    bad = [f"{k} {v}" for k, v in splits if v % n]
-    kv = cfg.n_kv_heads
-    if cfg.family != "ssm" and cfg.n_heads % n == 0 and kv % n and n % kv:
-        bad.append(f"kv heads {kv}")
+    bad = sharding.tp_splits_bad(cfg, n)
     if bad:
         raise ValueError(
             f"{cfg.name} ({cfg.family}): {', '.join(bad)} do not split over "

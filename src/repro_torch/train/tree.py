@@ -25,6 +25,20 @@ def leaves(tree) -> List[Any]:
     return [tree]
 
 
+def leaves_with_path(tree, path=()):
+    """(path, leaf) of ``tree`` in its own order (dict keys as they were
+    inserted), a path holding the dict keys and list indices as
+    strings."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves_with_path(v, path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaves_with_path(v, path + (str(i),))
+    else:
+        yield path, tree
+
+
 def map_tree(fn: Callable, tree, *rest):
     """``fn`` over the leaves of ``tree`` and the same-shaped ``rest``."""
     if isinstance(tree, dict):

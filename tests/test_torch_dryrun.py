@@ -3,11 +3,13 @@ against the JAX package on the CPU: the cells (``SHAPES``,
 ``cell_is_runnable``), the abstract weights of every arch at full width,
 the batch and cache specs, the roofline functions bit for bit under the
 reference's constants, the kernel wrappers' cost hooks (meta counts the
-same as the CPU plain version), a tiny train step's matrix FLOPs against
-``analyze_hlo`` of the reference's compiled step, the virtual mesh's
-collectives against gloo ranks' ``TrainMesh.issued``, the attention
-layouts a 16-way model axis needs (one KV head a rank; heads that do not
-split run whole) against one device, and ``run_cell`` end to end."""
+same as the CPU plain version), a tiny train, prefill and decode step's
+matrix FLOPs against ``analyze_hlo`` of the reference's compiled steps,
+the virtual mesh's collectives against gloo ranks' ``TrainMesh.issued``,
+the attention layouts a 16-way model axis needs (one KV head a rank;
+heads that do not split run whole) against one device, and ``run_cell``
+end to end for train, prefill, decode and skipped cells (the mesh
+prefill and decode steps themselves: ``test_torch_serve_steps_mesh.py``)."""
 import dataclasses
 import json
 import re
@@ -87,9 +89,20 @@ def test_shapes_and_runnability_equal_the_reference():
 
 
 def test_all_cells_are_the_twenty_train_cells():
-    cells = list(dryrun.all_cells(["pod1", "pod2"]))
-    assert len(cells) == 20
-    assert {s for _, s, _ in cells} == {"train_4k"}
+    """(Named when only the train cells were ported.)  Every arch x every
+    shape x mesh, in the reference's order
+    (``repro.launch.dryrun.all_cells``: ``ALL_ARCHS``, then ``SHAPES``,
+    then the meshes; its module is not imported, as it sets XLA_FLAGS for
+    512 host devices)."""
+    from repro.configs import ALL_ARCHS
+    meshes = ["pod1", "pod2"]
+    cells = list(dryrun.all_cells(meshes))
+    assert cells == [(a, s, m) for a in ALL_ARCHS for s in jbase.SHAPES
+                     for m in meshes]
+    assert len(cells) == 80
+    skipped = [c for c in cells if not tbase.cell_is_runnable(
+        get_config(c[0]), tbase.SHAPES[c[1]])[0]]
+    assert len(skipped) == 16 and {s for _, s, _ in skipped} == {"long_500k"}
 
 
 # -- abstract trees ----------------------------------------------------------
@@ -370,6 +383,74 @@ def test_a_tiny_train_step_counts_the_reference_matmul_flops():
     assert meta["flops"] == want
 
 
+# -- prefill and decode steps' FLOPs against the reference's compiled steps --
+
+SERVE_FLOP_ARCHS = ("qwen3-0.6b", "falcon-mamba-7b")
+
+
+def _jax_serve_text(arch, kind, b, s):
+    """``as_text`` of the reference's ``make_prefill_step`` (B x S tokens)
+    or ``make_decode_step`` (one token a row over a cache of capacity S)
+    jitted on one device, on abstract inputs."""
+    from repro.launch.steps import make_decode_step as jdecode
+    from repro.launch.steps import make_prefill_step as jprefill
+    jcfg = jbase.reduced_config(jbase.get_config(arch))
+    jparams = jzoo.abstract_params(jcfg)
+    jfns = jzoo.build_model(jcfg)
+    if kind == "prefill":
+        return jax.jit(jprefill(jcfg)).lower(
+            jparams, {"tokens": jax.ShapeDtypeStruct((b, s), jnp.int32)}) \
+            .compile().as_text()
+    batch = {"token": jax.ShapeDtypeStruct((b, 1), jnp.int32)}
+    if jcfg.family != "ssm":
+        batch["cur_len"] = jax.ShapeDtypeStruct((), jnp.int32)
+    cache = jax.eval_shape(lambda: jfns.make_cache(b, s))
+    return jax.jit(jdecode(jcfg)).lower(jparams, cache, batch) \
+        .compile().as_text()
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", SERVE_FLOP_ARCHS)
+def test_a_tiny_serve_step_counts_the_reference_matmul_flops(arch, kind):
+    """Reduced qwen3 and falcon-mamba, B 4 x S 32: the port's one-device
+    prefill step, and its decode step over a cache of capacity 32, on the
+    CPU (K2 and K7's plain versions inside their hooks) count exactly the
+    dot FLOPs ``analyze_hlo`` reads from the reference's step compiled by
+    XLA:CPU; so do the dry run's counts of the same steps on a 1x1
+    virtual mesh on meta."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    b, s = 4, 32
+    text = _jax_serve_text(arch, kind, b, s)
+    assert "custom-call" not in text
+    want = jhlo.analyze_hlo(text, 1)["flops"]
+
+    cfg = reduced_config(get_config(arch))
+    fns = build_model(cfg, "cpu")
+    params = fns.init(0)
+    g = torch.Generator().manual_seed(0)
+    if kind == "prefill":
+        got = thlo.analyze_step(make_prefill_step(cfg, "cpu"), params, {
+            "tokens": torch.randint(0, cfg.vocab, (b, s), generator=g,
+                                    dtype=torch.int32)})
+    else:
+        batch = {"token": torch.randint(0, cfg.vocab, (b, 1), generator=g,
+                                        dtype=torch.int32)}
+        if cfg.family != "ssm":
+            batch["cur_len"] = s - 1
+        got = thlo.analyze_step(make_decode_step(cfg, "cpu"), params,
+                                fns.make_cache(b, s), batch)
+    assert got["flops"] == want, (got["flops"], want)
+    assert got["launches"]["rmsnorm"] > 0
+    if cfg.family == "ssm":
+        assert got["launches"]["ssm_scan"] == cfg.n_layers
+    count = {"prefill": dryrun.count_prefill_step,
+             "decode": dryrun.count_decode_step}[kind]
+    meta = count(cfg, ShapeSpec("tiny", s, b, kind),
+                 dry_train_mesh({"data": 1, "model": 1}))
+    assert meta["flops"] == want
+    assert meta["launches"] == got["launches"]
+
+
 # -- the virtual mesh against gloo ranks ---------------------------------------
 
 def _issued_jobs(world):
@@ -493,9 +574,50 @@ def test_run_cell_writes_the_reference_fields(kind, shape, devices,
     assert set(res["collectives"]) == {"all-gather", "all-reduce"}
 
 
-def test_a_shape_not_ported_raises_and_writes_nothing(tmp_path):
-    for shape in ("prefill_32k", "decode_32k"):
-        with pytest.raises(NotImplementedError, match="A13b"):
-            dryrun.main(["--arch", "qwen3-0.6b", "--shape", shape,
-                         "--mesh", "pod1", "--out", str(tmp_path)])
-    assert list(tmp_path.iterdir()) == []
+@pytest.mark.parametrize("arch,kind,batch", [
+    ("qwen3-0.6b", "prefill", 8), ("qwen3-0.6b", "decode", 8),
+    ("zamba2-2.7b", "decode", 1), ("whisper-small", "prefill", 8)])
+def test_run_cell_writes_the_reference_fields_for_inference(
+        arch, kind, batch, monkeypatch, tmp_path):
+    """A tiny registered prefill or decode cell (the reduced arch, S 32)
+    on a virtual 2x2 mesh: status ok, FLOPs counted, and the reference's
+    fields less the XLA-only ones, with the port's memory fields; a
+    decode cell also writes its cache's and states' bytes a device.  The
+    reference's model FLOPs are 2 N_active B (S at prefill)."""
+    monkeypatch.setitem(tbase._REGISTRY, "tiny",
+                        lambda: reduced_config(get_config(arch)))
+    monkeypatch.setitem(tbase.SHAPES, "tiny_serve",
+                        ShapeSpec("tiny_serve", 32, batch, kind))
+    monkeypatch.setattr(tmesh, "production_mesh_shape",
+                        lambda multi_pod=False: MeshShape(
+                            {"data": 2, "model": 2}))
+    out = tmp_path / "cell.json"
+    res = dryrun.run_cell("tiny", "tiny_serve", "pod1", out)
+    assert json.loads(out.read_text()) == json.loads(json.dumps(res))
+    assert res["status"] == "ok" and res["kind"] == kind
+    assert res["hlo_flops_per_device"] > 0
+    assert res["peak_bytes_per_device"] >= res["argument_bytes_per_device"]
+    extra = {"cache_bytes_per_device", "state_bytes_per_device"} \
+        if kind == "decode" else set()
+    assert set(res) == (_reference_fields() - XLA_ONLY) | PORT_ONLY | extra
+    cfg = reduced_config(get_config(arch))
+    tokens = batch * (32 if kind == "prefill" else 1)
+    assert res["model_flops_global"] == 2 * cfg.active_param_count() * tokens
+    if kind == "decode":
+        # whole K/V leaves of 2 heads a rank (zamba2: 4 kv heads over 2
+        # model ranks; batch 1: the positions over the 2 data ranks)
+        hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
+        n = cfg.n_layers // cfg.hybrid.attn_every if cfg.hybrid \
+            else cfg.n_layers
+        whole = 2 * n * batch * 32 * kv * hd * 4
+        assert res["cache_bytes_per_device"] == whole // 4
+        assert (res["state_bytes_per_device"] > 0) == (cfg.hybrid is not None)
+
+
+def test_a_skipped_cell_writes_the_reference_reason(tmp_path):
+    out = tmp_path / "cell.json"
+    res = dryrun.run_cell("qwen3-0.6b", "long_500k", "pod1", out)
+    assert json.loads(out.read_text()) == res
+    assert res["status"] == "skipped"
+    assert res["skip_reason"] == jbase.cell_is_runnable(
+        jbase.get_config("qwen3-0.6b"), jbase.SHAPES["long_500k"])[1]
