@@ -151,7 +151,9 @@ Phases, each printing JSON objects one per line:
               launch), a rank-0 tenant gives the base tokens, and one prompt
               under two tenants gives two streams, neither adopting the
               other's prefix.
-   profile  — torch.profiler over 12 steps of a second engine: device busy
+   profile  — torch.profiler over 12 steps of a second engine at 14 of the
+              28 layers (full depth until the examples phase needed the
+              time): device busy
               time by kernel against the window's wall time, and each
               kernel's device time per launch on the main path (device
               events only; an MoE arch's profiles also record the CPU ops,
@@ -256,7 +258,8 @@ Phases, each printing JSON objects one per line:
               and K1 once per shared-block call site (9, hybrid) or never
               (ssm).  ssm_swap_resume: a greedy request preempted by swap
               resumes from the slab's host tier with the unpreempted run's
-              tokens.  ssm_profile, hybrid_profile: a profiled window each.
+              tokens.  ssm_profile, hybrid_profile: a profiled window each,
+              at half depth (32 of 64 layers; 4 of 9 segments).
 8. ssm_oracle, hybrid_oracle — one request (a 256-token prompt chunk and 8
               decode steps, full width, f32; 2 Mamba1 layers, or 2 hybrid
               segments) through the paged path with the kernels on the card
@@ -326,9 +329,10 @@ Phases, each printing JSON objects one per line:
               of K2 (hybrid).  train_ssm_profile, train_hybrid_profile: 2
               profiled steps each at half depth (32 of 64 layers; 4 of 9
               segments), K7's share of the busy time.
-              train_ssm_oracle, train_hybrid_oracle: 2 Mamba1 layers / 1
-              hybrid segment of 3 Mamba2 layers (2 segments of 6 until the
-              dry run's phases needed the time) at full width, f32, B 2 x
+              train_ssm_oracle, train_hybrid_oracle: 1 Mamba1 layer / 1
+              hybrid segment of 2 Mamba2 layers (2 layers, and 3, until the
+              examples phase needed the time; 2 segments of 6 until the
+              dry run's phases did) at full width, f32, B 2 x
               S 512, the loss and
               every gradient leaf on the card against the CPU's, within
               1e-4 / 1e-3, or for the hybrid twice the CPU's own spread
@@ -347,14 +351,15 @@ Phases, each printing JSON objects one per line:
               in bf16 at its native capacity factor 2.0: the invariants
               after every step, K1 16 and K2 49 launches a model call
               exactly, host ms a dispatch; moe_profile: a profiled window
-              of 3 steps, the expert products (``aten::bmm``) a group of
-              their own.
+              of 3 steps at 8 of the 16 layers, the expert products
+              (``aten::bmm``) a group of their own.
               moe_lora: two rank-16 tenants on the attention projections,
               64 fused-delta launches an adapter dispatch, a rank-0 tenant
               bitwise base.  moe_oracle: paged (K1) against dense at the
               factor where no token drops (capacity >= tokens), every
               step's (layer, token) expert sets compared between the
-              paths: f32 within 1e-3 with no set differing; bf16, where
+              paths: f32 (at 8 of the 16 layers) within 1e-3 with no set
+              differing; bf16, where
               the paths' roundings move tokens across routing boundaries,
               the paged path run again with the dense path's expert
               choices (its own router and gates) within 5e-2 on every
@@ -377,7 +382,8 @@ Phases, each printing JSON objects one per line:
               finite losses, exactly 32 / 16 K3 and 97 / 49 K2 a step;
               its loss falls at 8 layers with f32 moments;
               train_moe_profile (1 step, 8 of 16 layers);
-              train_moe_oracle: 2 layers, f32, loss and every leaf (the
+              train_moe_oracle: 1 layer (2 until the examples phase
+              needed the time), f32, loss and every leaf (the
               routers' reported apart)
               against the CPU within 1e-4 / 1e-3, then a bitwise restart
               at 1 layer (4 steps, the failure at step 3).
@@ -413,6 +419,22 @@ Phases, each printing JSON objects one per line:
               cross-attention's 4 and 448 queries over 1,500 frames
               (gate-only) and qwen2-vl's (64 over 8 heads, S 512), and
               K2 at 768 and 8,192 (forward and backward).
+14. examples — after train_profile, the port's four examples
+              (``examples/*_torch.py``) through their own entry points at
+              full width on the card, their prints kept off the output,
+              each with its launch counts from zero: quickstart (the
+              packed Fig. 3 program within 1e-4 of its logical term, whose
+              two matmuls launch K4; the recompile a cache hit; the loss
+              of qwen3-0.6b in bf16 finite, K3 28 and K2 85 launches),
+              serve_lm (qwen3-0.6b in bf16, its eight requests each
+              finished with 12 tokens, the KV invariants clean, K1 28 and
+              K2 85 launches a model call), train_lm (qwen3-0.6b at 2 of
+              28 layers, 36 steps, the failure at step 24 after the step-20
+              checkpoint, the restore and replay, the last loss below the
+              first, K3 and K2 a step's launches for every step run) and
+              compile_inspect (qwen3-0.6b's decode_32k cell on pod1 counted
+              on meta in the process); each example's seconds and the
+              phase's, with the card's name and power limit.
 
 The dry run (ROADMAP A13a): ``dryrun_calib`` after train: qwen3-0.6b's
 train step at its shape (B 8 x S 512, 28 layers, bf16, remat "dots")
@@ -3983,6 +4005,14 @@ def dryrun_mesh_phase(cfg, outs, smi):
           "runs": rows})
 
 
+# rank 0's peak device bytes in train_mesh_2's 1x2 runs when their loss
+# all-gathered the whole vocabulary's logits on each model rank before the
+# f32 cross-entropy: this script's reading on an NVIDIA H100 80GB HBM3 at
+# 700 W, before the loss became vocab-parallel, printed beside today's
+WHOLE_LOGITS_PEAK = {"fsdp_tp_1x2": 22_543_184_896,
+                     "seq_parallel_1x2": 22_509_628_928}
+
+
 def train_mesh_2_report(cfg, outs, smi, parts):
     """train_mesh_2: qwen3-0.6b at full width, ``TRAIN_MESH_LAYERS``
     layers, f32, B 8 x S 512, on the two gloo ranks (both on the one card).
@@ -3996,7 +4026,10 @@ def train_mesh_2_report(cfg, outs, smi, parts):
     holds half of the whole state apart from the leaves no axis splits
     (under dp: the weights whole, the moments ZeRO-1 halves); each rank
     launches K3 and K2 a step what the train phase does at this depth.
-    Returns rank 0's launches over the runs."""
+    On 1x2 the loss is vocab-parallel: each rank's all_gathers a step send
+    less than its (B, S, V/2) slice of the logits, which the whole-logits
+    loss gathered every step; rank 0's peak is printed beside
+    ``WHOLE_LOGITS_PEAK``.  Returns rank 0's launches over the runs."""
     layers = cfg.n_layers
     want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
             "rmsnorm": 2 * k2_per_model_call(cfg) - 1,
@@ -4025,7 +4058,23 @@ def train_mesh_2_report(cfg, outs, smi, parts):
                 assert {k: per[k] for k in want} == want, (name, per)
                 assert all(v == 0 for k, v in per.items()
                            if k not in want), (name, per)
+        vocab_parallel = None
+        if shape[1] > 1 and "REPRO_TRAIN_SHARDING" not in env:
+            slice_bytes = 8 * 512 * cfg.vocab // shape[1] \
+                * {"float32": 4, "bfloat16": 2}[cfg.dtype]
+            for r in rows:
+                sent = r["collectives_per_step"]["all_gather"][1]
+                assert sent < slice_bytes, (name, sent, slice_bytes)
+            vocab_parallel = {
+                "logits_slice_bytes": slice_bytes,
+                "all_gather_bytes_per_step": [
+                    r["collectives_per_step"]["all_gather"][1]
+                    for r in rows],
+                "rank0_peak_device_bytes": rows[0]["peak_device_bytes"],
+                "rank0_whole_logits_peak_device_bytes":
+                    WHOLE_LOGITS_PEAK.get(name)}
         runs[name] = {
+            "vocab_parallel_loss": vocab_parallel,
             "mesh": r0["mesh"], "knobs": r0["knobs"], "steps": steps,
             "losses": r0["losses"], "loss_rel_err": r0["loss_rel_err"],
             "grad_norms": r0["grad_norms"],
@@ -5763,8 +5812,9 @@ def train_profile_phase(torch, cfg, steps=3, opt_state="f32",
 
 TRAIN_STATEFUL_STEPS = 5
 # train_hybrid_oracle and its restart: one segment of this many Mamba2
-# layers before the shared block (zamba2-2.7b's segments hold 6)
-HYBRID_ORACLE_SEGMENT = 3
+# layers before the shared block (zamba2-2.7b's segments hold 6; 3 here
+# until the examples phase needed the time)
+HYBRID_ORACLE_SEGMENT = 2
 # train_ssm_restart and train_hybrid_restart: (steps, the step that fails,
 # the checkpoint interval)
 STATEFUL_RESTART = (4, 3, 2)
@@ -5879,9 +5929,9 @@ def _leaf_gaps(grads, want) -> list:
 def train_stateful_oracle_phase(torch, cfg, n_layers, opt_state,
                                 witness=True, restart=(8, 6, 4),
                                 seq_len=512, phase=None, restart_layers=None):
-    """``n_layers`` layers at full width (2 Mamba1 layers; 1 hybrid
+    """``n_layers`` layers at full width (1 Mamba1 layer; 1 hybrid
     segment, ``HYBRID_ORACLE_SEGMENT`` Mamba2 layers and 1 shared-block
-    call; 2 MoE layers),
+    call; 1 MoE layer; 2 + 2 encoder-decoder layers),
     f32, B 2 x S 512:
     the loss and every gradient leaf on the card (K7 forward and backward,
     or K3 at head_dim 80, and K2, remat "dots" as the trainer runs) against
@@ -6742,6 +6792,143 @@ def train_vlm_phase(torch, cfg):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the port's examples (examples/*_torch.py) on the card
+# ---------------------------------------------------------------------------
+
+# train_lm at full width cut to 2 of qwen3-0.6b's 28 layers (as
+# train_restart), 36 steps: a checkpoint at step 20, the failure at step 24
+# (2/3 of the run), so the run restores step 20 and replays 4 steps
+EXAMPLES_TRAIN_LAYERS, EXAMPLES_TRAIN_STEPS = 2, 36
+# compile_inspect's dry-run cell
+EXAMPLES_CELL = ("qwen3-0.6b", "decode_32k", "pod1")
+
+
+def _example(fn):
+    """(``fn()``, the lines it printed, its seconds): an example's prints
+    kept off the script's output (each phase prints one JSON line)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = fn()
+    return res, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def examples_phase(torch, cfg, smi):
+    """examples: the four ``examples/*_torch.py`` through their own entry
+    points on the card at full width (no ``--smoke``), each with its launch
+    counts from zero.  quickstart: the packed Fig. 3 program within 1e-4 of
+    its logical term, whose two matmuls launch K4, the recompile a cache
+    hit, the loss of full-width qwen3-0.6b in bf16 finite (K3 once a layer,
+    K2 ``k2_per_model_call``); serve_lm: full-width qwen3-0.6b in bf16,
+    every request finished with its 12 tokens, the KV invariants clean, K1
+    once a layer and K2 ``k2_per_model_call`` times a model call; train_lm:
+    full width at ``EXAMPLES_TRAIN_LAYERS`` layers, the failure after a
+    checkpoint, the restart restoring it, the last loss below the first,
+    K3 and K2 what a step launches at that depth for every step run;
+    compile_inspect on ``EXAMPLES_CELL`` (the dry run in this process, on
+    meta)."""
+    import math
+    import tempfile
+    sys.path.insert(0, str(ROOT / "examples"))
+    import compile_inspect_torch
+    import quickstart_torch
+    import serve_lm_torch
+    import train_lm_torch
+    from repro_torch.models import build_model
+    t_phase = time.perf_counter()
+    out = {"phase": "examples", "nvidia_smi": smi, "arch": cfg.name,
+           "dtype": cfg.dtype}
+    k2 = k2_per_model_call(cfg)
+
+    zero_counts()
+    q, lines, sec = _example(lambda: quickstart_torch.main([]))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    pipe, loss = q["pipeline"], q["train_step"]
+    assert pipe["rel_err"] <= 1e-4 and pipe["cache_hit"], pipe
+    assert pipe["matmul_launches"] == launches["matmul"] == 2, \
+        (pipe, launches)
+    assert math.isfinite(loss["loss"]) and loss["dtype"] == "bfloat16" \
+        and loss["n_layers"] == cfg.n_layers, loss
+    assert launches["flash_attention"] == cfg.n_layers \
+        and launches["rmsnorm"] == k2, launches
+    out["quickstart"] = {"s": sec, "launches": launches,
+                         "pipeline": pipe, "train_step": loss,
+                         "distribute": {k: v for k, v in
+                                        q["distribute"].items()
+                                        if k != "pspecs"},
+                         "schedule": q["schedule"], "stdout": lines[-6:]}
+
+    params = build_model(cfg, DEV).init(0)
+    tally, counted = dispatch_timer()
+    zero_counts()
+    sv, lines, sec = _example(lambda: serve_lm_torch.serve(
+        cfg, params, on_engine=lambda eng: wrap_dispatches(eng, counted)))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    del params
+    torch.cuda.empty_cache()
+    calls = sum(n for n, _ in tally.values())
+    assert sorted(sv["outputs"]) == list(range(serve_lm_torch.N_REQUESTS)) \
+        and all(len(t) == serve_lm_torch.MAX_NEW
+                for t in sv["outputs"].values()), sv["outputs"]
+    assert sv["kv_violations"] == [], sv["kv_violations"]
+    assert launches["paged_attention"] == cfg.n_layers * calls \
+        and launches["rmsnorm"] == k2 * calls, (launches, calls)
+    out["serve_lm"] = {"s": sec, "launches": launches, "model_calls": calls,
+                       "host_ms_per_dispatch": host_ms_per_dispatch(tally),
+                       "tokens_per_sec": sv["tokens_per_sec"],
+                       "peak_blocks_used": sv["peak_blocks_used"],
+                       "dense_equiv_blocks": sv["dense_equiv_blocks"],
+                       "stdout": lines[:2]}
+
+    layers = EXAMPLES_TRAIN_LAYERS
+    with tempfile.TemporaryDirectory(prefix="train_lm_") as workdir:
+        zero_counts()
+        tr, lines, sec = _example(lambda: train_lm_torch.main(
+            ["--layers", str(layers), "--steps", str(EXAMPLES_TRAIN_STEPS),
+             "--workdir", workdir]))
+        torch.cuda.synchronize()
+        launches = read_counts()
+    torch.cuda.empty_cache()
+    assert tr["restored_step"] is not None \
+        and 0 < tr["restored_step"] < tr["fail_at"], tr
+    assert tr["final_step"] == EXAMPLES_TRAIN_STEPS, tr
+    assert tr["last"] < tr["first"], tr
+    run = EXAMPLES_TRAIN_STEPS + tr["fail_at"] - tr["restored_step"]
+    k2_cut = k2_per_model_call(at_depth(cfg, layers))
+    want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
+            "rmsnorm": 2 * k2_cut - 1, "rmsnorm_bwd": k2_cut}
+    assert {k: launches[k] for k in want} \
+        == {k: v * run for k, v in want.items()}, (launches, run)
+    out["train_lm"] = {"s": sec, "layers": layers, "launches": launches,
+                       "steps_run": run,
+                       **{k: tr[k] for k in ("first", "last", "fail_at",
+                                             "restored_step")},
+                       "stdout": lines[-3:]}
+
+    with tempfile.TemporaryDirectory(prefix="dryrun_cell_") as cell_dir:
+        arch, shape, mesh = EXAMPLES_CELL
+        ci, lines, sec = _example(lambda: compile_inspect_torch.main(
+            ["--arch", arch, "--shape", shape, "--mesh", mesh,
+             "--out", cell_dir]))
+    assert ci["pipeline"]["rel_err"] <= 1e-4, ci["pipeline"]
+    cell = ci["dryrun"]
+    assert cell["status"] == "ok" and cell["fits"], cell
+    out["compile_inspect"] = {
+        "s": sec, "cell": list(EXAMPLES_CELL),
+        "pipeline": {k: v for k, v in ci["pipeline"].items()
+                     if k != "summary"},
+        "dryrun": {k: cell[k] for k in (
+            "hlo_flops_per_device", "peak_bytes_per_device",
+            "cache_bytes_per_device", "roofline", "analyze_s")}}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+
+
 def leaf_names(tree, prefix="") -> list:
     """Each leaf's path, in ``train.tree.leaves`` order."""
     if isinstance(tree, dict):
@@ -6939,7 +7126,9 @@ def main() -> int:
     lora_identity_phase(torch, cfg, params)
     del params
     torch.cuda.empty_cache()
-    profile_phase(torch, cfg)
+    # the serve profiles at half depth (the hybrid's at 4 of its 9
+    # segments), cut for the time of the examples phase
+    profile_phase(torch, at_depth(cfg, cfg.n_layers // 2))
     # 6. oracles: dense in f32 and bf16, one tenant's request in f32
     oracle_phase(torch, dataclasses.replace(cfg, dtype="float32"))
     oracle_phase(torch, cfg)
@@ -6952,15 +7141,18 @@ def main() -> int:
     ssm_launches = stateful_serve_phase(torch, ssm_cfg, params)
     dryrun_ssm_calib_phase(torch, ssm_cfg, params, smi)
     swap_resume_phase(torch, ssm_cfg, params)
-    profile_phase(torch, ssm_cfg, params, steps=8, phase="ssm_profile")
     del params
+    torch.cuda.empty_cache()
+    profile_phase(torch, at_depth(ssm_cfg, ssm_cfg.n_layers // 2), steps=8,
+                  phase="ssm_profile")
     torch.cuda.empty_cache()
     hy_cfg = get_config(HYBRID_ARCH)
     params = build_model(hy_cfg, DEV).init(0)
     hybrid_launches = stateful_serve_phase(torch, hy_cfg, params)
-    profile_phase(torch, hy_cfg, params, steps=8, phase="hybrid_profile")
     del params
     torch.cuda.empty_cache()
+    profile_phase(torch, at_depth(hy_cfg, 4 * hy_cfg.hybrid.attn_every),
+                  steps=8, phase="hybrid_profile")
     # 8. their oracles: 2 Mamba1 layers; 2 hybrid segments
     stateful_oracle_phase(torch, ssm_cfg, n_layers=2)
     stateful_oracle_phase(torch, hy_cfg,
@@ -6991,15 +7183,20 @@ def main() -> int:
     # segments), cut for the time of the prefill and decode phases when
     # the script took 1,189 s on a slow host
     train_profile_phase(torch, at_depth(cfg, cfg.n_layers // 2))
+    # 14. the port's examples at full width: quickstart, serve_lm, train_lm
+    # (2 layers) and compile_inspect
+    examples_phase(torch, cfg, smi)
 
     # 11. the stateful families' training at full width, bf16 (falcon-mamba
     # with int8 moments: f32 ones do not fit beside its weights), a
-    # profiled window each, then their card-against-CPU oracles at 2
-    # layers / 1 segment and restarts at 1 layer / 1 segment (with the
+    # profiled window each, then their card-against-CPU oracles at 1
+    # layer / 1 segment and restarts at 1 layer / 1 segment (with the
     # hybrid's restart at 2 segments the script took 1,008 s; its oracle
     # went from 2 segments to 1 when the script with the dry run's phases
     # took 1,133 s on a slow host, and to 3 of its 6 Mamba2 layers, with
-    # its restart, when the prefill and decode phases took it to 1,189 s)
+    # its restart, when the prefill and decode phases took it to 1,189 s;
+    # the ssm oracle from 2 layers to 1 and the hybrid's segment to 2
+    # Mamba2 layers for the examples phase)
     ssm_train_launches = train_stateful_phase(torch, ssm_cfg, "int8")
     train_profile_phase(torch, at_depth(ssm_cfg, ssm_cfg.n_layers // 2),
                         steps=2, opt_state="int8", phase="train_ssm_profile")
@@ -7008,7 +7205,7 @@ def main() -> int:
                         steps=2, phase="train_hybrid_profile")
     # (the restarts at 4 steps, checkpointed every 2 and failing at 3: cuts
     # for the time of train_mesh_2's family runs and the dry run's phases)
-    train_stateful_oracle_phase(torch, ssm_cfg, 2, "int8", witness=False,
+    train_stateful_oracle_phase(torch, ssm_cfg, 1, "int8", witness=False,
                                 restart=STATEFUL_RESTART, restart_layers=1)
     hy_short = dataclasses.replace(hy_cfg, hybrid=dataclasses.replace(
         hy_cfg.hybrid, attn_every=HYBRID_ORACLE_SEGMENT))
@@ -7025,16 +7222,21 @@ def main() -> int:
     # its oracles (f32 and bf16 paged against dense at the no-drop factor,
     # 2 layers card against CPU at the native one); one super-layer of
     # llama4 served; olmoe trained (int8 moments), profiled, at 8 layers
-    # with f32 moments, and at 2 layers against the CPU and restarted
+    # with f32 moments, and at 1 layer against the CPU and restarted (the
+    # oracle at 2 layers until the examples phase needed the time)
     moe_cfg = get_config(MOE_ARCH)
     params = build_model(moe_cfg, DEV).init(0)
     moe_launches = moe_serve_phase(torch, moe_cfg, params)
-    profile_phase(torch, moe_cfg, params, steps=3, phase="moe_profile")
     moe_lora_phase(torch, moe_cfg, params)
     moe_oracle_phase(torch, moe_cfg, params)
     del params
     torch.cuda.empty_cache()
-    moe_oracle_phase(torch, dataclasses.replace(moe_cfg, dtype="float32"))
+    profile_phase(torch, at_depth(moe_cfg, moe_cfg.n_layers // 2), steps=3,
+                  phase="moe_profile")
+    # the f32 oracle at 8 of the 16 layers (16 until the examples phase
+    # needed the time)
+    moe_oracle_phase(torch, at_depth(dataclasses.replace(
+        moe_cfg, dtype="float32"), moe_cfg.n_layers // 2))
     moe_cpu_oracle_phase(torch, moe_cfg)
     llama4_launches = llama4_layer_phase(torch, get_config(LLAMA4_ARCH))
     moe_train_launches = train_stateful_phase(torch, moe_cfg, "int8",
@@ -7044,7 +7246,7 @@ def main() -> int:
                         phase="train_moe_profile")
     # the restart at 1 layer in 4 steps, failing at 3: checkpoints at
     # steps 2 and 4 (6 steps until the dry run's phases needed the time)
-    train_stateful_oracle_phase(torch, moe_cfg, 2, "int8", witness=False,
+    train_stateful_oracle_phase(torch, moe_cfg, 1, "int8", witness=False,
                                 restart=(4, 3, 2), restart_layers=1)
 
     # 13. the encoder-decoder and the VLM stub frontend at full width, bf16,

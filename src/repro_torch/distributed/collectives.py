@@ -30,7 +30,7 @@ class Gather(torch.autograd.Function):
     (the computation after the gather is split on that axis: an FSDP
     weight's data ranks see different batch rows), kept as it is when not
     (it is replicated there: a tensor-parallel output gathered for a
-    replicated cross-entropy)."""
+    computation every model rank repeats)."""
 
     @staticmethod
     def forward(ctx, x, mesh, axis, dim, grad_sum):
@@ -163,6 +163,54 @@ class GatherBucket(torch.autograd.Function):
         return (None, None, None, *out)
 
 
+class VocabParallelCE(torch.autograd.Function):
+    """The mean next-token cross-entropy of logits split on the vocabulary
+    over ``axis``: ``logits`` (B, S, V/n) f32 is this rank's slice, whose
+    columns are the vocabulary's ``[lo, lo + V/n)`` with ``lo`` its
+    coordinate times V/n; ``labels`` (B, S) whole.  Forward: the row max
+    over the ranks (an ``all_reduce`` max of every rank's (B, S) maxima:
+    exact), Σ exp(l − m) over the slice summed over ``axis``, the
+    label's logit from the rank that holds it (zero elsewhere, summed:
+    exact, each row has one nonzero source), and the mean of
+    log Σ + m − ll over the rows, the same value on every rank of
+    ``axis``.  Backward: (softmax − one-hot) on the slice times g / (B·S),
+    with no collective (what follows the loss is replicated over ``axis``;
+    the hidden's cotangent is summed by the *f* in front of the
+    column-parallel head).  Saves the f32 slice and the row statistics."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mesh, axis):
+        v = logits.shape[-1]
+        lo = mesh.index(axis) * v
+        m, sum_exp = _row_stats(logits, mesh, axis)
+        ids = labels.long() - lo
+        mine = (ids >= 0) & (ids < v)
+        ids = ids.clamp(0, v - 1)
+        ll = torch.gather(logits, -1, ids[..., None])[..., 0]
+        ll = mesh.reduce(torch.where(mine, ll, torch.zeros_like(ll)), axis)
+        lse = torch.log(sum_exp) + m
+        ctx.save_for_backward(logits, lse, ids, mine)
+        return (lse - ll).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, ids, mine = ctx.saved_tensors
+        grad = (logits - lse[..., None]).exp_()
+        grad.scatter_add_(-1, ids[..., None],
+                          -mine[..., None].to(grad.dtype))
+        grad.mul_(g / lse.numel())
+        return grad, None, None, None
+
+
+def _row_stats(logits, mesh, axis):
+    """(m, Σ exp(l − m)) of each row of a vocabulary split over ``axis``:
+    the max of every rank's row maxima, and the slices' sums added over
+    ``axis``."""
+    m = mesh.reduce(logits.amax(-1), axis, op="max")
+    sum_exp = (logits - m[..., None]).exp_().sum(-1)
+    return m, mesh.reduce(sum_exp, axis)
+
+
 def _by_dtype(xs: Sequence[torch.Tensor], take: Sequence[bool]
               ) -> List[List[int]]:
     """Indices of ``xs`` where ``take``, grouped by dtype in first-seen
@@ -200,3 +248,7 @@ def mean_over(x, mesh, axis):
 
 def gather_bucket(xs, dims, mesh, grad_sum):
     return GatherBucket.apply(mesh, tuple(dims), grad_sum, *xs)
+
+
+def vocab_parallel_ce(logits, labels, mesh, axis):
+    return VocabParallelCE.apply(logits, labels, mesh, axis)

@@ -40,8 +40,11 @@ column-parallel in-projections behind *f* (identity forward, an
 ``all_reduce`` of the input's cotangent), row-parallel out-projections
 with *g* (one ``all_reduce`` forward, identity backward), the vocab-sharded
 lookup as in reduce-scatter mode behind *g*, and the vocab-sharded logits
-all-gathered before the cross-entropy (exact).  Serve behaviour is as
-above.
+kept as the rank's slice for a vocab-parallel cross-entropy
+(``collectives.VocabParallelCE``, through ``layers.lm_head_loss``: a
+(B, S) max, sum and label logit cross the ranks, never the logits).  A
+prefill or decode step's last-position logits are all-gathered (exact).
+Serve behaviour is as above.
 """
 from __future__ import annotations
 
@@ -373,7 +376,8 @@ def tp_whole(y: torch.Tensor, local: bool,
     """``y`` whole on its last dim: all-gathered over the ranks when it
     holds only this rank's slice (``local``, as :func:`tp_linear` says); on
     a training mesh the gather keeps the rank's part of the cotangent (what
-    follows is replicated over "model")."""
+    follows is replicated over "model").  The training loss does not gather
+    its logits (``layers.lm_head_loss``)."""
     if not local:
         return y
     if isinstance(shard, TrainShard):

@@ -148,6 +148,9 @@ def make_serve_mesh(n_model: Optional[int] = None) -> ServeMesh:
                      control=_control_group())
 
 
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainMesh:
     """A training mesh: this rank of an initialized group of ``data *
@@ -218,17 +221,19 @@ class TrainMesh:
         self._count("all_gather", x, t0)
         return torch.cat(parts, dim=dim)
 
-    def reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """The sum of every ``axis`` rank's ``x``, added in f32 and returned
-        in ``x``'s dtype (a bf16 partial is not rounded twice).  Always in a
-        buffer of its own: ``x`` may be an output that a selective
-        rematerialisation keeps, which an in-place sum would corrupt."""
+    def reduce(self, x: torch.Tensor, axis: str, op: str = "sum"
+               ) -> torch.Tensor:
+        """The sum of every ``axis`` rank's ``x`` (their elementwise max
+        when ``op`` is "max"), taken in f32 and returned in ``x``'s dtype (a
+        bf16 partial is not rounded twice).  Always in a buffer of its own:
+        ``x`` may be an output that a selective rematerialisation keeps,
+        which an in-place sum would corrupt."""
         if self._alone(axis):
             return x.clone(memory_format=torch.contiguous_format)
         y = x.to(torch.float32, memory_format=torch.contiguous_format,
                  copy=True)
         t0 = time.perf_counter()
-        dist.all_reduce(y, group=self.groups[axis])
+        dist.all_reduce(y, op=_REDUCE_OPS[op], group=self.groups[axis])
         self._count("all_reduce", y, t0)
         return y.to(x.dtype)
 
@@ -294,7 +299,8 @@ class DryTrainMesh(TrainMesh):
         shape[dim] *= self.size(axis)
         return x.new_empty(shape)
 
-    def reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+    def reduce(self, x: torch.Tensor, axis: str, op: str = "sum"
+               ) -> torch.Tensor:
         if self._alone(axis):
             return x.clone(memory_format=torch.contiguous_format)
         # sent in f32, as TrainMesh.reduce adds

@@ -47,7 +47,7 @@ from repro_torch.distributed.sharding import (attention_shard, gather_layer,
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     apply_mlp, embed_tokens, generator, init_embed, init_mlp,
-    logits_from_hidden, rms_norm, sinusoidal_positions, softmax_cross_entropy,
+    lm_head_loss, logits_from_hidden, rms_norm, sinusoidal_positions,
 )
 from repro_torch.models.transformer import run_blocks
 
@@ -204,7 +204,8 @@ def encdec_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True,
     """Mean next-token cross-entropy of batch {"frames" (B,S_enc,d),
     "tokens", "labels" (B,S)}; with ``remat`` each encoder and decoder
     layer runs again in the backward; on a mesh (``shard``) the mean over
-    this rank's rows."""
+    this rank's rows, the cross-entropy vocab-parallel where the head
+    splits over "model" (``layers.lm_head_loss``)."""
     params = {**params, "embed": gather_layer(params["embed"], shard)}
     enc_out = encode(cfg, params, batch["frames"], remat, shard)
     x, positions = _decoder_input(cfg, params, batch["tokens"], shard)
@@ -212,8 +213,7 @@ def encdec_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True,
                                                shard=shard),
                    params["dec_layers"], x, remat, enc_out)
     h = _norm(cfg, x, params["final_norm"], shard)
-    return softmax_cross_entropy(
-        logits_from_hidden(cfg, params["embed"], h, shard), batch["labels"])
+    return lm_head_loss(cfg, params["embed"], h, batch["labels"], shard)
 
 
 def encdec_prefill(cfg: ModelConfig, params, batch: Dict, shard=None

@@ -45,7 +45,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba, ssm_lm, transformer
 from repro_torch.models.layers import (
     apply_mlp, embed_tokens, generator, init_embed, init_mlp,
-    logits_from_hidden, rms_norm, softmax_cross_entropy,
+    lm_head_loss, logits_from_hidden, rms_norm,
 )
 
 
@@ -169,13 +169,14 @@ def hybrid_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True,
                 shard=None) -> torch.Tensor:
     """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,S);
     on a mesh (``shard``) the mean over this rank's rows, the embedding's
-    shards gathered once for the lookup and the logits."""
+    "data" shards gathered once for the lookup and the head, the
+    cross-entropy vocab-parallel where the head splits over "model"
+    (``layers.lm_head_loss``)."""
     params = {**params, "embed": gather_layer(params["embed"], shard)}
     h = _fwd(cfg, params,
              embed_tokens(params["embed"], batch["tokens"], shard), remat,
              shard)
-    logits = logits_from_hidden(cfg, params["embed"], h, shard)
-    return softmax_cross_entropy(logits, batch["labels"])
+    return lm_head_loss(cfg, params["embed"], h, batch["labels"], shard)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,8 @@ Every weight use goes through ``tp_linear`` / ``tp_embed``
 (``repro_torch.distributed.param_sharding``), which take the sharded serve
 engine's ``shard`` (its ``ServeShard``) or a training step's on a mesh (a
 ``TrainShard``); without one they are the plain ``x @ w`` and
-``table[ids]``.
+``table[ids]``.  The training loss (``lm_head_loss``) is vocab-parallel on
+a mesh that splits the head over "model".
 """
 from __future__ import annotations
 
@@ -20,8 +21,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as col
 from repro_torch.distributed.param_sharding import (tp_embed, tp_linear,
                                                     tp_whole)
+from repro_torch.distributed.sharding import TrainShard
 from repro_torch.kernels import ops
 from repro_torch.models.lora import add_delta
 from repro_torch.perf import norm_f32
@@ -176,9 +179,31 @@ def embed_tokens(p, tokens: torch.Tensor, shard=None) -> torch.Tensor:
 
 def logits_from_hidden(cfg: ModelConfig, p, h: torch.Tensor,
                        shard=None) -> torch.Tensor:
+    """The whole vocabulary's logits (a prefill or decode step's, the
+    serve path's): on a mesh gathered over "model" where the head is
+    column-parallel."""
+    return tp_whole(*_head(cfg, p, h, shard), shard)
+
+
+def _head(cfg: ModelConfig, p, h: torch.Tensor, shard=None):
     w = p["embed"] if cfg.tie_embeddings else p["unembed"]
-    return tp_whole(*tp_linear(h, w, shard, transpose=cfg.tie_embeddings),
-                    shard)
+    return tp_linear(h, w, shard, transpose=cfg.tie_embeddings)
+
+
+def lm_head_loss(cfg: ModelConfig, p, h: torch.Tensor, labels: torch.Tensor,
+                 shard=None) -> torch.Tensor:
+    """``softmax_cross_entropy`` of the head's logits of ``h``: every
+    family's training loss.  On a training mesh whose head is
+    column-parallel over more than one model rank the logits stay the
+    rank's vocabulary slice and the loss is vocab-parallel
+    (``collectives.VocabParallelCE``), as the reference keeps them sharded
+    on "vocab"; anywhere else (one device, a model axis of one rank, dp, a
+    vocabulary that does not divide) the whole logits as before."""
+    y, local = _head(cfg, p, h, shard)
+    if local and isinstance(shard, TrainShard) \
+            and shard.mesh.size("model") > 1:
+        return col.vocab_parallel_ce(y.float(), labels, shard.mesh, "model")
+    return softmax_cross_entropy(tp_whole(y, local, shard), labels)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor

@@ -34,8 +34,8 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import gather_layer, weight_use
 from repro_torch.models import mamba
 from repro_torch.models.layers import (
-    generator, embed_tokens, init_embed, logits_from_hidden, rms_norm,
-    softmax_cross_entropy,
+    generator, embed_tokens, init_embed, lm_head_loss, logits_from_hidden,
+    rms_norm,
 )
 from repro_torch.models.transformer import run_blocks, serve_layers
 
@@ -90,13 +90,14 @@ def ssm_lm_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True,
                 shard=None) -> torch.Tensor:
     """Mean next-token cross-entropy of batch {"tokens", "labels"} (B,S);
     on a mesh (``shard``) the mean over this rank's rows, the embedding's
-    shards gathered once for the lookup and the logits."""
+    "data" shards gathered once for the lookup and the head, the
+    cross-entropy vocab-parallel where the head splits over "model"
+    (``layers.lm_head_loss``)."""
     params = {**params, "embed": gather_layer(params["embed"], shard)}
     h = _fwd(cfg, params,
              embed_tokens(params["embed"], batch["tokens"], shard), remat,
              shard)
-    logits = logits_from_hidden(cfg, params["embed"], h, shard)
-    return softmax_cross_entropy(logits, batch["labels"])
+    return lm_head_loss(cfg, params["embed"], h, batch["labels"], shard)
 
 
 def ssm_lm_prefill(cfg: ModelConfig, params, batch: Dict, shard=None

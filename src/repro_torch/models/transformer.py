@@ -81,7 +81,7 @@ from repro_torch.models import lora as lora_mod
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     apply_mlp, embed_tokens, generator, init_embed, init_mlp,
-    logits_from_hidden, rms_norm, softmax_cross_entropy,
+    lm_head_loss, logits_from_hidden, rms_norm,
 )
 from repro_torch.perf import perf
 
@@ -337,13 +337,16 @@ def lm_loss(cfg: ModelConfig, params, batch: Dict, remat: bool = True,
     times the MoE load-balance loss, every attention through the
     flash-attention kernel.  On a mesh (``shard``) the mean over this
     rank's rows, with the load-balance term of the global batch; the
-    embedding's shards are gathered once for the lookup and the logits."""
+    embedding's "data" shards are gathered once for the lookup and the
+    head, and where the head splits the vocabulary over "model" the
+    logits stay the rank's slice and the cross-entropy is vocab-parallel
+    (``layers.lm_head_loss``)."""
     params = {**params, "embed": gather_layer(params["embed"], shard)}
     embeds, positions = _inputs(params, batch, shard)
     h, aux = forward_hidden(cfg, params, embeds, positions, remat=remat,
                             impl="kernel", shard=shard)
-    logits = logits_from_hidden(cfg, params["embed"], h, shard)
-    return softmax_cross_entropy(logits, batch["labels"]) + 0.01 * aux
+    return lm_head_loss(cfg, params["embed"], h, batch["labels"], shard) \
+        + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

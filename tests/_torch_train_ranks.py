@@ -127,12 +127,28 @@ def _enc_out_without_f(steps, sharding):
     return lambda: setattr(encdec, "_enc_in", enc_in)
 
 
+def _sum_exp_unreduced(steps, sharding):
+    """The vocab-parallel cross-entropy's Σ exp(l − m) left as the rank's
+    slice's (not summed over "model"): each rank's loss is its own
+    vocabulary slice's."""
+    from repro_torch.distributed import collectives as col
+    row_stats = col._row_stats
+
+    def local_sum(logits, mesh, axis):
+        m = mesh.reduce(logits.amax(-1), axis, op="max")
+        return m, (logits - m[..., None]).exp().sum(-1)
+    col._row_stats = local_sum
+    return lambda: setattr(col, "_row_stats", row_stats)
+
+
 # faults of a 2-rank mesh step: the first two scale every gradient by 2,
-# the last two leave some gradients one model rank's share
+# the next two leave some gradients one model rank's share, the last
+# changes the loss
 PLANTS = {"dp_summed": _summed_over_the_world,
           "replicated_summed": _replicated_rows_summed,
           "bc_without_f": _bc_without_f,
-          "enc_out_without_f": _enc_out_without_f}
+          "enc_out_without_f": _enc_out_without_f,
+          "sum_exp_unreduced": _sum_exp_unreduced}
 
 
 @contextlib.contextmanager
@@ -228,10 +244,11 @@ def run(job, mesh=None, device="cpu", whole=True):
     return out
 
 
-def train_world(mesh, device, jobs, collectives=False):
+def train_world(mesh, device, jobs, collectives=False, vocab_ce=False):
     """The jobs in order, each on a ``TrainMesh`` of its shape over this
-    group (after ``functions_world`` when ``collectives``): rank 0's results
-    (with the whole weights) and every rank's bytes."""
+    group (after ``functions_world`` when ``collectives``, and the
+    vocab-parallel cross-entropy on a 2x2 mesh when ``vocab_ce``): rank
+    0's results (with the whole weights) and every rank's bytes."""
     from repro_torch.launch.mesh import make_train_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"rank": mesh.rank}
@@ -239,6 +256,10 @@ def train_world(mesh, device, jobs, collectives=False):
         out["functions"] = functions_world(mesh, device)
         out["paired"] = paired_world(mesh)
         out["int8_update"] = int8_update_world(mesh)
+    if vocab_ce:
+        tm = make_train_mesh(2, mesh.world // 2)
+        out["vocab_ce"] = _run_cases(
+            {"vocab_ce": vocab_ce_case(tm, "model", tm.coords["data"])})
     for job in jobs:
         tmesh = make_train_mesh(*job.mesh)
         out[job.name] = run(job, tmesh, device, whole=True)
@@ -257,10 +278,49 @@ def rand(shape, seed, rank=None):
     return torch.randn(shape, generator=g)
 
 
+VOCAB_SLICE = 4
+
+
+def vocab_labels(n):
+    """(2, 3) labels over a vocabulary of ``n`` slices of ``VOCAB_SLICE``:
+    both ends of every slice, then the rest of the six from the middle."""
+    k = VOCAB_SLICE
+    ends = [e for r in range(n) for e in (r * k, r * k + k - 1)]
+    mid = [r * k + 1 for r in range(n)] + [r * k + 2 for r in range(n)]
+    return torch.tensor((ends + mid)[:6]).view(2, 3)
+
+
+def vocab_ce_case(mesh, axis, seed=0):
+    """The vocab-parallel cross-entropy over ``axis``: whole f32 logits
+    (2, 3, n x ``VOCAB_SLICE``) from ``seed``, this rank's vocabulary
+    slice as input, one cotangent for every rank (the loss is
+    replicated over ``axis``)."""
+    from repro_torch.distributed import collectives as col
+    n, r = mesh.size(axis), mesh.index(axis)
+    whole = rand((2, 3, n * VOCAB_SLICE), 17 + 2 * seed)
+    labels = vocab_labels(n)
+    return (lambda x: col.vocab_parallel_ce(x, labels, mesh, axis),
+            whole[..., r * VOCAB_SLICE:(r + 1) * VOCAB_SLICE].clone(),
+            rand((), 18 + 2 * seed))
+
+
+def _run_cases(cases):
+    """{name: (forward, gradient of <forward, cotangent>)} of each (fn,
+    input, cotangent), both numpy."""
+    out = {}
+    for name, (fn, x, c) in cases.items():
+        x.requires_grad_(True)
+        y = fn(x)
+        (y * c).sum().backward()
+        out[name] = (y.detach().numpy(), x.grad.numpy())
+    return out
+
+
 def functions(mesh, axis):
     """Each Function of ``distributed.collectives`` over ``axis`` on this
     rank: {name: (forward, gradient of <forward, cotangent>)}, both numpy;
-    a rank's own input and cotangent from ``rand`` with its rank."""
+    a rank's own input and cotangent from ``rand`` with its rank (the
+    vocab-parallel cross-entropy: ``vocab_ce_case``)."""
     from repro_torch.distributed import collectives as col
     r = mesh.index(axis)
     n = mesh.size(axis)
@@ -279,13 +339,9 @@ def functions(mesh, axis):
                        rand((2, 3), 9, r), rand((2, 3), 10, r)),
         "mean_over": (lambda x: col.mean_over(x, mesh, axis),
                       rand((), 11, r), rand((), 12, r)),
+        "vocab_ce": vocab_ce_case(mesh, axis),
     }
-    out = {}
-    for name, (fn, x, c) in cases.items():
-        x.requires_grad_(True)
-        y = fn(x)
-        (y * c).sum().backward()
-        out[name] = (y.detach().numpy(), x.grad.numpy())
+    out = _run_cases(cases)
     if axis == "data":
         # one sharded weight (dim 1) and one replicated, gradients summed
         a, b = rand((2, 3), 13, r), rand((3,), 14)

@@ -525,6 +525,53 @@ def test_the_sixteen_way_attention_layouts_train_as_one_device(job,
         assert err <= LEAF_TOL, (job.name, i, err)
 
 
+# -- the vocab-parallel loss at production scale --------------------------------
+
+def _whole_logits_loss(cfg, p, h, labels, shard=None):
+    """The training loss with the logits gathered whole over "model"
+    before the f32 cross-entropy (the port's loss before it was
+    vocab-parallel)."""
+    from repro_torch.models.layers import (logits_from_hidden,
+                                           softmax_cross_entropy)
+    return softmax_cross_entropy(logits_from_hidden(cfg, p, h, shard),
+                                 labels)
+
+
+def _train_4k_pod1(arch):
+    return dryrun.count_train_step(get_config(arch),
+                                   tbase.SHAPES["train_4k"],
+                                   dryrun.cell_mesh("pod1"))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "whisper-small"])
+def test_the_train_loss_keeps_the_logits_split_on_model(arch, monkeypatch):
+    """``train_4k`` on pod1 (16 x 16) on meta, against the same step with
+    the logits gathered whole before the loss: qwen3-0.6b's 151,936-word
+    head stays split over the 16 model ranks, so its peak fits the card
+    (the whole logits' does not) and its all-gathers a step fall by at
+    least the bf16 logits of the rank's rows, (16, 4,096, 151,936);
+    whisper-small's 51,865 does not divide 16, so its logits are whole
+    either way and nothing moves."""
+    from repro_torch.core.hardware import H100
+    from repro_torch.models import encdec, transformer
+    split = _train_4k_pod1(arch)
+    for mod in (transformer, encdec):
+        monkeypatch.setattr(mod, "lm_head_loss", _whole_logits_loss)
+    whole = _train_4k_pod1(arch)
+    if arch == "whisper-small":
+        assert split["collectives"] == whole["collectives"]
+        assert split["peak_bytes"] == whole["peak_bytes"]
+        return
+    ag = {k: r["collectives"]["all-gather"]["bytes"]
+          for k, r in (("split", split), ("whole", whole))}
+    spec = tbase.SHAPES["train_4k"]
+    logits = spec.global_batch // 16 * spec.seq_len \
+        * get_config(arch).vocab * 2
+    assert split["peak_bytes"] <= H100.hbm_bytes < whole["peak_bytes"]
+    assert ag["split"] <= ag["whole"] - logits, (ag, logits)
+    assert split["flops"] == whole["flops"]
+
+
 # -- run_cell end to end ---------------------------------------------------------
 
 # fields of the reference's result that only XLA gives

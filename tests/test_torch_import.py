@@ -1,7 +1,8 @@
 """The port imports nothing of JAX and nothing of Triton: importing every
 ``repro_torch`` module leaves ``jax``, ``ml_dtypes``, ``triton`` and every
 ``repro.`` module out of ``sys.modules``, and no port source (nor
-``chip_smoke.py``) names them in an import statement: every kernel of the
+``chip_smoke.py``, nor the port's ``examples/*_torch.py``) names them in an
+import statement: every kernel of the
 port is CUDA C++.  No port source states the reference's TPU constants or
 names: the port's device numbers live in ``core/hardware.py`` and describe
 the H100."""
@@ -63,11 +64,13 @@ PORT_TOOLS = (ROOT / "tools" / "gateway_smoke_torch.py",
               ROOT / "tools" / "chaos_smoke_torch.py")
 # the reference's tools and benchmarks, which import the JAX package
 REFERENCE_TOOLS = ("tools.gateway_smoke", "tools.chaos_smoke", "benchmarks")
+# the port's examples, beside the reference's examples/*.py
+PORT_EXAMPLES = tuple(sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def test_no_port_source_imports_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
-        + list(PORT_TOOLS)
+        + list(PORT_TOOLS) + list(PORT_EXAMPLES)
     assert len(files) > 20
     for f in files:
         for name in _imports(f):
@@ -76,6 +79,21 @@ def test_no_port_source_imports_jax_or_the_reference():
             assert not any(name == t or name.startswith(t + ".")
                            for t in REFERENCE_TOOLS), \
                 f"{f.relative_to(ROOT)} imports {name}"
+
+
+def test_the_port_examples_import_the_port_torch_and_numpy_only():
+    """The four examples of the port import ``repro_torch``, ``torch``,
+    ``numpy`` and the standard library, nothing else."""
+    assert [f.name for f in PORT_EXAMPLES] == [
+        "compile_inspect_torch.py", "quickstart_torch.py",
+        "serve_lm_torch.py", "train_lm_torch.py"]
+    allowed = {"repro_torch", "torch", "numpy"} | set(sys.stdlib_module_names)
+    for f in PORT_EXAMPLES:
+        names = set(_imports(f))
+        assert "repro_torch.device" in names or "repro_torch.train.trainer" \
+            in names, f.name
+        for name in names:
+            assert name.split(".")[0] in allowed, f"{f.name} imports {name}"
 
 
 def test_import_scan_sees_the_port_tools_imports():
@@ -94,7 +112,7 @@ TPU_TOKENS = ("197e12", "819e9", "16 * 2**20", "16 * 2**30", "v5e", "VMEM",
 
 def test_no_port_source_states_a_tpu_constant():
     files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) \
-        + [ROOT / "chip_smoke.py"]
+        + [ROOT / "chip_smoke.py"] + list(PORT_EXAMPLES)
     for f in files:
         text = f.read_text()
         for token in TPU_TOKENS:

@@ -175,7 +175,7 @@ def world4(dirs):
         dataclasses.replace(INT8_MOVES, name="int8_elastic_2x2",
                             mesh=(2, 2), steps=2,
                             workdir=dirs["int8_elastic"])]
-    return spawn_ranks(ranks.train_world, 4, args=(jobs,))
+    return spawn_ranks(ranks.train_world, 4, args=(jobs, False, True))
 
 
 @pytest.fixture(scope="module")
@@ -206,6 +206,8 @@ def world2(dirs, world4):
                   steps=1, plant="bc_without_f"),
         ranks.Job("enc_out_without_f_1x2", arch="whisper-small",
                   mesh=(1, 2), steps=1, plant="enc_out_without_f"),
+        ranks.Job("sum_exp_unreduced_1x2", mesh=(1, 2), steps=1,
+                  plant="sum_exp_unreduced"),
         dataclasses.replace(INT8_MOVES, name="int8_clean4_2x1", mesh=(2, 1),
                             steps=4),
         dataclasses.replace(INT8_MOVES, name="int8_restart_2x1", mesh=(2, 1),
@@ -456,11 +458,26 @@ def _composed(axis_n, name):
             ca = sum(rand((2, 3 * n), 15, k) for k in range(n))
             cb = sum(rand((3,), 16, k) for k in range(n))
             out.append(((a, rand((3,), 14)), (ca[:, 3 * r:3 * r + 3], cb)))
+        elif name == "vocab_ce":
+            out.append(_vocab_ce_composed(n, r))
     return out
 
 
+def _vocab_ce_composed(n, r, seed=0):
+    """``softmax_cross_entropy`` of the whole logits of
+    ``_torch_train_ranks.vocab_ce_case`` and rank ``r``'s slice of the
+    gradient of its product with the cotangent."""
+    from repro_torch.models.layers import softmax_cross_entropy
+    k = ranks.VOCAB_SLICE
+    whole = ranks.rand((2, 3, n * k), 17 + 2 * seed).requires_grad_(True)
+    loss = softmax_cross_entropy(whole, ranks.vocab_labels(n))
+    (grad,) = torch.autograd.grad(loss * ranks.rand((), 18 + 2 * seed),
+                                  whole)
+    return loss.detach(), grad[..., r * k:(r + 1) * k]
+
+
 FUNCTIONS = ("gather_sum", "gather_own", "split", "copy_to", "reduce_from",
-             "all_reduce", "mean_over")
+             "all_reduce", "mean_over", "vocab_ce")
 
 
 @pytest.mark.parametrize("axis,name", [
@@ -480,6 +497,48 @@ def test_collective_functions_match_their_single_rank_composition(
         for g, w in zip(_flat(got), _flat(want[r])):
             np.testing.assert_allclose(g, np.asarray(w), rtol=1e-6,
                                        atol=1e-6, err_msg=f"{name} {r}")
+
+
+def test_vocab_parallel_ce_matches_the_whole_logits_on_2x2(world4):
+    """The vocab-parallel cross-entropy over "model" on a 2x2 mesh, each
+    data row its own logits: on every rank the loss and the rank's slice
+    of the gradient are ``softmax_cross_entropy``'s on the whole logits
+    (labels at both ends of every rank's slice)."""
+    labels = ranks.vocab_labels(2)
+    assert set(labels.flatten().tolist()) >= {0, 3, 4, 7}
+    for o in world4:
+        d, m = divmod(o["rank"], 2)
+        for g, w in zip(_flat(o["vocab_ce"]["vocab_ce"]),
+                        _flat(_vocab_ce_composed(2, m, seed=d))):
+            np.testing.assert_allclose(g, np.asarray(w), rtol=1e-6,
+                                       atol=1e-6, err_msg=f"rank {o['rank']}")
+
+
+def test_the_vocab_parallel_loss_gathers_no_logits(world2):
+    """qwen3 at 1x2 under fsdp_tp: the head stays the rank's vocabulary
+    slice into the loss, so the all_gathers a step (``TrainMesh.issued``)
+    send less than one rank's slice of the (B, S, V) logits would, which
+    the whole-logits loss all-gathered each step; the loss is one
+    device's (``test_mesh_matches_the_single_device``)."""
+    cfg = ranks.cfg_of("qwen3-0.6b")
+    job = next(j for j in qwen_jobs(2) if j.name == "fsdp_tp_1x2")
+    slice_bytes = job.batch * job.seq * cfg.vocab // 2 * 4
+    for o in world2[0]:
+        calls, sent, _ = o[job.name]["issued"]["all_gather"]
+        assert sent // job.steps < slice_bytes, (o["rank"], sent, slice_bytes)
+
+
+def test_an_unreduced_sum_of_exponentials_fails_the_loss_gate(world2):
+    """Planted fault (``_torch_train_ranks.PLANTS``) at 1x2: the
+    vocab-parallel cross-entropy's Σ exp(l − m) not summed over "model",
+    so each rank's loss covers only its vocabulary slice; the loss gate
+    fails."""
+    job = next(j for j in world2[1] if j.name == "sum_exp_unreduced_1x2")
+    got = world2[0][0][job.name]
+    want = plain(dataclasses.replace(job, plant=None))
+    assert not _gates(got, want)["losses"], (got["losses"], want["losses"])
+    with pytest.raises(AssertionError, match="losses"):
+        _close(got, want, job.name)
 
 
 def _flat(x):
